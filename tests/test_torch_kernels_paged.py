@@ -1,0 +1,330 @@
+"""Paged decode attention of the port (K1 page walk, K2/K3 prefix-shared
+two-phase read) against the JAX package's Pallas kernels (interpret mode)
+and its jnp oracles, and ``build_shared_runs`` against the reference's.
+
+On the CPU the wrappers take the kernels' plain versions, which these
+tests hold to the reference; ``test_torch_cuda.py`` holds the CUDA kernels
+to the plain versions on the card.  Tolerance: f32 inputs, atol/rtol 1e-5
+(summation order only).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention import ops as jops
+from repro.kernels.paged_attention import prefix as jprefix
+from repro.kernels.paged_attention.ref import \
+    paged_attention_ref as j_paged_ref
+from repro_torch.kernels.paged_attention import ops as tops
+from repro_torch.kernels.paged_attention import prefix as tprefix
+from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
+                                                     shared_run_ref)
+from repro_torch.models import common as tcm
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+# (B, Hq, Hkv, D, pg, maxp) of the reference's kernel tests, all run in f32
+CASES = [
+    (2, 4, 4, 64, 16, 4),
+    (2, 8, 2, 64, 16, 8),
+    (1, 16, 8, 128, 16, 4),
+    (3, 4, 1, 32, 8, 5),
+    (2, 4, 2, 64, 4, 16),
+]
+
+
+def _setup(case, seed=0):
+    b, hq, hkv, d, pg, maxp = case
+    rng = np.random.default_rng(seed)
+    n_pages = b * maxp + 1
+    q = (rng.normal(size=(b, hq, d)) * 0.5).astype(np.float32)
+    pk = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    pv = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    perm = rng.permutation(n_pages - 1) + 1
+    pt = perm[: b * maxp].reshape(b, maxp).astype(np.int32)
+    lengths = rng.integers(1, maxp * pg + 1, size=b).astype(np.int32)
+    return q, pk, pv, pt, lengths
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_paged_decode_matches_pallas_and_oracle(case):
+    args = _setup(case, seed=sum(case))
+    want_kernel = np.asarray(jops.paged_attention(*_j(*args), interpret=True))
+    want_ref = np.asarray(j_paged_ref(*_j(*args)))
+    got = tops.paged_attention_decode(*_t(*args)).numpy()
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+    np.testing.assert_allclose(got, want_ref, **TOL)
+    # the port's own gather oracle (the engine's plain decode path)
+    oracle = tcm.paged_attention_ref(*_t(*args)).numpy()
+    np.testing.assert_allclose(oracle, want_ref, **TOL)
+
+
+def test_quarantined_pages_are_harmless_when_masked():
+    """Remapping pages past a row's length to quarantine (page 0) leaves
+    its output unchanged -- the Valve no-fault contract."""
+    case = (2, 4, 2, 64, 8, 6)
+    q, pk, pv, pt, _ = _setup(case, seed=7)
+    lengths = np.array([3 * 8, 2 * 8], np.int32)
+    base = tops.paged_attention_decode(*_t(q, pk, pv, pt, lengths)).numpy()
+    pt_q = pt.copy()
+    pt_q[0, 3:] = 0
+    pt_q[1, 2:] = 0
+    out = tops.paged_attention_decode(*_t(q, pk, pv, pt_q, lengths)).numpy()
+    np.testing.assert_allclose(out, base, rtol=1e-6, atol=1e-6)
+    want = np.asarray(jops.paged_attention(*_j(q, pk, pv, pt_q, lengths),
+                                           interpret=True))
+    np.testing.assert_allclose(out, want, **TOL)
+
+
+def test_padding_rows_attend_one_quarantine_slot():
+    """The engine's padding decode rows: length 1 over an all-quarantine
+    table.  Finite, equal to the quarantine page's first V row."""
+    q, pk, pv, pt, _ = _setup((3, 4, 2, 32, 4, 5), seed=3)
+    pt[1:] = 0
+    lengths = np.array([7, 1, 1], np.int32)
+    got = tops.paged_attention_decode(*_t(q, pk, pv, pt, lengths)).numpy()
+    want = np.asarray(j_paged_ref(*_j(q, pk, pv, pt, lengths)))
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got[1], np.repeat(pv[0, 0], 2, axis=0),
+                               **TOL)
+
+
+def test_paged_vs_dense_attention():
+    """The paged read equals dense attention over the same tokens."""
+    from repro.models import common as jcm
+    b, hq, hkv, d, pg, maxp = 2, 8, 4, 64, 4, 8
+    rng = np.random.default_rng(3)
+    s = maxp * pg
+    k = (rng.normal(size=(b, s, hkv, d)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(b, s, hkv, d)) * 0.5).astype(np.float32)
+    q = (rng.normal(size=(b, hq, d)) * 0.5).astype(np.float32)
+    lengths = np.array([s, s - 5], np.int32)
+    pool_k = np.zeros((1 + b * maxp, pg, hkv, d), np.float32)
+    pool_v = np.zeros_like(pool_k)
+    pool_k[1:] = k.reshape(b * maxp, pg, hkv, d)
+    pool_v[1:] = v.reshape(b * maxp, pg, hkv, d)
+    pt = np.arange(1, 1 + b * maxp, dtype=np.int32).reshape(b, maxp)
+    got = tops.paged_attention_decode(*_t(q, pool_k, pool_v, pt,
+                                          lengths)).numpy()
+    kv_pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    want = np.asarray(jcm.attention(
+        jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray(lengths)[:, None],
+        kv_positions=jnp.asarray(kv_pos),
+        kv_valid=jnp.asarray(kv_pos < lengths[:, None]), causal=False))[:, 0]
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# prefix-shared two-phase read and the shared-run builder
+# ---------------------------------------------------------------------------
+
+def _shared_setup(b=4, hq=4, hkv=2, d=32, pg=4, maxp=10, n_shared=3, seed=0):
+    """Every row starts with the same ``n_shared`` published prefix pages,
+    then owns a private tail (the reference test's CoW-shaped batch)."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * maxp + n_shared + 1
+    q = (rng.normal(size=(b, hq, d)) * 0.5).astype(np.float32)
+    pk = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    pv = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    pt = np.zeros((b, maxp), np.int32)
+    pt[:, :n_shared] = np.arange(1, n_shared + 1)
+    tail = maxp - n_shared
+    for i in range(b):
+        pt[i, n_shared:] = np.arange(n_shared + 1 + i * tail,
+                                     n_shared + 1 + (i + 1) * tail)
+    lengths = rng.integers(n_shared * pg + 1, maxp * pg + 1,
+                           size=b).astype(np.int32)
+    return q, pk, pv, pt, lengths
+
+
+def _run_args(runs, lengths):
+    return [runs['pages'], runs['pos'], runs['mask'], runs['tail_pt'],
+            runs['start'], lengths]
+
+
+def _assert_runs_equal(got, want):
+    assert set(got) == set(want)
+    assert got['n_slots'] == want['n_slots']
+    for key in ('pages', 'pos', 'mask', 'tail_pt', 'start'):
+        assert got[key].dtype == np.asarray(want[key]).dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_prefix_shared_matches_pallas_and_oracles(seed):
+    q, pk, pv, pt, lengths = _shared_setup(seed=seed)
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    assert runs['n_slots'] > 0
+    args = [q, pk, pv] + _run_args(runs, lengths)
+    got = tops.paged_attention_prefix_shared(*_t(*args)).numpy()
+    stock = np.asarray(j_paged_ref(*_j(q, pk, pv, pt, lengths)))
+    want_ref = np.asarray(jprefix.prefix_shared_ref(*_j(*args)))
+    want_kernel = np.asarray(jops.paged_attention_prefix_shared(
+        *_j(*args), backend='pallas', interpret=True))
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+    np.testing.assert_allclose(got, want_ref, **TOL)
+    np.testing.assert_allclose(got, stock, **TOL)
+    # the port's joint-softmax oracle agrees as well
+    oracle = tprefix.prefix_shared_ref(*_t(*args)).numpy()
+    np.testing.assert_allclose(oracle, want_ref, **TOL)
+
+
+def test_prefix_shared_with_padded_slots_and_unshared_rows():
+    """The engine pads the slot axis to a power of two (quarantine slots,
+    masked everywhere) and may batch rows that share nothing: such a row's
+    phase-1 state is all garbage at m = NEG_INF, rescaled away by its tail."""
+    q, pk, pv, pt, lengths = _shared_setup(b=5, seed=11)
+    pt[4] = np.arange(40, 50)                # row 4 shares nothing
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    assert runs['n_slots'] == 3 and runs['start'][4] == 0
+    cap = 4
+    args = [q, pk, pv, runs['pages'][:cap], runs['pos'][:cap],
+            runs['mask'][:, :cap], runs['tail_pt'], runs['start'], lengths]
+    m, l, acc = shared_run_ref(*_t(q.reshape(5, 2, 2, 32), pk, pv,
+                                   runs['pages'][:cap],
+                                   runs['mask'][:, :cap]))
+    assert (m[4] == tprefix.NEG_INF).all()
+    got = tops.paged_attention_prefix_shared(*_t(*args)).numpy()
+    want = np.asarray(j_paged_ref(*_j(q, pk, pv, pt, lengths)))
+    np.testing.assert_allclose(got, want, **TOL)
+    want_kernel = np.asarray(jops.paged_attention_prefix_shared(
+        *_j(*args), backend='pallas', interpret=True))
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+
+
+def test_tail_walk_resumes_from_state():
+    """K3's plain version: the page walk over the tails, started from the
+    phase-1 state, equals the one-pass walk over the full tables."""
+    q, pk, pv, pt, lengths = _shared_setup(seed=4)
+    qg = q.reshape(4, 2, 2, 32)
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    state = shared_run_ref(*_t(qg, pk, pv, runs['pages'], runs['mask']))
+    got = tops.shared_tail(*_t(qg, pk, pv, runs['tail_pt'], runs['start'],
+                               lengths), state)
+    want = paged_decode_ref(*_t(qg, pk, pv, pt, lengths))
+    torch.testing.assert_close(got, want, **TOL)
+
+
+# the check of the CUDA kernels' bf16 outputs against their plain versions
+# (chip_smoke.py, test_torch_cuda.py): |got - want| <= 1e-3 + 2^-7 |want|
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize('mutant', ['dropped page', 'shifted start',
+                                    'no initial state'])
+def test_bf16_tolerance_rejects_a_wrong_page_walk(mutant):
+    """At the qwen3-0.6b decode shapes the on-card check uses (B=8, Hkv=8,
+    G=2, D=128, 32 pages of 16, a shared 4-page prefix), the bf16
+    tolerance passes the gather oracle, which sums in another order, and
+    fails a page walk that drops the longest row's last page, starts its
+    tail one page late, or skips the phase-1 state."""
+    b, hkv, g, d, pg, maxp = 8, 8, 2, 128, 16, 32
+    rng = np.random.default_rng(0)
+    n_pages = 1 + b * maxp
+
+    def bf16(*shape):
+        return torch.tensor(rng.normal(size=shape) * 0.5,
+                            dtype=torch.bfloat16)
+
+    q = bf16(b, hkv, g, d)
+    pk, pv = bf16(n_pages, pg, hkv, d), bf16(n_pages, pg, hkv, d)
+    pt = (rng.permutation(n_pages - 1) + 1).reshape(b, maxp).astype(np.int32)
+    pt[:, :4] = pt[0, :4]
+    lengths = np.linspace(4 * pg + 1, maxp * pg, b).astype(np.int32)
+    runs = tprefix.build_shared_runs(pt, lengths, pg)
+    pt_t, n, tail, start = _t(pt, lengths, runs['tail_pt'], runs['start'])
+    state = shared_run_ref(q, pk, pv, *_t(runs['pages'], runs['mask']))
+    want = paged_decode_ref(q, pk, pv, tail, n, start=start, state=state)
+    oracle = tcm.paged_attention_ref(q.reshape(b, hkv * g, d), pk, pv, pt_t,
+                                     n)
+    torch.testing.assert_close(oracle.reshape(want.shape).float(),
+                               want.float(), **BF16_TOL)
+    longest = int(lengths.argmax())
+    if mutant == 'dropped page':
+        short = n.clone()
+        short[longest] -= pg
+        bad = paged_decode_ref(q, pk, pv, pt_t, short)
+    elif mutant == 'shifted start':
+        late = start.clone()
+        late[longest] += 1
+        bad = paged_decode_ref(q, pk, pv, tail, n, start=late, state=state)
+    else:
+        bad = paged_decode_ref(q, pk, pv, tail, n, start=start)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad.float(), want.float(), **BF16_TOL)
+
+
+def test_shared_runs_zero_sharing():
+    q, pk, pv, pt, lengths = _shared_setup(n_shared=0, seed=2)
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    _assert_runs_equal(runs, jprefix.build_shared_runs(pt, lengths, 4))
+    assert runs['n_slots'] == 0 and (runs['start'] == 0).all()
+    np.testing.assert_array_equal(runs['tail_pt'], pt)
+
+
+def test_shared_runs_partial_page_never_dedups():
+    q, pk, pv, pt, _ = _shared_setup(n_shared=3, seed=3)
+    lengths = np.full(pt.shape[0], 2 * 4 + 1, np.int32)   # inside page 3
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    _assert_runs_equal(runs, jprefix.build_shared_runs(pt, lengths, 4))
+    assert runs['n_slots'] == 2 and (runs['start'] == 2).all()
+    args = [q, pk, pv] + _run_args(runs, lengths)
+    got = tops.paged_attention_prefix_shared(*_t(*args)).numpy()
+    want = np.asarray(j_paged_ref(*_j(q, pk, pv, pt, lengths)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_shared_runs_quarantine_never_becomes_a_slot():
+    pt = np.zeros((3, 6), np.int32)
+    lengths = np.full(3, 24, np.int32)
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    _assert_runs_equal(runs, jprefix.build_shared_runs(pt, lengths, 4))
+    assert runs['n_slots'] == 0
+    assert (runs['pages'] == tprefix.QUARANTINE_PAGE).all()
+
+
+def test_shared_runs_slot_overflow_clamps_soundly():
+    q, pk, pv, pt, lengths = _shared_setup(b=4, maxp=10, n_shared=6, seed=4)
+    runs = tprefix.build_shared_runs(pt, lengths, 4, max_slots=3)
+    _assert_runs_equal(runs, jprefix.build_shared_runs(pt, lengths, 4,
+                                                       max_slots=3))
+    assert 0 < runs['n_slots'] <= 3 and (runs['start'] <= 3).all()
+    args = [q, pk, pv] + _run_args(runs, lengths)
+    got = tops.paged_attention_prefix_shared(*_t(*args)).numpy()
+    want = np.asarray(j_paged_ref(*_j(q, pk, pv, pt, lengths)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_shared_runs_equal_the_reference_on_random_tables():
+    """Random tables with repeated, quarantined and foreign pages: the
+    builder's whole output equals the reference's, and every slot holds a
+    page present at its logical index in >= 2 of the batch's own tables."""
+    rng = np.random.default_rng(9)
+    for trial in range(60):
+        b, maxp, pg = 4, 8, 4
+        pt = rng.integers(1, 12, size=(b, maxp)).astype(np.int32)
+        if trial % 2:                        # CoW-like leading runs
+            pt[:, :3] = pt[0, :3]
+        pt[rng.random((b, maxp)) < 0.2] = tprefix.QUARANTINE_PAGE
+        lengths = rng.integers(1, maxp * pg + 1, size=b).astype(np.int32)
+        max_slots = None if trial % 3 else 2
+        runs = tprefix.build_shared_runs(pt, lengths, pg,
+                                         max_slots=max_slots)
+        _assert_runs_equal(runs, jprefix.build_shared_runs(
+            pt, lengths, pg, max_slots=max_slots))
+        n_full = lengths // pg
+        for si in range(runs['n_slots']):
+            p, j = int(runs['pages'][si]), int(runs['pos'][si])
+            holders = [i for i in range(b) if pt[i, j] == p and j < n_full[i]]
+            assert len(holders) >= 2
+            assert set(np.nonzero(runs['mask'][:, si])[0]) <= set(holders)
