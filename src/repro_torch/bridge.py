@@ -3,10 +3,10 @@
 Parity tests draw weights with the reference's ``init_params`` (torch cannot
 replay ``jax.random``) and hand them over as numpy.  The reference keeps
 bf16 as ml_dtypes arrays, which ``torch.from_numpy`` rejects, so every leaf
-goes through f32 numpy -- exact for bf16.  The reference's untied unembed
-is (D, V); the port's sampling kernel takes the head as (V, D) row-major,
-so it is transposed here, once.  This module imports neither jax nor the
-reference: callers pass plain numpy trees.
+goes through f32 numpy -- exact for bf16.  The reference's ``unembed``
+(the untied dense head, and rwkv6's head) is (D, V); the port keeps every
+head as (V, D) row-major, so it is transposed here, once.  This module
+imports neither jax nor the reference: callers pass plain numpy trees.
 """
 from __future__ import annotations
 
@@ -35,3 +35,11 @@ def params_from_jax(tree, *, dtype=torch.float32, device='cpu'):
 def cache_from_jax(cache, *, dtype=torch.float32, device='cpu'):
     """{'k', 'v'} numpy pools (global layout) -> dict of tensors."""
     return {k: _tensor(v, dtype, device) for k, v in cache.items()}
+
+
+def state_from_jax(state, *, dtype=torch.float32, device='cpu'):
+    """rwkv6 recurrent state {'wkv', 'shift_tm', 'shift_cm'} -> tensors:
+    ``wkv`` stays f32 whatever the model dtype, the shift states take
+    ``dtype`` (the model's)."""
+    return {k: _tensor(v, torch.float32 if k == 'wkv' else dtype, device)
+            for k, v in state.items()}

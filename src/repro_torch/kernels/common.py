@@ -10,8 +10,8 @@ process, all started together, then one link.  Nothing is built when a
 module is imported: the CPU tests import every module and never reach
 :func:`kernel_library`.
 
-Each wrapper (``paged_attention/ops.py``, ``sampling/ops.py``) checks its
-tensors, adds one to its entry of :data:`LAUNCHES` where it launches its
+Each wrapper (``paged_attention/ops.py``, ``sampling/ops.py``,
+``flash_attention/ops.py``, ``rwkv6/ops.py``) checks its tensors, adds one to its entry of :data:`LAUNCHES` where it launches its
 kernel, and takes the kernel's plain PyTorch version only for tensors that
 lie on the CPU.  On a CUDA tensor it launches or raises.
 """
@@ -34,7 +34,7 @@ NEG_INF = -1e30
 # one launch counter per kernel wrapper (see module docstring)
 LAUNCHES: Dict[str, int] = {
     'paged_decode': 0, 'shared_run': 0, 'shared_tail': 0,
-    'unembed_sample': 0,
+    'unembed_sample': 0, 'flash_attention': 0, 'wkv6': 0,
 }
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -50,6 +50,18 @@ def ceil_div(a: int, b: int) -> int:
 
 def round_up(x: int, multiple: int) -> int:
     return ceil_div(x, multiple) * multiple
+
+
+def pad_axis_to(x, axis: int, multiple: int, *, value=0.0):
+    """``value``-pad one axis of ``x`` up to a multiple of ``multiple``;
+    ``x`` itself (no copy) when it is already aligned."""
+    size = x.shape[axis]
+    extra = round_up(size, multiple) - size
+    if extra == 0:
+        return x
+    pad_shape = list(x.shape)
+    pad_shape[axis] = extra
+    return torch.cat([x, x.new_full(pad_shape, value)], dim=axis)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +222,24 @@ def check_launch(err: int, name: str) -> None:
                         ctypes.c_char_p)
         raise RuntimeError(f'{name}: CUDA error {err}: '
                            f'{msg(err).decode()}')
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper takes the plain version), False
+    for a CUDA one (it launches its kernel); any other device raises."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {t.device}')
+    return False
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The kernels have no backward: raise rather than return outputs that
+    silently drop the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f'{name}: no backward kernel; call it on tensors '
+                           'that do not require grad')
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -31,14 +31,6 @@ _SHARED_RUN_ARGS = (_P,) * 8 + (_I,) * 7 + (_F, _P)
 BF16, I32, F32 = torch.bfloat16, torch.int32, torch.float32
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == 'cpu':
-        return True
-    if t.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {t.device}')
-    return False
-
-
 def _check_pools(q, pool_k, pool_v):
     b, hkv, g, d = q.shape
     n_pages, pg = pool_k.shape[:2]
@@ -80,7 +72,7 @@ def paged_decode(q, pool_k, pool_v, page_table, lengths, *,
     """K1.  q (B, Hkv, G, D) bf16; pools (P, pg, Hkv, D) bf16; page_table
     (B, maxp) int32; lengths (B,) int32 (>= 1) -> (B, Hkv, G, D)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if _on_cpu(q):
+    if kc.on_cpu(q):
         return paged_decode_ref(q, pool_k, pool_v, page_table, lengths,
                                 scale=scale)
     return _launch_page_walk(q, pool_k, pool_v, page_table, lengths, None,
@@ -92,7 +84,7 @@ def shared_tail(q, pool_k, pool_v, tail_pt, start, lengths, state, *,
     """K3.  The page walk over ``tail_pt`` with positions offset by
     ``start`` (B,) int32 pages, resumed from ``state`` = (m, l, acc)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if _on_cpu(q):
+    if kc.on_cpu(q):
         return paged_decode_ref(q, pool_k, pool_v, tail_pt, lengths,
                                 start=start, state=state, scale=scale)
     return _launch_page_walk(q, pool_k, pool_v, tail_pt, lengths, start,
@@ -104,7 +96,7 @@ def shared_run(q, pool_k, pool_v, pages, mask, *,
     """K2.  pages (S,) int32, mask (B, S) f32 -> partial state
     m, l (B, Hkv, G) and acc (B, Hkv, G, D), f32."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if _on_cpu(q):
+    if kc.on_cpu(q):
         return shared_run_ref(q, pool_k, pool_v, pages, mask, scale=scale)
     b, hkv, g, d, n_pages, pg = _check_pools(q, pool_k, pool_v)
     n_slots = pages.shape[0]

@@ -36,10 +36,8 @@ def fused_unembed_sample(last, head, seed: int = 0, *,
         raise ValueError('head must be (V, D) row-major; pass the embedding '
                          'table itself, not a transposed view')
     seed = int(seed)
-    if last.device.type == 'cpu':
+    if kc.on_cpu(last):
         return unembed_sample_ref(last, head, seed, temperature=temperature)
-    if last.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {last.device}')
     (b, d), v = last.shape, head.shape[0]
     if d % 8:
         raise ValueError(f'kernel takes D % 8 == 0, got D={d}')

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 DEFAULT_DTYPE = torch.bfloat16
+CHUNK = 512        # query rows / tokens per chunk of the chunked functions
 
 
 @dataclass(frozen=True)
@@ -116,6 +117,49 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
+                      causal: bool = True):
+    """:func:`attention` over query chunks of ``CHUNK`` rows, so the scores
+    are never (Sq x Skv) at once.  Sq must be a multiple of ``CHUNK`` when
+    it is longer."""
+    sq = q.shape[1]
+    if sq <= CHUNK:
+        return attention(q, k, v, q_positions=q_positions,
+                         kv_positions=kv_positions, kv_valid=kv_valid,
+                         causal=causal)
+    assert sq % CHUNK == 0, (sq, CHUNK)
+    return torch.cat([
+        attention(q[:, i:i + CHUNK], k, v,
+                  q_positions=q_positions[:, i:i + CHUNK],
+                  kv_positions=kv_positions, kv_valid=kv_valid,
+                  causal=causal)
+        for i in range(0, sq, CHUNK)], dim=1)
+
+
+def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
+    """Final norm -> unembed -> cross-entropy over about ``CHUNK``-token
+    sequence chunks (S // CHUNK of them, at least one; S must split evenly),
+    so the (B, S, V) logits never exist at once.  h: (B, S, D); head:
+    (V, D) row-major; labels (B, S) int; mask (B, S) or None.  Logits are
+    computed in the model dtype, then f32, as in the reference.  Returns
+    (sum of masked NLL, sum of mask), f32 scalars."""
+    b, s, _ = h.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
+    n = max(s // CHUNK, 1)
+    assert s % n == 0, (s, n)
+    step = s // n
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, step):
+        logits = (rms_norm(h[:, i:i + step], norm_w, eps) @ head.T).float()
+        gold = logits.gather(-1, labels[:, i:i + step, None].long())[..., 0]
+        m = mask[:, i:i + step].float()
+        nll = nll + ((torch.logsumexp(logits, dim=-1) - gold) * m).sum()
+        cnt = cnt + m.sum()
+    return nll, cnt
+
+
 # ---------------------------------------------------------------------------
 # Paged KV-cache primitives (the substrate Valve's reclamation operates on).
 # Remapping a victim handle = rewriting its page-table entries to 0, which is
@@ -127,6 +171,22 @@ def paged_gather(pool, page_table):
     b, maxp = page_table.shape
     return pool[page_table.long()].reshape(b, maxp * pool.shape[1],
                                            *pool.shape[2:])
+
+
+def kv_write_prefill(pool, page_table, kv):
+    """In-place write of a whole prefill's K or V, page by page.
+
+    kv: (B, S, Hkv, Dh) with S % page == 0, cast to the pool's dtype;
+    page_table (B, >= S // page) physical ids.  As the reference's
+    ``mode='drop'`` scatter: an id in [-P, 0) counts from the end of the
+    pool, and an id outside [-P, P) is dropped, not raised on.
+    """
+    b, s, hkv, dh = kv.shape
+    n_pages, pg = pool.shape[:2]
+    idx = page_table[:, :s // pg].reshape(-1).long()
+    idx = torch.where(idx < 0, idx + n_pages, idx)
+    keep = (idx >= 0) & (idx < n_pages)
+    pool[idx[keep]] = kv.reshape(-1, pg, hkv, dh)[keep].to(pool.dtype)
 
 
 def kv_write_tokens(pool, page_ids, offsets, kv):

@@ -1,6 +1,9 @@
 """Decoder-only dense transformer (qwen3-0.6b, internlm2-1.8b) in PyTorch:
 the serving entry points of the reference's ``models/dense.py``.
 
+- ``prefill``: a whole prompt per row written into the pool, attention
+  through the flash-attention kernel (``use_kernel=True``) or
+  :func:`~repro_torch.models.common.chunked_attention`.
 - ``prefill_chunk``: one chunk per row with past-KV readback (the engine's
   mixed prefill+decode dispatch).  Gather + dense attention, no kernel, as
   in the reference.
@@ -19,6 +22,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention_decode, paged_attention_prefix_shared)
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
@@ -130,6 +134,23 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     return out.reshape(b, 1, -1) @ lp['wo']
 
 
+def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
+                      page_table, *, use_kernel: bool = False):
+    """Whole-prompt prefill attention.  x: (B, S, D); positions: (B, S)
+    = 0..S-1; page_table (B, >= S // page).  K/V go into the pools, and
+    attention reads this call's own K/V, not the pool."""
+    b, s, _ = x.shape
+    q, k, v = qkv_proj(cfg, lp, x, positions)
+    cm.kv_write_prefill(pool_k, page_table, k)
+    cm.kv_write_prefill(pool_v, page_table, v)
+    if use_kernel:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        out = cm.chunked_attention(q, k, v, q_positions=positions,
+                                   kv_positions=positions, causal=True)
+    return out.reshape(b, s, -1) @ lp['wo']
+
+
 def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
                             pool_v, page_table, page_ids, offsets, kv_len):
     """One prefill chunk with past-KV readback.
@@ -159,6 +180,26 @@ def _mlp(cfg, lp, h):
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, params, cache, batch, *,
+            use_kernel: bool = False):
+    """Whole-prompt prefill.  batch: tokens (B, S) with S a multiple of
+    the page size, page_table (B, >= S // page).  Returns (cache with the
+    prompt's K/V written, f32 scores of the last token)."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = params['embed'][tokens.long()]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
+        h = h + self_attn_prefill(cfg, lp, x, positions, cache['k'][i],
+                                  cache['v'][i], batch['page_table'],
+                                  use_kernel=use_kernel)
+        h = _mlp(cfg, lp, h)
+    last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, head_of(cfg, params))
+
 
 def prefill_chunk(cfg: ModelConfig, params, cache, batch):
     """Chunked prefill step (the offline engine's preemptible dispatch unit).

@@ -11,17 +11,24 @@ Tolerances: bf16 attention outputs, elementwise |got - want| <= 1e-3 +
 ``test_torch_kernels_paged.py`` shows it fails a dropped page, a shifted
 start and a skipped initial state); the f32 partial softmax state, 1e-4; sampled
 tokens equal unless the two best f32 scores lie within 1e-5 of |max| (the
-kernel and its plain version sum the dot products in other orders).
+kernel and its plain version sum the dot products in other orders);
+flash attention, the bf16 rule above and 2e-5 in f32; WKV6, 1e-4 in f32
+(1e-3 at log-decays down to -12), 3e-2 for bf16 inputs, as in the
+reference's kernel tests.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.common import LAUNCHES, gumbel_hash_noise
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_attention.prefix import build_shared_runs
 from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
                                                      shared_run_ref)
+from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
 from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
                                               unembed_scores)
@@ -37,6 +44,26 @@ PAGED_CASES = [
     (8, 16, 8, 128, 16, 32),          # qwen3-0.6b decode
     (3, 4, 1, 32, 8, 5),
     (2, 4, 2, 64, 4, 16),
+]
+FLASH_CASES = [
+    # (B, Sq, Skv, Hq, Hkv, D, causal, dtype)
+    (1, 128, 128, 4, 4, 64, True, torch.float32),
+    (2, 256, 256, 8, 2, 64, True, torch.float32),
+    (1, 128, 128, 4, 1, 128, True, torch.bfloat16),
+    (2, 192, 192, 4, 2, 32, True, torch.float32),
+    (1, 64, 256, 2, 2, 64, False, torch.float32),
+    (2, 100, 100, 4, 4, 64, True, torch.float32),
+    (1, 300, 200, 4, 2, 128, True, torch.bfloat16),    # Sq > Skv
+    (2, 1024, 1024, 16, 8, 128, True, torch.bfloat16),  # qwen3-0.6b
+]
+WKV_CASES = [
+    # (B, T, H, K, chunk, dtype)
+    (2, 64, 2, 16, 16, torch.float32),
+    (1, 128, 4, 32, 32, torch.float32),
+    (2, 100, 2, 16, 32, torch.float32),
+    (1, 64, 2, 64, 16, torch.bfloat16),
+    (3, 48, 1, 16, 64, torch.float32),
+    (2, 1000, 40, 64, 64, torch.float32),             # rwkv6-3b heads
 ]
 SAMPLE_CASES = [
     # (B, D, V): ragged vocab tiles, two launches' worth of rows, and the
@@ -131,6 +158,61 @@ def test_prefix_shared_matches_plain(cuda, n_slots_cap):
     torch.testing.assert_close(got.float(), full.float(), **BF16_TOL)
 
 
+@pytest.mark.parametrize('case', FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case):
+    b, sq, skv, hq, hkv, d, causal, dtype = case
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = (torch.tensor(rng.normal(size=(b, s, h, d)) * 0.5, dtype=dtype,
+                            device=cuda)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    before = LAUNCHES['flash_attention']
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES['flash_attention'] == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_ref(q, k, v, causal=causal)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _wkv_inputs(dev, case, seed, decay_lo=-2.5):
+    b, t, h, dk, _, dtype = case
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=(b, t, h, dk)) * 0.5 for _ in range(3)]
+    xs.append(np.exp(rng.uniform(decay_lo, -0.005, size=(b, t, h, dk))))
+    xs.append(rng.normal(size=(h, dk)) * 0.3)
+    s0 = rng.normal(size=(b, h, dk, dk)) * 0.1
+    return ([torch.tensor(x, dtype=dtype, device=dev) for x in xs]
+            + [torch.tensor(s0, dtype=torch.float32, device=dev)])
+
+
+@pytest.mark.parametrize('case', WKV_CASES)
+def test_wkv6_matches_plain(cuda, case):
+    xs = _wkv_inputs(cuda, case, sum(case[:5]))
+    before = LAUNCHES['wkv6']
+    y, s = wkv6(*xs, chunk=case[4])
+    torch.cuda.synchronize()
+    assert LAUNCHES['wkv6'] == before + 1
+    assert y.dtype == case[5] and s.dtype == torch.float32
+    f32 = [x.float() for x in xs]
+    tol = 3e-2 if case[5] == torch.bfloat16 else 1e-4
+    for want in (wkv6_ref(*f32), wkv6_chunked(*f32, chunk=case[4])):
+        torch.testing.assert_close(y.float(), want[0], rtol=tol, atol=tol)
+        torch.testing.assert_close(s, want[1], rtol=tol, atol=tol)
+
+
+def test_wkv6_pathological_decay(cuda):
+    xs = _wkv_inputs(cuda, (1, 64, 2, 16, 8, torch.float32), 3,
+                     decay_lo=-12.0)
+    y, s = wkv6(*xs, chunk=8)
+    want = wkv6_ref(*xs)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, want[0], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(s, want[1], rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize('case', SAMPLE_CASES)
 @pytest.mark.parametrize('temperature', [0.0, 0.8])
 def test_unembed_sample_matches_plain(cuda, case, temperature):
@@ -176,11 +258,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_unembed_sample(last, head.T.contiguous().T)
     with pytest.raises(ValueError, match='dtype'):
         fused_unembed_sample(last.float(), head)
+    q = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='dtype'):
+        flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError, match='head dim'):
+        flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                        q[..., :48].contiguous())
+    with pytest.raises(RuntimeError, match='no backward'):
+        flash_attention(q.float().requires_grad_(), q.float(), q.float())
+    xs = _wkv_inputs(cuda, WKV_CASES[0], 0)
+    with pytest.raises(ValueError, match='dtype'):
+        wkv6(*xs[:5], xs[5].double())
+    with pytest.raises(ValueError, match='K = '):
+        wkv6(*[x[..., :8].contiguous() for x in xs[:5]],
+             xs[5][:, :, :8, :8].contiguous())
 
 
 def test_engine_decodes_through_the_kernels(cuda):
     """An engine on the card with the defaults (decode_kernel=None) and the
-    fused, prefix-shared options launches all four kernels."""
+    fused, prefix-shared options launches all four decode kernels, and
+    neither prefill nor rwkv6 kernel."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.memory import MemoryPlane
     from repro_torch.models.api import build_model
@@ -210,4 +307,48 @@ def test_engine_decodes_through_the_kernels(cuda):
     assert all(len(o) == 8 and 0 <= min(o) and max(o) < cfg.vocab_size
                for o in outs)
     assert eng.stats.shared_page_reads_saved > 0
-    assert all(n > 0 for n in LAUNCHES.values()), LAUNCHES
+    decode = ('paged_decode', 'shared_run', 'shared_tail', 'unembed_sample')
+    assert all(LAUNCHES[k] > 0 for k in decode), LAUNCHES
+    assert LAUNCHES['flash_attention'] == LAUNCHES['wkv6'] == 0, LAUNCHES
+
+
+def test_prefill_and_rwkv6_forward_run_through_the_kernels(cuda):
+    """Reduced configs on the card: prefill launches K5 once per layer and
+    agrees with the plain path; the rwkv6 loss launches K6 once per layer
+    and agrees with the plain chunked path."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.api import build_model
+
+    cfg = reduced(get_config('qwen3-0.6b'), page_size=16, head_dim=64)
+    model = build_model(cfg)
+    params = model.init_params(0, device=cuda).to(torch.float32)
+    b, s = 2, 256
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=cuda)
+    batch = {'tokens': tokens, 'page_table': torch.arange(
+        1, 1 + b * s // 16, dtype=torch.int32, device=cuda).reshape(b, -1)}
+    out = {}
+    for use_kernel in (False, True):
+        cache = {k: v.float() for k, v in model.init_cache(
+            engine_pages=1 + b * s // 16, device=cuda).items()}
+        LAUNCHES['flash_attention'] = 0
+        out[use_kernel] = model.prefill_fn(params, cache, batch,
+                                           use_kernel=use_kernel)
+    assert LAUNCHES['flash_attention'] == cfg.n_layers
+    torch.testing.assert_close(out[True][1], out[False][1], rtol=1e-4,
+                               atol=1e-4)
+    for key in ('k', 'v'):
+        torch.testing.assert_close(out[True][0][key], out[False][0][key],
+                                   rtol=1e-4, atol=1e-4)
+
+    cfg = reduced(get_config('rwkv6-3b'), ssm_head_dim=64, d_model=256)
+    model = build_model(cfg)
+    params = model.init_params(0, device=cuda).to(torch.float32)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size, (2, 200),
+                                     device=cuda),
+             'labels': torch.randint(0, cfg.vocab_size, (2, 200),
+                                     device=cuda)}
+    LAUNCHES['wkv6'] = 0
+    loss_k, _ = model.loss_fn(params, batch, use_kernel=True)
+    assert LAUNCHES['wkv6'] == cfg.n_layers
+    loss_p, _ = model.loss_fn(params, batch)
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-5)

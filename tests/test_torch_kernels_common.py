@@ -60,3 +60,16 @@ def test_online_softmax_over_blocks_equals_softmax():
 def test_ceil_div_round_up():
     assert tkc.ceil_div(17, 16) == 2 and tkc.ceil_div(16, 16) == 1
     assert tkc.round_up(17, 16) == 32 and tkc.round_up(0, 8) == 0
+
+
+@pytest.mark.parametrize('size,multiple,value', [(5, 4, 0.0), (8, 4, 0.0),
+                                                 (7, 8, 1.0)])
+def test_pad_axis_to_matches_the_reference(size, multiple, value):
+    x = np.random.default_rng(size).normal(size=(2, size, 3)).astype(
+        np.float32)
+    want = np.asarray(jkc.pad_axis_to(jnp.asarray(x), 1, multiple,
+                                      value=value))
+    t = torch.from_numpy(x)
+    got = tkc.pad_axis_to(t, 1, multiple, value=value)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got is t) == (size % multiple == 0)   # aligned: no copy
