@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a): whole-prompt prefill.
+// Flash-attention forward for Hopper (sm_90a) on the f32 FMA units: the
+// f32 path (the parity dtype) and bf16 at D=32.  bf16 at D=64 and 128, the
+// prefill path's, runs on the tensor cores in flash_attention_sm90.cu;
+// ops.kernel_route picks between the two.
 //
 // Replaces the TPU Pallas kernel in src/repro/kernels/flash_attention/kernel.py:
 //   _flash_kernel / flash_attention_bhsd   -> valve_flash_attention   (K5)
@@ -21,17 +24,16 @@
 // ~1370 flop per byte, far above the ~295 at which the H100's bf16 tensor
 // cores (989 TFLOP/s) become the limit.
 //
-// What this first version does about it: little.  It is the simple, exact
-// form: one CTA of 256 threads per (b * Hq + h, 64-row query block); the
-// q tile stays in shared memory, 64-key K and V tiles stream through it,
-// each thread holds a 4 x 4 block of scores and a 4 x D/16 block of the
-// output accumulator in registers, and the row max and sum of the online
-// softmax are reduced with shuffles over the 16 threads that share a row.
-// The products run on the f32 FMA units (67 TFLOP/s peak, not the tensor
-// cores), and the next tile's load is not overlapped with this tile's
-// math.  Key blocks entirely above the causal diagonal are skipped, and
-// the longest causal rows are scheduled first.  wgmma on bf16 tiles with a
-// TMA producer is the later, fast version.
+// What this version does about it: little, by design -- f32 is held to
+// 2e-5, which TF32 tensor cores cannot keep.  One CTA of 256 threads per
+// (b * Hq + h, 64-row query block); the q tile stays in shared memory,
+// 64-key K and V tiles stream through it, each thread holds a 4 x 4 block
+// of scores and a 4 x D/16 block of the output accumulator in registers,
+// and the row max and sum of the online softmax are reduced with shuffles
+// over the 16 threads that share a row.  The products run on the f32 FMA
+// units (67 TFLOP/s peak), and the next tile's load is not overlapped with
+// this tile's math.  Key blocks entirely above the causal diagonal are
+// skipped, and the longest causal rows are scheduled first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -256,28 +258,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* out, int batch,
-                       int sq, int skv, int hq, int hkv, int causal, float scale,
-                       cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// is_bf16: 1 for bf16 q/k/v/out, 0 for f32.  d in {32, 64, 128}; hq % hkv == 0.
+// is_bf16: 1 for bf16 q/k/v/out (d = 32 only: the other head dims run in
+// flash_attention_sm90.cu), 0 for f32 (d in {32, 64, 128}); hq % hkv == 0.
 extern "C" int valve_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int batch, int sq, int skv, int hq, int hkv, int d,
                                      int is_bf16, int causal, float scale, void* stream) {
   if (batch == 0 || sq == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch_d<__nv_bfloat16>(d, q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st)
-              : dispatch_d<float>(d, q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (is_bf16 && d == 32)
+    err = launch<__nv_bfloat16, 32>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st);
+  if (!is_bf16 && d == 32) err = launch<float, 32>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st);
+  if (!is_bf16 && d == 64) err = launch<float, 64>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st);
+  if (!is_bf16 && d == 128)
+    err = launch<float, 128>(q, k, v, out, batch, sq, skv, hq, hkv, causal, scale, st);
   return static_cast<int>(err);
 }

@@ -7,7 +7,11 @@ Kernel-level wrappers (one launch counter each, see ``kernels.common``):
 - :func:`shared_run` (K2): phase 1 of the prefix-shared read, each shared
   page read once per batch, emits the partial (m, l, acc);
 - :func:`shared_tail` (K3): phase 2, the page walk over each row's tail,
-  resumed from phase 1's state.  Same CUDA kernel as K1.
+  resumed from phase 1's state.  Same CUDA kernels as K1.
+
+K1 and K3 split each row's page walk over CTAs (:func:`plan_splits`) and
+merge the splits' partial states in a combine pass; one call launches both
+and counts one launch.
 
 Each takes its plain version (``ref.py``) for CPU tensors only; on a CUDA
 tensor it launches its kernel or raises.  The model-level entry points
@@ -26,16 +30,47 @@ from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
                                                      shared_run_ref)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_PAGED_DECODE_ARGS = (_P,) * 10 + (_I,) * 7 + (_F, _P)
+_PAGED_DECODE_ARGS = (_P,) * 13 + (_I,) * 9 + (_F, _P)
 _SHARED_RUN_ARGS = (_P,) * 8 + (_I,) * 7 + (_F, _P)
 BF16, I32, F32 = torch.bfloat16, torch.int32, torch.float32
+
+SPLIT_TOKENS = 128        # most tokens one split holds (paged_attention.cu)
+TARGET_CTAS = 4 * 132     # ~four CTAs on each of the H100's 132 SMs
+MAX_HEAD_DIM = 256
+WALK_THREADS = 128        # threads of a page-walk CTA (paged_attention.cu)
+
+
+def plan_splits(batch: int, hkv: int, maxp: int, page_size: int):
+    """(pages per split, number of splits) of the K1/K3 page walk.
+
+    From host-known shapes only -- the lengths live on the device and are
+    never read back.  A table of at most :data:`SPLIT_TOKENS` tokens is one
+    split, walked in the plain version's f32 order: splitting it moves the
+    time by under a microsecond either way on an H100 (``chip_smoke.py``
+    phase 3) but changes the decode numerics that phase 4 witnesses.  A
+    longer one gets enough splits that ``batch * hkv *
+    n_splits`` reaches about :data:`TARGET_CTAS`, each no longer than
+    :data:`SPLIT_TOKENS` tokens, so all of a split's pages load into shared
+    memory up front.  Split ``s`` covers table columns ``[s * pps, (s + 1)
+    * pps)``; together the splits cover all ``maxp`` columns exactly once."""
+    if page_size > SPLIT_TOKENS:
+        raise ValueError(f'page size {page_size}: a split holds at most '
+                         f'{SPLIT_TOKENS} tokens')
+    if maxp * page_size <= SPLIT_TOKENS:
+        return max(1, maxp), 1
+    cap = SPLIT_TOKENS // page_size
+    want = kc.ceil_div(TARGET_CTAS, max(1, batch * hkv))
+    n_splits = min(maxp, max(want, kc.ceil_div(maxp, cap)))
+    pps = kc.ceil_div(maxp, n_splits)
+    return pps, kc.ceil_div(maxp, pps)
 
 
 def _check_pools(q, pool_k, pool_v):
     b, hkv, g, d = q.shape
     n_pages, pg = pool_k.shape[:2]
-    if d % 8:
-        raise ValueError(f'head dim {d} must be a multiple of 8')
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f'head dim {d} must be a multiple of 8, at most '
+                         f'{MAX_HEAD_DIM}')
     kc.require(q, 'q', BF16, (b, hkv, g, d), q.device)
     kc.require(pool_k, 'pool_k', BF16, (n_pages, pg, hkv, d), q.device)
     kc.require(pool_v, 'pool_v', BF16, (n_pages, pg, hkv, d), q.device)
@@ -45,6 +80,9 @@ def _check_pools(q, pool_k, pool_v):
 def _launch_page_walk(q, pool_k, pool_v, page_table, lengths, start, state,
                       scale, name):
     b, hkv, g, d, n_pages, pg = _check_pools(q, pool_k, pool_v)
+    if WALK_THREADS % (d // 8):
+        raise ValueError(f'head dim {d}: the page walk takes D / 8 '
+                         f'dividing {WALK_THREADS}')
     maxp = page_table.shape[1]
     kc.require(page_table, 'page_table', I32, (b, maxp), q.device)
     kc.require(lengths, 'lengths', I32, (b,), q.device)
@@ -55,13 +93,24 @@ def _launch_page_walk(q, pool_k, pool_v, page_table, lengths, start, state,
         kc.require(m0, 'm0', F32, (b, hkv, g), q.device)
         kc.require(l0, 'l0', F32, (b, hkv, g), q.device)
         kc.require(acc0, 'acc0', F32, (b, hkv, g, d), q.device)
+    if any(t.data_ptr() % 16 for t in (q, pool_k, pool_v)):
+        raise ValueError('q and the pools must be 16-byte aligned')
+    pps, n_splits = plan_splits(b, hkv, maxp, pg)
     out = torch.empty_like(q)
+    m_part = l_part = acc_part = None
+    if n_splits > 1:                      # the splits' partial states
+        m_part = torch.empty((n_splits, b, hkv, g), dtype=F32, device=q.device)
+        l_part = torch.empty_like(m_part)
+        acc_part = torch.empty((n_splits, b, hkv, g, d), dtype=F32,
+                               device=q.device)
     with torch.cuda.device(q.device):
         err = kc.kernel_fn('valve_paged_decode', _PAGED_DECODE_ARGS)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             page_table.data_ptr(), kc.ptr(start), lengths.data_ptr(),
             kc.ptr(m0), kc.ptr(l0), kc.ptr(acc0), out.data_ptr(),
-            b, hkv, g, d, n_pages, pg, maxp, scale, kc.stream_ptr(q))
+            kc.ptr(m_part), kc.ptr(l_part), kc.ptr(acc_part),
+            b, hkv, g, d, n_pages, pg, maxp, pps, n_splits, scale,
+            kc.stream_ptr(q))
     kc.check_launch(err, name)
     kc.LAUNCHES[name] += 1
     return out

@@ -27,6 +27,30 @@ def _empty_state(b, hkv, g, d, device):
             torch.zeros((b, hkv, g, d), dtype=torch.float32, device=device))
 
 
+def _walk(qf, pool_k, pool_v, pt, first, lengths, cols, state, scale):
+    """The f32 online-softmax walk over table columns ``cols`` of ``pt``
+    (B, maxp), token positions offset by ``first`` (B,) pages, masking
+    positions >= ``lengths`` (B,), from ``state`` = (m, l, acc)."""
+    pg = pool_k.shape[1]
+    m, l, acc = state
+    tok = torch.arange(pg, device=qf.device)
+    for ip in cols:
+        k = pool_k[pt[:, ip]].float()                  # (B, pg, Hkv, D)
+        v = pool_v[pt[:, ip]].float()
+        s = torch.einsum('bhgd,bphd->bhgp', qf, k) * scale
+        pos = (first + ip)[:, None] * pg + tok         # (B, pg)
+        s = torch.where((pos < lengths[:, None])[:, None, None, :], s,
+                        NEG_INF)
+        m, l, acc = online_softmax_update(
+            s, v.permute(0, 2, 1, 3)[:, :, None], m, l, acc)
+    return m, l, acc
+
+
+def _first_page(start, b, device):
+    return (start.long() if start is not None
+            else torch.zeros(b, dtype=torch.long, device=device))
+
+
 def paged_decode_ref(q, pool_k, pool_v, page_table, lengths, *,
                      start=None, state=None, scale: Optional[float] = None):
     """Plain version of the page-walk kernel (K1; K3 with ``state``).
@@ -38,25 +62,59 @@ def paged_decode_ref(q, pool_k, pool_v, page_table, lengths, *,
     exactly nothing once a real score has been seen.
     """
     b, hkv, g, d = q.shape
-    pg = pool_k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    if state is None:
+        state = _empty_state(b, hkv, g, d, q.device)
+    pt = page_table.long()
+    m, l, acc = _walk(q.float(), pool_k, pool_v, pt,
+                      _first_page(start, b, q.device), lengths.long(),
+                      range(pt.shape[1]), state, scale)
+    return online_softmax_finalize(acc, l).to(q.dtype)
+
+
+def paged_decode_split_ref(q, pool_k, pool_v, page_table, lengths, *,
+                           pages_per_split: int, start=None, state=None,
+                           scale: Optional[float] = None):
+    """Plain version of the split page walk (K1; K3 with ``state``), the
+    algorithm of the CUDA kernels.  A page id outside ``[0, P)`` reads the
+    quarantine page 0.  Split ``s`` walks table columns ``[s * pps, (s + 1)
+    * pps)`` into a partial (m, l, acc): split 0 on from ``state`` (or the
+    empty state), the others from the empty state.  A split that starts at
+    or past the row's live pages keeps its initial state: ``state`` for
+    split 0, else empty (l = 0).  The combine takes the non-empty partials
+    to their common max M and sums l and acc, each term scaled by exp(m -
+    M), in split order.  With one split (``pages_per_split >= maxp``) that
+    is :func:`paged_decode_ref`'s walk bit for bit (every weight is exp(0));
+    otherwise it equals it up to f32 summation order."""
+    b, hkv, g, d = q.shape
+    n_pages, pg = pool_k.shape[:2]
+    maxp = page_table.shape[1]
     scale = d ** -0.5 if scale is None else scale
     qf = q.float()
-    m, l, acc = state if state is not None else _empty_state(
-        b, hkv, g, d, q.device)
-    first = (start.long() if start is not None
-             else torch.zeros(b, dtype=torch.long, device=q.device))
+    first = _first_page(start, b, q.device)
     lengths = lengths.long()
     pt = page_table.long()
-    tok = torch.arange(pg, device=q.device)
-    for ip in range(pt.shape[1]):
-        k = pool_k[pt[:, ip]].float()                  # (B, pg, Hkv, D)
-        v = pool_v[pt[:, ip]].float()
-        s = torch.einsum('bhgd,bphd->bhgp', qf, k) * scale
-        pos = (first + ip)[:, None] * pg + tok         # (B, pg)
-        s = torch.where((pos < lengths[:, None])[:, None, None, :], s,
-                        NEG_INF)
-        m, l, acc = online_softmax_update(
-            s, v.permute(0, 2, 1, 3)[:, :, None], m, l, acc)
+    pt = torch.where((pt >= 0) & (pt < n_pages), pt, 0)
+    empty = _empty_state(b, hkv, g, d, q.device)
+    live = ((lengths + pg - 1) // pg - first).clamp(0, maxp)
+    parts = []
+    for p0 in range(0, max(maxp, 1), pages_per_split):
+        init = state if p0 == 0 and state is not None else empty
+        m_s, l_s, acc_s = _walk(qf, pool_k, pool_v, pt, first, lengths,
+                                range(p0, min(p0 + pages_per_split, maxp)),
+                                init, scale)
+        keep = (p0 < live)[:, None, None]
+        parts.append((torch.where(keep, m_s, init[0]),
+                      torch.where(keep, l_s, init[1]),
+                      torch.where(keep[..., None], acc_s, init[2])))
+    mx = torch.full_like(empty[0], NEG_INF)
+    for m_s, l_s, _ in parts:
+        mx = torch.where(l_s > 0, torch.maximum(mx, m_s), mx)
+    l, acc = empty[1], empty[2]
+    for m_s, l_s, acc_s in parts:
+        w = torch.where(l_s > 0, torch.exp(m_s - mx), 0.0)
+        l = l + l_s * w
+        acc = acc + torch.where((w > 0)[..., None], acc_s * w[..., None], 0.0)
     return online_softmax_finalize(acc, l).to(q.dtype)
 
 

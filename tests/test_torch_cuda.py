@@ -44,6 +44,7 @@ PAGED_CASES = [
     (8, 16, 8, 128, 16, 32),          # qwen3-0.6b decode
     (3, 4, 1, 32, 8, 5),
     (2, 4, 2, 64, 4, 16),
+    (8, 16, 8, 128, 16, 256),         # a long context: 4096 tokens a row
 ]
 FLASH_CASES = [
     # (B, Sq, Skv, Hq, Hkv, D, causal, dtype)
@@ -55,6 +56,20 @@ FLASH_CASES = [
     (2, 100, 100, 4, 4, 64, True, torch.float32),
     (1, 300, 200, 4, 2, 128, True, torch.bfloat16),    # Sq > Skv
     (2, 1024, 1024, 16, 8, 128, True, torch.bfloat16),  # qwen3-0.6b
+    # the tensor-core kernel: D=64 and 128 at G = 1, 2, 8
+    (2, 256, 256, 8, 8, 64, True, torch.bfloat16),
+    (1, 256, 256, 8, 4, 64, True, torch.bfloat16),
+    (1, 384, 384, 8, 1, 64, True, torch.bfloat16),
+    (1, 256, 256, 8, 8, 128, True, torch.bfloat16),
+    (1, 256, 256, 8, 1, 128, True, torch.bfloat16),
+    (2, 1000, 1000, 16, 8, 128, True, torch.bfloat16),  # Sq off the tile
+    (1, 200, 300, 4, 2, 64, True, torch.bfloat16),      # Sq < Skv
+    (1, 256, 1024, 16, 8, 128, False, torch.bfloat16),  # cross, non-causal
+    (1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
+    (1, 4096, 4096, 16, 8, 128, True, torch.bfloat16),
+    (1, 128, 128, 4, 2, 32, True, torch.bfloat16),      # D=32: the FMA kernel
+    (1, 50, 50, 4, 2, 128, True, torch.bfloat16),       # shorter than a tile
+    (2, 1, 1, 8, 8, 64, True, torch.bfloat16),          # one token
 ]
 WKV_CASES = [
     # (B, T, H, K, chunk, dtype)
@@ -121,6 +136,79 @@ def test_paged_decode_padding_rows_stay_in_the_pool(cuda):
     torch.testing.assert_close(got[1].float(),
                                pv[0, 0][:, None].expand_as(got[1]).float(),
                                **BF16_TOL)
+
+
+def _split_len(case):
+    """Tokens in one split of the walk for a case's shape."""
+    b, hq, hkv, d, pg, maxp = case
+    return pa.plan_splits(b, hkv, maxp, pg)[0] * pg
+
+
+@pytest.mark.parametrize('what', ['split_boundary', 'all_length_1',
+                                  'page_out_of_range'])
+def test_paged_decode_split_edges(cuda, what):
+    """Rows ending exactly on a split boundary (and one token either side),
+    every row of length 1, and a live page id outside the pool (read as the
+    quarantine page 0): the split walk equals the plain version."""
+    case = PAGED_CASES[2]
+    q, pk, pv, pt, lengths = _paged_inputs(cuda, case, 11)
+    n_pages = pk.shape[0]
+    split = _split_len(case)
+    if what == 'split_boundary':
+        lengths = torch.tensor([split, split - 1, split + 1, 2 * split, 1,
+                                2 * split + 1, 3 * split, case[4] * case[5]],
+                               dtype=torch.int32, device=cuda)
+    elif what == 'all_length_1':
+        lengths = torch.ones_like(lengths)
+    else:
+        lengths[:] = case[4] * case[5]
+        pt[0, 3] = n_pages + 5
+        pt[1, 0] = -2
+    got = pa.paged_decode(q, pk, pv, pt, lengths)
+    clamped = torch.where((pt >= 0) & (pt < n_pages), pt, 0)
+    want = paged_decode_ref(q, pk, pv, clamped, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    if what == 'page_out_of_range':
+        assert not torch.equal(want, paged_decode_ref(q, pk, pv, pt.clamp(
+            0, n_pages - 1), lengths))      # the quarantine page did count
+
+
+def test_shared_tail_from_a_state_with_empty_splits(cuda):
+    """K3 resumed from a non-empty state over tails that leave most splits
+    empty (and one row with no tail at all): the state and the live splits
+    merge in order, as the plain version walks them."""
+    case = PAGED_CASES[2]
+    b, hq, hkv, d, pg, maxp = case
+    q, pk, pv, pt, _ = _paged_inputs(cuda, case, 12)
+    rng = np.random.default_rng(12)
+    g = hq // hkv
+    state = (torch.tensor(rng.normal(size=(b, hkv, g)), dtype=torch.float32,
+                          device=cuda),
+             torch.tensor(rng.uniform(1, 20, size=(b, hkv, g)),
+                          dtype=torch.float32, device=cuda),
+             torch.tensor(rng.normal(size=(b, hkv, g, d)) * 3,
+                          dtype=torch.float32, device=cuda))
+    start = torch.tensor([4, 4, 0, 8, 4, 2, 4, 4], dtype=torch.int32,
+                         device=cuda)
+    lengths = torch.tensor([4 * pg, 4 * pg + 1, 3, 20 * pg, 6 * pg + 7,
+                            2 * pg + 1, 5 * pg, 4 * pg + pg],
+                           dtype=torch.int32, device=cuda)
+    got = pa.shared_tail(q, pk, pv, pt, start, lengths, state)
+    want = paged_decode_ref(q, pk, pv, pt, lengths, start=start, state=state)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_new_kernels_are_deterministic(cuda):
+    """Two calls on the same inputs give the same bits: the split walk's
+    combine merges in a fixed order, and no kernel uses float atomics."""
+    q, pk, pv, pt, lengths = _paged_inputs(cuda, PAGED_CASES[-1], 13)
+    assert torch.equal(pa.paged_decode(q, pk, pv, pt, lengths),
+                       pa.paged_decode(q, pk, pv, pt, lengths))
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 1000, h, 128)) * 0.5,
+                            dtype=torch.bfloat16, device=cuda)
+               for h in (16, 8, 8))
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
 
 
 @pytest.mark.parametrize('n_slots_cap', [4, 8])

@@ -4,8 +4,9 @@ on the reference's own cases (``tests/test_kernels_flash.py``).
 
 Tolerances are the reference test's: 2e-5 in f32 (same math, other
 summation order), 2e-2 in bf16 (the reference rounds the probabilities to
-bf16 before the product with V; the port keeps them f32, as its kernel
-does).
+bf16 before the product with V; the port's plain version keeps them f32).
+The bf16 tensor-core kernel's own numerics (P meets V as two bf16 terms)
+are modelled below against the on-card rule, 1e-3 + 2^-7 |ref|.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,8 @@ import torch
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     kernel_route)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 CASES = [
@@ -84,3 +86,58 @@ def test_cpu_tensors_take_the_plain_version_and_grad_is_refused():
         flash_attention(q.requires_grad_(), k, v)
     with torch.no_grad():                     # no graph, nothing to drop
         flash_attention(q, k, v)
+
+
+def test_kernel_route_by_dtype_and_head_dim():
+    """One place picks the CUDA kernel: bf16 at D=64 or 128 goes to the
+    tensor-core kernel, f32 (the parity dtype, held to 2e-5) and bf16 at
+    D=32 to the f32-FMA kernel."""
+    assert kernel_route(torch.bfloat16, 128) == 'sm90'
+    assert kernel_route(torch.bfloat16, 64) == 'sm90'
+    assert kernel_route(torch.bfloat16, 32) == 'fma'
+    for d in (32, 64, 128):
+        assert kernel_route(torch.float32, d) == 'fma'
+
+
+def _tiled_bf16_p(q, k, v, residual: bool, block: int = 128):
+    """Plain model of the tensor-core kernel's numerics, causal: 128-key
+    tiles, the online softmax in f32, P rounded to bf16 for the product
+    with V and, with ``residual``, p - bf16(p) rounded to bf16 through a
+    second product; l sums the unrounded p; exact products of bf16 values
+    summed in f32, as the tensor cores sum them."""
+    b, sq, hq, d = q.shape
+    skv, g = k.shape[1], hq // k.shape[2]
+    kf, vf = (x.float().repeat_interleave(g, 2) for x in (k, v))
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), kf) * d ** -0.5
+    s = torch.where(torch.arange(sq)[:, None] >= torch.arange(skv), s, -1e30)
+    m = torch.full((b, hq, sq), -1e30)
+    l, acc = torch.zeros(b, hq, sq), torch.zeros(b, hq, sq, d)
+    for k0 in range(0, skv, block):
+        st = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha, p = torch.exp(m - m_new), torch.exp(st - m_new[..., None])
+        hi = p.bfloat16().float()
+        terms = [hi, (p - hi).bfloat16().float()] if residual else [hi]
+        pv = sum(torch.einsum('bhqk,bkhd->bhqd', t, vf[:, k0:k0 + block])
+                 for t in terms)
+        l, acc, m = l * alpha + p.sum(-1), acc * alpha[..., None] + pv, m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def test_bf16_probabilities_keep_their_residual():
+    """The one numeric change of the bf16 tensor-core K5: P meets V in
+    bf16.  Rounded once -- as the JAX package's plain attention rounds its
+    probabilities -- P breaks the on-card rule |out - ref| <= 1e-3 +
+    2^-7 |ref| against the f32-P plain version at rows with few keys; with
+    its bf16 residual as a second term, as the kernel takes it, it keeps
+    within the rule."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 256, h, 128)) * 0.5,
+                            dtype=torch.bfloat16) for h in (8, 4, 4))
+    want = flash_attention_ref(q, k, v).float()
+    tol = 1e-3 + 2 ** -7 * want.abs()
+    once = (_tiled_bf16_p(q, k, v, residual=False).float() - want).abs()
+    assert (once > tol).any()
+    assert ((once > tol).nonzero()[:, 1] < 16).all()     # the first rows
+    both = (_tiled_bf16_p(q, k, v, residual=True).float() - want).abs()
+    assert (both <= tol).all()

@@ -19,6 +19,7 @@ from repro.kernels.paged_attention.ref import \
 from repro_torch.kernels.paged_attention import ops as tops
 from repro_torch.kernels.paged_attention import prefix as tprefix
 from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
+                                                     paged_decode_split_ref,
                                                      shared_run_ref)
 from repro_torch.models import common as tcm
 
@@ -328,3 +329,116 @@ def test_shared_runs_equal_the_reference_on_random_tables():
             holders = [i for i in range(b) if pt[i, j] == p and j < n_full[i]]
             assert len(holders) >= 2
             assert set(np.nonzero(runs['mask'][:, si])[0]) <= set(holders)
+
+
+# ---------------------------------------------------------------------------
+# the split page walk of the CUDA kernels (K1/K3) and its planner
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('pps', [1, 2, 3, 'maxp'])
+@pytest.mark.parametrize('case', CASES)
+def test_split_walk_matches_the_serial_walk_and_pallas(case, pps):
+    """The CUDA walk's algorithm -- per-split partials from the empty state,
+    an empty partial for a split past the row's live pages, all merged in
+    split order -- equals the serial walk and the JAX kernel (interpret
+    mode), with a row of length 1 in every batch.  With one split it is the
+    serial walk bit for bit."""
+    b, hq, hkv, d, pg, maxp = case
+    q, pk, pv, pt, lengths = _setup(case, seed=sum(case) + 1)
+    lengths[0] = 1
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    got = paged_decode_split_ref(
+        *_t(qg, pk, pv, pt, lengths),
+        pages_per_split=maxp if pps == 'maxp' else pps)
+    serial = paged_decode_ref(*_t(qg, pk, pv, pt, lengths))
+    torch.testing.assert_close(got, serial, **TOL)
+    if pps == 'maxp':
+        assert torch.equal(got, serial)
+    want = np.asarray(jops.paged_attention(*_j(q, pk, pv, pt, lengths),
+                                           interpret=True))
+    np.testing.assert_allclose(got.reshape(b, hq, d).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize('pps', [1, 2, 3, 10])
+def test_split_walk_resumes_from_state(pps):
+    """K3's algorithm: split 0 of the tails' walk goes on from the phase-1
+    state, the other splits start empty; a row whose tail is empty (its
+    whole context in the shared prefix) leaves split 0's partial at the
+    state and every other split empty.  Equals the serial walk from the
+    state (bit for bit with one split), the serial walk over the full
+    tables and the JAX prefix-shared kernel."""
+    q, pk, pv, pt, lengths = _shared_setup(seed=5)
+    lengths[1] = 3 * 4                         # row 1: no tail page
+    qg = q.reshape(4, 2, 2, 32)
+    runs = tprefix.build_shared_runs(pt, lengths, 4)
+    assert runs['start'][1] == 3
+    state = shared_run_ref(*_t(qg, pk, pv, runs['pages'], runs['mask']))
+    got = paged_decode_split_ref(
+        *_t(qg, pk, pv, runs['tail_pt'], lengths), start=_t(runs['start'])[0],
+        state=state, pages_per_split=pps)
+    resumed = paged_decode_ref(*_t(qg, pk, pv, runs['tail_pt'], lengths),
+                               start=_t(runs['start'])[0], state=state)
+    torch.testing.assert_close(got, resumed, **TOL)
+    if pps >= runs['tail_pt'].shape[1]:
+        assert torch.equal(got, resumed)
+    torch.testing.assert_close(got, paged_decode_ref(
+        *_t(qg, pk, pv, pt, lengths)), **TOL)
+    want = np.asarray(jops.paged_attention_prefix_shared(
+        *_j(q, pk, pv, *_run_args(runs, lengths)), backend='pallas',
+        interpret=True))
+    np.testing.assert_allclose(got.reshape(4, 4, 32).numpy(), want, **TOL)
+
+
+def test_split_walk_reads_out_of_range_pages_as_quarantine():
+    """A page id outside [0, P) reads the quarantine page 0, as the CUDA
+    kernels do, so no index leaves the pool."""
+    case = (2, 4, 2, 32, 4, 6)
+    q, pk, pv, pt, lengths = _setup(case, seed=8)
+    lengths[:] = 24
+    bad = pt.copy()
+    bad[0, 2], bad[1, 0] = pk.shape[0] + 3, -1
+    fixed = pt.copy()
+    fixed[0, 2] = fixed[1, 0] = 0
+    qg = q.reshape(2, 2, 2, 32)
+    got = paged_decode_split_ref(*_t(qg, pk, pv, bad, lengths),
+                                 pages_per_split=2)
+    torch.testing.assert_close(got, paged_decode_ref(
+        *_t(qg, pk, pv, fixed, lengths)), **TOL)
+
+
+@pytest.mark.parametrize('shape', [
+    # (B, Hkv, maxp, page size)
+    (8, 8, 32, 16),      # qwen3-0.6b decode, the on-card shape
+    (8, 8, 256, 16),     # a 4096-token context
+    (1, 1, 1, 16),
+    (2, 4, 5, 4),
+    (64, 8, 6, 16),      # a batch that fills the card alone
+    (3, 2, 17, 1),
+    (1, 1, 3, 128),
+])
+def test_plan_splits_covers_every_live_page_once(shape):
+    """For any length up to maxp * page size and any start, the splits'
+    page ranges, clipped to the row's live pages as each CTA clips them,
+    cover every live page exactly once, in order; a split never holds more
+    than SPLIT_TOKENS tokens, and no split starts past the table."""
+    b, hkv, maxp, pg = shape
+    pps, n_splits = tops.plan_splits(b, hkv, maxp, pg)
+    assert pps * pg <= tops.SPLIT_TOKENS
+    assert (n_splits - 1) * pps < maxp <= n_splits * pps
+    for first in (0, maxp // 3):
+        for length in range(1, maxp * pg + 1):
+            live = min(max(-(-length // pg) - first, 0), maxp)
+            covered = []
+            for s in range(n_splits):
+                p0 = s * pps
+                covered += range(p0, p0 + max(0, min(pps, live - p0)))
+            assert covered == list(range(live)), (first, length)
+
+
+def test_plan_splits_fills_the_card_at_the_decode_shape():
+    """qwen3-0.6b decode at B=8 (Hkv=8, 32 pages of 16): at least two CTAs
+    for each of the H100's 132 SMs, where one CTA per (kv-head, row) gave
+    64."""
+    pps, n_splits = tops.plan_splits(8, 8, 32, 16)
+    assert 8 * 8 * n_splits >= 2 * 132
+    assert tops.plan_splits(8, 8, 0, 16) == (1, 1)      # an empty table
