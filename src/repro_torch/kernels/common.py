@@ -2,9 +2,10 @@
 sampling noise, launch counters, and the build/loader of the CUDA library.
 
 Every kernel of the port is CUDA C++ under ``kernels/*/csrc/*.cu`` (plus
-``kernels/csrc/*.cu``), compiled for Hopper (``sm_90a``) by ``nvcc`` at first
-use into one shared library with a plain C interface under the checkout's
-git-ignored ``build/`` directory, keyed by a hash of the sources and flags,
+``kernels/csrc/*.cu`` and the headers shared there), compiled for Hopper
+(``sm_90a``) by ``nvcc`` at first use into one shared library with a plain
+C interface under the checkout's git-ignored ``build/`` directory, keyed by
+a hash of the sources, headers and flags,
 and loaded with ``ctypes``.  Each source compiles in its own ``nvcc``
 process, all started together, then one link.  Nothing is built when a
 module is imported: the CPU tests import every module and never reach
@@ -156,9 +157,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in kernel_sources():
+    for src in kernel_sources() + sorted(PKG_DIR.glob('kernels/**/*.cuh')):
         h.update(src.relative_to(PKG_DIR).as_posix().encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'kernels-{h.hexdigest()[:16]}' / LIB_NAME
@@ -222,6 +223,19 @@ def check_launch(err: int, name: str) -> None:
                         ctypes.c_char_p)
         raise RuntimeError(f'{name}: CUDA error {err}: '
                            f'{msg(err).decode()}')
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM):
+    the host-side plans size their grids to fill them."""
+    device = torch.device(device)
+    return _sm_count(torch.cuda.current_device() if device.index is None
+                     else device.index)
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -107,6 +107,14 @@ def paged_decode_split_ref(q, pool_k, pool_v, page_table, lengths, *,
         parts.append((torch.where(keep, m_s, init[0]),
                       torch.where(keep, l_s, init[1]),
                       torch.where(keep[..., None], acc_s, init[2])))
+    _, l, acc = _combine(parts, empty)
+    return online_softmax_finalize(acc, l).to(q.dtype)
+
+
+def _combine(parts, empty):
+    """The CUDA combine pass: the non-empty partials (l > 0) taken to their
+    common max M, then l and acc summed in split order, each term scaled by
+    exp(m - M).  Returns the merged state (M, l, acc)."""
     mx = torch.full_like(empty[0], NEG_INF)
     for m_s, l_s, _ in parts:
         mx = torch.where(l_s > 0, torch.maximum(mx, m_s), mx)
@@ -115,7 +123,7 @@ def paged_decode_split_ref(q, pool_k, pool_v, page_table, lengths, *,
         w = torch.where(l_s > 0, torch.exp(m_s - mx), 0.0)
         l = l + l_s * w
         acc = acc + torch.where((w > 0)[..., None], acc_s * w[..., None], 0.0)
-    return online_softmax_finalize(acc, l).to(q.dtype)
+    return mx, l, acc
 
 
 def shared_run_ref(q, pool_k, pool_v, pages, mask, *,
@@ -140,3 +148,27 @@ def shared_run_ref(q, pool_k, pool_v, pages, mask, *,
         m, l, acc = online_softmax_update(
             s, vs[js].permute(1, 0, 2)[None, :, None], m, l, acc)
     return m, l, acc
+
+
+def shared_run_split_ref(q, pool_k, pool_v, pages, mask, *,
+                         slots_per_split: int,
+                         scale: Optional[float] = None):
+    """Plain version of the split shared run (K2), the algorithm of the CUDA
+    kernels.  A page id outside ``[0, P)`` reads the quarantine page 0.
+    Split ``s`` walks slots ``[s * sps, (s + 1) * sps)`` from the empty
+    state as :func:`shared_run_ref` walks them; the splits' partials merge
+    as the split page walk's do.  Every partial has l > 0 (each slot adds
+    ``pg`` probabilities, garbage ones at m = NEG_INF), so a split masked
+    for a row weighs exp(NEG_INF - M) = 0 there, and a row masked at every
+    slot keeps m = NEG_INF with its garbage mass.  With one split
+    (``slots_per_split >= S``) this is :func:`shared_run_ref` bit for bit;
+    otherwise it equals it up to f32 summation order."""
+    b, hkv, g, d = q.shape
+    n_pages, n_slots = pool_k.shape[0], pages.shape[0]
+    pages = torch.where((pages >= 0) & (pages < n_pages), pages, 0)
+    parts = [shared_run_ref(q, pool_k, pool_v, pages[s0:s0 + slots_per_split],
+                            mask[:, s0:s0 + slots_per_split], scale=scale)
+             for s0 in range(0, max(n_slots, 1), slots_per_split)]
+    if len(parts) == 1:
+        return parts[0]
+    return _combine(parts, _empty_state(b, hkv, g, d, q.device))

@@ -11,7 +11,8 @@ Tolerances: bf16 attention outputs, elementwise |got - want| <= 1e-3 +
 ``test_torch_kernels_paged.py`` shows it fails a dropped page, a shifted
 start and a skipped initial state); the f32 partial softmax state, 1e-4; sampled
 tokens equal unless the two best f32 scores lie within 1e-5 of |max| (the
-kernel and its plain version sum the dot products in other orders);
+kernel sums the dot products on the tensor cores, in another order than its
+plain version), and exactly equal where a winner is planted or tied;
 flash attention, the bf16 rule above and 2e-5 in f32; WKV6, 1e-4 in f32
 (1e-3 at log-decays down to -12), 3e-2 for bf16 inputs, as in the
 reference's kernel tests.
@@ -20,15 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.common import LAUNCHES, gumbel_hash_noise
+from repro_torch.kernels.common import LAUNCHES, gumbel_hash_noise, sm_count
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_attention.prefix import build_shared_runs
 from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
-                                                     shared_run_ref)
+                                                     shared_run_ref,
+                                                     shared_run_split_ref)
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
+from repro_torch.kernels.sampling import ops as sops
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
 from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
                                               unembed_scores)
@@ -36,6 +39,7 @@ from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
 pytestmark = pytest.mark.cuda
 
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
+STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 PAGED_CASES = [
     # (B, Hq, Hkv, D, pg, maxp)
@@ -86,6 +90,7 @@ SAMPLE_CASES = [
     (1, 32, 257), (4, 64, 1000), (5, 32, 130), (20, 64, 1000),
     (8, 1024, 151936),
 ]
+SAMPLE_BATCHES = [1, 7, 8, 9, 16, 20]    # wgmma N = 8 and 16, two launches
 
 
 @pytest.fixture
@@ -141,7 +146,7 @@ def test_paged_decode_padding_rows_stay_in_the_pool(cuda):
 def _split_len(case):
     """Tokens in one split of the walk for a case's shape."""
     b, hq, hkv, d, pg, maxp = case
-    return pa.plan_splits(b, hkv, maxp, pg)[0] * pg
+    return pa.plan_splits(b, hkv, maxp, pg, sm_count('cuda'))[0] * pg
 
 
 @pytest.mark.parametrize('what', ['split_boundary', 'all_length_1',
@@ -200,7 +205,8 @@ def test_shared_tail_from_a_state_with_empty_splits(cuda):
 
 def test_new_kernels_are_deterministic(cuda):
     """Two calls on the same inputs give the same bits: the split walk's
-    combine merges in a fixed order, and no kernel uses float atomics."""
+    and the split shared run's combines merge in a fixed order, K4's
+    partials reduce in a fixed order, and no kernel uses float atomics."""
     q, pk, pv, pt, lengths = _paged_inputs(cuda, PAGED_CASES[-1], 13)
     assert torch.equal(pa.paged_decode(q, pk, pv, pt, lengths),
                        pa.paged_decode(q, pk, pv, pt, lengths))
@@ -209,6 +215,16 @@ def test_new_kernels_are_deterministic(cuda):
                             dtype=torch.bfloat16, device=cuda)
                for h in (16, 8, 8))
     assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    q, pk, pv, pages, mask = _shared_run_inputs(cuda, 16, 13)[:5]
+    assert all(torch.equal(a, b) for a, b in zip(
+        pa.shared_run(q, pk, pv, pages, mask),
+        pa.shared_run(q, pk, pv, pages, mask)))
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    last = torch.randn((9, 1024), generator=gen, device=cuda).to(torch.bfloat16)
+    head = (torch.randn((151936, 1024), generator=gen, device=cuda)
+            * 1024 ** -0.5).to(torch.bfloat16)
+    assert torch.equal(fused_unembed_sample(last, head, 3, temperature=0.8),
+                       fused_unembed_sample(last, head, 3, temperature=0.8))
 
 
 @pytest.mark.parametrize('n_slots_cap', [4, 8])
@@ -244,6 +260,84 @@ def test_prefix_shared_matches_plain(cuda, n_slots_cap):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     full = paged_decode_ref(q, pk, pv, t(pt), t(lengths))
     torch.testing.assert_close(got.float(), full.float(), **BF16_TOL)
+
+
+def _shared_run_inputs(dev, n_slots, seed):
+    """qwen3-0.6b decode widths (B=8, Hkv=8, G=2, D=128, page 16): rows
+    0..6 share an (n_slots - 1)-page prefix, the run is padded to n_slots
+    by a quarantine slot, row 7 shares nothing (masked at every slot)."""
+    b, hkv, g, d, pg = 8, 8, 2, 128, 16
+    maxp = n_slots + 4
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + b * maxp
+    q = _bf16(dev, rng, b, hkv, g, d)
+    pk, pv = _bf16(dev, rng, n_pages, pg, hkv, d), _bf16(dev, rng, n_pages,
+                                                         pg, hkv, d)
+    pt = (rng.permutation(n_pages - 1) + 1).reshape(b, maxp).astype(np.int32)
+    pt[:b - 1, :n_slots - 1] = pt[0, :n_slots - 1]
+    lengths = rng.integers((n_slots - 1) * pg + 1, maxp * pg + 1,
+                           size=b).astype(np.int32)
+    runs = build_shared_runs(pt, lengths, pg)
+    assert runs['n_slots'] == n_slots - 1 and not runs['mask'][b - 1].any()
+
+    def t(x, dtype=torch.int32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+    return (q, pk, pv, t(runs['pages'][:n_slots]),
+            t(runs['mask'][:, :n_slots], torch.float32), t(runs['tail_pt']),
+            t(runs['start']), t(lengths), t(pt))
+
+
+@pytest.mark.parametrize('n_slots', [4, 8, 16, 32])
+def test_shared_run_splits_match_both_plain_versions(cuda, n_slots):
+    """K2 over runs of 4 and 8 slots (one CTA a kv-head) and of 16 and 32
+    (the slots split over CTAs, then the combine): its state equals the
+    serial plain version and the split one, a row masked at every slot
+    keeps m = -1e30, and K2 -> K3 equals the stock walk over the full
+    tables."""
+    q, pk, pv, pages, mask, tail_pt, start, lengths, pt = \
+        _shared_run_inputs(cuda, n_slots, n_slots)
+    sps, n_splits = pa.plan_shared_splits(8, n_slots, 16, sm_count('cuda'))
+    assert (n_splits > 1) == (n_slots * 16 > pa.SPLIT_TOKENS)
+    before = LAUNCHES['shared_run']
+    state = pa.shared_run(q, pk, pv, pages, mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES['shared_run'] == before + 1
+    assert (state[0][7] == -1e30).all()
+    for want in (shared_run_ref(q, pk, pv, pages, mask),
+                 shared_run_split_ref(q, pk, pv, pages, mask,
+                                      slots_per_split=sps)):
+        for got, w in zip(state, want):
+            torch.testing.assert_close(got, w, **STATE_TOL)
+    out = pa.shared_tail(q, pk, pv, tail_pt, start, lengths, state)
+    torch.testing.assert_close(out.float(), paged_decode_ref(
+        q, pk, pv, pt, lengths).float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize('b, g, n_slots', [(64, 2, 4), (100, 2, 16),
+                                            (64, 8, 8)])
+def test_shared_run_blocks_many_rows_over_ctas(cuda, b, g, n_slots):
+    """K2 past one CTA's 32 query rows (B x G up to 512, in row blocks),
+    at D = 128 and page 16: its state equals both plain versions, the last
+    row (sharing nothing) keeps m = -1e30, and two calls are bit-equal."""
+    rng = np.random.default_rng(b + n_slots)
+    hkv, d, pg = 2, 128, 16
+    q = _bf16(cuda, rng, b, hkv, g, d)
+    pk = _bf16(cuda, rng, 1 + n_slots, pg, hkv, d)
+    pv = _bf16(cuda, rng, 1 + n_slots, pg, hkv, d)
+    pages = torch.arange(1, 1 + n_slots, dtype=torch.int32, device=cuda)
+    mask = torch.tensor(rng.random((b, n_slots)) < 0.8, dtype=torch.float32,
+                        device=cuda)
+    mask[b - 1] = 0.0
+    sps = pa.plan_shared_splits(hkv, n_slots, pg, sm_count('cuda'))[0]
+    state = pa.shared_run(q, pk, pv, pages, mask)
+    assert (state[0][b - 1] == -1e30).all()
+    for want in (shared_run_ref(q, pk, pv, pages, mask),
+                 shared_run_split_ref(q, pk, pv, pages, mask,
+                                      slots_per_split=sps)):
+        for got, w in zip(state, want):
+            torch.testing.assert_close(got, w, **STATE_TOL)
+    for got, again in zip(state, pa.shared_run(q, pk, pv, pages, mask)):
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize('case', FLASH_CASES)
@@ -330,6 +424,63 @@ def test_unembed_sample_first_occurrence_across_tiles(cuda):
     assert fused_unembed_sample(last, head).tolist() == [40, 40]
 
 
+def _range_edges(vocab):
+    """Every persistent CTA's first and last vocab row, and V - 1."""
+    rows = sops.plan_vocab_ranges(vocab, sm_count('cuda'))
+    n_ctas = -(-vocab // rows)
+    return rows, sorted({c * rows for c in range(n_ctas)}
+                        | {min((c + 1) * rows, vocab) - 1
+                           for c in range(n_ctas)} | {vocab - 1})
+
+
+def _plant(head, last, idx, rows_of):
+    """Head rows ``idx`` set to ``last[rows_of]`` scaled to score ~64 for
+    their own batch row, against a field of N(0, 1) scores."""
+    lf = last[rows_of].float()
+    head[idx] = (lf * (64.0 / lf.pow(2).sum(-1, keepdim=True))).to(head.dtype)
+
+
+@pytest.mark.parametrize('b', SAMPLE_BATCHES)
+@pytest.mark.parametrize('temperature', [0.0, 0.8])
+def test_unembed_sample_planted_winners_at_range_edges(cuda, b, temperature):
+    """Each batch row's winner planted at a different CTA range edge (first
+    or last row of a CTA's range, or V - 1): the kernel and its plain
+    version both find it, at both temperatures, in one launch per 16
+    rows."""
+    d, v = 256, 20000
+    rng = np.random.default_rng(b)
+    last = _bf16(cuda, rng, b, d, scale=1.0)
+    head = _bf16(cuda, rng, v, d, scale=d ** -0.5)
+    _, edges = _range_edges(v)
+    idx = [edges[(j * len(edges)) // b] for j in range(b - 1)] + [v - 1]
+    _plant(head, last, torch.tensor(idx, device=cuda),
+           torch.arange(b, device=cuda))
+    before = LAUNCHES['unembed_sample']
+    got = fused_unembed_sample(last, head, 4, temperature=temperature)
+    torch.cuda.synchronize()
+    assert LAUNCHES['unembed_sample'] == before + -(-b // 16)
+    assert got.tolist() == idx
+    assert unembed_sample_ref(last, head, 4,
+                              temperature=temperature).tolist() == idx
+
+
+@pytest.mark.parametrize('b', SAMPLE_BATCHES)
+def test_unembed_sample_exact_ties_across_ctas_go_to_the_first(cuda, b):
+    """Row j's winner planted twice, the same bits at two indices in two
+    CTAs' ranges: the kernel returns the lower index."""
+    d, v = 256, 20000
+    rng = np.random.default_rng(100 + b)
+    last = _bf16(cuda, rng, b, d, scale=1.0)
+    head = _bf16(cuda, rng, v, d, scale=d ** -0.5)
+    rows, _ = _range_edges(v)
+    lo = [rows * (2 + 5 * (j % 20)) + (j * 13) % rows for j in range(b)]
+    hi = [rows * (4 + 5 * (j % 20)) + (j * 29) % rows for j in range(b)]
+    src = torch.arange(b, device=cuda)
+    _plant(head, last, torch.tensor(hi, device=cuda), src)
+    _plant(head, last, torch.tensor(lo, device=cuda), src)
+    assert fused_unembed_sample(last, head).tolist() == lo
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, pk, pv, pt, lengths = _paged_inputs(cuda, PAGED_CASES[1], 0)
     with pytest.raises(ValueError, match='dtype'):
@@ -346,6 +497,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_unembed_sample(last, head.T.contiguous().T)
     with pytest.raises(ValueError, match='dtype'):
         fused_unembed_sample(last.float(), head)
+    for d in (12, 4104):          # TMA rows of 16-byte multiples; `last` fits
+        odd = torch.zeros(2, d, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match='kernel takes'):
+            fused_unembed_sample(odd, torch.zeros(100, d, dtype=torch.bfloat16,
+                                                  device=cuda))
+    # K2: D / 8 must divide its 512 threads
+    pool = torch.zeros(2, 16, 1, 24, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='head dim'):
+        pa.shared_run(torch.zeros(1, 1, 1, 24, dtype=torch.bfloat16,
+                                  device=cuda), pool, pool,
+                      torch.ones(1, dtype=torch.int32, device=cuda),
+                      torch.ones(1, 1, device=cuda))
     q = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match='dtype'):
         flash_attention(q, q.float(), q)

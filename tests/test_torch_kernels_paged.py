@@ -1,6 +1,8 @@
 """Paged decode attention of the port (K1 page walk, K2/K3 prefix-shared
 two-phase read) against the JAX package's Pallas kernels (interpret mode)
 and its jnp oracles, and ``build_shared_runs`` against the reference's.
+The CUDA kernels' split algorithms (``paged_decode_split_ref``,
+``shared_run_split_ref``) and their planners are held here too.
 
 On the CPU the wrappers take the kernels' plain versions, which these
 tests hold to the reference; ``test_torch_cuda.py`` holds the CUDA kernels
@@ -20,10 +22,12 @@ from repro_torch.kernels.paged_attention import ops as tops
 from repro_torch.kernels.paged_attention import prefix as tprefix
 from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
                                                      paged_decode_split_ref,
-                                                     shared_run_ref)
+                                                     shared_run_ref,
+                                                     shared_run_split_ref)
 from repro_torch.models import common as tcm
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+H100_SMS = 132            # multiprocessors the plans fill on an H100 SXM
 
 # (B, Hq, Hkv, D, pg, maxp) of the reference's kernel tests, all run in f32
 CASES = [
@@ -422,7 +426,7 @@ def test_plan_splits_covers_every_live_page_once(shape):
     cover every live page exactly once, in order; a split never holds more
     than SPLIT_TOKENS tokens, and no split starts past the table."""
     b, hkv, maxp, pg = shape
-    pps, n_splits = tops.plan_splits(b, hkv, maxp, pg)
+    pps, n_splits = tops.plan_splits(b, hkv, maxp, pg, H100_SMS)
     assert pps * pg <= tops.SPLIT_TOKENS
     assert (n_splits - 1) * pps < maxp <= n_splits * pps
     for first in (0, maxp // 3):
@@ -439,6 +443,167 @@ def test_plan_splits_fills_the_card_at_the_decode_shape():
     """qwen3-0.6b decode at B=8 (Hkv=8, 32 pages of 16): at least two CTAs
     for each of the H100's 132 SMs, where one CTA per (kv-head, row) gave
     64."""
-    pps, n_splits = tops.plan_splits(8, 8, 32, 16)
+    pps, n_splits = tops.plan_splits(8, 8, 32, 16, H100_SMS)
     assert 8 * 8 * n_splits >= 2 * 132
-    assert tops.plan_splits(8, 8, 0, 16) == (1, 1)      # an empty table
+    assert tops.plan_splits(8, 8, 0, 16, H100_SMS) == (1, 1)      # an empty table
+
+
+# ---------------------------------------------------------------------------
+# the split shared run of the CUDA kernel (K2) and its planner
+# ---------------------------------------------------------------------------
+
+# the f32 partial softmax state: relative 1e-4 (chip_smoke.STATE_RTOL)
+STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _pallas_shared_run(q, pk, pv, pages, pos, mask):
+    """Phase 1 of the JAX prefix-shared kernel on its own: the reference's
+    ``_shared_run_kernel`` under the grid spec of
+    ``paged_attention_prefix_shared_bhgd``, in interpret mode, as the JAX
+    package's tests run it.  Returns its state (m, l, acc) as numpy."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from repro.kernels import common as jkc
+    from repro.kernels.paged_attention.kernel import _shared_run_kernel
+
+    b, hkv, g, d = q.shape
+    pg = pk.shape[1]
+    spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=2,
+        grid=(hkv, pages.shape[0]),
+        in_specs=[
+            pl.BlockSpec((b, 1, g, d), lambda ih, js, sp, spos: (0, ih, 0, 0)),
+            pl.BlockSpec((1, pg, 1, d),
+                         lambda ih, js, sp, spos: (sp[js], 0, ih, 0)),
+            pl.BlockSpec((1, pg, 1, d),
+                         lambda ih, js, sp, spos: (sp[js], 0, ih, 0)),
+            pl.BlockSpec((b, 1), lambda ih, js, sp, spos: (0, js)),
+        ],
+        out_specs=[
+            pl.BlockSpec((b, 1, g), lambda ih, js, sp, spos: (0, ih, 0)),
+            pl.BlockSpec((b, 1, g), lambda ih, js, sp, spos: (0, ih, 0)),
+            pl.BlockSpec((b, 1, g, d), lambda ih, js, sp, spos: (0, ih, 0, 0)),
+        ],
+        scratch_shapes=[pltpu.VMEM((b * g,), jnp.float32),
+                        pltpu.VMEM((b * g,), jnp.float32),
+                        pltpu.VMEM((b * g, d), jnp.float32)],
+    )
+    out = pl.pallas_call(
+        functools.partial(_shared_run_kernel, page_size=pg, scale=d ** -0.5),
+        grid_spec=spec,
+        out_shape=[jax.ShapeDtypeStruct((b, hkv, g), jnp.float32),
+                   jax.ShapeDtypeStruct((b, hkv, g), jnp.float32),
+                   jax.ShapeDtypeStruct((b, hkv, g, d), jnp.float32)],
+        compiler_params=jkc.compiler_params(
+            dimension_semantics=('parallel', 'arbitrary')),
+        interpret=True,
+    )(*_j(pages, pos, q, pk, pv, mask))
+    return [np.asarray(x) for x in out]
+
+
+def _shared_run_case(which):
+    """(q (B, Hkv, G, D), pools, pages, pos, mask) of a shared run.
+    'engine': build_shared_runs' 3-slot run padded to 4 slots by a
+    quarantine slot, row 4 sharing nothing (masked at every slot).
+    'random': 9 slots, the last a quarantine padding slot, random
+    participation; row 2 masked at every slot, row 3 joining at slot 3."""
+    if which == 'engine':
+        q, pk, pv, pt, lengths = _shared_setup(b=5, seed=12)
+        pt[4] = np.arange(40, 50)
+        runs = tprefix.build_shared_runs(pt, lengths, 4)
+        assert runs['n_slots'] == 3 and not runs['mask'][4].any()
+        return (q.reshape(5, 2, 2, 32), pk, pv, runs['pages'][:4],
+                runs['pos'][:4], runs['mask'][:, :4])
+    rng = np.random.default_rng(21)
+    b, hkv, g, d, pg, n_pages, s = 5, 2, 3, 32, 4, 40, 9
+    q = (rng.normal(size=(b, hkv, g, d)) * 0.5).astype(np.float32)
+    pk = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    pv = (rng.normal(size=(n_pages, pg, hkv, d)) * 0.5).astype(np.float32)
+    pages = np.append(rng.permutation(n_pages - 1)[:s - 1] + 1,
+                      tprefix.QUARANTINE_PAGE).astype(np.int32)
+    mask = (rng.random((b, s)) < 0.6).astype(np.float32)
+    mask[:, -1] = 0.0
+    mask[2] = 0.0
+    mask[3, :3], mask[3, 3:-1] = 0.0, 1.0
+    return q, pk, pv, pages, np.arange(s, dtype=np.int32), mask
+
+
+@pytest.mark.parametrize('sps', [1, 2, 3, 'all'])
+@pytest.mark.parametrize('which', ['engine', 'random'])
+def test_split_shared_run_matches_the_serial_run_and_pallas(which, sps):
+    """K2's algorithm -- each split's slots walked from the empty state,
+    the partial states merged in split order -- equals the serial run and
+    the JAX package's phase-1 kernel (interpret mode) to the state
+    tolerance, over padded quarantine slots, rows masked at every slot
+    (they keep m = NEG_INF and their garbage mass) and a row joining late.
+    With one split it is the serial run bit for bit."""
+    q, pk, pv, pages, pos, mask = _shared_run_case(which)
+    n_slots = pages.shape[0]
+    got = shared_run_split_ref(
+        *_t(q, pk, pv, pages, mask),
+        slots_per_split=n_slots if sps == 'all' else sps)
+    serial = shared_run_ref(*_t(q, pk, pv, pages, mask))
+    masked = ~mask.any(axis=1)
+    assert masked.any() and (got[0][masked] == tprefix.NEG_INF).all()
+    for a, b in zip(got, serial):
+        torch.testing.assert_close(a, b, **STATE_TOL)
+        if sps == 'all':
+            assert torch.equal(a, b)
+    want = _pallas_shared_run(q, pk, pv, pages, pos, mask)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, **STATE_TOL)
+    # K3 from the split state gives the stock walk's output
+    if which == 'engine':
+        qs, pks, pvs, pt, lengths = _shared_setup(b=5, seed=12)
+        pt[4] = np.arange(40, 50)
+        runs = tprefix.build_shared_runs(pt, lengths, 4)
+        out = tops.shared_tail(*_t(q, pk, pv, runs['tail_pt'],
+                                   runs['start'], lengths), got)
+        torch.testing.assert_close(out, paged_decode_ref(
+            *_t(q, pk, pv, pt, lengths)), **TOL)
+
+
+def test_split_shared_run_reads_out_of_range_pages_as_quarantine():
+    """A slot's page id outside [0, P) reads the quarantine page 0, as the
+    CUDA kernel does."""
+    q, pk, pv, pages, _, mask = _shared_run_case('random')
+    bad = pages.copy()
+    bad[1], bad[4] = pk.shape[0] + 2, -3
+    fixed = pages.copy()
+    fixed[1] = fixed[4] = 0
+    for sps in (2, pages.shape[0]):
+        got = shared_run_split_ref(*_t(q, pk, pv, bad, mask),
+                                   slots_per_split=sps)
+        for a, b in zip(got, shared_run_ref(*_t(q, pk, pv, fixed, mask))):
+            torch.testing.assert_close(a, b, **STATE_TOL)
+
+
+@pytest.mark.parametrize('shape', [
+    # (Hkv, slots, page size)
+    (8, 4, 16),          # phase 3's and the short drain's run
+    (8, 8, 16),          # 128 tokens: still one split
+    (8, 9, 16),
+    (8, 16, 16),         # the long drain's bucket
+    (8, 32, 16),
+    (1, 1, 16),
+    (2, 5, 4),
+    (8, 0, 16),          # no slot at all
+    (4, 200, 1),
+    (1, 3, 128),
+])
+def test_plan_shared_splits_covers_every_slot_once(shape):
+    """The splits' slot ranges cover every slot exactly once, in order; a
+    split never holds more than SPLIT_TOKENS tokens and none is empty; a
+    run of at most SPLIT_TOKENS tokens is one split."""
+    hkv, n_slots, pg = shape
+    sps, n_splits = tops.plan_shared_splits(hkv, n_slots, pg, H100_SMS)
+    assert sps * pg <= tops.SPLIT_TOKENS
+    assert (n_splits - 1) * sps < max(n_slots, 1) <= n_splits * sps
+    covered = [js for s in range(n_splits)
+               for js in range(s * sps, min((s + 1) * sps, n_slots))]
+    assert covered == list(range(n_slots))
+    assert (n_splits == 1) == (n_slots * pg <= tops.SPLIT_TOKENS)

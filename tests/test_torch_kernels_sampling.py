@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.sampling.kernel import unembed_sample_pallas
 from repro.kernels.sampling.ref import unembed_sample_ref as j_ref
+from repro_torch.kernels.sampling import ops as sops
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
 from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
                                               unembed_scores)
@@ -119,3 +120,19 @@ def test_scores_are_f32_from_the_operands():
     torch.testing.assert_close(s, last.float() @ head.float().T)
     np.testing.assert_array_equal(unembed_sample_ref(last, head).numpy(),
                                   s.argmax(-1).numpy())
+
+
+@pytest.mark.parametrize('sms', [114, 132])      # H100 PCIe, H100 SXM
+@pytest.mark.parametrize('vocab', [1, 63, 64, 65, 257, 8448, 8449, 92544,
+                                   151936])
+def test_plan_vocab_ranges_covers_every_row_once(vocab, sms):
+    """The CUDA kernel's persistent CTAs: whole 64-row tiles each, at most
+    one CTA a multiprocessor, none empty, every vocab row in exactly one
+    range, in order."""
+    rows = sops.plan_vocab_ranges(vocab, sms)
+    n_ctas = -(-vocab // rows)
+    assert rows % sops.TILE_ROWS == 0 and n_ctas <= sms
+    ranges = [range(c * rows, min((c + 1) * rows, vocab))
+              for c in range(n_ctas)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [v for r in ranges for v in r] == list(range(vocab))
