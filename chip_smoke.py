@@ -10,15 +10,18 @@ Phases, each fatal on failure:
 1. card identity (``nvidia-smi`` name and power limit);
 2. build the CUDA kernel library from the checkout's sources (nvcc, sm_90a),
    print ptxas' registers and spills and, per kernel, its count of wgmma
-   (HGMMA), TMA-load (UTMALDG) and cp.async (LDGSTS) instructions, and
-   require the first two in K5's bf16 kernel and K4's, the third in
-   K1/K3's walk and K2's run;
+   (HGMMA), TMA-load (UTMALDG), cp.async (LDGSTS) and mma.sync (HMMA)
+   instructions, and require the first two in K5's bf16 kernel and K4's,
+   the third in K1/K3's walk and K2's run, and HMMA, UTMALDG and LDGSTS in
+   K6's;
 3. every kernel against its plain PyTorch version at the main paths'
    shapes (qwen3-0.6b decode: B=8, Hq=16, Hkv=8, D=128, page 16, lengths
    1..512; the fused head at V=151936, D=1024; qwen3-0.6b prefill
    attention at B=2, S=4096; the rwkv6-3b WKV6 at B=4, T=2048, H=40,
-   K=V=64), with times, bounds and a library yardstick, and mutants of
-   each kernel that the checks must reject; edge cases of the split page
+   K=V=64, also at log-decays down to -12 with w = 1e-30 and w = 0 rows),
+   with times, bounds and a library yardstick, and mutants of each kernel
+   that the checks must reject (for K6 also one that rounds every product
+   to TF32 once); edge cases of the split page
    walk and of K5's tiles, two calls of each redesigned kernel bit-equal,
    K1 at a 4096-token context and K5 at S=2048 timed on lines of their
    own, K1's short tables timed as one split and as a split a page, and
@@ -103,18 +106,20 @@ PREFILL_B, PREFILL_S = 2, 2048
 RWKV_B, RWKV_T = 4, 2048
 DECODE_KERNELS = ('paged_decode', 'shared_run', 'shared_tail',
                   'unembed_sample')
-SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS')
+SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA')
 # what the redesigned kernels claim to use: wgmma and TMA in K5's bf16
-# kernel and K4's, cp.async in K1/K3's split walk and K2's run
+# kernel and K4's, cp.async in K1/K3's split walk and K2's run, mma.sync,
+# TMA and cp.async in K6's tiles
 SASS_NEEDS = {'flash_sm90_kernel': ('HGMMA', 'UTMALDG'),
               'unembed_wgmma_kernel': ('HGMMA', 'UTMALDG'),
               'paged_split_kernel': ('LDGSTS',),
-              'shared_run_kernel': ('LDGSTS',)}
+              'shared_run_kernel': ('LDGSTS',),
+              'wkv6_tile_kernel': ('HMMA', 'UTMALDG', 'LDGSTS')}
 # the port's device kernels, by function name (device_profile lists each)
 PORT_KERNELS = ('paged_split_kernel', 'paged_combine_kernel',
                 'shared_run_kernel', 'unembed_wgmma_kernel',
                 'argmax_reduce_kernel', 'flash_sm90_kernel',
-                'flash_attention_kernel', 'wkv6_kernel')
+                'flash_attention_kernel', 'wkv6_tile_kernel')
 DEV = 'cuda'
 
 
@@ -127,8 +132,8 @@ def card_identity() -> str:
 
 def sass_counts(lib: Path) -> dict:
     """For each kernel entry of the built library, how many of its SASS
-    instructions are wgmma (HGMMA), TMA loads (UTMALDG) and cp.async
-    (LDGSTS), from ``cuobjdump -sass``."""
+    instructions are wgmma (HGMMA), TMA loads (UTMALDG), cp.async (LDGSTS)
+    and mma.sync (HMMA), from ``cuobjdump -sass``."""
     from torch.utils.cpp_extension import CUDA_HOME
     text = subprocess.run([str(Path(CUDA_HOME) / 'bin' / 'cuobjdump'),
                            '-sass', str(lib)], capture_output=True,
@@ -954,30 +959,47 @@ def flash_check(card: str, timer: Timer):
 
 def wkv6_check(timer: Timer):
     """K6 at rwkv6-3b's widths: timed at B=4, T=2048, H=40, K=V=64, f32,
-    chunk 64, against the sequential and the chunked plain versions;
+    against the sequential recurrence and the kernel's tiled plain model;
     checked also at T=1000 in f32 and with bf16 inputs, and at log-decays
-    down to -12 with chunk 8; two mutants must fail."""
+    down to -12 with chunk 8 and with chunk 64 and rows of w = 1e-30 and
+    w = 0 (any chunk gives the kernel's own tile); three mutants must
+    fail.  Prints ptxas' registers and spills of the f32, K=64 kernel."""
+    from repro_torch.kernels import common as kc
     from repro_torch.kernels.rwkv6.ops import wkv6
-    from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref, wkv6_tiled_ref
+
+    log = (kc.library_path().parent / 'build.log').read_text().splitlines()
+    for i, ln in enumerate(log):
+        if 'Compiling entry function' in ln and 'wkv6_tile_kernelIfLi64' in ln:
+            print('  ptxas wkv6_tile_kernel<float, 64>: ' + '; '.join(
+                x.strip() for x in log[i + 1:i + 5]
+                if 'registers' in x or 'spill' in x))
+            break
 
     gen = torch.Generator(device=DEV).manual_seed(6)
 
-    def inputs(t, decay_lo=-2.5):
+    def inputs(t, decay_lo=-2.5, dead_rows=False):
         def randn(*shape, scale):
             return torch.randn(shape, generator=gen, device=DEV) * scale
         shape = (WKV_B, t, WKV_H, WKV_K)
         logw = decay_lo + (-0.005 - decay_lo) * torch.rand(
             shape, generator=gen, device=DEV)
+        w = torch.exp(logw)
+        if dead_rows:       # sub-blocks past any cumulative-decay envelope
+            w[0, t // 10:t // 10 + 4] = 1e-30
+            w[1, t // 2:t // 2 + 3] = 0.0
+            w[2:, 3 * t // 4, :5] = 0.0
         return [randn(*shape, scale=0.5), randn(*shape, scale=0.5),
-                randn(*shape, scale=0.5), torch.exp(logw),
+                randn(*shape, scale=0.5), w,
                 randn(WKV_H, WKV_K, scale=0.3),
                 randn(WKV_B, WKV_H, WKV_K, WKV_K, scale=0.1)]
 
     def check(xs, chunk, tol, what):
         y, s = wkv6(*xs, chunk=chunk)
+        assert torch.isfinite(y).all() and torch.isfinite(s).all(), what
         f32 = [x.float() for x in xs]
         errs = []
-        for want in (wkv6_ref(*f32), wkv6_chunked(*f32, chunk=chunk)):
+        for want in (wkv6_ref(*f32), wkv6_tiled_ref(*f32)):
             assert wkv_close(y, want[0], tol) and wkv_close(s, want[1], tol), \
                 f'wkv6 {what}: {max_err(y, want[0])}, {max_err(s, want[1])}'
             errs += [max_err(y, want[0]), max_err(s, want[1])]
@@ -990,6 +1012,9 @@ def wkv6_check(timer: Timer):
           WKV_TOL_BF16, f'T={WKV_T_CHECK} bf16')
     check(inputs(WKV_T_CHECK, decay_lo=-12.0), 8, WKV_TOL_DECAY,
           f'T={WKV_T_CHECK} log-decays to -12, chunk 8')
+    check(inputs(WKV_T_CHECK, decay_lo=-12.0, dead_rows=True), WKV_CHUNK,
+          WKV_TOL_DECAY, f'T={WKV_T_CHECK} log-decays to -12, w = 1e-30 and '
+          f'0 rows, chunk {WKV_CHUNK}')
 
     xs = inputs(WKV_T)
     y, err = check(xs, WKV_CHUNK, WKV_TOL, f'T={WKV_T} f32')
@@ -1002,6 +1027,8 @@ def wkv6_check(timer: Timer):
         'K6 without the u bonus': (y, wkv6_ref(r, k, v, w,
                                                torch.zeros_like(u), s0)[0]),
         'K6 without the carried state': (y, no_carry),
+        'K6 with single-pass TF32 products': (
+            y, wkv6_tiled_ref(*xs, tf32=True)[0]),
     }, lambda got, bad: wkv_close(got, bad, WKV_TOL))
     n_bytes = 4 * (4 * r.numel() + u.numel() + 2 * s0.numel() + y.numel())
     return dict(
@@ -1009,7 +1036,7 @@ def wkv6_check(timer: Timer):
         bound=bound(n_bytes, 4 * WKV_K * WKV_K * WKV_B * WKV_T * WKV_H,
                     F32_FLOPS_PER_S),
         ms=timer(lambda: wkv6(*xs, chunk=WKV_CHUNK)),
-        plain_ms=timer(lambda: wkv6_chunked(*xs, chunk=WKV_CHUNK)),
+        plain_ms=timer(lambda: wkv6_tiled_ref(*xs)),
         library_ms=None)
 
 

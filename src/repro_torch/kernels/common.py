@@ -132,8 +132,8 @@ def gumbel_hash_noise(seed, rows, cols):
     seed = torch.as_tensor(seed, device=rows.device).to(torch.int64) & _M32
     h = hash_u32(seed ^ _mul_u32(rows.to(torch.int64) & _M32, 0x9E3779B9))
     bits = hash_u32(h ^ (torch.as_tensor(cols).to(torch.int64) & _M32))
-    # top 24 bits → uniform on the open interval (0, 1): exact in f32,
-    # never 0 or 1, so the double log below stays finite
+    # top 24 bits → uniform on (0, 1], as in the reference: from 0.5 up the
+    # sum rounds in f32, and all 24 bits set give u = 1.0 and noise +inf
     u = (bits >> 8).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
     return -torch.log(-torch.log(u))
 

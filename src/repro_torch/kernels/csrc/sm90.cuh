@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use TMA and
-// wgmma (flash_attention_sm90.cu, sampling.cu): mbarriers, the wgmma fence /
+// wgmma (flash_attention_sm90.cu, sampling.cu, wkv6.cu): mbarriers, the wgmma fence /
 // commit / wait, shared-memory operand descriptors, and the host side's
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 // so the library needs no -lcuda.

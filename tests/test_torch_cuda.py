@@ -14,8 +14,8 @@ tokens equal unless the two best f32 scores lie within 1e-5 of |max| (the
 kernel sums the dot products on the tensor cores, in another order than its
 plain version), and exactly equal where a winner is planted or tied;
 flash attention, the bf16 rule above and 2e-5 in f32; WKV6, 1e-4 in f32
-(1e-3 at log-decays down to -12), 3e-2 for bf16 inputs, as in the
-reference's kernel tests.
+(1e-3 at log-decays down to -12 and w = 0), 3e-2 for bf16 inputs, as in
+the reference's kernel tests.
 """
 import numpy as np
 import pytest
@@ -30,7 +30,8 @@ from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
                                                      shared_run_ref,
                                                      shared_run_split_ref)
 from repro_torch.kernels.rwkv6.ops import wkv6
-from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref
+from repro_torch.kernels.rwkv6.ref import (wkv6_chunked, wkv6_ref,
+                                           wkv6_tiled_ref)
 from repro_torch.kernels.sampling import ops as sops
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
 from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
@@ -76,13 +77,18 @@ FLASH_CASES = [
     (2, 1, 1, 8, 8, 64, True, torch.bfloat16),          # one token
 ]
 WKV_CASES = [
-    # (B, T, H, K, chunk, dtype)
+    # (B, T, H, K, chunk, dtype[, V, lowest log-decay]); V = K and log-decays
+    # down to -2.5 unless given
     (2, 64, 2, 16, 16, torch.float32),
     (1, 128, 4, 32, 32, torch.float32),
     (2, 100, 2, 16, 32, torch.float32),
     (1, 64, 2, 64, 16, torch.bfloat16),
     (3, 48, 1, 16, 64, torch.float32),
     (2, 1000, 40, 64, 64, torch.float32),             # rwkv6-3b heads
+    (2, 1, 3, 64, 64, torch.float32),                 # one token
+    (2, 77, 3, 64, 64, torch.float32, 40),            # V off the value block
+    (1, 45, 2, 32, 16, torch.bfloat16, 100),          # two value blocks, bf16
+    (2, 200, 4, 64, 64, torch.float32, 64, -12.0),    # see _wkv_inputs
 ]
 SAMPLE_CASES = [
     # (B, D, V): ragged vocab tiles, two launches' worth of rows, and the
@@ -360,27 +366,44 @@ def test_flash_attention_matches_plain(cuda, case):
 
 
 def _wkv_inputs(dev, case, seed, decay_lo=-2.5):
-    b, t, h, dk, _, dtype = case
+    """Inputs of a WKV_CASES entry.  A case whose log-decays reach -12 also
+    gets rows of w = 1e-30 and w = 0 (sub-blocks past any f32 envelope of a
+    cumulative-decay factorisation)."""
+    b, t, h, dk, _, dtype = case[:6]
+    dv = case[6] if len(case) > 6 else dk
+    decay_lo = case[7] if len(case) > 7 else decay_lo
     rng = np.random.default_rng(seed)
-    xs = [rng.normal(size=(b, t, h, dk)) * 0.5 for _ in range(3)]
-    xs.append(np.exp(rng.uniform(decay_lo, -0.005, size=(b, t, h, dk))))
+    xs = [rng.normal(size=(b, t, h, dk)) * 0.5 for _ in range(2)]
+    xs.append(rng.normal(size=(b, t, h, dv)) * 0.5)
+    w = np.exp(rng.uniform(decay_lo, -0.005, size=(b, t, h, dk)))
+    if len(case) > 7:
+        w[0, 3:7] = 1e-30
+        w[-1, t // 2:t // 2 + 3] = 0.0
+    xs.append(w)
     xs.append(rng.normal(size=(h, dk)) * 0.3)
-    s0 = rng.normal(size=(b, h, dk, dk)) * 0.1
+    s0 = rng.normal(size=(b, h, dk, dv)) * 0.1
     return ([torch.tensor(x, dtype=dtype, device=dev) for x in xs]
             + [torch.tensor(s0, dtype=torch.float32, device=dev)])
 
 
 @pytest.mark.parametrize('case', WKV_CASES)
 def test_wkv6_matches_plain(cuda, case):
+    """Against the recurrence and the kernel's tiled plain model; against
+    the chunked form too, where its decays stay inside its envelope."""
     xs = _wkv_inputs(cuda, case, sum(case[:5]))
     before = LAUNCHES['wkv6']
     y, s = wkv6(*xs, chunk=case[4])
     torch.cuda.synchronize()
     assert LAUNCHES['wkv6'] == before + 1
     assert y.dtype == case[5] and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
     f32 = [x.float() for x in xs]
-    tol = 3e-2 if case[5] == torch.bfloat16 else 1e-4
-    for want in (wkv6_ref(*f32), wkv6_chunked(*f32, chunk=case[4])):
+    decaying = len(case) > 7
+    tol = 3e-2 if case[5] == torch.bfloat16 else 1e-3 if decaying else 1e-4
+    wants = [wkv6_ref(*f32), wkv6_tiled_ref(*f32)]
+    if not decaying:
+        wants.append(wkv6_chunked(*f32, chunk=case[4]))
+    for want in wants:
         torch.testing.assert_close(y.float(), want[0], rtol=tol, atol=tol)
         torch.testing.assert_close(s, want[1], rtol=tol, atol=tol)
 

@@ -1,9 +1,9 @@
-"""The port's WKV6 (K6 on CPU tensors -- its plain sequential recurrence --
-and the plain chunked form) against the JAX package's Pallas kernel in
-interpret mode and its oracles, on the reference's own cases
-(``tests/test_kernels_rwkv6.py``), at that file's tolerances: 1e-4 in f32
-(other summation order), 3e-2 for bf16 inputs, 1e-3 for the pathological
-decay, 1e-5 for the streaming composition.
+"""The port's WKV6 (K6 on CPU tensors -- the kernel's tiled plain model
+``wkv6_tiled_ref`` -- and the plain chunked form) against the JAX package's
+Pallas kernel in interpret mode and its oracles, on the reference's own
+cases (``tests/test_kernels_rwkv6.py``), at that file's tolerances: 1e-4
+in f32 (other summation order), 3e-2 for bf16 inputs, 1e-3 for the
+pathological decay, 1e-5 for the streaming composition.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +15,8 @@ from repro.kernels.rwkv6.ref import wkv6_chunked as j_chunked
 from repro.kernels.rwkv6.ref import wkv6_ref as j_ref
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.rwkv6.ops import wkv6
-from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_ref, wkv6_step
+from repro_torch.kernels.rwkv6.ref import (tf32_round, wkv6_chunked, wkv6_ref,
+                                           wkv6_step, wkv6_tiled_ref)
 
 CASES = [
     # (B, T, H, K, chunk, dtype)
@@ -122,3 +123,95 @@ def test_cpu_tensors_take_the_plain_version_and_grad_is_refused():
         wkv6(tx[0].requires_grad_(), *tx[1:])
     with pytest.raises(ValueError, match='chunk'):
         wkv6(tx[0].detach(), *tx[1:], chunk=0)
+
+
+TILED_CASES = [
+    # (B, T, H, K, tile)
+    (2, 100, 2, 16, 32),      # ragged T
+    (1, 7, 3, 32, 32),        # T below one tile
+    (2, 64, 2, 64, 32),
+    (1, 45, 2, 64, 64),       # a 64-token tile, ragged
+]
+
+
+@pytest.mark.parametrize('case', TILED_CASES)
+def test_tiled_plain_model_matches_the_reference_kernel_and_oracle(case):
+    """The kernel's algorithm (running products a 16-token sub-block, the
+    diagonal blocks normalised per channel) against the JAX Pallas kernel
+    in interpret mode and the JAX sequential recurrence, with a non-zero
+    state, at 1e-4."""
+    b, t, h, dk, tile = case
+    jx, tx = _setup((b, t, h, dk, 16, 'float32'), sum(case))
+    y, s = wkv6_tiled_ref(*tx, tile=tile)
+    assert torch.count_nonzero(tx[5]) > 0
+    jy, js = j_wkv6(*jx, chunk=16, interpret=True)
+    ry, rs = j_ref(*jx)
+    for want_y, want_s in ((jy, js), (ry, rs)):
+        _close(y, want_y, 1e-4)
+        _close(s, want_s, 1e-4)
+
+
+def test_tiled_plain_model_streams_the_state():
+    """T tokens at once == a split off the tile boundary with the state
+    carried: the second call starts its own tiles there."""
+    _, (r, k, v, w, u, s0) = _setup((1, 70, 2, 32, 16, 'float32'), 12)
+    y_full, s_full = wkv6_tiled_ref(r, k, v, w, u, s0)
+    cut = 37
+    y1, s1 = wkv6_tiled_ref(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut],
+                            u, s0)
+    y2, s2 = wkv6_tiled_ref(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:],
+                            u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(s2, s_full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('tile', [32, 64])
+def test_tiled_plain_model_has_no_decay_envelope(tile):
+    """Log-decays down to -12 a token, and rows of w = 1e-30 and w = 0:
+    the tiled model stays finite and within 1e-3 of the recurrence, where
+    the midpoint-normalised chunked form at chunk 64 overflows."""
+    jx, (r, k, v, w, u, s0) = _setup((2, 96, 2, 64, 64, 'float32'), 4,
+                                     decay_lo=-12.0)
+    w = w.clone()
+    w[0, 10:14] = 1e-30
+    w[1, 40:43] = 0.0
+    w[:, 70, 0] = 0.0
+    f32 = [jnp.asarray(x.numpy()) for x in (r, k, v, w, u, s0)]
+    ry, rs = j_ref(*f32)
+    y, s = wkv6_tiled_ref(r, k, v, w, u, s0, tile=tile)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    _close(y, ry, 1e-3)
+    _close(s, rs, 1e-3)
+    # through the wrapper on CPU tensors (any chunk: the tile is its own)
+    wy, ws = wkv6(r, k, v, w, u, s0, chunk=64)
+    _close(wy, ry, 1e-3)
+    _close(ws, rs, 1e-3)
+    cy, _ = wkv6_chunked(r, k, v, w, u, s0, chunk=64)
+    off = not torch.isfinite(cy).all() or not np.allclose(
+        cy.numpy(), np.asarray(ry), rtol=1e-3, atol=1e-3)
+    assert off, 'the chunked form at chunk 64 was expected to overflow here'
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to 10 mantissa bits, to nearest, ties away from zero."""
+    x = torch.tensor([1 + 2 ** -12, 1 + 2 ** -11, 1 + 3 * 2 ** -12,
+                      -(1 + 2 ** -11), 3.0, 0.0])
+    want = torch.tensor([1.0, 1 + 2 ** -10, 1 + 2 ** -10, -(1 + 2 ** -10),
+                         3.0, 0.0])
+    assert torch.equal(tf32_round(x), want)
+
+
+def test_single_pass_tf32_fails_the_f32_rule():
+    """The f32 rule (1e-4 (1 + |want|)) rejects the tiled model with every
+    product's operands rounded once to TF32 -- the single-pass tensor-core
+    mutant the chip check holds the kernel against -- and passes it in
+    f32."""
+    _, tx = _setup((2, 256, 2, 64, 64, 'float32'), 8)
+    want_y, _ = wkv6_ref(*tx)
+
+    def worst(got):
+        return ((got - want_y).abs() / (1 + want_y.abs())).max().item()
+
+    assert worst(wkv6_tiled_ref(*tx)[0]) <= 1e-4
+    assert worst(wkv6_tiled_ref(*tx, tf32=True)[0]) > 1e-4
