@@ -50,10 +50,31 @@ Phases, each fatal on failure:
 7. the full-width rwkv6-3b forward (``Model.loss_fn``, B=4, T=2048)
    through the WKV6 kernel against the plain path, gated in f32 and, in
    bf16, against the plain path's own chunk-32 / chunk-64 spread;
-8. phase 4's drain again with tables and shared runs long enough that K1,
-   K3 and K2 split over CTAs, gated the same way (last, so that a failure
-   there leaves every other phase's numbers printed);
-9. one JSON line of per-kernel results, then the result line.
+8. full-width rwkv6-3b inference (``Model.prefill_fn`` over B=4, T=2048
+   through the WKV6 kernel, the state carried out of it, then 16 greedy
+   ``decode_fn`` steps) against the plain path: f32 scores and every
+   layer's wkv state within 1e-4, greedy tokens equal; bf16 prefill argmax
+   equal or a near tie, the decode steps' spread recorded; K6 named by the
+   profiler;
+9. the serving front-end ``serve_http`` builds, over phase 5's node:
+   ``AsyncNodeDriver`` + ``FrontendApp`` on a RealClock, a ``loadgen``
+   trace (16 online streams and a 12-prompt batch job) through the
+   in-process ASGI client, and two streams over a real loopback socket, one
+   hung up mid-stream: every completed stream ends with [DONE] and carries
+   its request's engine tokens, which equal a plain drain of a second node;
+   the hung-up stream's lease is released and the pool's pages come back;
+   TTFT, requests/s and token flushes a step printed;
+10. ``python -m repro_torch.launch.serve --http --port 0`` as a child
+    process on the card: one streamed completion over the socket, then
+    SIGINT and exit code 0;
+11. the disaggregated prefill/decode plane: two full-width nodes on the
+    card, 8 online requests and offline work on both sides, against one
+    colocated node: tokens bit for bit, zero handoff recompute, the copied
+    KV rows bit-equal to their source, both runtimes' invariants;
+12. phase 4's drain again with tables and shared runs long enough that K1,
+    K3 and K2 split over CTAs, gated the same way (last, so that a failure
+    there leaves every other phase's numbers printed);
+13. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill and one bf16
@@ -62,6 +83,7 @@ rwkv6 forward once more each (device time by kernel, busy share).
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import functools
 import json
@@ -104,6 +126,10 @@ WKV_T_CHECK = 1000                 # the untimed WKV6 checks' length
 LONG_MAXP = 256                    # K1 at a 4096-token context
 PREFILL_B, PREFILL_S = 2, 2048
 RWKV_B, RWKV_T = 4, 2048
+RWKV_DECODE = 16                   # greedy decode steps after the prefill
+FRONT_STREAMS, FRONT_BATCH = 16, 12  # loadgen streams, batch-job prompts
+DISAGG_REQS, DISAGG_PROMPT, DISAGG_NEW = 8, 64, 24
+SERVE_TIMEOUT_S = 300              # bounds a serving phase that stalls
 DECODE_KERNELS = ('paged_decode', 'shared_run', 'shared_tail',
                   'unembed_sample')
 SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA')
@@ -121,6 +147,7 @@ PORT_KERNELS = ('paged_split_kernel', 'paged_combine_kernel',
                 'argmax_reduce_kernel', 'flash_sm90_kernel',
                 'flash_attention_kernel', 'wkv6_tile_kernel')
 DEV = 'cuda'
+PROFILE_MARGIN_S = 0.05           # host sleep at each end of a profiled window
 
 
 def card_identity() -> str:
@@ -803,14 +830,28 @@ def long_context_check(card: str, timer: Timer) -> None:
           f'{t_bound:.4f} ({by})  [{card}]')
 
 
-def launched(fn) -> dict:
-    """The device kernels one call of ``fn`` launches: name -> count."""
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``, after the device is idle, with
+    PROFILE_MARGIN_S of host sleep inside the window before ``fn`` and
+    after its sync, host activity traced too.  Without them the profiler
+    drops the first kernels of a window now and then, at times a layer's
+    attention kernel among them, which an exact launch count then misses
+    (``scripts/profiler_probe.py`` counts each setting)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        time.sleep(PROFILE_MARGIN_S)
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def launched(fn) -> dict:
+    """The device kernels one call of ``fn`` launches: name -> count."""
+    return {e.key: e.count for e in profiled(fn)}
 
 
 def p_once_kernel():
@@ -1348,9 +1389,11 @@ def engine_check(card: str, long: bool = False):
 # Phase 5: the full-width node
 # ---------------------------------------------------------------------------
 
-def full_width_node():
+def full_width_node(pool=None, clock=None, disaggregated: bool = False):
     """``serve.build_node``'s node (pool geometry, engine settings, seeds)
-    at the published widths, page 16, fused sampling on every engine."""
+    at the published widths, page 16, fused sampling on every engine.  The
+    disaggregated plane's halves pass their own ``pool``, one shared
+    ``clock`` and ``disaggregated=True``."""
     from repro_torch.configs import get_config
     from repro_torch.core.clock import RealClock
     from repro_torch.core.runtime import RuntimeConfig, ValveRuntime
@@ -1358,11 +1401,13 @@ def full_width_node():
     from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.kvpool import KVPool
 
-    pool = KVPool(n_handles=24, pages_per_handle=8, page_size=PG,
-                  reserved_handles=2)
+    if pool is None:
+        pool = KVPool(n_handles=24, pages_per_handle=8, page_size=PG,
+                      reserved_handles=2)
     rt = ValveRuntime(pool, RuntimeConfig(n_devices=1, t_cool_init=0.002),
-                      clock=RealClock())
-    node = NodeOrchestrator(rt, idle_advance=1e-3)
+                      clock=clock or RealClock())
+    node = NodeOrchestrator(rt, idle_advance=1e-3,
+                            disaggregated=disaggregated)
     for arch, klass, seed, name in (
             ('qwen3-0.6b', 'online', 0, 'online:qwen3-0.6b'),
             ('qwen3-0.6b', 'offline', 0, 'offline0:qwen3-0.6b'),
@@ -1401,23 +1446,17 @@ def node_check(card: str):
 
 
 def device_profile(what: str, run, card: str, wall=None) -> None:
-    """``--trace``: ``run()`` once more under ``torch.profiler``, device
-    activity only: device time by kernel (the top 12, then the port's own
+    """``--trace``: ``run()`` once more under ``torch.profiler``
+    (``profiled``): device time by kernel (the top 12, then the port's own
     kernels below them), and the device's busy share of
     the untraced wall time (the profiler slows the host, not the
     kernels).  Without ``wall``, an untraced run first gives it."""
-    from torch.profiler import ProfilerActivity, profile
-
     if wall is None:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = profiled(run)
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f'  {what}: device busy {busy:.3f} s of {wall:.3f} s untraced '
@@ -1594,6 +1633,538 @@ def rwkv6_check(card: str, trace: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: rwkv6 inference (prefill through K6, then decode)
+# ---------------------------------------------------------------------------
+
+def rwkv6_inference_check(card: str):
+    """Full-width rwkv6-3b inference: ``Model.prefill_fn`` over a
+    RWKV_T-token prompt with the WKV6 kernel (the state carried out of
+    it), then RWKV_DECODE greedy ``decode_fn`` steps from that state,
+    against the same through the plain path on the same weights and
+    prompt.  f32: layer 0's wkv state within 1e-4 of |max| (K6's own
+    error: both paths read the same input there), the last-token scores and
+    every deeper layer's state within the larger of 1e-4 and twice the
+    plain path's own chunk-32 / chunk-64 gap (the model carries a layer's
+    difference on, ~300x by the last layer), all greedy tokens equal.  bf16
+    (the main path; its launches are counted): phase 7's bf16 rule on the
+    last-token scores -- each row's |kernel - plain| within the larger of
+    1e-3 of |max| and twice the plain path's own chunk-32 / chunk-64 gap
+    (the null) -- with the argmax
+    agreement of both printed, and the spread of the decode steps
+    recorded, both paths fed the kernel path's tokens.  (Phase 6's rule,
+    argmax equal or a near tie, fails the plain path against its own
+    chunk-64 run here: full-width rwkv6 in bf16 from random weights moves
+    the last-token scores by ~0.3 of |max| under any change of summation
+    order.)  The profiler names K6 in a kernel-path prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config('rwkv6-3b'))
+    cfg = model.cfg
+    rng = np.random.default_rng(17)
+    batch = {'tokens': torch.tensor(rng.integers(
+        0, cfg.vocab_size, (RWKV_B, RWKV_T)), device=DEV)}
+
+    def empty_cache(dtype):
+        cache = model.init_cache(batch_size=RWKV_B, device=DEV)
+        return {k: v if k == 'wkv' else v.to(dtype) for k, v in cache.items()}
+
+    def run(params, dtype, use_kernel, feed=None):
+        """Prefill, then RWKV_DECODE steps fed their own argmax (or
+        ``feed``'s tokens).  -> scores, wkv state after the prefill,
+        tokens fed, each step's scores, prefill s, decode s a step."""
+        cache = empty_cache(dtype)
+        t0 = time.perf_counter()
+        cache, scores = model.prefill_fn(params, cache, batch,
+                                         use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prefill, wkv = scores, cache['wkv'].clone()
+        toks, steps = [], []
+        for i in range(RWKV_DECODE):
+            tok = scores.argmax(-1) if feed is None else feed[i]
+            toks.append(tok)
+            cache, scores = model.decode_fn(params, cache, {'tokens': tok})
+            steps.append(scores)
+        torch.cuda.synchronize()
+        return (prefill, wkv, torch.stack(toks), steps, t1 - t0,
+                (time.perf_counter() - t1) / RWKV_DECODE)
+
+    def null_prefill(params, dtype):
+        """The plain path at chunk 64: (scores, wkv state after)."""
+        with plain_wkv_chunk(64):
+            cache, scores = model.prefill_fn(params, empty_cache(dtype),
+                                             batch)
+        return scores, cache['wkv']
+
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    with torch.no_grad():
+        params = model.init_params(0, device=DEV)            # bf16
+        model.prefill_fn(params, empty_cache(torch.bfloat16), batch,
+                         use_kernel=True)                    # warm-up
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        kern = run(params, torch.bfloat16, True)
+        launches = dict(LAUNCHES)
+        plain = run(params, torch.bfloat16, False, feed=kern[2])
+        names = launched(lambda: model.prefill_fn(
+            params, empty_cache(torch.bfloat16), batch, use_kernel=True))
+        wkv = {n: c for n, c in names.items() if 'wkv' in n}
+        assert sum(c for n, c in wkv.items() if 'wkv6_tile_kernel' in n) \
+            == sum(wkv.values()) == cfg.n_layers, f'rwkv6 prefill: {wkv}'
+        print(f'  bf16 prefill: {cfg.n_layers} launches of wkv6_tile_kernel '
+              f'(profiler); decode takes the single-token step, no kernel')
+        null = null_prefill(params, torch.bfloat16)[0]
+        rows = list(zip(kern[0].argmax(-1).tolist(),
+                        plain[0].argmax(-1).tolist(),
+                        null.argmax(-1).tolist()))
+        gaps = []
+        for r, (a, b, n) in enumerate(rows):
+            top = plain[0][r].abs().max()
+            gaps.append((((kern[0][r] - plain[0][r]).abs().max() / top)
+                         .item(),
+                         ((null[r] - plain[0][r]).abs().max() / top).item()))
+            print(f'  bf16 prefill row {r}: |kernel - plain| max '
+                  f'{gaps[-1][0]:.3e} of |max|, null (|chunk 64 - plain|) '
+                  f'{gaps[-1][1]:.3e}; argmax kernel {a}, plain {b}, null '
+                  f'{n}: kernel {"equal or a near tie" if a == b or near_tie(plain[0][r], a, b) else "off"}, '
+                  f'null {"equal or a near tie" if n == b or near_tie(plain[0][r], n, b) else "off"}')
+        for r, (gap, null_gap) in enumerate(gaps):
+            assert gap <= max(PREFILL_TOL, 2 * null_gap), \
+                f'bf16 rwkv6 prefill row {r}: |kernel - plain| {gap:.3e} ' \
+                f'past twice the null\'s {null_gap:.3e}'
+        spread = [((k - p).abs().max() / p.abs().max()).item()
+                  for k, p in zip([kern[0]] + kern[3],
+                                  [plain[0]] + plain[3])]
+        agree = sum(int((k.argmax(-1) == p.argmax(-1)).all())
+                    for k, p in zip(kern[3], plain[3]))
+        print(f'  rwkv6 {cfg.n_layers} layers bf16, B={RWKV_B}, '
+              f'T={RWKV_T}: every row within twice the null; |kernel - '
+              f'plain| of |max|: prefill {spread[0]:.3e}, '
+              f'decode steps median {statistics.median(spread[1:]):.3e} '
+              f'max {max(spread[1:]):.3e}; argmax equal in every row at '
+              f'{agree}/{RWKV_DECODE} steps (both fed the kernel path\'s '
+              f'tokens); kernel path prefill {kern[4] * 1e3:.1f} ms, decode '
+              f'{kern[5] * 1e3:.2f} ms a step; plain path prefill '
+              f'{plain[4] * 1e3:.1f} ms, decode {plain[5] * 1e3:.2f} ms a '
+              f'step (host clock, synchronized)  [{card}]')
+        params = params.to(torch.float32)
+        del kern, plain
+        kern = run(params, torch.float32, True)
+        plain = run(params, torch.float32, False)
+        null = null_prefill(params, torch.float32)
+        scores = (rel(kern[0], plain[0]), rel(null[0], plain[0]))
+        states = [(rel(kw, pw), rel(nw, pw))
+                  for kw, pw, nw in zip(kern[1], plain[1], null[1])]
+        same = torch.equal(kern[2], plain[2])
+        worst = max(range(cfg.n_layers), key=lambda i: states[i][0])
+        print(f'  rwkv6 {cfg.n_layers} layers f32, |kernel - plain| of '
+              f'|max| (null: |chunk 64 - plain|): layer 0 wkv state '
+              f'{states[0][0]:.3e} ({states[0][1]:.3e}), worst layer '
+              f'{worst} {states[worst][0]:.3e} ({states[worst][1]:.3e}), '
+              f'last-token scores {scores[0]:.3e} ({scores[1]:.3e}); '
+              f'{RWKV_DECODE} greedy tokens a row equal: {same}  [{card}]')
+        # layer 0 reads the same input on both paths: K6's own error;
+        # deeper layers carry it through the model, as the null does
+        assert states[0][0] <= WKV_TOL, 'f32 rwkv6: layer 0 wkv state'
+        for what, (gap, null_gap) in [('scores', scores)] + [
+                (f'layer {i} wkv state', g) for i, g in enumerate(states)]:
+            assert gap <= max(WKV_TOL, 2 * null_gap), \
+                f'f32 rwkv6 {what}: {gap:.3e} past 1e-4 and twice the ' \
+                f'null\'s {null_gap:.3e}'
+        assert same, 'f32 rwkv6: greedy tokens differ'
+    assert launches['wkv6'] == cfg.n_layers, launches
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-11: the serving surface (front-end, CLI, disaggregated plane)
+# ---------------------------------------------------------------------------
+
+def recording(app, log: list):
+    """ASGI middleware: each ``/v1/completions`` call appends [request
+    body, response bytes] to ``log`` as it starts."""
+    async def wrapped(scope, receive, send):
+        if scope.get('path') != '/v1/completions':
+            return await app(scope, receive, send)
+        entry = [b'', b'']
+        log.append(entry)
+
+        async def rx():
+            msg = await receive()
+            if msg['type'] == 'http.request':
+                entry[0] += msg.get('body', b'')
+            return msg
+
+        async def tx(msg):
+            if msg['type'] == 'http.response.body':
+                entry[1] += msg.get('body', b'')
+            await send(msg)
+        await app(scope, rx, tx)
+    return wrapped
+
+
+def sse_tokens(events) -> tuple:
+    """(request id, tokens, ended with [DONE]) of one stream's events."""
+    frames = [json.loads(e.data) for e in events if not e.done]
+    toks = [f['choices'][0]['token'] for f in frames
+            if f['choices'][0].get('token') is not None]
+    rid = frames[0]['id'] if frames else None
+    return rid, toks, bool(events) and events[-1].done
+
+
+async def sse_over_socket(port: int, prompt, max_tokens: int,
+                          hang_up_after=None):
+    """One streamed completion as a raw HTTP/1.1 client: POST, then read
+    the chunked body into an ``SSEParser``.  With ``hang_up_after`` it
+    closes the connection after that many token frames.  -> events."""
+    from repro_torch.serving.frontend.sse import SSEParser
+
+    reader, writer = await asyncio.open_connection('127.0.0.1', port)
+    try:
+        body = json.dumps({'prompt': prompt, 'max_tokens': max_tokens,
+                           'stream': True}).encode()
+        writer.write(b'POST /v1/completions HTTP/1.1\r\nhost: 127.0.0.1\r\n'
+                     b'content-type: application/json\r\ncontent-length: '
+                     + str(len(body)).encode() + b'\r\n\r\n' + body)
+        await writer.drain()
+        head = await reader.readuntil(b'\r\n\r\n')
+        assert head.startswith(b'HTTP/1.1 200') and \
+            b'transfer-encoding: chunked' in head.lower(), head
+        parser, events = SSEParser(), []
+        while True:
+            n = int((await reader.readuntil(b'\r\n')).strip(), 16)
+            if n == 0:
+                await reader.readuntil(b'\r\n')
+                break
+            events += parser.feed(await reader.readexactly(n))
+            await reader.readexactly(2)
+            if hang_up_after is not None and \
+                    len(sse_tokens(events)[1]) >= hang_up_after:
+                return events
+        parser.finish()
+        return events
+    finally:
+        writer.close()
+        with contextlib.suppress(ConnectionError, OSError):
+            await writer.wait_closed()
+
+
+def free_pages(node) -> int:
+    return sum(len(d) for d in node.pool.free_in_handle)
+
+
+def timed_flushes(node):
+    """Wrap every engine's ``flush_tokens`` with a host-clock timer.
+    -> [seconds] shared by all of them (each call adds its time, a call
+    with nothing pending adds 0 and counts nothing, as the engine's
+    ``token_flushes``)."""
+    spent = [0.0]
+    for eng in node.engines:
+        def timed(flush=eng.flush_tokens, eng=eng):
+            if not eng._pending:
+                return flush()
+            t0 = time.perf_counter()
+            flush()
+            spent[0] += time.perf_counter() - t0
+        eng.flush_tokens = timed
+    return spent
+
+
+def frontend_check(card: str):
+    """``serve_http``'s stack around ``full_width_node()`` on a RealClock:
+    ``AsyncNodeDriver`` + ``FrontendApp``.  (a) A ``loadgen`` trace through
+    the in-process ASGI client: FRONT_STREAMS online streams and one batch
+    job of FRONT_BATCH offline prompts.  (b) Two streams over a real socket
+    (``serve_asgi`` on 127.0.0.1, port 0), one hung up mid-stream.  Every
+    completed stream ends with [DONE] and carries its request's tokens on
+    the engine, and the tokens a plain ``drain()`` of a second node gives
+    the same prompts; the hung-up stream's lease is released and the
+    pool's free pages come back; the batch job finishes; <= 1 preemption
+    per request; the runtime's invariants hold."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.serving.frontend.app import FrontendApp
+    from repro_torch.serving.frontend.driver import AsyncNodeDriver
+    from repro_torch.serving.frontend.http import serve_asgi
+    from repro_torch.serving.frontend.loadgen import (
+        LoadGenerator, TraceEntry, make_online_trace)
+    from repro_torch.serving.frontend.sse import SSEParser
+    from repro_torch.serving.frontend.testing import ASGIClient
+    from repro_torch.serving.scheduler import ReqState
+
+    node = full_width_node()
+    # prompts valid for every engine a trace entry may land on
+    vocab = min(e.mcfg.vocab_size for e in node.engines)
+    free0 = free_pages(node)
+    trace = make_online_trace(FRONT_STREAMS, horizon_s=1.0, prompt_len=12,
+                              max_new_tokens=16, seed=5)
+    trace.append(TraceEntry(t=0.05, kind='batch', n_requests=FRONT_BATCH,
+                            prompt_len=24, max_new_tokens=24, seed=50))
+    rng = np.random.default_rng(6)
+    sock_prompts = [rng.integers(1, vocab, 12).tolist() for _ in range(2)]
+    log: list = []
+    flush_s = timed_flushes(node)
+    flushes0 = sum(e.stats.token_flushes for e in node.engines)
+
+    async def scenario():
+        async with AsyncNodeDriver(node) as driver:
+            app = recording(FrontendApp(driver), log)
+            client = ASGIClient(app)
+            gen = LoadGenerator(client, node.clock, vocab_size=vocab)
+            ticks0, t0 = driver.stats.ticks, time.perf_counter()
+            report = await gen.replay(trace)
+            wall = time.perf_counter() - t0
+            server = await serve_asgi(app, '127.0.0.1', 0)
+            try:
+                sock = await asyncio.gather(
+                    sse_over_socket(server.port, sock_prompts[0], 16),
+                    sse_over_socket(server.port, sock_prompts[1], 24,
+                                    hang_up_after=3))
+            finally:
+                await server.stop()
+            results = {}
+            for bid in list(driver.batches.jobs):
+                while (await client.get(f'/v1/batches/{bid}')
+                       ).json()['status'] != 'completed':
+                    await asyncio.sleep(1e-3)
+                results[bid] = (await client.get(
+                    f'/v1/batches/{bid}/results')).json()['results']
+            while node.has_work():
+                await asyncio.sleep(1e-3)
+            return report, wall, sock, results, driver
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    report, wall, sock, results, driver = asyncio.run(
+        asyncio.wait_for(scenario(), SERVE_TIMEOUT_S))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    eng = node.online
+    hung_rid, hung_toks, hung_done = sse_tokens(sock[1])
+    assert not hung_done and len(hung_toks) >= 3, 'socket hang-up'
+    rid, toks, done = sse_tokens(sock[0])
+    assert done and toks == eng.output_tokens(rid), 'socket stream'
+    completed = []                     # (prompt, max_tokens, tokens)
+    for body, raw in log:              # the loadgen's and the socket's
+        rid, toks, done = sse_tokens(SSEParser().feed(raw))
+        if rid == hung_rid:
+            continue
+        assert done, f'stream {rid}: no [DONE] frame'
+        assert toks == eng.output_tokens(rid), f'stream {rid}: SSE tokens ' \
+            f'{toks} != engine {eng.output_tokens(rid)}'
+        req = json.loads(body)
+        assert len(toks) == req['max_tokens'], (rid, toks)
+        completed.append((req['prompt'], req['max_tokens'], toks))
+    assert len(log) == FRONT_STREAMS + 2, len(log)
+    assert len(completed) == FRONT_STREAMS + 1, len(completed)
+    hung = eng.requests[hung_rid]
+    assert hung.state is ReqState.CANCELLED and hung.lease is None, \
+        'the hung-up stream kept its lease'
+    assert driver.stats.streams_cancelled == 1, driver.stats
+    assert all(r['status'] == 'completed' and len(r['tokens']) == 24
+               for res in results.values() for r in res) and \
+        sum(map(len, results.values())) == FRONT_BATCH, results
+    node.runtime.check_invariants()
+    m = node.metrics()
+    assert m['max_preemptions_per_request'] <= 1, m
+    assert node.runtime.memory.live_leases('online') == [] and \
+        node.runtime.memory.live_leases('offline') == []
+    assert node.runtime.invalidation_routes() == []
+    retained = node.runtime.memory.drop_cache()  # offline prefix pages
+    assert free_pages(node) == free0, (free_pages(node), free0)
+    assert launches['paged_decode'] > 0 and \
+        launches['unembed_sample'] > 0, launches
+    flushes = sum(e.stats.token_flushes for e in node.engines) - flushes0
+    ticks = driver.stats.ticks
+    print(f'  front-end: {report.completed}/{report.n_online} loadgen '
+          f'streams + 1 socket stream completed with [DONE], SSE tokens = '
+          f'engine tokens; 1 socket stream hung up after '
+          f'{len(hung_toks)} tokens: lease released, free pages '
+          f'{free_pages(node)} = {free0} before (after dropping {retained} '
+          f'retained offline prefix pages); batch job '
+          f'{FRONT_BATCH}/{FRONT_BATCH} completed; preemptions '
+          f'{m["compute_preemptions"]}, max per request '
+          f'{m["max_preemptions_per_request"]}; launches {launches}')
+    print(f'  front-end load: TTFT p50 {report.ttft_pct(50) * 1e3:.1f} ms, '
+          f'p99 {report.ttft_pct(99) * 1e3:.1f} ms, '
+          f'{report.requests_per_s:.2f} requests/s, peak '
+          f'{report.peak_concurrent_streams} streams, over '
+          f'{report.duration_s:.3f} s (replay wall {wall:.3f} s); '
+          f'{ticks} node steps, {flushes} token flushes '
+          f'({flushes / ticks:.3f} a step), {flush_s[0] * 1e3:.1f} ms in '
+          f'flush_tokens ({flush_s[0] / max(flushes, 1) * 1e3:.3f} ms a '
+          f'flush, the device->host sync included)  [{card}]')
+    del node
+    # the same prompts through a plain drain of a second node
+    ref = full_width_node()
+    rids = [ref.online.submit(p, max_new_tokens=n)
+            for p, n, _ in completed]
+    ref.drain()
+    diff = [i for i, (r, s) in enumerate(zip(rids, completed))
+            if ref.online.output_tokens(r) != s[2]]
+    print(f'  streamed tokens vs a plain drain of a second node: '
+          f'{len(completed) - len(diff)}/{len(completed)} streams '
+          f'bit-identical' + (f'; differ: {[(completed[i][2], ref.online.output_tokens(rids[i])) for i in diff]}' if diff else ''))
+    assert not diff, 'streamed tokens != a plain drain'
+    return launches
+
+
+def cli_check(card: str) -> None:
+    """``python -m repro_torch.launch.serve --http --port 0`` as a child
+    process on the card (``build_node``'s reduced widths): read its
+    "serving on" line, stream one completion over the socket, SIGINT, and
+    require [DONE] and exit code 0."""
+    import os
+    import queue
+    import signal
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    proc = subprocess.Popen(
+        [sys.executable, '-u', '-m', 'repro_torch.launch.serve', '--http',
+         '--port', '0'], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        t0 = time.perf_counter()
+        seen = []
+        while True:
+            ln = lines.get(timeout=max(1.0, 120 - (time.perf_counter() - t0)))
+            seen.append(ln.rstrip())
+            found = re.search(r'serving on http://[\d.]+:(\d+)', ln)
+            if found:
+                break
+        port = int(found.group(1))
+        up = time.perf_counter() - t0
+        events = asyncio.run(sse_over_socket(port, [5, 7, 11], 8))
+        rid, toks, done = sse_tokens(events)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        print(f'  serve --http: "{seen[-1]}" after {up:.1f} s; one stream '
+              f'{rid}: {len(toks)} tokens, [DONE] {done}; SIGINT -> exit '
+              f'code {rc}  [{card}]')
+        assert done and len(toks) == 8 and rc == 0, (seen, events, rc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def disagg_check(card: str):
+    """Two full-width nodes on one card joined by the disaggregated plane
+    (pools 'prefill' and 'decode', sized as the reference's plane tests
+    at page 16), DISAGG_REQS online requests and offline work on both
+    sides (run until the online requests finish), against one colocated
+    ``full_width_node()``: greedy tokens bit for bit, zero handoff
+    recompute, every request handed off or finished on the prefill side
+    (>= 1 handoff), pages copied, the first handoff's copied KV rows
+    bit-equal to their source, both runtimes' invariants, <= 1 preemption
+    per (request, device), offline tokens on both sides."""
+    from repro_torch.core.clock import RealClock
+    from repro_torch.core.events import PageMigration, PrefillHandoff
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.serving.disagg import DisaggPlane
+    from repro_torch.serving.kvpool import KVPool
+    from repro_torch.serving.scheduler import ReqState
+
+    clock = RealClock()
+    plane = DisaggPlane(
+        full_width_node(KVPool(8, 4, page_size=PG, reserved_handles=4,
+                               name='prefill'), clock, True),
+        full_width_node(KVPool(8, 4, page_size=PG, reserved_handles=6,
+                               name='decode'), clock, True))
+    migs, copied = {}, []
+
+    def on_migration(ev):
+        if ev.cross_pool:
+            migs[ev.owner] = ev
+
+    def on_handoff(ev):
+        if copied:
+            return
+        mig = migs[ev.req_id]
+        src = plane.prefill.online.cache
+        dst = plane.decode.online.cache
+        s = torch.tensor(mig.src_pages, device=DEV)
+        d = torch.tensor(mig.dst_pages, device=DEV)
+        copied.append((len(mig.src_pages), all(
+            torch.equal(dst[k].index_select(1, d), src[k].index_select(1, s))
+            for k in src)))
+
+    plane.prefill.runtime.subscribe(on_migration, PageMigration)
+    plane.decode.runtime.subscribe(on_handoff, PrefillHandoff)
+    rng = np.random.default_rng(8)
+    vocab = plane.online.mcfg.vocab_size
+    prompts = [rng.integers(1, vocab, DISAGG_PROMPT).tolist()
+               for _ in range(DISAGG_REQS)]
+    for node in (plane.prefill, plane.decode):
+        for eng in node.offline:
+            for _ in range(2):
+                eng.submit(rng.integers(1, eng.mcfg.vocab_size, 24).tolist(),
+                           max_new_tokens=24)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(4):                   # offline under way on both sides
+        plane.step()
+    rids = [plane.submit(p, DISAGG_NEW) for p in prompts]
+    # until every online request finishes: the offline backlog's tail
+    # waits on MIAD handing handles back (one per release interval, which
+    # the burst's reclamations stretch), and no gate reads it
+    for _ in range(20_000):
+        if all(plane.engine_of(r).requests[r].state is ReqState.FINISHED
+               for r in rids):
+            break
+        plane.step()
+    else:
+        raise AssertionError('disagg: online requests did not finish')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    got = [plane.engine_of(r).output_tokens(r) for r in rids]
+    plane.check_invariants()
+    m = plane.metrics()
+    on_prefill = sum(r in plane.prefill.online.requests for r in rids)
+    off_tokens = [sum(e.stats.tokens_generated for e in node.offline)
+                  for node in (plane.prefill, plane.decode)]
+    lat = m['handoff_latency']
+    print(f'  disagg: {m["handoffs"]} handoffs, {on_prefill} finished on '
+          f'the prefill side, {m["handoffs_deferred"]} deferrals, '
+          f'{m["pages_copied"]} pages copied, recompute '
+          f'{m["handoff_recompute_tokens"]} tokens, handoff latency p50 '
+          f'{lat["p50"] * 1e3:.2f} ms (n {lat["count"]}); first handoff '
+          f'{copied[0][0] if copied else 0} pages, rows equal '
+          f'{copied[0][1] if copied else None}; offline tokens '
+          f'{off_tokens} (prefill, decode side); max preemptions per '
+          f'request {m["max_preemptions_per_request"]}; {wall:.2f} s, '
+          f'{plane.stats.steps} plane steps; launches {launches}  [{card}]')
+    assert m['handoff_recompute_tokens'] == 0, m
+    assert m['handoffs'] >= 1 and m['handoffs'] + on_prefill == \
+        DISAGG_REQS, m
+    assert m['pages_copied'] > 0 and copied and copied[0][1], copied
+    assert m['max_preemptions_per_request'] <= 1, m
+    assert min(off_tokens) > 0, 'disagg: no offline backfill on a side'
+    assert launches['paged_decode'] > 0 and \
+        launches['unembed_sample'] > 0, launches
+    del plane
+    colo = full_width_node()
+    crids = [colo.online.submit(p, DISAGG_NEW) for p in prompts]
+    colo.drain()
+    want = [colo.online.output_tokens(r) for r in crids]
+    same = sum(g == w for g, w in zip(got, want))
+    print(f'  disagg vs colocated: {same}/{DISAGG_REQS} requests '
+          f'bit-identical' + (f'; {[(g, w) for g, w in zip(got, want) if g != w]}' if same < DISAGG_REQS else ''))
+    assert all(len(g) == DISAGG_NEW for g in got) and got == want, \
+        'disagg tokens != colocated'
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -1689,11 +2260,29 @@ def main() -> int:
           'kernel path')
     by_phase['rwkv6_forward'] = rwkv6_check(card, args.trace)
     done()
-    print('[8] long engine drain: qwen3-0.6b full width, K1/K3 and K2 split')
+    print(f'[8] rwkv6-3b inference: full width, B={RWKV_B}, prefill '
+          f'T={RWKV_T} through K6, {RWKV_DECODE} decode steps, plain path '
+          f'vs kernel path')
+    by_phase['rwkv6_inference'] = rwkv6_inference_check(card)
+    done()
+    print(f'[9] front-end: AsyncNodeDriver + FrontendApp over the full-width '
+          f'node, {FRONT_STREAMS} loadgen streams + a {FRONT_BATCH}-prompt '
+          f'batch job, 2 streams over a socket')
+    by_phase['frontend'] = frontend_check(card)
+    done()
+    print('[10] CLI: python -m repro_torch.launch.serve --http --port 0')
+    cli_check(card)
+    done()
+    print(f'[11] disaggregated plane: two full-width nodes, '
+          f'{DISAGG_REQS} online requests, vs one colocated node')
+    by_phase['disagg'] = disagg_check(card)
+    done()
+    print('[12] long engine drain: qwen3-0.6b full width, K1/K3 and K2 '
+          'split')
     witnessed += engine_check(card, long=True)[1]
     done()
 
-    print(f'[9] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[13] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

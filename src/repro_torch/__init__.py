@@ -10,13 +10,15 @@ Entry points run on the GPU unless the caller passes ``device='cpu'``
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None):
     """``None`` means the GPU; the CPU only when asked for by name.  A CUDA
     device comes back with its index (``cuda`` -> ``cuda:<current>``), so
-    it compares equal to the device of the tensors allocated on it."""
+    it compares equal to the device of the tensors allocated on it.
+    (torch is imported here, not with the package, so that the pure-Python
+    modules -- the SSE wire format -- load without it.)"""
+    import torch
+
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda':
         if not torch.cuda.is_available():

@@ -10,12 +10,15 @@ handles (compute-first, quarantine remap) and the invalidations fan out to
 the owning engine's session; MIAD keeps the online reservation tracking
 demand.  Reports TTFT / TPOT for online and tokens for offline.
 
-The node runs on the GPU; ``--device cpu`` runs it on the CPU.  The HTTP
-front-end (``--http`` in the reference) is not ported yet.
+The node runs on the GPU; ``--device cpu`` runs it on the CPU.  ``--http``
+serves the async front-end over it instead of the scripted demo.
 
     # online qwen3-0.6b + offline qwen3-0.6b AND offline internlm2-1.8b
     # (reduced widths) on one pool
     PYTHONPATH=src python -m repro_torch.launch.serve --steps 400
+
+    # the same node behind the HTTP front-end (SSE streaming + batch jobs)
+    PYTHONPATH=src python -m repro_torch.launch.serve --http --port 8080
 """
 from __future__ import annotations
 
@@ -127,6 +130,45 @@ def serve_demo(*, arch: str = 'qwen3-0.6b',
     return metrics
 
 
+def serve_http(*, arch: str = 'qwen3-0.6b',
+               offline_archs: Sequence[str] = DEFAULT_OFFLINE_ARCHS,
+               host: str = '127.0.0.1', port: int = 8080,
+               seed: int = 0, device=None) -> None:
+    """Run the async serving front-end over a live node: OpenAI-style
+    ``POST /v1/completions`` (SSE streaming) + the ``/v1/batches`` offline
+    batch-job API, one event loop owning the runtime.
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --http --port 8080
+        curl -N localhost:8080/v1/completions -d \\
+            '{"prompt": [5, 7, 11], "max_tokens": 8, "stream": true}'
+    """
+    import asyncio
+
+    from repro_torch.serving.frontend.app import FrontendApp
+    from repro_torch.serving.frontend.driver import AsyncNodeDriver
+    from repro_torch.serving.frontend.http import serve_asgi
+
+    node = build_node(arch=arch, offline_archs=offline_archs, seed=seed,
+                      device=device)
+
+    async def _main() -> None:
+        async with AsyncNodeDriver(node) as driver:
+            server = await serve_asgi(FrontendApp(driver), host, port)
+            print(f'serving on http://{host}:{server.port}  '
+                  f'(online {arch}, offline {", ".join(offline_archs)})')
+            try:
+                await server.serve_forever()
+            except asyncio.CancelledError:
+                pass
+            finally:
+                await server.stop()
+
+    try:
+        asyncio.run(_main())
+    except KeyboardInterrupt:
+        print('shutting down')
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--arch', default='qwen3-0.6b',
@@ -138,10 +180,20 @@ def main():
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default=None,
                     help='torch device (default: the GPU)')
+    ap.add_argument('--http', action='store_true',
+                    help='serve the HTTP front-end (SSE streaming + batch '
+                         'jobs) instead of running the scripted demo')
+    ap.add_argument('--host', default='127.0.0.1')
+    ap.add_argument('--port', type=int, default=8080)
     args = ap.parse_args()
-    serve_demo(arch=args.arch,
-               offline_archs=tuple(args.offline_arch or DEFAULT_OFFLINE_ARCHS),
-               steps=args.steps, seed=args.seed, device=args.device)
+    offline_archs = tuple(args.offline_arch or DEFAULT_OFFLINE_ARCHS)
+    if args.http:
+        serve_http(arch=args.arch, offline_archs=offline_archs,
+                   host=args.host, port=args.port, seed=args.seed,
+                   device=args.device)
+    else:
+        serve_demo(arch=args.arch, offline_archs=offline_archs,
+                   steps=args.steps, seed=args.seed, device=args.device)
 
 
 if __name__ == '__main__':

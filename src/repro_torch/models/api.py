@@ -1,13 +1,15 @@
 """Model API of the port: ``build_model(cfg)`` returns a :class:`Model` bound
 to a config, with the entry points the engine and the tests need.  The port
 serves the ``dense`` and ``vlm`` families (``vlm`` shares the dense
-decoder; its frontend is not ported) and runs the ``ssm`` family's (rwkv6)
-training forward.
+decoder and takes its frontend's output as ``batch['prefix_embeds']``; the
+frontend itself is not ported) and runs the ``ssm`` family (rwkv6): its
+training forward, and prefill + decode over a recurrent-state cache.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -42,17 +44,28 @@ class Model:
         gen = torch.Generator(device=device).manual_seed(seed)
         return cm.init_from_template(self.template(), gen, device)
 
-    def init_cache(self, *, engine_pages: int, device):
-        """The engine's global paged pool: {'k', 'v'} of
-        (L, engine_pages, pg, Hkv, Dh), zeros."""
-        self._only('dense', 'vlm')
-        return cm.zeros_from_template(
-            dense.cache_template(self.cfg, engine_pages), device)
+    def cache_template(self, *, engine_pages: Optional[int] = None,
+                       batch_size: Optional[int] = None):
+        """The cache's PSpec tree: the engine's global paged pool {'k',
+        'v'} of (L, engine_pages, pg, Hkv, Dh) for the paged families, the
+        recurrent state of ``batch_size`` rows for ``ssm``."""
+        if self.cfg.family == 'ssm':
+            if engine_pages is not None:
+                raise NotImplementedError(
+                    'engine pool layout only for paged-KV families')
+            if batch_size is None:
+                raise ValueError('the ssm cache needs batch_size')
+            return rwkv6.cache_template(self.cfg, batch_size)
+        if engine_pages is None:
+            raise ValueError('the paged KV pool needs engine_pages')
+        return dense.cache_template(self.cfg, engine_pages)
 
-    def init_state(self, batch_size: int, *, device):
-        """The rwkv6 recurrent state, zeros (``rwkv6.init_state``)."""
-        self._only('ssm')
-        return rwkv6.init_state(self.cfg, batch_size, device=device)
+    def init_cache(self, *, engine_pages: Optional[int] = None,
+                   batch_size: Optional[int] = None, device):
+        """:meth:`cache_template`'s cache, zeros, on ``device``."""
+        return cm.zeros_from_template(
+            self.cache_template(engine_pages=engine_pages,
+                                batch_size=batch_size), device)
 
     def loss_fn(self, params, batch, *, use_kernel=False):
         """(mean NLL, {'tokens': count}); the WKV6 kernel with
@@ -62,14 +75,20 @@ class Model:
                                    use_kernel=use_kernel)
 
     def prefill_fn(self, params, cache, batch, *, use_kernel=False):
-        """Whole-prompt prefill into the global pool: (cache, (B, V) f32
-        scores of the last token); the flash-attention kernel with
-        ``use_kernel``."""
-        self._only('dense', 'vlm')
-        return dense.prefill(self.cfg, params, cache, batch,
-                             use_kernel=use_kernel)
+        """Whole-prompt prefill: (cache, (B, V) f32 scores of the last
+        token).  Dense: into the global pool, the flash-attention kernel
+        with ``use_kernel``.  ssm: from the recurrent state in ``cache``,
+        the WKV6 kernel with ``use_kernel``."""
+        self._only('dense', 'vlm', 'ssm')
+        return _FAMILY[self.cfg.family].prefill(
+            self.cfg, params, cache, batch, use_kernel=use_kernel)
 
     def decode_fn(self, params, cache, batch, *, use_kernel=False):
+        """One token a row: (cache, (B, V) f32 scores).  Dense: the paged
+        decode kernel with ``use_kernel``.  ssm: the single-token
+        recurrence step (no kernel, as in the reference)."""
+        if self.cfg.family == 'ssm':
+            return rwkv6.decode_step(self.cfg, params, cache, batch)
         self._only('dense', 'vlm')
         return dense.decode_step(self.cfg, params, cache, batch,
                                  use_kernel=use_kernel)

@@ -1,6 +1,9 @@
 """Decoder-only dense transformer (qwen3-0.6b, internlm2-1.8b) in PyTorch:
 the serving entry points of the reference's ``models/dense.py``.
 
+- ``embed_inputs``: token embeddings, the first p positions overwritten
+  by ``batch['prefix_embeds']`` where a batch carries them (the vlm
+  frontend's output), in ``prefill`` and ``prefill_chunk``.
 - ``prefill``: a whole prompt per row written into the pool, attention
   through the flash-attention kernel (``use_kernel=True``) or
   :func:`~repro_torch.models.common.chunked_attention`.
@@ -181,15 +184,26 @@ def _mlp(cfg, lp, h):
 # Entry points
 # ---------------------------------------------------------------------------
 
+def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None):
+    """Token embeddings (B, S, D); with ``prefix_embeds`` (B, p, D) the
+    first p positions are those embeddings, cast to the embedding dtype."""
+    h = params['embed'][tokens.long()]
+    if prefix_embeds is not None:
+        p = prefix_embeds.shape[1]
+        h = torch.cat([prefix_embeds.to(h.dtype), h[:, p:]], dim=1)
+    return h
+
+
 def prefill(cfg: ModelConfig, params, cache, batch, *,
             use_kernel: bool = False):
     """Whole-prompt prefill.  batch: tokens (B, S) with S a multiple of
-    the page size, page_table (B, >= S // page).  Returns (cache with the
+    the page size, page_table (B, >= S // page) [, prefix_embeds (B, p,
+    D)].  Returns (cache with the
     prompt's K/V written, f32 scores of the last token)."""
     tokens = batch['tokens']
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    h = params['embed'][tokens.long()]
+    h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
@@ -206,10 +220,11 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch):
 
     batch: tokens (B, C), positions (B, C), page_table (B, maxp),
     page_ids/offsets (B, C), kv_len (B,), last_idx (B,) index of the last
-    real token inside the chunk.  Returns (cache, f32 scores at last_idx).
+    real token inside the chunk [, prefix_embeds (B, p, D)].  Returns
+    (cache, f32 scores at last_idx).
     """
     positions = batch['positions']
-    h = params['embed'][batch['tokens'].long()]
+    h = embed_inputs(cfg, params, batch['tokens'], batch.get('prefix_embeds'))
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)

@@ -8,10 +8,16 @@ The sequence runs through the WKV6 kernel (``use_kernel=True``) or the
 chunk-parallel plain form at chunk 32; a single token takes the exact step.
 All three get f32 r/k/v/w/u and the f32 state.
 
+Inference: ``prefill`` runs a prompt from a given recurrent state (the
+cache of :func:`cache_template`) and ``decode_step`` one token a row; both
+write the state after into the cache in place and return f32 scores of
+the last token.  ``prefill(use_kernel=True)`` carries the state through
+the WKV6 kernel, as the reference's ``time_mix`` does; the default is the
+plain chunked path, as in the reference.
+
 A Python loop over layers replaces ``lax.scan``.  The output head
 ``unembed`` is stored (V, D) row-major, like the dense family's, and
-scores are ``h @ unembed.T``.  ``prefill`` and ``decode_step`` are not
-ported: the reference runs them without the kernel.
+scores are ``h @ unembed.T``.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_step
+from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
 
@@ -63,17 +70,21 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def init_state(cfg: ModelConfig, batch_size: int, *, device):
-    """Recurrent state, zeros: ``wkv`` (L, B, H, K, V) f32 and the token
-    shift states ``shift_tm`` / ``shift_cm`` (L, B, D) in the model dtype."""
+def cache_template(cfg: ModelConfig, batch_size: int) -> Dict[str, PSpec]:
+    """The recurrent state as an inference cache: ``wkv`` (L, B, H, K, V)
+    f32 and the token shift states ``shift_tm`` / ``shift_cm`` (L, B, D)
+    in the model dtype, zeros."""
     d, hd, L = cfg.d_model, cfg.ssm_head_dim, cfg.n_layers
     shift = (L, batch_size, d)
-    return {
-        'wkv': torch.zeros((L, batch_size, d // hd, hd, hd),
-                           dtype=torch.float32, device=device),
-        'shift_tm': torch.zeros(shift, dtype=cm.DEFAULT_DTYPE, device=device),
-        'shift_cm': torch.zeros(shift, dtype=cm.DEFAULT_DTYPE, device=device),
-    }
+    return {'wkv': PSpec((L, batch_size, d // hd, hd, hd), 'zeros',
+                         dtype=torch.float32),
+            'shift_tm': PSpec(shift, 'zeros'),
+            'shift_cm': PSpec(shift, 'zeros')}
+
+
+def init_state(cfg: ModelConfig, batch_size: int, *, device):
+    """Recurrent state, zeros (:func:`cache_template`)."""
+    return cm.zeros_from_template(cache_template(cfg, batch_size), device)
 
 
 def _shift(x, last):
@@ -154,3 +165,35 @@ def forward_train(cfg: ModelConfig, params, batch, *,
         h, params['final_norm'], params['unembed'], batch['labels'],
         mask=batch.get('loss_mask'), eps=cfg.norm_eps)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
+
+
+def _run_layers(cfg: ModelConfig, params, h, cache, use_kernel: bool):
+    """Every layer from the state in ``cache``, which takes the state
+    after, in place.  -> the last layer's output (B, T, D)."""
+    for i in range(cfg.n_layers):
+        lp = {k: w[i] for k, w in params['layers'].items()}
+        h, new = layer_apply(cfg, lp, h, {k: s[i] for k, s in cache.items()},
+                             use_kernel=use_kernel)
+        for k, s in new.items():
+            cache[k][i].copy_(s)
+    return h
+
+
+def prefill(cfg: ModelConfig, params, cache, batch, *,
+            use_kernel: bool = False):
+    """tokens (B, T) from the state in ``cache`` -> (cache holding the
+    state after the prompt, (B, V) f32 scores of the last token).  The
+    WKV6 kernel carries the state with ``use_kernel``."""
+    h = params['embed'][batch['tokens'].long()]
+    h = _run_layers(cfg, params, h, cache, use_kernel)
+    last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, params['unembed'])
+
+
+def decode_step(cfg: ModelConfig, params, cache, batch):
+    """tokens (B,) -> (cache one token on, (B, V) f32 scores); each layer
+    takes the single-token recurrence step."""
+    h = params['embed'][batch['tokens'].long()][:, None, :]
+    h = _run_layers(cfg, params, h, cache, False)
+    last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, params['unembed'])

@@ -21,6 +21,22 @@ prefixes attach copy-on-write, ``lease.note_filled`` publishes prefix
 pages, and the invalidation patch resumes recompute from the surviving
 prefix the :class:`~repro_torch.core.memory.LeaseInvalidation` carries.
 
+One path a token (a deliberate departure from the reference's dispatch
+internals): a decode token is always computed by the decode entry point
+(``decode_fn`` / ``decode_sample_fn``), and a prompt's last chunk by the
+chunked-prefill entry.  The reference runs piggybacked decode rows as
+one-token rows of the chunked-prefill dispatch, and resumes a migrated
+lease (the disaggregated handoff, a cross-pool rescue) with a one-token
+prefill chunk.  The two entries compute the same function in another
+order; on the card in bf16 the difference flips greedy near-ties, so a
+token would depend on what else shared its step.  Here a mixed step runs
+its prefill rows through the chunked entry and its decode rows through
+the decode entry, inside one Valve iteration, and a lease resumed at its
+last sampled token enters as a decode slot; every token of a request then
+comes out of the same computation whatever the schedule, which the
+serving plane's bit-identity claims (streamed == drained, disaggregated
+== colocated) rest on.
+
 The engine runs on the GPU unless built with ``device='cpu'``
 (:func:`repro_torch.resolve_device`).
 """
@@ -305,13 +321,13 @@ class Engine:
 
     # -- mixed prefill(+decode) dispatch -------------------------------------
     def _dispatch_mixed(self, batch: ScheduledBatch) -> None:
-        """Execute one composed dispatch through the chunked-prefill entry:
-        prefill rows write/attend their chunk; decode rows are one-token
-        chunks (embed the last sampled token, write its KV, predict the
-        next) -- one fixed (max_batch x chunk) iteration for all of it."""
-        # prefill rows (and piggybacked decode rows) re-read context token
-        # VALUES, so lazily-held device tokens must land first; the
-        # newest-output row map dies with this dispatch (rows resample)
+        """Execute one composed dispatch: the prefill rows through the
+        chunked-prefill entry (one fixed (max_batch x chunk) call), the
+        piggybacked decode rows through the decode entry (one fixed
+        (max_batch,) call), both inside one Valve iteration."""
+        # prefill rows re-read context token VALUES, so lazily-held device
+        # tokens must land first; the newest-output row map dies with this
+        # dispatch (the decode rows below rebuild it)
         self.flush_tokens()
         self._prev_rows = {}
         m = self._mix
@@ -336,19 +352,6 @@ class Engine:
             m['kv_len'][row] = hi
             m['last_idx'][row] = ps.length - 1
             row += 1
-        for ds in batch.decode:
-            req = self.requests[ds.req_id]
-            # the last context token was sampled but its KV never written:
-            # this row embeds it, writes KV at its position, predicts next
-            pos = len(req.context) - 1
-            m['toks'][row, 0] = req.context[-1]
-            m['poss'][row, :] = pos
-            pt = self._fill_page_table(m['pts'][row], req)
-            m['pids'][row, 0] = pt[pos // self.pg]
-            m['offs'][row, 0] = pos % self.pg
-            m['kv_len'][row] = pos + 1
-            m['last_idx'][row] = 0
-            row += 1
         mb = {
             'tokens': self._put(m['toks']),
             'positions': self._put(m['poss']),
@@ -358,9 +361,11 @@ class Engine:
             'kv_len': self._put(m['kv_len']),
             'last_idx': self._put(m['last_idx']),
         }
+        db = self._decode_inputs(batch.decode) if batch.decode else None
         self.session.iteration_start()                      # VALVE-SESSION
         self.cache, logits = self.model.prefill_chunk_fn(
             self.params, self.cache, mb)
+        out = self._decode_call(db) if db is not None else None
         self.session.iteration_end()                        # VALVE-SESSION
         self.stats.dispatches += 1
         self.stats.mixed_dispatches += 1
@@ -381,11 +386,8 @@ class Engine:
                 # token after an invalidation recompute
                 self._append_token(req, new[row])
             row += 1
-        for ds in batch.decode:
-            req = self.requests[ds.req_id]
-            req.decode_steps += 1
-            self._append_token(req, new[row])
-            row += 1
+        if out is not None:
+            self._decode_tokens(batch.decode, out)
 
     # -- pure decode dispatch -------------------------------------------------
     def _dispatch_decode(self, slots: List[DecodeSlot]) -> None:
@@ -396,6 +398,16 @@ class Engine:
         previous dispatch's output (``use_prev``/``src`` feed), and the new
         tokens are recorded as placeholders resolved lazily by
         :meth:`flush_tokens` -- no per-step device->host sync."""
+        db = self._decode_inputs(slots)
+        self.session.iteration_start()                      # VALVE-SESSION
+        out = self._decode_call(db)
+        self.session.iteration_end()                        # VALVE-SESSION
+        self.stats.dispatches += 1
+        self.stats.decode_iterations += 1
+        self._decode_tokens(slots, out)
+
+    def _decode_inputs(self, slots: List[DecodeSlot]) -> Dict:
+        """Stage the decode entry's batch for ``slots`` (rows in order)."""
         fused = self.cfg.fused_sampling
         if fused and any(ds.req_id in self._pending_rids
                          and ds.req_id not in self._prev_rows
@@ -470,32 +482,37 @@ class Engine:
                                + next(self._seed_ctr)) & 0x7FFFFFFF)
         else:
             db['tokens'] = self._put(d['toks'])
-        self.session.iteration_start()                      # VALVE-SESSION
-        if fused:
-            self.cache, toks = self.model.decode_sample_fn(
+        return db
+
+    def _decode_call(self, db: Dict):
+        """The decode entry on a staged batch: (B,) sampled tokens on the
+        device (fused) or (B, V) scores."""
+        if self.cfg.fused_sampling:
+            self.cache, out = self.model.decode_sample_fn(
                 self.params, self.cache, db, use_kernel=self._use_kernel,
                 temperature=float(self.cfg.temperature))
         else:
-            self.cache, logits = self.model.decode_fn(
+            self.cache, out = self.model.decode_fn(
                 self.params, self.cache, db, use_kernel=self._use_kernel)
-        self.session.iteration_end()                        # VALVE-SESSION
-        self.stats.dispatches += 1
-        self.stats.decode_iterations += 1
-        if not fused:
-            new = self._sample(logits).tolist()
+        return out
+
+    def _decode_tokens(self, slots: List[DecodeSlot], out) -> None:
+        """Record the decode entry's output as each slot's next token."""
+        if not self.cfg.fused_sampling:
+            new = self._sample(out).tolist()
             for i, ds in enumerate(slots):
                 req = self.requests[ds.req_id]
                 req.decode_steps += 1
                 self._append_token(req, new[i])
             return
         records: List[tuple] = []
-        self._prev_tokens, self._prev_rows = toks, {}
+        self._prev_tokens, self._prev_rows = out, {}
         for i, ds in enumerate(slots):
             req = self.requests[ds.req_id]
             req.decode_steps += 1
             self._prev_rows[ds.req_id] = i
             self._append_pending(req, i, records)
-        self._pending.append((toks, records))
+        self._pending.append((out, records))
         self._pending_rids.update(r[0] for r in records)
         if self.cfg.eos_token is not None:
             # the stop check needs token values -- fetch every step (the
@@ -567,8 +584,9 @@ class Engine:
         if self._gated():
             self.stats.blocked_dispatches += 1
             return False
-        batch = self.sched.schedule(self.requests, self._try_admit,
-                                    self._spill)
+        self.sched.admit(self.requests, self._try_admit, self._spill)
+        self._resume_as_decode()
+        batch = self.sched.compose(self.requests)
         self.stats.steps += 1
         if batch.empty:
             return False
@@ -577,6 +595,17 @@ class Engine:
         else:
             self._dispatch_decode(batch.decode)
         return True
+
+    def _resume_as_decode(self) -> None:
+        """A re-admitted request whose KV covers its whole context but the
+        last sampled token (a lease migrated whole) takes a decode slot,
+        not a one-token prefill chunk: the token it predicts next comes out
+        of the decode entry, as it would have had the request not moved."""
+        for rid in self.running:
+            req = self.requests[rid]
+            if (req.state is ReqState.PREFILL and req.generated
+                    and req.n_prefilled == len(req.context) - 1):
+                req.state = ReqState.RUNNING
 
     def run_to_completion(self, max_steps: int = 100_000) -> None:
         for _ in range(max_steps):

@@ -626,3 +626,57 @@ def test_prefill_and_rwkv6_forward_run_through_the_kernels(cuda):
     assert LAUNCHES['wkv6'] == cfg.n_layers
     loss_p, _ = model.loss_fn(params, batch)
     torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=1e-5)
+
+
+def test_rwkv6_prefill_carries_a_state_through_the_kernel(cuda):
+    """A reduced rwkv6 prefill from a non-zero state (ragged T = 200), K6
+    in every layer, against the plain chunked path: scores and every
+    state within 1e-4; then a decode step from each agrees as well."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.api import build_model
+
+    cfg = reduced(get_config('rwkv6-3b'), ssm_head_dim=64, d_model=256)
+    model = build_model(cfg)
+    params = model.init_params(0, device=cuda).to(torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    start = {k: torch.randn(v.shape, generator=gen, device=cuda) * 0.1
+             for k, v in model.init_cache(batch_size=2, device=cuda).items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                           generator=gen)
+    out = {}
+    for use_kernel in (False, True):
+        cache = {k: v.clone() for k, v in start.items()}
+        LAUNCHES['wkv6'] = 0
+        cache, scores = model.prefill_fn(params, cache, {'tokens': tokens},
+                                         use_kernel=use_kernel)
+        assert LAUNCHES['wkv6'] == (cfg.n_layers if use_kernel else 0)
+        cache, step = model.decode_fn(params, cache,
+                                      {'tokens': scores.argmax(-1)})
+        out[use_kernel] = (scores, step, cache)
+    for got, want in zip(out[True][:2], out[False][:2]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for key, v in out[True][2].items():
+        torch.testing.assert_close(v, out[False][2][key], rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_disagg_kv_copy_is_bit_equal_on_the_card(cuda):
+    """The disaggregated plane's KV copy on CUDA pools: the destination's
+    pages hold the source's rows bit for bit, other pages untouched."""
+    from repro_torch.serving.disagg.plane import copy_pages
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shape = (4, 40, 16, 8, 128)                  # (L, P, pg, Hkv, Dh)
+    src = {k: torch.randn(shape, generator=gen, device=cuda)
+           .to(torch.bfloat16) for k in 'kv'}
+    dst = {k: torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+           for k in 'kv'}
+    src_pages, dst_pages = [7, 3, 39, 12], [1, 20, 5, 38]
+    copy_pages(src, src_pages, dst, dst_pages)
+    d = torch.tensor(dst_pages, device=cuda)
+    s = torch.tensor(src_pages, device=cuda)
+    rest = torch.tensor(sorted(set(range(40)) - set(dst_pages)), device=cuda)
+    for k in 'kv':
+        assert torch.equal(dst[k].index_select(1, d),
+                           src[k].index_select(1, s))
+        assert not dst[k].index_select(1, rest).any()

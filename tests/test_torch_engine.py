@@ -222,3 +222,60 @@ def test_engine_refuses_params_on_another_device():
     assert eng.cache['k'].shape == (cfg.n_layers, eng.pool.n_pages, 4,
                                     cfg.n_kv_heads, cfg.hd)
     assert torch.equal(eng.cache['k'], torch.zeros_like(eng.cache['k']))
+
+
+class _EntryLog:
+    """Stands in for the engine's model: delegates every call and counts
+    the real rows each entry point computes (padding rows write to the
+    quarantine page)."""
+
+    def __init__(self, model):
+        self.model, self.chunk_rows, self.decode_rows = model, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill_chunk_fn(self, params, cache, batch):
+        self.chunk_rows += int((batch['page_ids'][:, 0] != 0).sum())
+        return self.model.prefill_chunk_fn(params, cache, batch)
+
+    def _decode_rows(self, batch):
+        rows = batch['page_table'].gather(
+            1, (batch['positions'] // 4)[:, None].long())[:, 0]
+        self.decode_rows += int((rows != 0).sum())
+
+    def decode_fn(self, params, cache, batch, **kw):
+        self._decode_rows(batch)
+        return self.model.decode_fn(params, cache, batch, **kw)
+
+    def decode_sample_fn(self, params, cache, batch, **kw):
+        self._decode_rows(batch)
+        return self.model.decode_sample_fn(params, cache, batch, **kw)
+
+
+@pytest.mark.parametrize('fused', [False, True])
+def test_piggybacked_decode_rows_take_the_decode_entry(fused):
+    """While one request prefills, another decodes in the same steps: the
+    chunked-prefill call carries only prompt chunks and every generated
+    token after a request's first comes out of the decode entry, so a
+    token is computed the same way whatever shares its step.  Outputs
+    equal each request run alone."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 512, n).tolist() for n in (6, 30)]
+    alone = []
+    for p in prompts:
+        eng, _ = _setup(fused_sampling=fused, decode_kernel=fused)
+        rid = eng.submit(p, max_new_tokens=8)
+        eng.run_to_completion()
+        alone.append(eng.output_tokens(rid))
+    eng, _ = _setup(fused_sampling=fused, decode_kernel=fused)
+    log = eng.model = _EntryLog(eng.model)
+    first = eng.submit(prompts[0], max_new_tokens=8)
+    _run_until(eng, first, 2)
+    second = eng.submit(prompts[1], max_new_tokens=8)
+    eng.run_to_completion()
+    assert [eng.output_tokens(first), eng.output_tokens(second)] == alone
+    assert eng.stats.mixed_dispatches > 1 and \
+        eng.stats.decode_iterations == eng.stats.dispatches - 1
+    assert log.chunk_rows == eng.stats.prefill_chunks
+    assert log.decode_rows == eng.stats.tokens_generated - len(prompts)

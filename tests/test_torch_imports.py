@@ -53,7 +53,7 @@ def test_no_cuda_means_no_node(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.node import NodeOrchestrator
-    from repro_torch.launch.serve import build_node, serve_demo
+    from repro_torch.launch.serve import build_node, serve_demo, serve_http
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.kvpool import KVPool
@@ -63,6 +63,8 @@ def test_no_cuda_means_no_node(monkeypatch):
         build_node()
     with pytest.raises(RuntimeError, match='no CUDA device'):
         serve_demo(steps=1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve_http(port=0)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         resolve_device('cuda')
     cfg = reduced(get_config('qwen3-0.6b'), page_size=4)

@@ -161,6 +161,41 @@ def test_decode_with_shared_prefix_matches_reference(arch):
                                rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize('entry', ['prefill', 'prefill_chunk'])
+def test_prefix_embeds_match_the_reference(entry):
+    """A batch carrying ``prefix_embeds`` (the vlm frontend's output, p = 3
+    positions) gets the reference's result: those embeddings replace the
+    first p token embeddings, in scores and in the KV written."""
+    jcfg, tcfg, jparams, jcache, tparams, tcache = _pair('qwen3-0.6b')
+    rng = np.random.default_rng(8)
+    pt = np.arange(1, 1 + B * MAXP, dtype=np.int32).reshape(B, MAXP)
+    embeds = (rng.normal(size=(B, 3, jcfg.d_model)) * 0.5).astype(np.float32)
+    if entry == 'prefill':
+        tokens = rng.integers(1, jcfg.vocab_size, (B, 4 * PG))
+        batch = {'tokens': tokens.astype(np.int32), 'page_table': pt}
+        jfn, tfn = jdense.prefill, tdense.prefill
+    else:
+        prompts = [rng.integers(1, jcfg.vocab_size, n).tolist()
+                   for n in (CHUNK, CHUNK - 2)]
+        batch = _chunk_batch(prompts, 0, pt)
+        jfn, tfn = jdense.prefill_chunk, tdense.prefill_chunk
+    batch['prefix_embeds'] = embeds
+    jc, jscores = jax.jit(functools.partial(jfn, jcfg))(
+        jparams, jcache, _to_j(batch))
+    tc, tscores = tfn(tcfg, tparams, tcache, _to_t(batch))
+    np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores),
+                               rtol=0, atol=ATOL)
+    for key in ('k', 'v'):
+        np.testing.assert_allclose(tc[key][:, 1:].numpy(),
+                                   np.asarray(jc[key])[:, 1:],
+                                   rtol=0, atol=ATOL)
+    # and the embeddings took effect: the tokens alone score otherwise
+    del batch['prefix_embeds']
+    _, plain = tfn(tcfg, tparams, cache_from_jax(
+        jax.tree.map(np.asarray, jcache)), _to_t(batch))
+    assert (plain - tscores).abs().max().item() > 100 * ATOL
+
+
 def test_bridge_head_layout():
     """Tied configs use the embedding table as the (V, D) head itself (no
     copy); the bridge transposes an untied (D, V) unembed once."""

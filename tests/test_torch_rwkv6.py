@@ -161,8 +161,71 @@ def test_bridge_carries_rwkv6_weights_and_state():
     st = state_from_jax(_state(jcfg, 1), dtype=torch.bfloat16)
     assert st['wkv'].dtype == torch.float32
     assert st['shift_tm'].dtype == st['shift_cm'].dtype == torch.bfloat16
-    zero = t_build_model(tcfg).init_state(B, device='cpu')
+    zero = t_build_model(tcfg).init_cache(batch_size=B, device='cpu')
     jzero = jrwkv6.init_state(jcfg, B)
     for key, t in zero.items():
         assert tuple(t.shape) == jzero[key].shape, key
         assert str(t.dtype).split('.')[-1] == str(jzero[key].dtype), key
+
+
+def _full_state(cfg, seed):
+    """A non-zero recurrent state for every layer, as numpy."""
+    rng = np.random.default_rng(seed)
+    layers = [_state(cfg, int(s)) for s in rng.integers(0, 2 ** 31, 2)]
+    layers = [layers[i % 2] for i in range(cfg.n_layers)]
+    return {k: np.stack([st[k] for st in layers]) for k in layers[0]}
+
+
+@pytest.mark.parametrize('use_kernel', [False, True])
+def test_prefill_and_decode_match_the_reference(use_kernel):
+    """A ragged prompt (T = 37) from a non-zero state, then 16 greedy
+    decode steps: scores and every state within the WKV tolerance, the
+    greedy tokens equal.  The reference prefills on its plain chunked
+    path; the port's kernel route runs K6's plain version on the CPU."""
+    jcfg, tcfg, jparams, tparams = _pair()
+    t_ragged, steps = 37, 16
+    tokens = np.random.default_rng(11).integers(
+        0, jcfg.vocab_size, (B, t_ragged)).astype(np.int32)
+    state = _full_state(jcfg, 12)
+    jcache, jscores = jrwkv6.prefill(
+        jcfg, jparams, {k: jnp.asarray(v) for k, v in state.items()},
+        {'tokens': jnp.asarray(tokens)})
+    model = t_build_model(tcfg)
+    tcache = state_from_jax(state)
+    tcache, tscores = model.prefill_fn(
+        tparams, tcache, {'tokens': torch.from_numpy(tokens)},
+        use_kernel=use_kernel)
+
+    def held(jcache, jscores, tcache, tscores):
+        np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores),
+                                   **WKV_TOL)
+        for key, v in tcache.items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(jcache[key]),
+                                       **WKV_TOL)
+
+    held(jcache, jscores, tcache, tscores)
+    jstep = jax.jit(functools.partial(jrwkv6.decode_step, jcfg))
+    want, got = [], []
+    for _ in range(steps):
+        jtok = jnp.argmax(jscores, axis=-1).astype(jnp.int32)
+        ttok = tscores.argmax(dim=-1).to(torch.int32)
+        want.append(np.asarray(jtok).tolist())
+        got.append(ttok.tolist())
+        jcache, jscores = jstep(jparams, jcache, {'tokens': jtok})
+        tcache, tscores = model.decode_fn(tparams, tcache, {'tokens': ttok})
+        held(jcache, jscores, tcache, tscores)
+    assert got == want
+
+
+def test_cache_template_matches_the_reference():
+    jcfg, tcfg, _, _ = _pair()
+    model = t_build_model(tcfg)
+    cache = model.init_cache(batch_size=3, device='cpu')
+    jtmpl = jrwkv6.cache_template(jcfg, 3)
+    assert set(cache) == set(jtmpl)
+    for key, t in cache.items():
+        assert tuple(t.shape) == jtmpl[key].shape, key
+        assert not t.any(), key
+    assert cache['wkv'].dtype == torch.float32
+    with pytest.raises(NotImplementedError):
+        model.init_cache(engine_pages=8, device='cpu')
