@@ -30,7 +30,9 @@ Phases, each fatal on failure:
    that splits over CTAs (against the serial and the split plain
    versions), K4 with winners planted at every CTA's first and last vocab
    row, at V - 1 and as an exact tie across two CTAs, and K4 at
-   internlm2-1.8b's head (V=92544, D=2048) on a line of its own;
+   internlm2-1.8b's head (V=92544, D=2048) on a line of its own; K1, K2
+   and K3 at phi3.5-moe's decode shape (Hq=32 over Hkv=8, GQA group 4),
+   checked with mutants and timed on lines of their own;
 4. full-width qwen3-0.6b, held teacher-forced: every kernel-path decode
    step (one step at the kernel shapes of phase 3, then every step of an
    engine drain over a prefix-sharing KV pool with short tables) is also
@@ -72,13 +74,26 @@ Phases, each fatal on failure:
     colocated node: tokens bit for bit, zero handoff recompute, the copied
     KV rows bit-equal to their source, both runtimes' invariants;
 12. phase 4's drain again with tables and shared runs long enough that K1,
-    K3 and K2 split over CTAs, gated the same way (last, so that a failure
-    there leaves every other phase's numbers printed);
-13. one JSON line of per-kernel results, then the result line.
+    K3 and K2 split over CTAs, gated the same way;
+13. MoE serving: phi3.5-moe at its published widths (d_model 4096, 32/8
+    heads, 16 experts of d_ff 6400, top-2, vocab 32064, bf16), depth cut
+    to 16 of 32 layers so that the weights leave room on the card: phase
+    4's drain with prefix sharing, every kernel-path decode step (K1, or K2
+    + K3) held to the plain path by the Witness and gated the same way,
+    the routing's differences and drops printed; one decode step timed
+    (host clock, synchronized) against the least time to read its
+    weights; then ``serve_demo`` on
+    ``build_node``'s geometry at page 16 with online qwen3-0.6b (fused
+    sampling) and offline phi3.5-moe (unfused): invariants, <= 1
+    preemption per request, all 6 offline requests finished, K1 launched
+    by the MoE engine (the Witnesses' verdicts come last, so that a
+    failure leaves every other phase's numbers printed);
+14. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
-checkout.  ``--trace`` profiles the node run, one bf16 prefill and one bf16
-rwkv6 forward once more each (device time by kernel, busy share).
+checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
+rwkv6 forward and one MoE decode step once more each (device time by
+kernel, busy share).
 """
 from __future__ import annotations
 
@@ -86,6 +101,7 @@ import argparse
 import asyncio
 import contextlib
 import functools
+import gc
 import json
 import re
 import statistics
@@ -117,6 +133,7 @@ LOSS_RTOL_BF16 = 1e-3              # bf16: or 2x the plain path's null gap
 REPS = 25
 
 B, HQ, HKV, D, PG, MAXP = 8, 16, 8, 128, 16, 32
+MOE_HQ = 32                        # phi3.5-moe: 32 query heads over HKV
 V_QWEN, D_QWEN = 151_936, 1024
 V_INTERN, D_INTERN = 92_544, 2048  # internlm2-1.8b's head (offline engine)
 FLASH_B, FLASH_S = 2, 4096         # qwen3-0.6b prefill attention
@@ -130,6 +147,7 @@ RWKV_DECODE = 16                   # greedy decode steps after the prefill
 FRONT_STREAMS, FRONT_BATCH = 16, 12  # loadgen streams, batch-job prompts
 DISAGG_REQS, DISAGG_PROMPT, DISAGG_NEW = 8, 64, 24
 SERVE_TIMEOUT_S = 300              # bounds a serving phase that stalls
+MOE_ARCH, MOE_LAYERS = 'phi3.5-moe-42b-a6.6b', 16   # depth cut, of 32
 DECODE_KERNELS = ('paged_decode', 'shared_run', 'shared_tail',
                   'unembed_sample')
 SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA')
@@ -420,6 +438,7 @@ def kernel_checks(card: str, timer: Timer):
     shared_split_check(card, timer, q, pool_k, pool_v, pt_np)
     shared_rows_check(card, timer)
     floor_check(card, timer, q, pool_k, pool_v, pt, pages)
+    group4_check(card, timer)
     # K3 from a non-empty state over tails that leave most splits empty
     # (row 0 none at all): the state and the live splits merge in order
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -828,6 +847,129 @@ def long_context_check(card: str, timer: Timer) -> None:
           f'of {pps} pages): err {max_err(out, ref):.3e}  kernel_ms {ms:.4f}'
           f'  library_ms {lib:.4f} (SDPA, gathered KV)  bound_ms '
           f'{t_bound:.4f} ({by})  [{card}]')
+
+
+def group4_check(card: str, timer: Timer) -> None:
+    """K1, K2 and K3 at phi3.5-moe's decode shape, GQA group 4: B=8,
+    Hq=32, Hkv=8, D=128, page 16, 32 pages a row, lengths 1..512, and K2 +
+    K3 over a shared 4-page prefix, against their plain versions with the
+    phase's tolerances, each with a mutant the check must reject, two calls
+    bit-equal; timed beside SDPA over the gathered KV, on lines of their
+    own."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.prefix import build_shared_runs
+    from repro_torch.kernels.paged_attention.ref import (paged_decode_ref,
+                                                         shared_run_ref,
+                                                         shared_run_split_ref)
+    from repro_torch.models.common import paged_gather
+
+    rng = np.random.default_rng(12)
+    hq, g = MOE_HQ, MOE_HQ // HKV
+    n_pages = 1 + B * MAXP
+    pool_k, pool_v = (torch.tensor(rng.normal(size=(n_pages, PG, HKV, D))
+                                   * 0.5, dtype=torch.bfloat16, device=DEV)
+                      for _ in range(2))
+    q = torch.tensor(rng.normal(size=(B, HKV, g, D)) * 0.5,
+                     dtype=torch.bfloat16, device=DEV)
+    lengths_np = np.linspace(1, MAXP * PG, B).astype(np.int32)
+    rng.shuffle(lengths_np)
+    pt_np = (rng.permutation(n_pages - 1)[:B * MAXP] + 1).reshape(
+        B, MAXP).astype(np.int32)
+    pt, lengths = (torch.tensor(a, device=DEV) for a in (pt_np, lengths_np))
+    q_sdpa = q.reshape(B, hq, 1, D)
+
+    def sdpa(table, lens):
+        kg, vg = (paged_gather(pool, table).permute(0, 2, 1, 3)
+                  for pool in (pool_k, pool_v))
+        mask = (torch.arange(MAXP * PG, device=DEV)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return timer(lambda: F.scaled_dot_product_attention(
+            q_sdpa, kg, vg, attn_mask=mask, enable_gqa=True))
+
+    out = pa.paged_decode(q, pool_k, pool_v, pt, lengths)
+    ref = paged_decode_ref(q, pool_k, pool_v, pt, lengths)
+    assert attn_close(out, ref), f'K1 at G={g}: {max_err(out, ref)}'
+    assert torch.equal(out, pa.paged_decode(q, pool_k, pool_v, pt, lengths)),\
+        f'K1 at G={g}: two calls differ'
+    dropped = lengths.clone()
+    dropped[int(lengths_np.argmax())] -= PG
+    mutants = {f'K1 at G={g}, dropped page': (out, paged_decode_ref(
+        q, pool_k, pool_v, pt, dropped))}
+    live = int(np.ceil(lengths_np / PG).sum())
+    t_bound, by = bound(live * PG * HKV * D * 2 * 2 + 2 * q.numel() * 2
+                        + live * 4 + B * 4, 4 * hq * D * int(lengths_np.sum()))
+    ms = timer(lambda: pa.paged_decode(q, pool_k, pool_v, pt, lengths))
+    plain = timer(lambda: paged_decode_ref(q, pool_k, pool_v, pt, lengths))
+    print(f'  paged_decode at phi3.5-moe\'s decode shape (B={B}, Hq={hq}, '
+          f'Hkv={HKV}, G={g}, D={D}, lengths 1..{MAXP * PG}): err '
+          f'{max_err(out, ref):.3e}; two calls bit-equal; kernel_ms '
+          f'{ms:.4f}  plain_ms {plain:.4f}  library_ms {sdpa(pt, lengths):.4f} '
+          f'(SDPA, gathered KV)  bound_ms {t_bound:.4f} ({by})  [{card}]')
+
+    n_shared = 4
+    spt_np = pt_np.copy()
+    spt_np[:, :n_shared] = pt_np[0, :n_shared]
+    slen_np = np.linspace(n_shared * PG + 1, MAXP * PG, B).astype(np.int32)
+    rng.shuffle(slen_np)
+    runs = build_shared_runs(spt_np, slen_np, PG)
+    assert runs['n_slots'] == n_shared, runs['n_slots']
+    cap = 1 << (runs['n_slots'] - 1).bit_length()
+    pages, smask, tail_pt, start, slen = (torch.tensor(a, device=DEV) for a in (
+        runs['pages'][:cap], runs['mask'][:, :cap], runs['tail_pt'],
+        runs['start'], slen_np))
+    state = pa.shared_run(q, pool_k, pool_v, pages, smask)
+    sps = pa.plan_shared_splits(HKV, cap, PG, sms())[0]
+    rels = [state_rel(state, want) for want in (
+        shared_run_ref(q, pool_k, pool_v, pages, smask),
+        shared_run_split_ref(q, pool_k, pool_v, pages, smask,
+                             slots_per_split=sps))]
+    assert max(rels) <= STATE_RTOL, f'K2 at G={g}: state rel err {rels}'
+    assert all(torch.equal(a, b) for a, b in zip(
+        state, pa.shared_run(q, pool_k, pool_v, pages, smask))), \
+        f'K2 at G={g}: two calls differ'
+    reject_state_mutant(f'K2 at G={g}', state, q, pool_k, pool_v, pages,
+                        smask)
+    out = pa.shared_tail(q, pool_k, pool_v, tail_pt, start, slen, state)
+    ref = paged_decode_ref(q, pool_k, pool_v, tail_pt, slen, start=start,
+                           state=state)
+    assert attn_close(out, ref), f'K3 at G={g}: {max_err(out, ref)}'
+    assert torch.equal(out, pa.shared_tail(q, pool_k, pool_v, tail_pt, start,
+                                           slen, state)), \
+        f'K3 at G={g}: two calls differ'
+    stock = paged_decode_ref(q, pool_k, pool_v,
+                             torch.tensor(spt_np, device=DEV), slen)
+    assert attn_close(out, stock), f'K2 + K3 at G={g} vs the stock walk: ' \
+        f'{max_err(out, stock)}'
+    shifted = start.clone()
+    shifted[int(slen_np.argmax())] += 1
+    mutants[f'K3 at G={g}, shifted start'] = (out, paged_decode_ref(
+        q, pool_k, pool_v, tail_pt, slen, start=shifted, state=state))
+    reject(mutants, attn_close)
+    run_ms = timer(lambda: pa.shared_run(q, pool_k, pool_v, pages, smask))
+    run_plain = timer(lambda: shared_run_ref(q, pool_k, pool_v, pages, smask))
+    tail_ms = timer(lambda: pa.shared_tail(q, pool_k, pool_v, tail_pt, start,
+                                           slen, state))
+    tail_plain = timer(lambda: paged_decode_ref(
+        q, pool_k, pool_v, tail_pt, slen, start=start, state=state))
+    run_bound = bound(
+        n_shared * PG * HKV * D * 2 * 2 + q.numel() * 2 + smask.numel() * 4
+        + cap * 4 + B * hq * 4 * (2 + D),
+        4 * g * D * PG * HKV * int(runs['mask'].sum()))
+    tail_live = np.ceil(slen_np / PG).astype(np.int64) - runs['start']
+    tail_bound = bound(
+        int(tail_live.sum()) * PG * HKV * D * 2 * 2 + 2 * q.numel() * 2
+        + B * hq * 4 * (2 + D) + int(tail_live.sum()) * 4 + B * 8,
+        4 * hq * D * (int(slen_np.sum()) - int(runs['start'].sum()) * PG))
+    print(f'  shared_run / shared_tail at G={g} over a shared {n_shared}-page '
+          f'prefix: state rel err {max(rels):.3e}, tail err '
+          f'{max_err(out, ref):.3e}; two calls bit-equal; kernel_ms '
+          f'{run_ms:.4f} / {tail_ms:.4f}  plain_ms {run_plain:.4f} / '
+          f'{tail_plain:.4f}  library_ms (the pair, SDPA) '
+          f'{sdpa(torch.tensor(spt_np, device=DEV), slen):.4f}  bound_ms '
+          f'{run_bound[0]:.4f} ({run_bound[1]}) / {tail_bound[0]:.4f} '
+          f'({tail_bound[1]})  [{card}]')
 
 
 def profiled(fn):
@@ -1313,6 +1455,43 @@ def split_plans():
         pa.plan_splits, pa.plan_shared_splits = saved
 
 
+def drain_trace(model, params, kernels: bool, n_prompt_pages: int,
+                max_seq: int, witness_cls):
+    """One engine drain of the prefix-sharing trace: a prompt of
+    ``n_prompt_pages`` pages decodes alone until its prefix is published,
+    then two more requests with the same prompt join it; 16 new tokens
+    each.  The kernel path (``kernels``) runs the decode kernels, prefix
+    sharing and the fused head where the model has one, under a
+    ``witness_cls`` witness; the plain path none of them.  Returns (tokens,
+    stats, witness)."""
+    from repro_torch.core.memory import MemoryPlane
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.kvpool import KVPool
+
+    pg = model.cfg.page_size
+    prompt = np.random.default_rng(7).integers(
+        1, model.cfg.vocab_size, n_prompt_pages * pg).tolist()
+    pool = KVPool(16, max(4, max_seq // pg // 2), page_size=pg,
+                  reserved_handles=1)
+    MemoryPlane(pool, sharing=True)
+    witness = witness_cls(model) if kernels else None
+    fused = kernels and model.cfg.family != 'moe'
+    eng = Engine(witness or model, params, pool, EngineConfig(
+        max_batch=4, max_seq=max_seq, prefill_chunk=32,
+        decode_kernel=None if kernels else False,
+        fused_sampling=fused, prefix_shared_attention=kernels),
+        device=DEV)
+    rids = [eng.submit(prompt, max_new_tokens=16)]
+    for _ in range(20):         # publish r0's prefix; decode it alone
+        eng.step()
+        if len(eng.requests[rids[0]].generated) >= 3:
+            break
+    rids += [eng.submit(prompt, max_new_tokens=16) for _ in range(2)]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    return [eng.output_tokens(r) for r in rids], eng.stats, witness
+
+
 def engine_check(card: str, long: bool = False):
     """Drain a prefix-shared trace through the plain path and through the
     kernel path, the latter's every decode step held by a
@@ -1327,37 +1506,15 @@ def engine_check(card: str, long: bool = False):
     serial f32 order, and the first null (the split plain models under the
     same plans) sums in the kernels' split order.  Both gated."""
     from repro_torch.configs import get_config
-    from repro_torch.core.memory import MemoryPlane
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.models.api import build_model
-    from repro_torch.serving.engine import Engine, EngineConfig
-    from repro_torch.serving.kvpool import KVPool
 
     model = build_model(get_config('qwen3-0.6b'))
     params = model.init_params(0, device=DEV)
-    pg = model.cfg.page_size
 
     def drain(kernels: bool, n_prompt_pages: int, max_seq: int):
-        prompt = np.random.default_rng(7).integers(
-            1, model.cfg.vocab_size, n_prompt_pages * pg).tolist()
-        pool = KVPool(16, max(4, max_seq // pg // 2), page_size=pg,
-                      reserved_handles=1)
-        MemoryPlane(pool, sharing=True)
-        witness = Witness(model) if kernels else None
-        eng = Engine(witness or model, params, pool, EngineConfig(
-            max_batch=4, max_seq=max_seq, prefill_chunk=32,
-            decode_kernel=None if kernels else False,
-            fused_sampling=kernels, prefix_shared_attention=kernels),
-            device=DEV)
-        rids = [eng.submit(prompt, max_new_tokens=16)]
-        for _ in range(20):         # publish r0's prefix; decode it alone
-            eng.step()
-            if len(eng.requests[rids[0]].generated) >= 3:
-                break
-        rids += [eng.submit(prompt, max_new_tokens=16) for _ in range(2)]
-        eng.run_to_completion()
-        torch.cuda.synchronize()
-        return [eng.output_tokens(r) for r in rids], eng.stats, witness
+        return drain_trace(model, params, kernels, n_prompt_pages, max_seq,
+                           Witness)
 
     what, n_prompt_pages, max_seq = (('long engine drain', 10, 256) if long
                                      else ('engine drain', 3, 96))
@@ -2165,6 +2322,256 @@ def disagg_check(card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: MoE serving (phi3.5-moe at its published widths, depth cut)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def routing_log(log: list):
+    """Every MoE layer's routing while inside, appended to ``log``: (the
+    (N, k) expert ids, the assignments past capacity)."""
+    from repro_torch.models import moe
+
+    routed = moe.route
+
+    def logged(*args, **kw):
+        out = routed(*args, **kw)
+        log.append((out[1], int((out[3] >= out[4]).sum())))
+        return out
+    moe.route = logged
+    try:
+        yield log
+    finally:
+        moe.route = routed
+
+
+class MoEWitness(Witness):
+    """The :class:`Witness` for an engine without fused sampling (MoE):
+    each kernel-path ``decode_fn`` step is held to the plain path and the
+    nulls the same way, the engine's greedy pick being the argmax of the
+    scores it returns.  Each step's routing is recorded too: the live
+    token-layers whose top-k expert set differs between the plain path and
+    the kernel path, and the assignments each path dropped."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.route_diff = self.route_total = 0
+        self.dropped = {'plain': 0, 'kernel': 0}
+
+    def decode_fn(self, params, cache, batch, *, use_kernel):
+        from repro_torch.kernels.common import LAUNCHES
+        assert use_kernel
+
+        def scores(b, kernel, log):
+            c = {k: v.clone() for k, v in cache.items()}
+            with routing_log(log):
+                return self.model.decode_fn(params, c, b,
+                                            use_kernel=kernel)[1]
+
+        counts = dict(LAUNCHES)
+        logs = {'plain': [], 'kernel': []}
+        plain = scores({k: v for k, v in batch.items() if k != 'shared'},
+                       False, logs['plain'])
+        kern = scores(batch, True, logs['kernel'])
+        nulls = []
+        for order in NULL_ORDERS:
+            with plain_kernels(order):
+                nulls.append(scores(batch, True, []))
+        LAUNCHES.update(counts)
+        cache, out = self.model.decode_fn(params, cache, batch,
+                                          use_kernel=True)
+        live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+        self._check(out[live].argmax(-1), plain[live], kern[live],
+                    torch.stack(nulls)[:, live])
+        for (p_ids, p_drop), (k_ids, k_drop) in zip(logs['plain'],
+                                                    logs['kernel']):
+            same = (p_ids.sort(-1).values == k_ids.sort(-1).values).all(-1)
+            self.route_diff += int((~same[live]).sum())
+            self.route_total += len(live)
+            self.dropped['plain'] += p_drop
+            self.dropped['kernel'] += k_drop
+        return cache, out
+
+
+class LaunchTap:
+    """Stands in for one engine's model and counts the kernel launches its
+    calls make (the node's other engines launch too)."""
+
+    def __init__(self, model):
+        from repro_torch.kernels.common import LAUNCHES
+        self.model, self.launches = model, dict.fromkeys(LAUNCHES, 0)
+
+    def __getattr__(self, name):
+        from repro_torch.kernels.common import LAUNCHES
+        attr = getattr(self.model, name)
+        if not name.endswith('_fn'):
+            return attr
+
+        def tapped(*args, **kw):
+            before = dict(LAUNCHES)
+            try:
+                return attr(*args, **kw)
+            finally:
+                for k, n in LAUNCHES.items():
+                    self.launches[k] += n - before[k]
+        return tapped
+
+
+def moe_step_time(card: str, model, params, trace: bool = False) -> None:
+    """One kernel-path and one plain-path MoE decode step at the node's
+    engine shape (B=8, 96-token tables, contexts 24..95): the median wall
+    of 10 synchronized steps on the host clock (the eager step's host work
+    can outlast its device work, so CUDA events alone would not show what
+    a step takes), beside the least time to read the weights the step
+    reads: every layer's (the dense-capacity formulation runs all experts)
+    and the head.  ``trace``: the kernel-path step's device time by kernel
+    and busy share too."""
+    b, maxp = 8, 96 // PG
+    n_pages = 1 + b * maxp
+    cache = model.init_cache(engine_pages=n_pages, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    for pool in cache.values():
+        pool.normal_(generator=gen)
+    rng = np.random.default_rng(5)
+    batch = {
+        'tokens': torch.tensor(rng.integers(1, model.cfg.vocab_size, b),
+                               device=DEV),
+        'positions': torch.tensor(np.linspace(24, 95, b).astype(np.int32),
+                                  device=DEV),
+        'page_table': torch.tensor((rng.permutation(n_pages - 1) + 1)
+                                   .reshape(b, maxp).astype(np.int32),
+                                   device=DEV)}
+
+    def step_ms(kernel: bool) -> float:
+        times = []
+        for i in range(13):                 # 3 warm-up steps, then 10
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_fn(params, cache, batch, use_kernel=kernel)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    ms = [step_ms(k) for k in (True, False, True, False)]
+    layers = sum(w.numel() * w.element_size()
+                 for w in params['layers'].values())
+    experts = sum(params['layers'][k].numel() * 2
+                  for k in ('we_gate', 'we_up', 'we_down'))
+    head = params['embed' if model.cfg.tie_embeddings else 'unembed']
+    n_bytes = layers + head.numel() * head.element_size()
+    t_all, t_experts = (n / HBM_BYTES_PER_S * 1e3 for n in (n_bytes, experts))
+    print(f'  MoE decode step (B={b}, {model.cfg.n_layers} layers), median '
+          f'wall of 10 (host clock, synchronized), in turns: kernel path '
+          f'{ms[0]:.4f} / {ms[2]:.4f} ms, plain path {ms[1]:.4f} / '
+          f'{ms[3]:.4f} ms; bound {t_all:.4f} ms (bytes: {n_bytes:.4e} of '
+          f'weights read, {experts:.4e} of them experts, {t_experts:.4f} '
+          f'ms)  [{card}]')
+    if trace:
+        device_profile('MoE decode step, kernel path', lambda: model.decode_fn(
+            params, cache, batch, use_kernel=True), card)
+
+
+def moe_check(card: str, trace: bool = False):
+    """Phase 13.  (a) An engine drain of phi3.5-moe (16 of 32 layers) over
+    the prefix-sharing trace, plain path and kernel path, every kernel-path
+    decode step held by a :class:`MoEWitness` (gated as phase 4; K1, K2
+    and K3 launched); one decode step timed against its bound.  (b)
+    ``serve_demo(steps=400)`` on ``build_node``'s geometry at page 16:
+    online qwen3-0.6b with fused sampling, offline phi3.5-moe without (the
+    reference has no fused MoE head): invariants, <= 1 preemption per
+    request, every offline request finished, K1 launched by the MoE
+    engine.  Returns (the MoE engines' launches, what the witness
+    failed)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.clock import RealClock
+    from repro_torch.core.runtime import RuntimeConfig, ValveRuntime
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.node import NodeOrchestrator
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.kvpool import KVPool
+
+    # earlier phases' engines sit in reference cycles (sessions call back
+    # into them) until a collection; the expert stacks need the room
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f'  device memory allocated before the phase: {held / 1e9:.2f} GB, '
+          f'{torch.cuda.memory_allocated() / 1e9:.2f} GB after a collection')
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(0, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in params.parameters())
+    print(f'  {MOE_ARCH}: depth cut to {cfg.n_layers} of 32 layers (bf16 '
+          f'weights of all 32 would leave under 2 GB of the card for the '
+          f'rest); d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} '
+          f'heads, {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-'
+          f'{cfg.moe_top_k}, vocab {cfg.vocab_size}; {n_params:.4e} '
+          f'parameters drawn in {time.perf_counter() - t0:.1f} s, peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated')
+
+    plain, _, _ = drain_trace(model, params, False, 3, 96, MoEWitness)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    fast, stats, witness = drain_trace(model, params, True, 3, 96,
+                                       MoEWitness)
+    drained = dict(LAUNCHES)
+    first = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+             for a, b in zip(fast, plain)]
+    print(f'  MoE engine drain: {sum(map(len, fast))} tokens, kernel drain vs '
+          f'plain drain first differing token per request {first}, '
+          f'shared_page_reads_saved {stats.shared_page_reads_saved}, '
+          f'launches {drained}  [{card}]')
+    print(f'  MoE routing over the witnessed steps: {witness.route_diff} of '
+          f'{witness.route_total} live token-layers choose another top-'
+          f'{cfg.moe_top_k} expert set on the kernel path than on the plain '
+          f'path; assignments dropped past capacity: plain path '
+          f'{witness.dropped["plain"]}, kernel path '
+          f'{witness.dropped["kernel"]}')
+    failed = witness.verdict('MoE engine drain, every decode step', card)
+    assert stats.shared_page_reads_saved > 0, 'no shared page reads saved'
+    assert all(drained[k] > 0 for k in DECODE_KERNELS[:3]), drained
+    moe_step_time(card, model, params, trace)
+
+    pool = KVPool(n_handles=24, pages_per_handle=8, page_size=PG,
+                  reserved_handles=2)
+    node = NodeOrchestrator(ValveRuntime(
+        pool, RuntimeConfig(n_devices=1, t_cool_init=0.002),
+        clock=RealClock()), idle_advance=1e-3)
+    ecfg = dict(max_batch=8, max_seq=96, prefill_chunk=16)
+    node.add_engine(get_config('qwen3-0.6b'), EngineConfig(
+        **ecfg, klass='online', fused_sampling=True), seed=0,
+        name='online:qwen3-0.6b', device=DEV)
+    eng = node.add_engine(cfg, EngineConfig(**ecfg, klass='offline'),
+                          params=params, name=f'offline0:{MOE_ARCH}',
+                          device=DEV)
+    tap = eng.model = LaunchTap(eng.model)
+    t0 = time.perf_counter()
+    m = serve_demo(node=node, steps=400, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    em = m['engines'][f'offline0:{MOE_ARCH}']
+    print(f'  MoE node: online_finished {m["online_finished"]}, '
+          f'offline_finished {m["offline_finished"]}, online_ttft_p50 '
+          f'{m["online_ttft_p50"]} s, online_tpot_p50 {m["online_tpot_p50"]} '
+          f's, offline {m["offline_tokens"] / wall:.2f} tokens/s '
+          f'({m["offline_tokens"]} in {wall:.2f} s; MoE dispatches '
+          f'{em["dispatches"]}, mixed {em["mixed_dispatches"]}), preemptions '
+          f'{m["compute_preemptions"]}, max a request '
+          f'{m["max_preemptions_per_request"]}, reclamations '
+          f'{m["reclamations"]}, MoE engine launches {tap.launches}  [{card}]')
+    assert m['max_preemptions_per_request'] <= 1, m
+    assert m['offline_finished'] == 6, m['offline_finished']
+    assert tap.launches['paged_decode'] > 0, tap.launches
+    return {k: drained[k] + tap.launches[k] for k in drained}, failed
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -2190,8 +2597,8 @@ MAIN_PHASE = {'flash_attention': 'prefill', 'wkv6': 'rwkv6_forward'}
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--trace', action='store_true',
-                    help='also profile the node, prefill and rwkv6 runs '
-                         '(device time by kernel)')
+                    help='also profile the node, prefill, rwkv6 and MoE '
+                         'decode runs (device time by kernel)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2251,6 +2658,7 @@ def main() -> int:
         device_profile('node', lambda: serve_demo(node=node, steps=400,
                                                   quiet=True),
                        card, node_wall)
+        del node
     done()
     print('[6] prefill: qwen3-0.6b full width, B=2, S=2048, plain path vs '
           'kernel path')
@@ -2281,8 +2689,14 @@ def main() -> int:
           'split')
     witnessed += engine_check(card, long=True)[1]
     done()
+    print(f'[13] MoE: {MOE_ARCH} at published widths, {MOE_LAYERS} of 32 '
+          f'layers: engine drain (plain path vs kernel path) and the node '
+          f'beside online qwen3-0.6b')
+    by_phase['moe'], failed = moe_check(card, args.trace)
+    witnessed += failed
+    done()
 
-    print(f'[13] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[14] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

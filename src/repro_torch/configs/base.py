@@ -1,7 +1,7 @@
 """Config system: architectures and input shapes.
 
-A copy of the reference package's config system, trimmed to the dense
-configs the port serves.  Each ``ModelConfig`` in ``configs/<id>.py`` holds
+A copy of the reference package's config system, trimmed to the configs
+the port runs.  Each ``ModelConfig`` in ``configs/<id>.py`` holds
 the exact published dimensions; ``reduced()`` variants (same family, tiny
 dims) power the CPU tests, and the full configs run on the GPU.
 """

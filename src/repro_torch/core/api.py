@@ -36,18 +36,20 @@ resumes.  The lease iterates as the legacy page-id list.
 the same shape (no runtime, no gating, no events — but the same
 pool-global memory plane) so the engine holds one session unconditionally.
 
-The reference package's ``api_surface()`` snapshot renderer is not part of
-this copy: it reaches the cluster plane, which the port does not have yet.
+``api_surface()`` renders the public control-plane API as stable text;
+the port's test holds it to the reference package's snapshot
+(``tests/api_surface.txt``) with the package name mapped.
 """
 from __future__ import annotations
 
+import inspect
 import itertools
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.core.memory import KVLease, MemoryPlane
 from repro_torch.core.reclamation import InvalidationCallback
 
-__all__ = ['ValveSession', 'PoolSession']
+__all__ = ['ValveSession', 'PoolSession', 'api_surface']
 
 # PoolSession keeps the engine-instance discriminator the runtime sessions
 # no longer need: without a runtime there is no node-wide owner registry,
@@ -211,3 +213,56 @@ class PoolSession:
                 if r.startswith(self.name + '-')]
 
     def close(self) -> None: ...
+
+
+# ---------------------------------------------------------------------------
+# Public-API snapshot (tests/test_api_surface.py pins this text)
+# ---------------------------------------------------------------------------
+
+def _surface_of(obj, prefix: str) -> List[str]:
+    lines = []
+    for name, member in sorted(vars(obj).items()):
+        if name.startswith('_'):
+            continue
+        if callable(member) and not inspect.isclass(member):
+            try:
+                sig = str(inspect.signature(member))
+            except (TypeError, ValueError):
+                sig = '(...)'
+            lines.append(f'{prefix}.{name}{sig}')
+        elif isinstance(member, property):
+            lines.append(f'{prefix}.{name} [property]')
+    return lines
+
+
+def api_surface() -> List[str]:
+    """Render the public control- and memory-plane API v1 as sorted
+    signature lines."""
+    from repro_torch.core import events as E
+    from repro_torch.core import memory as M
+    from repro_torch.core import telemetry as T
+    from repro_torch.core.cluster.placement import (
+        GlobalPlacementPolicy, GPUProfile, PlacementPolicy, TopologyModel)
+    from repro_torch.core.cluster.scheduler import ClusterScheduler
+    from repro_torch.core.runtime import ValveRuntime
+
+    lines: List[str] = []
+    for cls in (ValveSession, PoolSession, ValveRuntime, M.MemoryPlane,
+                M.KVLease, E.EventBus, T.TelemetryRegistry,
+                T.LatencySummary, ClusterScheduler, PlacementPolicy,
+                GlobalPlacementPolicy, GPUProfile, TopologyModel):
+        lines.append(f'{cls.__module__}.{cls.__name__}')
+        lines += _surface_of(cls, f'  {cls.__name__}')
+    lines.append(f'{M.LeaseInvalidation.__module__}.LeaseInvalidation'
+                 f'({", ".join(M.LeaseInvalidation.__slots__)})')
+    for ev in E.EVENT_TYPES:
+        lines.append(f'{ev.__module__}.{ev.__name__}'
+                     f'({", ".join(ev._fields)})')
+    return lines
+
+
+if __name__ == '__main__':
+    # re-import under the canonical module name (running via -m makes this
+    # file __main__, which would leak into the snapshot's qualnames)
+    from repro_torch.core import api as _canonical
+    print('\n'.join(_canonical.api_surface()))

@@ -17,6 +17,11 @@ serves the async front-end over it instead of the scripted demo.
     # (reduced widths) on one pool
     PYTHONPATH=src python -m repro_torch.launch.serve --steps 400
 
+    # an offline MoE engine (phi3.5-moe, reduced widths) beside the online
+    # qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --offline-arch phi3.5-moe-42b-a6.6b
+
     # the same node behind the HTTP front-end (SSE streaming + batch jobs)
     PYTHONPATH=src python -m repro_torch.launch.serve --http --port 8080
 """

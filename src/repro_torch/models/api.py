@@ -2,8 +2,10 @@
 to a config, with the entry points the engine and the tests need.  The port
 serves the ``dense`` and ``vlm`` families (``vlm`` shares the dense
 decoder and takes its frontend's output as ``batch['prefix_embeds']``; the
-frontend itself is not ported) and runs the ``ssm`` family (rwkv6): its
-training forward, and prefill + decode over a recurrent-state cache.
+frontend itself is not ported) and the ``moe`` family (the dense decoder
+with routed experts; no fused sampling and no prefill kernel, as in the
+reference), and runs the ``ssm`` family (rwkv6): its training forward, and
+prefill + decode over a recurrent-state cache.
 """
 from __future__ import annotations
 
@@ -15,9 +17,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.models import dense, rwkv6
+from repro_torch.models import dense, moe, rwkv6
 
-_FAMILY = {'dense': dense, 'vlm': dense, 'ssm': rwkv6}
+_FAMILY = {'dense': dense, 'vlm': dense, 'moe': moe, 'ssm': rwkv6}
 
 
 @dataclass(frozen=True)
@@ -78,32 +80,38 @@ class Model:
         """Whole-prompt prefill: (cache, (B, V) f32 scores of the last
         token).  Dense: into the global pool, the flash-attention kernel
         with ``use_kernel``.  ssm: from the recurrent state in ``cache``,
-        the WKV6 kernel with ``use_kernel``."""
+        the WKV6 kernel with ``use_kernel``.  moe: the plain path only (the
+        reference's MoE prefill has no kernel path)."""
+        if self.cfg.family == 'moe':
+            if use_kernel:
+                raise NotImplementedError('moe prefill has no kernel path')
+            return moe.prefill(self.cfg, params, cache, batch)
         self._only('dense', 'vlm', 'ssm')
         return _FAMILY[self.cfg.family].prefill(
             self.cfg, params, cache, batch, use_kernel=use_kernel)
 
     def decode_fn(self, params, cache, batch, *, use_kernel=False):
-        """One token a row: (cache, (B, V) f32 scores).  Dense: the paged
-        decode kernel with ``use_kernel``.  ssm: the single-token
+        """One token a row: (cache, (B, V) f32 scores).  Dense and moe:
+        the paged decode kernel with ``use_kernel``.  ssm: the single-token
         recurrence step (no kernel, as in the reference)."""
         if self.cfg.family == 'ssm':
             return rwkv6.decode_step(self.cfg, params, cache, batch)
-        self._only('dense', 'vlm')
-        return dense.decode_step(self.cfg, params, cache, batch,
-                                 use_kernel=use_kernel)
+        return _FAMILY[self.cfg.family].decode_step(
+            self.cfg, params, cache, batch, use_kernel=use_kernel)
 
     def decode_sample_fn(self, params, cache, batch, *, use_kernel=False,
                          temperature=0.0):
-        """Fused decode+sampling step: (cache, (B,) int32 tokens)."""
+        """Fused decode+sampling step: (cache, (B,) int32 tokens).  Dense
+        and vlm only, as in the reference."""
         self._only('dense', 'vlm')
         return dense.decode_step_sample(self.cfg, params, cache, batch,
                                         use_kernel=use_kernel,
                                         temperature=temperature)
 
     def prefill_chunk_fn(self, params, cache, batch):
-        self._only('dense', 'vlm')
-        return dense.prefill_chunk(self.cfg, params, cache, batch)
+        self._only('dense', 'vlm', 'moe')
+        return _FAMILY[self.cfg.family].prefill_chunk(self.cfg, params,
+                                                      cache, batch)
 
 
 @functools.lru_cache(maxsize=None)

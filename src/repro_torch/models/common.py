@@ -41,8 +41,10 @@ def _init_leaf(leaf: PSpec, gen: torch.Generator, device) -> torch.Tensor:
         return torch.ones(leaf.shape, dtype=leaf.dtype, device=device)
     fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
     scale = leaf.scale if leaf.scale is not None else fan_in ** -0.5
-    return (torch.randn(leaf.shape, generator=gen, dtype=torch.float32,
-                        device=device) * scale).to(leaf.dtype)
+    # scaled in place: one f32 draw of the leaf is alive at a time (an MoE
+    # expert stack is tens of GB in f32)
+    return torch.randn(leaf.shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(scale).to(leaf.dtype)
 
 
 def init_from_template(tmpl, gen: torch.Generator, device):

@@ -16,7 +16,10 @@ the serving entry points of the reference's ``models/dense.py``.
   scores (``decode_step``) or the fused unembed+sample kernel.
 
 A Python loop over layers replaces ``lax.scan``; the KV pools are updated
-in place.  The output head is (V, D) row-major (:func:`head_of`).
+in place.  The output head is (V, D) row-major (:func:`head_of`).  Each
+entry point takes the layer's MLP block as ``mlp(cfg, lp, h) -> h``
+(residual included; :func:`_mlp`, the SwiGLU, by default), so the MoE
+family (``models/moe.py``) runs these loops with its routed experts.
 """
 from __future__ import annotations
 
@@ -176,6 +179,7 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
 
 
 def _mlp(cfg, lp, h):
+    """The dense MLP block: pre-norm SwiGLU plus the residual."""
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
     return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
 
@@ -195,7 +199,7 @@ def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None):
 
 
 def prefill(cfg: ModelConfig, params, cache, batch, *,
-            use_kernel: bool = False):
+            use_kernel: bool = False, mlp=_mlp):
     """Whole-prompt prefill.  batch: tokens (B, S) with S a multiple of
     the page size, page_table (B, >= S // page) [, prefix_embeds (B, p,
     D)].  Returns (cache with the
@@ -210,12 +214,12 @@ def prefill(cfg: ModelConfig, params, cache, batch, *,
         h = h + self_attn_prefill(cfg, lp, x, positions, cache['k'][i],
                                   cache['v'][i], batch['page_table'],
                                   use_kernel=use_kernel)
-        h = _mlp(cfg, lp, h)
+        h = mlp(cfg, lp, h)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, head_of(cfg, params))
 
 
-def prefill_chunk(cfg: ModelConfig, params, cache, batch):
+def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp):
     """Chunked prefill step (the offline engine's preemptible dispatch unit).
 
     batch: tokens (B, C), positions (B, C), page_table (B, maxp),
@@ -232,14 +236,14 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch):
             cfg, lp, x, positions, cache['k'][i], cache['v'][i],
             batch['page_table'], batch['page_ids'], batch['offsets'],
             batch['kv_len'])
-        h = _mlp(cfg, lp, h)
+        h = mlp(cfg, lp, h)
     last = h[torch.arange(h.shape[0], device=h.device),
              batch['last_idx'].long()]
     last = cm.rms_norm(last, params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, head_of(cfg, params))
 
 
-def _decode_hidden(cfg, params, cache, batch, use_kernel):
+def _decode_hidden(cfg, params, cache, batch, use_kernel, mlp=_mlp):
     positions = batch['positions']
     h = params['embed'][batch['tokens'].long()][:, None, :]
     for i in range(cfg.n_layers):
@@ -249,15 +253,15 @@ def _decode_hidden(cfg, params, cache, batch, use_kernel):
                                  cache['v'][i], batch['page_table'],
                                  use_kernel=use_kernel,
                                  shared=batch.get('shared'))
-        h = _mlp(cfg, lp, h)
+        h = mlp(cfg, lp, h)
     return cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *,
-                use_kernel: bool = False):
+                use_kernel: bool = False, mlp=_mlp):
     """tokens (B,), positions (B,), page_table (B, maxp) [, shared] ->
     (cache, (B, V) f32 scores)."""
-    last = _decode_hidden(cfg, params, cache, batch, use_kernel)
+    last = _decode_hidden(cfg, params, cache, batch, use_kernel, mlp)
     return cache, unembed_scores(last, head_of(cfg, params))
 
 

@@ -37,6 +37,15 @@ comes out of the same computation whatever the schedule, which the
 serving plane's bit-identity claims (streamed == drained, disaggregated
 == colocated) rest on.
 
+The MoE family keeps the reference's dispatch shape instead: its decode
+rows ride in the chunked-prefill call as one-token rows, and a migrated
+lease resumes with a one-token chunk.  Expert capacity is counted over
+every token of a call, padding included, so which tokens an MoE layer
+drops depends on what the call holds; only the reference's composition
+gives the reference's tokens.  (Under capacity the identities above cannot
+hold for MoE in either package: what shares a dispatch changes results by
+design.)
+
 The engine runs on the GPU unless built with ``device='cpu'``
 (:func:`repro_torch.resolve_device`).
 """
@@ -158,6 +167,9 @@ class Engine:
         self.queue: List[str] = self.sched.queue
         self.running: List[str] = self.sched.running
         self.stats = EngineStats()
+        # MoE: decode rows inside the chunk, as the reference composes them
+        # (expert capacity is shared across the whole dispatch)
+        self._decode_in_chunk = self.mcfg.family == 'moe'
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed)
         decode_kernel = self.cfg.decode_kernel
@@ -324,7 +336,9 @@ class Engine:
         """Execute one composed dispatch: the prefill rows through the
         chunked-prefill entry (one fixed (max_batch x chunk) call), the
         piggybacked decode rows through the decode entry (one fixed
-        (max_batch,) call), both inside one Valve iteration."""
+        (max_batch,) call), both inside one Valve iteration.  For MoE the
+        decode rows are one-token rows of the chunked call instead (embed
+        the last sampled token, write its KV, predict the next)."""
         # prefill rows re-read context token VALUES, so lazily-held device
         # tokens must land first; the newest-output row map dies with this
         # dispatch (the decode rows below rebuild it)
@@ -352,6 +366,19 @@ class Engine:
             m['kv_len'][row] = hi
             m['last_idx'][row] = ps.length - 1
             row += 1
+        in_chunk = batch.decode if self._decode_in_chunk else []
+        for ds in in_chunk:
+            req = self.requests[ds.req_id]
+            # the last context token was sampled but its KV never written
+            pos = len(req.context) - 1
+            m['toks'][row, 0] = req.context[-1]
+            m['poss'][row, :] = pos
+            pt = self._fill_page_table(m['pts'][row], req)
+            m['pids'][row, 0] = pt[pos // self.pg]
+            m['offs'][row, 0] = pos % self.pg
+            m['kv_len'][row] = pos + 1
+            m['last_idx'][row] = 0
+            row += 1
         mb = {
             'tokens': self._put(m['toks']),
             'positions': self._put(m['poss']),
@@ -361,7 +388,8 @@ class Engine:
             'kv_len': self._put(m['kv_len']),
             'last_idx': self._put(m['last_idx']),
         }
-        db = self._decode_inputs(batch.decode) if batch.decode else None
+        db = (self._decode_inputs(batch.decode)
+              if batch.decode and not in_chunk else None)
         self.session.iteration_start()                      # VALVE-SESSION
         self.cache, logits = self.model.prefill_chunk_fn(
             self.params, self.cache, mb)
@@ -385,6 +413,11 @@ class Engine:
                 # context -- the first token on a fresh prefill, the resume
                 # token after an invalidation recompute
                 self._append_token(req, new[row])
+            row += 1
+        for ds in in_chunk:
+            req = self.requests[ds.req_id]
+            req.decode_steps += 1
+            self._append_token(req, new[row])
             row += 1
         if out is not None:
             self._decode_tokens(batch.decode, out)
@@ -585,7 +618,8 @@ class Engine:
             self.stats.blocked_dispatches += 1
             return False
         self.sched.admit(self.requests, self._try_admit, self._spill)
-        self._resume_as_decode()
+        if not self._decode_in_chunk:
+            self._resume_as_decode()
         batch = self.sched.compose(self.requests)
         self.stats.steps += 1
         if batch.empty:
