@@ -88,12 +88,24 @@ Phases, each fatal on failure:
     preemption per request, all 6 offline requests finished, K1 launched
     by the MoE engine (the Witnesses' verdicts come last, so that a
     failure leaves every other phase's numbers printed);
-14. one JSON line of per-kernel results, then the result line.
+14. training: ``launch.train.train`` on full-width qwen3-0.6b (28
+    layers, bf16 weights, f32 AdamW moments), B=4, S=2048, 12 steps with a
+    checkpoint at step 8: finite losses and gradient norms, the loss
+    falling (mean of the last 4 below the first 4), then a restart from
+    the checkpoint retracing steps 8-11 within 2e-2; qwen3-0.6b cut to 2
+    of 28 layers in f32, weights drawn on the CPU: the loss within 1e-5
+    relative and every gradient leaf within 1e-4 of its max |g| against
+    the CPU, and 2 microbatches against 1 within 1e-5; ``python -m
+    repro_torch.launch.train`` at full width as a child process (exit 0,
+    step_4 committed, no .tmp); the step's time, tokens/s, model FLOPs
+    and their share of the bf16 peak, peak memory; no hand-written kernel
+    launched (the reference trains through none);
+15. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
-rwkv6 forward and one MoE decode step once more each (device time by
-kernel, busy share).
+rwkv6 forward, one MoE decode step and one full-width training step once
+more each (device time by kernel, busy share, idle gaps).
 """
 from __future__ import annotations
 
@@ -148,6 +160,16 @@ FRONT_STREAMS, FRONT_BATCH = 16, 12  # loadgen streams, batch-job prompts
 DISAGG_REQS, DISAGG_PROMPT, DISAGG_NEW = 8, 64, 24
 SERVE_TIMEOUT_S = 300              # bounds a serving phase that stalls
 MOE_ARCH, MOE_LAYERS = 'phi3.5-moe-42b-a6.6b', 16   # depth cut, of 32
+TRAIN_ARCH = 'qwen3-0.6b'           # the training phase, full width
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 4, 2048, 12, 8
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+RESTART_TOL = 2e-2                 # restart vs first run (reference test's)
+PARITY_LAYERS, PARITY_S = 2, 512   # f32 card vs CPU: depth cut, of 28
+TRAIN_LOSS_RTOL = 1e-5             # f32 loss, card vs CPU
+TRAIN_GRAD_TOL = 1e-4              # f32 gradients: of each leaf's max |g|
+MICRO_TOL = 1e-5                   # 2 microbatches vs 1: loss, gradients
+CLI_TRAIN = ('--steps', '4', '--batch', '2', '--seq', '256',
+             '--ckpt-every', '2')
 DECODE_KERNELS = ('paged_decode', 'shared_run', 'shared_tail',
                   'unembed_sample')
 SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA')
@@ -979,6 +1001,12 @@ def profiled(fn):
     drops the first kernels of a window now and then, at times a layer's
     attention kernel among them, which an exact launch count then misses
     (``scripts/profiler_probe.py`` counts each setting)."""
+    return [e for e in profile_run(fn).key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_run(fn):
+    """The profiler of :func:`profiled`'s window, after it closed."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -987,8 +1015,7 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return prof
 
 
 def launched(fn) -> dict:
@@ -1607,13 +1634,17 @@ def device_profile(what: str, run, card: str, wall=None) -> None:
     (``profiled``): device time by kernel (the top 12, then the port's own
     kernels below them), and the device's busy share of
     the untraced wall time (the profiler slows the host, not the
-    kernels).  Without ``wall``, an untraced run first gives it."""
+    kernels), and the idle gaps between its device activities
+    (:func:`idle_gaps`).  Without ``wall``, an untraced run first gives
+    it."""
     if wall is None:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = profiled(run)
+    prof = profile_run(run)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f'  {what}: device busy {busy:.3f} s of {wall:.3f} s untraced '
@@ -1624,6 +1655,32 @@ def device_profile(what: str, run, card: str, wall=None) -> None:
     for e in kernels[:12] + ours:       # the top 12, then the port's others
         print(f'  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d}x  '
               f'{e.key[:90]}')
+    idle_gaps(prof, card)
+
+
+def idle_gaps(prof, card: str) -> None:
+    """The idle gaps of a traced window: the device's activities merged
+    into busy spans, and the gaps between the first and the last of them,
+    by size, with the activity that ends each of the five largest."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps, end, last = [], spans[0][1], spans[0][2]
+    for lo, hi, name in spans[1:]:
+        if lo > end:
+            gaps.append((lo - end, last))
+        if hi > end:
+            end, last = hi, name
+    total = spans[-1][1] - spans[0][0]
+    gaps.sort(reverse=True)
+    size = sum(g for g, _ in gaps)
+    print(f'  idle gaps: {len(gaps)} over {total / 1e3:.3f} ms from the first '
+          f'device activity to the last, {size / 1e3:.3f} ms idle '
+          f'({size / total:.3%}); {sum(g > 100 for g, _ in gaps)} gaps over '
+          f'0.1 ms holding {sum(g for g, _ in gaps if g > 100) / 1e3:.3f} '
+          f'ms  [{card}]')
+    for g, name in gaps[:5]:
+        print(f'  {g / 1e3:10.3f} ms idle after {name[:80]}')
 
 
 # ---------------------------------------------------------------------------
@@ -2572,6 +2629,219 @@ def moe_check(card: str, trace: bool = False):
     return {k: drained[k] + tap.launches[k] for k in drained}, failed
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training
+# ---------------------------------------------------------------------------
+
+def f32_params(params, device):
+    """An f32 copy of ``params`` on ``device`` whose leaves require grad."""
+    from torch import nn
+    if isinstance(params, nn.ParameterDict):
+        return nn.ParameterDict({k: f32_params(v, device)
+                                 for k, v in params.items()})
+    return nn.Parameter(params.detach().to(device=device,
+                                           dtype=torch.float32))
+
+
+def grads_close(got, want, tol: float) -> float:
+    """The largest of every leaf's max |got - want| over its max |want|;
+    fails past ``tol``."""
+    from repro_torch.training import tree as tr
+    worst = 0.0
+    for (key, a), (_, b) in zip(tr.leaves_with_paths(got),
+                                tr.leaves_with_paths(want)):
+        err = float((a.cpu() - b.cpu()).abs().max() / b.abs().max())
+        assert err <= tol, (key, err, tol)
+        worst = max(worst, err)
+    return worst
+
+
+def train_parity(card: str) -> None:
+    """(b): full-width qwen3-0.6b cut to PARITY_LAYERS layers, f32 weights
+    drawn on the CPU and copied to the card, one batch_at batch (B=1,
+    S=PARITY_S): loss and every gradient leaf on the card against the CPU;
+    then 2 microbatches against 1 on the card (B=2)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=PARITY_LAYERS)
+    model = build_model(cfg)
+    drawn = model.init_params(0, device='cpu')
+    cpu, dev = f32_params(drawn, 'cpu'), f32_params(drawn, DEV)
+
+    def batch(b: int, device):
+        data = batch_at(DataConfig(seq_len=PARITY_S, global_batch=b,
+                                   vocab_size=cfg.vocab_size), 0)
+        return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    t0 = time.perf_counter()
+    want_l, want_g = loss_and_grads(model, cpu, batch(1, 'cpu'))
+    cpu_s = time.perf_counter() - t0
+    got_l, got_g = loss_and_grads(model, dev, batch(1, DEV))
+    rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+    worst = grads_close(got_g, want_g, TRAIN_GRAD_TOL)
+    print(f'  f32 parity, {TRAIN_ARCH} cut to {PARITY_LAYERS} of '
+          f'{get_config(TRAIN_ARCH).n_layers} layers, B=1, S={PARITY_S}: '
+          f'loss card {float(got_l):.7f} CPU {float(want_l):.7f} (rel '
+          f'{rel:.3e}, gate {TRAIN_LOSS_RTOL:g}); gradients: worst leaf '
+          f'{worst:.3e} of its max |g| (gate {TRAIN_GRAD_TOL:g}); the CPU '
+          f'took {cpu_s:.1f} s  [{card}]')
+    assert rel <= TRAIN_LOSS_RTOL, (float(got_l), float(want_l))
+
+    one_l, one_g = loss_and_grads(model, dev, batch(2, DEV), 1)
+    two_l, two_g = loss_and_grads(model, dev, batch(2, DEV), 2)
+    rel = abs(float(two_l) - float(one_l)) / abs(float(one_l))
+    worst = grads_close(two_g, one_g, MICRO_TOL)
+    print(f'  2 microbatches vs 1 on the card (B=2, f32): loss rel {rel:.3e}, '
+          f'gradients worst leaf {worst:.3e} of its max |g| (gate '
+          f'{MICRO_TOL:g})  [{card}]')
+    assert rel <= MICRO_TOL, (float(two_l), float(one_l))
+
+
+@contextlib.contextmanager
+def train_cli(card: str, scratch: Path):
+    """(c): ``python -m repro_torch.launch.train`` at full width as a child
+    process on the card, run while the body of the ``with`` runs: exit 0, a
+    done line with finite losses, step_4 committed and no .tmp left."""
+    import math
+    import os
+
+    ckpt_dir = scratch / 'cli'
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    cmd = [sys.executable, '-m', 'repro_torch.launch.train', '--arch',
+           TRAIN_ARCH, *CLI_TRAIN, '--ckpt-dir', str(ckpt_dir)]
+    t0 = time.perf_counter()
+    with open(scratch / 'cli.out', 'w+') as out, \
+            open(scratch / 'cli.err', 'w+') as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=err, text=True)
+        try:
+            yield
+            rc = proc.wait(timeout=SERVE_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    done = re.search(r'\[train\] done; loss (\S+) → (\S+)', stdout)
+    left = sorted(os.listdir(ckpt_dir)) if ckpt_dir.is_dir() else []
+    print(f'  {" ".join(cmd[2:])}: exit {rc} after '
+          f'{time.perf_counter() - t0:.1f} s, "{stdout.strip()[-60:]}", '
+          f'checkpoints {left}  [{card}]')
+    assert rc == 0, stderr[-3000:]
+    assert done and all(math.isfinite(float(x)) for x in done.groups()), \
+        stdout
+    assert 'step_4' in left and not any(d.endswith('.tmp') for d in left), left
+
+
+def train_check(card: str, trace: bool = False) -> dict:
+    """Phase 14.  (a) ``launch.train.train`` at full width (bf16 weights,
+    f32 moments), TRAIN_B x TRAIN_S, TRAIN_STEPS steps, a checkpoint at
+    step TRAIN_CKPT: every loss and gradient norm finite, the mean of the
+    last 4 losses below that of the first 4; then ``restore=True``, whose
+    steps retrace the first run's within RESTART_TOL.  (b)
+    :func:`train_parity`.  (c) :func:`train_cli`.  (d) the step's time,
+    tokens/s, model FLOPs and their share of the bf16 peak, peak memory.
+    No hand-written kernel launches in the phase (the reference trains
+    through none; the CLI's child process counts its own, and runs none
+    either: its path is (a)'s).  ``trace``: one full-width step profiled,
+    with its idle gaps.  Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    cfg = get_config(TRAIN_ARCH)
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    (ROOT / 'build').mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix='train_', dir=ROOT / 'build'))
+    try:
+        kw = dict(batch=TRAIN_B, seq=TRAIN_S, use_reduced=False,
+                  ckpt_dir=str(scratch / 'run'), opt_cfg=ocfg, device=DEV)
+        torch.cuda.reset_peak_memory_stats()
+        hist = []
+        t0 = time.perf_counter()
+        params, opt_state, losses = train(
+            TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+            log_every=1, history=hist, **kw)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        norms = [h['grad_norm'] for h in hist]
+        print(f'  losses {[round(x, 4) for x in losses]}; grad norms '
+              f'{[round(x, 3) for x in norms]}; {wall:.1f} s with the '
+              f'checkpoint  [{card}]')
+        assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+        first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+        print(f'  mean loss of the first 4 steps {first:.4f}, of the last 4 '
+              f'{last:.4f} (lr {TRAIN_LR:g}, warmup {TRAIN_WARMUP})')
+        assert last < first, (first, last)
+
+        times = sorted(h['seconds'] for h in hist[2:])
+        step_s = statistics.median(times)
+        n_params = sum(p.numel() for p in params.parameters())
+        tokens = TRAIN_B * TRAIN_S
+        attn = 12 * cfg.n_layers * cfg.n_heads * cfg.hd * TRAIN_S * tokens
+        flops = 6 * n_params * tokens + attn
+        print(f'  step {step_s * 1e3:.1f} ms (host clock, synchronized, '
+              f'median of steps 2-{TRAIN_STEPS - 1}; range '
+              f'{times[0] * 1e3:.1f}-{times[-1] * 1e3:.1f}), '
+              f'{tokens / step_s:.0f} tokens/s; model FLOPs a step '
+              f'{flops:.4e} (6 N T, N = {n_params:.4e} parameters, T = '
+              f'{tokens} tokens, + attention {attn:.4e}), '
+              f'{flops / step_s / BF16_FLOPS_PER_S:.2%} of the bf16 peak; '
+              f'peak {peak / 1e9:.2f} GB allocated  [{card}]')
+
+        if trace:
+            model = build_model(cfg)
+            step = make_train_step(model, opt_cfg=ocfg)
+            data = batch_at(DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                       vocab_size=cfg.vocab_size), 0)
+            batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.items()}
+            device_profile('training step', lambda: step(
+                params, opt_state, batch), card, step_s)
+        del params, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI's child process runs beside the restart and (b): its
+        # start and its checkpoints are host work
+        with train_cli(card, scratch):
+            t0 = time.perf_counter()
+            _, _, again = train(TRAIN_ARCH, steps=TRAIN_STEPS, restore=True,
+                                log_every=TRAIN_STEPS, **kw)
+            diff = np.abs(np.subtract(again, losses[TRAIN_CKPT:]))
+            print(f'  restart from step {TRAIN_CKPT}: losses '
+                  f'{[round(x, 4) for x in again]}, largest difference from '
+                  f'the first run {diff.max():.3e} (gate {RESTART_TOL:g} + '
+                  f'{RESTART_TOL:g} |loss|); {time.perf_counter() - t0:.1f} '
+                  f's with the restore  [{card}]')
+            assert len(again) == TRAIN_STEPS - TRAIN_CKPT
+            np.testing.assert_allclose(again, losses[TRAIN_CKPT:],
+                                       rtol=RESTART_TOL, atol=RESTART_TOL)
+            train_parity(card)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    launches = dict(LAUNCHES)
+    print(f'  hand-written kernel launches in the phase: {launches}')
+    assert not any(launches.values()), launches
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -2597,8 +2867,9 @@ MAIN_PHASE = {'flash_attention': 'prefill', 'wkv6': 'rwkv6_forward'}
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--trace', action='store_true',
-                    help='also profile the node, prefill, rwkv6 and MoE '
-                         'decode runs (device time by kernel)')
+                    help='also profile the node, prefill, rwkv6, MoE '
+                         'decode and training-step runs (device time by '
+                         'kernel)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2696,7 +2967,13 @@ def main() -> int:
     witnessed += failed
     done()
 
-    print(f'[14] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[14] training: {TRAIN_ARCH} full width, B={TRAIN_B}, '
+          f'S={TRAIN_S}, {TRAIN_STEPS} steps, restart, f32 parity with the '
+          f'CPU, the CLI')
+    by_phase['train'] = train_check(card, args.trace)
+    done()
+
+    print(f'[15] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

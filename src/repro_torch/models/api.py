@@ -4,8 +4,9 @@ serves the ``dense`` and ``vlm`` families (``vlm`` shares the dense
 decoder and takes its frontend's output as ``batch['prefix_embeds']``; the
 frontend itself is not ported) and the ``moe`` family (the dense decoder
 with routed experts; no fused sampling and no prefill kernel, as in the
-reference), and runs the ``ssm`` family (rwkv6): its training forward, and
-prefill + decode over a recurrent-state cache.
+reference), and runs the ``ssm`` family (rwkv6): prefill + decode over a
+recurrent-state cache.  Every family trains: :meth:`Model.loss_fn` is
+differentiable by autograd through the plain paths.
 """
 from __future__ import annotations
 
@@ -39,12 +40,15 @@ class Model:
     def template(self):
         return _FAMILY[self.cfg.family].template(self.cfg)
 
-    def init_params(self, seed: int = 0, *, device):
+    def init_params(self, seed: int = 0, *, device,
+                    requires_grad: bool = False):
         """Weights drawn on ``device`` from a seeded ``torch.Generator`` (an
-        ``nn.ParameterDict``; requires_grad is off)."""
+        ``nn.ParameterDict``); its leaves require grad for training only,
+        with ``requires_grad``."""
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return cm.init_from_template(self.template(), gen, device)
+        return cm.init_from_template(self.template(), gen, device,
+                                     requires_grad=requires_grad)
 
     def cache_template(self, *, engine_pages: Optional[int] = None,
                        batch_size: Optional[int] = None):
@@ -70,11 +74,15 @@ class Model:
                                 batch_size=batch_size), device)
 
     def loss_fn(self, params, batch, *, use_kernel=False):
-        """(mean NLL, {'tokens': count}); the WKV6 kernel with
-        ``use_kernel``.  Forward only (no backward kernel exists)."""
-        self._only('ssm')
-        return rwkv6.forward_train(self.cfg, params, batch,
-                                   use_kernel=use_kernel)
+        """The training loss: (mean NLL, {'tokens': count}), moe adding its
+        aux loss (``{'aux_loss'}`` too).  batch: tokens, labels (B, S) [,
+        loss_mask (B, S), prefix_embeds (B, p, D)].  Differentiable
+        through the plain paths; ``use_kernel`` takes the flash-attention
+        kernel (dense, vlm, moe) or the WKV6 kernel (ssm), which have no
+        backward: under autograd on tensors that require grad they raise.
+        """
+        return _FAMILY[self.cfg.family].forward_train(
+            self.cfg, params, batch, use_kernel=use_kernel)
 
     def prefill_fn(self, params, cache, batch, *, use_kernel=False):
         """Whole-prompt prefill: (cache, (B, V) f32 scores of the last

@@ -20,6 +20,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 DEFAULT_DTYPE = torch.bfloat16
 CHUNK = 512        # query rows / tokens per chunk of the chunked functions
@@ -47,12 +48,13 @@ def _init_leaf(leaf: PSpec, gen: torch.Generator, device) -> torch.Tensor:
                        device=device).mul_(scale).to(leaf.dtype)
 
 
-def init_from_template(tmpl, gen: torch.Generator, device):
+def init_from_template(tmpl, gen: torch.Generator, device, *,
+                       requires_grad: bool = False):
     """Draw a template's weights on ``device`` (the generator's device)."""
     def build(node):
         if isinstance(node, PSpec):
             return nn.Parameter(_init_leaf(node, gen, device),
-                                requires_grad=False)
+                                requires_grad=requires_grad)
         return nn.ParameterDict({k: build(v) for k, v in node.items()})
     return build(tmpl)
 
@@ -61,6 +63,26 @@ def zeros_from_template(tmpl, device):
     """A dict of zero tensors (KV caches)."""
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
             for k, v in tmpl.items()}
+
+
+def layer_views(params):
+    """Each layer's weights as a dict of views into the (L, ...) stacks,
+    taken with one ``unbind`` a stack: under autograd a ``w[i]`` per layer
+    would write a zero tensor the size of the whole stack in each select's
+    backward, where ``unbind``'s backward stacks the L gradients once."""
+    stacks = params['layers']
+    views = {k: w.unbind(0) for k, w in stacks.items()}
+    return [{k: v[i] for k, v in views.items()}
+            for i in range(len(next(iter(views.values()))))]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, checkpointed when autograd records it: its
+    activations are recomputed in the backward pass instead of kept (the
+    reference's ``jax.checkpoint``).  Without grad, a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -123,19 +145,23 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
                       causal: bool = True):
     """:func:`attention` over query chunks of ``CHUNK`` rows, so the scores
     are never (Sq x Skv) at once.  Sq must be a multiple of ``CHUNK`` when
-    it is longer."""
+    it is longer.  Under autograd each chunk is checkpointed (recomputed in
+    the backward pass), as the reference's ``remat_chunks``: otherwise every
+    chunk's f32 scores and probabilities stay alive for the backward."""
     sq = q.shape[1]
     if sq <= CHUNK:
         return attention(q, k, v, q_positions=q_positions,
                          kv_positions=kv_positions, kv_valid=kv_valid,
                          causal=causal)
     assert sq % CHUNK == 0, (sq, CHUNK)
-    return torch.cat([
-        attention(q[:, i:i + CHUNK], k, v,
-                  q_positions=q_positions[:, i:i + CHUNK],
-                  kv_positions=kv_positions, kv_valid=kv_valid,
-                  causal=causal)
-        for i in range(0, sq, CHUNK)], dim=1)
+
+    def chunk(qc, qpc):
+        return attention(qc, k, v, q_positions=qpc,
+                         kv_positions=kv_positions, kv_valid=kv_valid,
+                         causal=causal)
+    return torch.cat([remat(chunk, q[:, i:i + CHUNK],
+                            q_positions[:, i:i + CHUNK])
+                      for i in range(0, sq, CHUNK)], dim=1)
 
 
 def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
@@ -143,21 +169,27 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
     sequence chunks (S // CHUNK of them, at least one; S must split evenly),
     so the (B, S, V) logits never exist at once.  h: (B, S, D); head:
     (V, D) row-major; labels (B, S) int; mask (B, S) or None.  Logits are
-    computed in the model dtype, then f32, as in the reference.  Returns
-    (sum of masked NLL, sum of mask), f32 scalars."""
+    computed in the model dtype, then f32, as in the reference.  Under
+    autograd each chunk is checkpointed, as in the reference: otherwise
+    every chunk's (B, chunk, V) logits stay alive for the backward.
+    Returns (sum of masked NLL, sum of mask), f32 scalars."""
     b, s, _ = h.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
     n = max(s // CHUNK, 1)
     assert s % n == 0, (s, n)
     step = s // n
+
+    def chunk(hc, lc, mc):
+        logits = (rms_norm(hc, norm_w, eps) @ head.T).float()
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
+        return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
+
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, step):
-        logits = (rms_norm(h[:, i:i + step], norm_w, eps) @ head.T).float()
-        gold = logits.gather(-1, labels[:, i:i + step, None].long())[..., 0]
         m = mask[:, i:i + step].float()
-        nll = nll + ((torch.logsumexp(logits, dim=-1) - gold) * m).sum()
+        nll = nll + remat(chunk, h[:, i:i + step], labels[:, i:i + step], m)
         cnt = cnt + m.sum()
     return nll, cnt
 

@@ -86,10 +86,6 @@ def cache_template(cfg: ModelConfig, n_pages: int) -> Dict[str, PSpec]:
     return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
 
 
-def _layer(params, i: int):
-    return {k: w[i] for k, w in params['layers'].items()}
-
-
 # ---------------------------------------------------------------------------
 # Layer pieces
 # ---------------------------------------------------------------------------
@@ -138,6 +134,22 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
         out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
                                      lengths)
     return out.reshape(b, 1, -1) @ lp['wo']
+
+
+def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
+                    use_kernel: bool = False):
+    """Causal self-attention over the whole sequence, no cache.  x: (B, S,
+    D); positions: (B, S) = 0..S-1.  ``chunked_attention`` (checkpointed a
+    query chunk under autograd), or the flash-attention kernel with
+    ``use_kernel``, which has no backward and raises under autograd."""
+    b, s, _ = x.shape
+    q, k, v = qkv_proj(cfg, lp, x, positions)
+    if use_kernel:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        out = cm.chunked_attention(q, k, v, q_positions=positions,
+                                   kv_positions=positions, causal=True)
+    return out.reshape(b, s, -1) @ lp['wo']
 
 
 def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
@@ -198,6 +210,35 @@ def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None):
     return h
 
 
+def train_layer(cfg: ModelConfig, lp, h, positions, *,
+                use_kernel: bool = False):
+    """One decoder layer of the training forward."""
+    x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
+    h = h + self_attn_train(cfg, lp, x, positions, use_kernel=use_kernel)
+    return _mlp(cfg, lp, h)
+
+
+def forward_train(cfg: ModelConfig, params, batch, *,
+                  use_kernel: bool = False):
+    """Mean next-token NLL of batch['labels'] (B, S) given batch['tokens']
+    (B, S) [, prefix_embeds (B, p, D)], masked by batch['loss_mask'] if
+    present.  Each layer is checkpointed under autograd, as the reference's
+    ``scan_layers`` does; the loss is ``chunked_ce_loss``.  -> (loss,
+    {'tokens': count})."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
+    for lp in cm.layer_views(params):
+        h = cm.remat(lambda h, lp: train_layer(cfg, lp, h, positions,
+                                               use_kernel=use_kernel),
+                     h, lp)
+    nll, cnt = cm.chunked_ce_loss(
+        h, params['final_norm'], head_of(cfg, params), batch['labels'],
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+    return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
+
+
 def prefill(cfg: ModelConfig, params, cache, batch, *,
             use_kernel: bool = False, mlp=_mlp):
     """Whole-prompt prefill.  batch: tokens (B, S) with S a multiple of
@@ -208,8 +249,7 @@ def prefill(cfg: ModelConfig, params, cache, batch, *,
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_prefill(cfg, lp, x, positions, cache['k'][i],
                                   cache['v'][i], batch['page_table'],
@@ -229,8 +269,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp):
     """
     positions = batch['positions']
     h = embed_inputs(cfg, params, batch['tokens'], batch.get('prefix_embeds'))
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_prefill_chunk(
             cfg, lp, x, positions, cache['k'][i], cache['v'][i],
@@ -246,8 +285,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp):
 def _decode_hidden(cfg, params, cache, batch, use_kernel, mlp=_mlp):
     positions = batch['positions']
     h = params['embed'][batch['tokens'].long()][:, None, :]
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+    for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_decode(cfg, lp, x, positions, cache['k'][i],
                                  cache['v'][i], batch['page_table'],

@@ -15,7 +15,9 @@ drop.
 Attention, KV writes and the decode kernels are the dense decoder's: the
 entry points run ``models/dense.py``'s layer loops with :func:`moe_block`
 as the MLP.  Each entry takes the reference's capacity factor: 1.25 for
-whole-prompt ``prefill``, 2.0 for ``prefill_chunk`` and ``decode_step``.
+whole-prompt ``prefill`` and ``forward_train``, 2.0 for ``prefill_chunk``
+and ``decode_step``.  ``forward_train`` adds the load-balance aux loss,
+averaged over layers, at weight 0.01.
 ``prefill`` has no kernel path (the reference's has none); ``decode_step``
 reads through the paged-decode kernel with ``use_kernel`` and through the
 prefix-shared kernels when the batch carries ``shared``.
@@ -34,8 +36,9 @@ from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.common import PSpec
 
-PREFILL_CAPACITY = 1.25
+PREFILL_CAPACITY = 1.25    # prefill and forward_train
 SERVE_CAPACITY = 2.0       # prefill_chunk and decode_step
+AUX_WEIGHT = 0.01          # the load-balance loss's weight in training
 
 
 def template(cfg: ModelConfig) -> Dict[str, Any]:
@@ -119,6 +122,42 @@ def moe_block(cfg: ModelConfig, lp, h, *, capacity_factor: float):
     experts plus the residual."""
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
     return h + moe_mlp(cfg, lp, x, capacity_factor=capacity_factor)[0]
+
+
+def train_layer(cfg: ModelConfig, lp, h, positions, *,
+                use_kernel: bool = False):
+    """One MoE layer of the training forward (capacity factor 1.25): ->
+    (h, the layer's load-balance aux loss)."""
+    x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
+    h = h + dense.self_attn_train(cfg, lp, x, positions,
+                                  use_kernel=use_kernel)
+    x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
+    y, aux = moe_mlp(cfg, lp, x, capacity_factor=PREFILL_CAPACITY)
+    return h + y, aux
+
+
+def forward_train(cfg: ModelConfig, params, batch, *,
+                  use_kernel: bool = False):
+    """The dense training forward with routed experts: mean NLL plus
+    ``AUX_WEIGHT`` times the aux loss averaged over layers; each layer
+    checkpointed under autograd.  The capacity counts every token of the
+    call (B x S), as in serving.  -> (loss, {'tokens', 'aux_loss'})."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = dense.embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in cm.layer_views(params):
+        h, a = cm.remat(lambda h, lp: train_layer(cfg, lp, h, positions,
+                                                  use_kernel=use_kernel),
+                        h, lp)
+        aux = aux + a
+    aux = aux / cfg.n_layers
+    nll, cnt = cm.chunked_ce_loss(
+        h, params['final_norm'], dense.head_of(cfg, params),
+        batch['labels'], mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+    loss = nll / torch.clamp_min(cnt, 1.0) + AUX_WEIGHT * aux
+    return loss, {'tokens': cnt, 'aux_loss': aux}
 
 
 def prefill(cfg: ModelConfig, params, cache, batch):

@@ -152,15 +152,18 @@ def layer_apply(cfg: ModelConfig, lp, h, state_l, *, use_kernel: bool = False):
 def forward_train(cfg: ModelConfig, params, batch, *,
                   use_kernel: bool = False):
     """Mean next-token NLL of batch['labels'] (B, T) given batch['tokens']
-    (B, T), masked by batch['loss_mask'] if present, from a zero state.
-    -> (loss, {'tokens': count})."""
+    (B, T), masked by batch['loss_mask'] if present, from a zero state;
+    each layer checkpointed under autograd, as in the reference.  The
+    WKV6 kernel with ``use_kernel`` has no backward and raises under
+    autograd.  -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
     h = params['embed'][tokens.long()]
-    state = init_state(cfg, tokens.shape[0], device=h.device)
-    for i in range(cfg.n_layers):
-        lp = {k: w[i] for k, w in params['layers'].items()}
-        h, _ = layer_apply(cfg, lp, h, {k: s[i] for k, s in state.items()},
-                           use_kernel=use_kernel)
+    zero = {k: s[0] for k, s in init_state(cfg, tokens.shape[0],
+                                           device=h.device).items()}
+    for lp in cm.layer_views(params):
+        h = cm.remat(lambda h, lp: layer_apply(cfg, lp, h, zero,
+                                               use_kernel=use_kernel)[0],
+                     h, lp)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], params['unembed'], batch['labels'],
         mask=batch.get('loss_mask'), eps=cfg.norm_eps)
@@ -170,8 +173,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
 def _run_layers(cfg: ModelConfig, params, h, cache, use_kernel: bool):
     """Every layer from the state in ``cache``, which takes the state
     after, in place.  -> the last layer's output (B, T, D)."""
-    for i in range(cfg.n_layers):
-        lp = {k: w[i] for k, w in params['layers'].items()}
+    for i, lp in enumerate(cm.layer_views(params)):
         h, new = layer_apply(cfg, lp, h, {k: s[i] for k, s in cache.items()},
                              use_kernel=use_kernel)
         for k, s in new.items():

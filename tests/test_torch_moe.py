@@ -225,19 +225,21 @@ def test_entry_points_match_reference(arch, entry):
 
 def test_model_refuses_what_the_reference_lacks():
     """No prefill kernel path and no fused sampling for MoE, as in the
-    reference; training is not ported."""
+    reference.  (Training is ported: ``loss_fn`` gives the loss and the aux
+    loss; its parity is in ``tests/test_torch_train_grads.py``.)"""
     _, tcfg = _configs(PHI)
     model = build_model(tcfg)
     with pytest.raises(NotImplementedError):
         model.prefill_fn({}, {}, {}, use_kernel=True)
     with pytest.raises(NotImplementedError):
         model.decode_sample_fn({}, {}, {})
-    with pytest.raises(NotImplementedError):
-        model.loss_fn({}, {})
     params = model.init_params(0, device='cpu')
     assert tuple(params['layers']['we_down'].shape) == (
         tcfg.n_layers, E, tcfg.d_ff, tcfg.d_model)
     assert 'wg' not in params['layers']
+    tokens = torch.arange(16).reshape(2, 8) % tcfg.vocab_size
+    loss, aux = model.loss_fn(params, {'tokens': tokens, 'labels': tokens})
+    assert torch.isfinite(loss) and set(aux) == {'tokens', 'aux_loss'}
 
 
 class _Drops:
