@@ -100,12 +100,33 @@ Phases, each fatal on failure:
     step_4 committed, no .tmp); the step's time, tokens/s, model FLOPs
     and their share of the bf16 peak, peak memory; no hand-written kernel
     launched (the reference trains through none);
-15. one JSON line of per-kernel results, then the result line.
+15. the hybrid and encoder-decoder families, which run no hand-written
+    kernel (as the reference runs no Pallas kernel for them; the phase's
+    launch counts must be 0): (a) zamba2-2.7b at published widths, all 54
+    layers, f32: a prefill of 511 tokens into a global pool at page 16 and
+    one decode step against a prefill of 512 (scores within 1e-3 of |max|,
+    argmax equal, the Mamba states within 1e-3), then the long-context
+    step over the same KV gathered into contiguous rows against the paged
+    step; (b) the chunked SSD against the sequential recurrence at
+    zamba2's shapes (B=2, T=2048, H=80, P=64, N=64, f32) within 1e-4 (1 +
+    |y|); (c) f32 card against CPU: zamba2 cut to 12 of 54 layers (a
+    256-token prefill, 4 decode steps) and seamless-m4t-medium (256
+    frames, 32 decoder tokens, 4 decode steps), scores and caches within
+    1e-4, greedy tokens equal, and zamba2 cut to 6 layers through
+    ``loss_and_grads`` at S=256 under phase 14's rule; (d) bf16 at full
+    width, B=2: zamba2 prefill of 2048 and 16 greedy steps, seamless over
+    2048 frames with a 256-token decoder prefix and 16 greedy steps, the
+    last step's argmax equal to a longer prefill's or a near tie, with
+    prefill and decode times, tokens/s and peak memory; (e) two training
+    steps of each at full width (bf16 weights, f32 moments, B=1, S=2048),
+    finite, with step times and peak memory;
+16. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
-rwkv6 forward, one MoE decode step and one full-width training step once
-more each (device time by kernel, busy share, idle gaps).
+rwkv6 forward, one MoE decode step, one full-width training step and one
+zamba2 bf16 prefill and decode step once more each (device time by kernel,
+busy share, idle gaps).
 """
 from __future__ import annotations
 
@@ -170,6 +191,16 @@ TRAIN_GRAD_TOL = 1e-4              # f32 gradients: of each leaf's max |g|
 MICRO_TOL = 1e-5                   # 2 microbatches vs 1: loss, gradients
 CLI_TRAIN = ('--steps', '4', '--batch', '2', '--seq', '256',
              '--ckpt-every', '2')
+HYBRID_ARCH, ENCDEC_ARCH = 'zamba2-2.7b', 'seamless-m4t-medium'
+ID_B, ID_T = 2, 511                # zamba2 f32: prefill T + 1 step vs T + 1
+SSD_B, SSD_T, SSD_H, SSD_P, SSD_N = 2, 2048, 80, 64, 64   # zamba2's SSD
+SSD_TOL = 1e-4                     # f32 SSD: |got - want| <= tol (1 + |want|)
+CPU_TOL = 1e-4                     # f32 card vs CPU: scores of |max|, caches
+CPU_LAYERS, CPU_T, CPU_DECODE = 12, 256, 4   # zamba2 depth cut, of 54
+ENC_S, ENC_DEC = 256, 32           # seamless card vs CPU: frames, tokens
+GRAD_LAYERS, GRAD_S = 6, 256       # zamba2 loss_and_grads: depth cut, of 54
+BF16_B, BF16_T, BF16_DECODE = 2, 2048, 16
+FAM_S, TRAIN_FAMILY_STEPS = 2048, 2
 DECODE_KERNELS = ('paged_decode', 'shared_run', 'shared_tail',
                   'unembed_sample')
 SASS_OPS = ('HGMMA', 'UTMALDG', 'LDGSTS', 'HMMA')
@@ -2842,6 +2873,376 @@ def train_check(card: str, trace: bool = False) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the hybrid (zamba2) and encoder-decoder (seamless) families
+# ---------------------------------------------------------------------------
+
+def cache_rel(got, want) -> float:
+    """The largest max|got - want| / max|want| over the leaves of two
+    cache trees (nested dicts of tensors, on any devices)."""
+    if isinstance(want, dict):
+        return max(cache_rel(got[k], want[k]) for k in want)
+    return max_rel(got.cpu().float(), want.cpu().float())
+
+
+def random_pages(rng, b: int, maxp: int, device):
+    """A page table of ``maxp`` pages a row, each row its own, shuffled
+    over a pool of 1 + b * maxp pages (page 0 the quarantine page)."""
+    ids = rng.permutation(b * maxp) + 1
+    return torch.tensor(ids.reshape(b, maxp).astype(np.int32), device=device)
+
+
+def hybrid_identity(card: str) -> None:
+    """(a) full-width zamba2-2.7b, all 54 layers, f32: prefill of ID_T
+    tokens into a global pool at page 16, then one decode step, against
+    a prefill of ID_T + 1 tokens (the SSD crosses chunks, the last one
+    padded; each of the 9 shared pools is read through the page table);
+    then the long-context step over those pools gathered into contiguous
+    rows against the paged step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    model = build_model(get_config(HYBRID_ARCH))
+    cfg = model.cfg
+    params = model.init_params(0, device=DEV).to(torch.float32)
+    pg = cfg.page_size
+    maxp = -(-(ID_T + 1) // pg)
+    n_pages = 1 + ID_B * maxp
+    rng = np.random.default_rng(21)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (ID_B, ID_T + 1)),
+                          device=DEV)
+    pt = random_pages(rng, ID_B, maxp, DEV)
+
+    def empty():
+        return model.init_cache(engine_pages=n_pages, batch_size=ID_B,
+                                device=DEV, dtype=torch.float32)
+    t0 = time.perf_counter()
+    short, _ = model.prefill_fn(params, empty(), {'tokens': tokens[:, :ID_T],
+                                                  'page_table': pt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    attn = short['attn']
+    n_apps = attn['k'].shape[0]
+    dense = {'mamba': {k: v.clone() for k, v in short['mamba'].items()},
+             'attn': {k: v[:, pt.long()].reshape(n_apps, ID_B, maxp * pg,
+                                                 *v.shape[3:])
+                      for k, v in attn.items()}}
+    step = {'tokens': tokens[:, ID_T],
+            'positions': torch.full((ID_B,), ID_T, device=DEV)}
+    short, got = model.decode_fn(params, short, dict(step, page_table=pt))
+    long, want = model.prefill_fn(params, empty(), {'tokens': tokens,
+                                                    'page_table': pt})
+    dense, dgot = model.decode_fn(params, dense, step, long_context=True)
+    torch.cuda.synchronize()
+    rel, states = max_rel(got, want), cache_rel(short['mamba'], long['mamba'])
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    drel = max_rel(dgot, got)
+    dsame = int((dgot.argmax(-1) == got.argmax(-1)).sum())
+    dstates = cache_rel(dense['mamba'], short['mamba'])
+    print(f'  (a) {HYBRID_ARCH} full width ({cfg.n_layers} layers, '
+          f'{n_apps} shared pools), f32, B={ID_B}: prefill T={ID_T} '
+          f'({prefill_s:.2f} s) + 1 decode step vs prefill T={ID_T + 1}: '
+          f'scores {rel:.3e} of |max|, argmax equal {same}/{ID_B}, conv/ssm '
+          f'states {states:.3e}; long-context step vs paged step: scores '
+          f'{drel:.3e}, argmax equal {dsame}/{ID_B}, states {dstates:.3e} '
+          f'(gate {PREFILL_TOL:g})  [{card}]')
+    assert torch.isfinite(got).all() and torch.isfinite(dgot).all()
+    assert rel <= PREFILL_TOL and same == ID_B and states <= PREFILL_TOL
+    assert drel <= PREFILL_TOL and dsame == ID_B and dstates <= PREFILL_TOL
+
+
+def ssd_check(card: str) -> None:
+    """(b) the chunked SSD against the sequential recurrence on the card at
+    zamba2-2.7b's shapes, f32, from a carried state, with decays down to
+    exp(-2) (where the reference's unmasked decay square overflows)."""
+    from repro_torch.models.zamba2 import ssd_chunked, ssd_ref
+
+    gen = torch.Generator(device=DEV).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    x = randn(SSD_B, SSD_T, SSD_H, SSD_P)
+    b, c = randn(SSD_B, SSD_T, SSD_N), randn(SSD_B, SSD_T, SSD_N)
+    a = torch.exp(-2 * torch.rand(SSD_B, SSD_T, SSD_H, generator=gen,
+                                  device=DEV))
+    s0 = randn(SSD_B, SSD_H, SSD_P, SSD_N) * 0.1
+    out, secs = {}, {}
+    for name, fn in (('chunked', ssd_chunked), ('sequential', ssd_ref)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(x, b, c, a, s0)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    (y, s), (yr, sr) = out['chunked'], out['sequential']
+    print(f'  (b) SSD B={SSD_B}, T={SSD_T}, H={SSD_H}, P={SSD_P}, N={SSD_N} '
+          f'f32: chunked vs sequential y max abs err {max_err(y, yr):.3e} '
+          f'(|y| max {yr.abs().max().item():.2f}), state {max_err(s, sr):.3e}'
+          f' (gate {SSD_TOL:g} (1 + |want|)); chunked {secs["chunked"]:.3f} '
+          f's, sequential {secs["sequential"]:.3f} s (host clock, first '
+          f'call)  [{card}]')
+    assert wkv_close(y, yr, SSD_TOL) and wkv_close(s, sr, SSD_TOL)
+
+
+def _serve_tokens(model, params, cache, batch, n_decode: int):
+    """Prefill, then ``n_decode`` greedy decode steps: every call's scores
+    and the tokens fed."""
+    cache, scores = model.prefill_fn(params, cache, batch)
+    s = batch['tokens'].shape[1]
+    outs, fed = [scores], []
+    for i in range(n_decode):
+        nxt = scores.argmax(-1).to(torch.int32)
+        fed.append(nxt)
+        cache, scores = model.decode_fn(params, cache, {
+            'tokens': nxt, 'positions': torch.full_like(nxt, s + i),
+            'page_table': batch['page_table']})
+        outs.append(scores)
+    return cache, outs, fed
+
+
+def cpu_parity(card: str) -> None:
+    """(c) f32 on the card against the CPU, weights drawn on the card and
+    copied to both: zamba2-2.7b cut to CPU_LAYERS of 54 layers (B=1,
+    prefill CPU_T, CPU_DECODE greedy steps) and seamless-m4t-medium at full
+    depth (B=1, ENC_S frames, ENC_DEC decoder tokens, CPU_DECODE steps):
+    every call's scores and the caches after within CPU_TOL, the greedy
+    tokens equal; then zamba2 cut to GRAD_LAYERS layers, ``loss_and_grads``
+    at S=GRAD_S (two SSD chunks; the backward of the masked decay square):
+    the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    max (phase 14's rule)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_step import loss_and_grads
+
+    rng = np.random.default_rng(22)
+    for arch, layers in ((HYBRID_ARCH, CPU_LAYERS), (ENCDEC_ARCH, None)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        drawn = model.init_params(0, device=DEV)
+        encdec = cfg.family == 'encdec'
+        s = ENC_DEC if encdec else CPU_T
+        maxp = -(-(s + CPU_DECODE + 1) // cfg.page_size)
+        tokens = rng.integers(0, cfg.vocab_size, (1, s))
+        pages = rng.permutation(maxp) + 1
+        frames = rng.normal(size=(1, ENC_S, cfg.d_model)) * 0.02
+        runs, secs = {}, {}
+        for device in (DEV, 'cpu'):
+            params = f32_params(drawn, device).requires_grad_(False)
+            batch = {'tokens': torch.tensor(tokens, device=device),
+                     'page_table': torch.tensor(pages[None].astype(np.int32),
+                                                device=device)}
+            kw = dict(enc_len=ENC_S) if encdec else {}
+            if encdec:
+                batch['frames'] = torch.tensor(frames, dtype=torch.float32,
+                                               device=device)
+            cache = model.init_cache(engine_pages=1 + maxp, batch_size=1,
+                                     device=device, dtype=torch.float32, **kw)
+            t0 = time.perf_counter()
+            runs[device] = _serve_tokens(model, params, cache, batch,
+                                         CPU_DECODE)
+            secs[device] = time.perf_counter() - t0
+            del params
+        (gc_, gs, gt), (wc, ws, wt) = runs[DEV], runs['cpu']
+        rel = max(max_rel(a.cpu(), b) for a, b in zip(gs, ws))
+        states = cache_rel(gc_, wc)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(gt, wt))
+        cut = (f'{layers} of {get_config(arch).n_layers} layers'
+               if layers else 'full depth')
+        print(f'  (c) {arch} ({cut}) f32 card vs CPU, B=1, '
+              f'{"frames " + str(ENC_S) + ", " if encdec else ""}prefill '
+              f'{s} + {CPU_DECODE} decode steps: scores {rel:.3e} of |max|, '
+              f'caches {states:.3e} (gate {CPU_TOL:g}), greedy tokens '
+              f'{"equal" if same else "DIFFER"} {[int(t) for t in wt]}; '
+              f'card {secs[DEV]:.2f} s, CPU {secs["cpu"]:.2f} s  [{card}]')
+        assert rel <= CPU_TOL and states <= CPU_TOL and same, arch
+        del drawn, runs
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=GRAD_LAYERS)
+    model = build_model(cfg)
+    drawn = model.init_params(0, device=DEV)
+    data = batch_at(DataConfig(seq_len=GRAD_S, global_batch=1,
+                               vocab_size=cfg.vocab_size), 0)
+    got_l, got_g = loss_and_grads(model, f32_params(drawn, DEV), {
+        k: torch.from_numpy(v).to(DEV) for k, v in data.items()})
+    t0 = time.perf_counter()
+    want_l, want_g = loss_and_grads(model, f32_params(drawn, 'cpu'), {
+        k: torch.from_numpy(v) for k, v in data.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+    worst = grads_close(got_g, want_g, TRAIN_GRAD_TOL)
+    print(f'  (c) {HYBRID_ARCH} cut to {GRAD_LAYERS} of '
+          f'{get_config(HYBRID_ARCH).n_layers} layers, loss_and_grads f32, '
+          f'B=1, S={GRAD_S}: loss card {float(got_l):.7f} CPU '
+          f'{float(want_l):.7f} (rel {rel:.3e}, gate {TRAIN_LOSS_RTOL:g}); '
+          f'gradients: worst leaf {worst:.3e} of its max |g| (gate '
+          f'{TRAIN_GRAD_TOL:g}); the CPU took {cpu_s:.1f} s  [{card}]')
+    assert rel <= TRAIN_LOSS_RTOL, (float(got_l), float(want_l))
+
+
+def bf16_serving(card: str, trace: bool = False) -> None:
+    """(d) bf16 at full width: zamba2-2.7b, B=BF16_B, a prefill of BF16_T
+    tokens, then BF16_DECODE greedy steps; seamless-m4t-medium, B=BF16_B,
+    BF16_T frames (normal * 0.02 from a seeded numpy), a decoder prefix of
+    BF16_T / DEC_PREFIX_FRACTION tokens, then BF16_DECODE greedy steps.
+    Scores finite; the last step's argmax equal to that of a prefill over
+    the prompt and the tokens fed, or a near tie.  Prefill time, decode
+    time a step (host clock, synchronized), tokens/s, peak memory.
+    ``trace`` profiles one zamba2 prefill and one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.encdec import DEC_PREFIX_FRACTION
+
+    rng = np.random.default_rng(23)
+    for arch in (HYBRID_ARCH, ENCDEC_ARCH):
+        model = build_model(get_config(arch))
+        cfg = model.cfg
+        params = model.init_params(0, device=DEV)
+        encdec = cfg.family == 'encdec'
+        s = BF16_T // DEC_PREFIX_FRACTION if encdec else BF16_T
+        maxp = -(-(s + BF16_DECODE + 1) // cfg.page_size)
+        batch = {'tokens': torch.tensor(rng.integers(
+            0, cfg.vocab_size, (BF16_B, s)), device=DEV),
+            'page_table': random_pages(rng, BF16_B, maxp, DEV)}
+        kw = {}
+        if encdec:
+            kw['enc_len'] = BF16_T
+            batch['frames'] = torch.tensor(
+                rng.normal(size=(BF16_B, BF16_T, cfg.d_model)) * 0.02,
+                dtype=torch.float32, device=DEV)
+
+        def empty():
+            return model.init_cache(engine_pages=1 + BF16_B * maxp,
+                                    batch_size=BF16_B, device=DEV, **kw)
+        cache = empty()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cache, scores = model.prefill_fn(params, cache, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs, fed = [scores], []
+        t0 = time.perf_counter()
+        for i in range(BF16_DECODE):
+            nxt = scores.argmax(-1).to(torch.int32)
+            fed.append(nxt)
+            cache, scores = model.decode_fn(params, cache, {
+                'tokens': nxt, 'positions': torch.full_like(nxt, s + i),
+                'page_table': batch['page_table']})
+            outs.append(scores)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / BF16_DECODE
+        peak = torch.cuda.max_memory_allocated()
+        assert all(torch.isfinite(o).all() for o in outs), arch
+        longer = dict(batch, tokens=torch.cat(
+            [batch['tokens'], torch.stack(fed, 1)], dim=1))
+        _, want = model.prefill_fn(params, empty(), longer)
+        ties = 0
+        for r, (a, b) in enumerate(zip(scores.argmax(-1).tolist(),
+                                       want.argmax(-1).tolist())):
+            assert a == b or near_tie(want[r], a, b), \
+                f'{arch} bf16 row {r}: decode argmax {a}, longer prefill {b}'
+            ties += a != b
+        spread = max_rel(scores, want)
+        what = (f'{BF16_T} frames, decoder prefix {s}' if encdec
+                else f'prefill {s}')
+        print(f'  (d) {arch} full width bf16, B={BF16_B}, {what}: prefill '
+              f'{prefill_s * 1e3:.1f} ms, {BF16_DECODE} decode steps '
+              f'{step_s * 1e3:.2f} ms a step, {BF16_B / step_s:.1f} tokens/s '
+              f'(host clock, synchronized), peak {peak / 1e9:.2f} GB '
+              f'allocated; last step vs a prefill of {s + BF16_DECODE}: '
+              f'argmax equal {BF16_B - ties}/{BF16_B}, near ties {ties}, '
+              f'spread {spread:.3e} of |max|  [{card}]')
+        if trace and not encdec:
+            step = {'tokens': fed[-1], 'positions': torch.full_like(
+                fed[-1], s + BF16_DECODE), 'page_table': batch['page_table']}
+            device_profile(f'{arch} prefill, bf16', lambda: model.prefill_fn(
+                params, empty(), batch), card, prefill_s)
+            device_profile(f'{arch} decode step, bf16', lambda: (
+                model.decode_fn(params, cache, step)), card, step_s)
+        del params, cache, outs, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def family_train(card: str) -> None:
+    """(e) TRAIN_FAMILY_STEPS steps of each family at full width through
+    ``make_train_step``: bf16 weights, f32 AdamW moments, B=1, S=FAM_S
+    (seamless: FAM_S frames as well).  The loss and gradient norm finite;
+    each step's time (the first includes the first call's set-up) and the
+    peak memory printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_step import make_train_step
+
+    rng = np.random.default_rng(24)
+    for arch in (HYBRID_ARCH, ENCDEC_ARCH):
+        model = build_model(get_config(arch))
+        cfg = model.cfg
+        params = model.init_params(0, device=DEV, requires_grad=True)
+        n_params = sum(p.numel() for p in params.parameters())
+        opt_state = opt.init_opt_state(params)
+        step = make_train_step(model, opt_cfg=opt.AdamWConfig(
+            lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+        data = batch_at(DataConfig(seq_len=FAM_S, global_batch=1,
+                                   vocab_size=cfg.vocab_size), 0)
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.items()}
+        if cfg.family == 'encdec':
+            batch['frames'] = torch.tensor(
+                rng.normal(size=(1, FAM_S, cfg.d_model)) * 0.02,
+                dtype=torch.float32, device=DEV)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, times = [], [], []
+        for _ in range(TRAIN_FAMILY_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            losses.append(float(m['loss']))
+            norms.append(float(m['grad_norm']))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        print(f'  (e) {arch} full width ({n_params:.4e} parameters), bf16 '
+              f'weights + f32 moments, B=1, S={FAM_S}: losses '
+              f'{[round(x, 4) for x in losses]}, grad norms '
+              f'{[round(x, 3) for x in norms]}; steps '
+              f'{[round(t * 1e3, 1) for t in times]} ms (host clock, '
+              f'synchronized by the loss), peak {peak / 1e9:.2f} GB '
+              f'allocated  [{card}]')
+        assert np.isfinite(losses).all() and np.isfinite(norms).all(), arch
+        del params, opt_state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def hybrid_encdec_check(card: str, trace: bool = False) -> dict:
+    """Phase 15: (a)-(e) above.  No hand-written kernel launches in the
+    phase: the reference runs no Pallas kernel for these families.
+    Returns the phase's launches."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for part in (hybrid_identity, ssd_check, cpu_parity):
+        part(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf16_serving(card, trace)
+    family_train(card)
+    launches = dict(LAUNCHES)
+    print(f'  hand-written kernel launches in the phase: {launches}')
+    assert not any(launches.values()), launches
+    return launches
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -2868,8 +3269,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--trace', action='store_true',
                     help='also profile the node, prefill, rwkv6, MoE '
-                         'decode and training-step runs (device time by '
-                         'kernel)')
+                         'decode, training-step and zamba2 runs (device '
+                         'time by kernel)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2973,7 +3374,13 @@ def main() -> int:
     by_phase['train'] = train_check(card, args.trace)
     done()
 
-    print(f'[15] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[15] {HYBRID_ARCH} and {ENCDEC_ARCH}: full width f32 '
+          f'prefill/decode identity, the SSD, f32 card vs CPU, bf16 '
+          f'serving, a training step each')
+    by_phase['hybrid_encdec'] = hybrid_encdec_check(card, args.trace)
+    done()
+
+    print(f'[16] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -71,8 +71,17 @@ def tree_to_jax(tree):
 
 
 def cache_from_jax(cache, *, dtype=torch.float32, device='cpu'):
-    """{'k', 'v'} numpy pools (global layout) -> dict of tensors."""
-    return {k: _tensor(v, dtype, device) for k, v in cache.items()}
+    """A numpy cache tree (global layout: the {'k', 'v'} pools, encdec's
+    cross K/V beside them, or zamba2's nested {'mamba': {'conv', 'ssm'},
+    'attn': {'k', 'v'}}) -> the same tree of tensors in ``dtype``, but
+    ``ssm``, the Mamba state, which stays f32 whatever the model dtype (as
+    :func:`state_from_jax` keeps ``wkv``)."""
+    def build(node, key=None):
+        if isinstance(node, dict):
+            return {k: build(v, k) for k, v in node.items()}
+        return _tensor(node, torch.float32 if key == 'ssm' else dtype,
+                       device)
+    return build(cache)
 
 
 def state_from_jax(state, *, dtype=torch.float32, device='cpu'):

@@ -4,7 +4,10 @@
 Trains any config of the port (full or ``--reduced``): the deterministic
 synthetic data pipeline with prefetch, AdamW, atomic checkpoint/restart and
 straggler telemetry, on one device.  It runs on the GPU; ``--device cpu``
-runs it on the CPU.
+runs it on the CPU.  An encoder-decoder config (seamless-m4t-medium) is
+refused up front: its loss needs speech frames, which the data pipeline
+does not make (the reference's ``launch/train.py`` fails on it with a
+``KeyError``); ``make_train_step`` trains it with ``frames`` in the batch.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
@@ -45,8 +48,14 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     run).  ``history``, if given, gets a dict a step: step, loss, lr,
     grad_norm, and its seconds on the host clock, the device synchronized.
     """
-    device = resolve_device(device)
     cfg = get_config(arch)
+    if cfg.family == 'encdec':
+        raise ValueError(
+            f'{arch}: the encdec loss needs batch["frames"] (speech frame '
+            'embeddings), which the synthetic data pipeline does not make; '
+            'train it through training.train_step.make_train_step with '
+            'frames in the batch')
+    device = resolve_device(device)
     if use_reduced:
         cfg = reduce_cfg(cfg, **(reduced_overrides or {}))
     model = build_model(cfg)

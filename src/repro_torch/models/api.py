@@ -7,6 +7,17 @@ with routed experts; no fused sampling and no prefill kernel, as in the
 reference), and runs the ``ssm`` family (rwkv6): prefill + decode over a
 recurrent-state cache.  Every family trains: :meth:`Model.loss_fn` is
 differentiable by autograd through the plain paths.
+
+It also runs the ``hybrid`` family (zamba2: Mamba2 layers and a shared
+attention block, a paged KV pool per application of it) and the
+``encdec`` family (seamless-m4t: a speech-frame encoder and a decoder with
+a paged self-attention KV beside a dense cross-attention K/V): their
+``loss_fn``, ``prefill_fn`` and ``decode_fn`` (hybrid's with
+``long_context``, which reads a contiguous KV of ``max_seq`` tokens).
+They have no kernel path, as in the reference (its ``decode_fn`` passes
+``use_pallas`` to dense, vlm and moe only): ``use_kernel=True`` raises
+for them, and so do ``decode_sample_fn`` and ``prefill_chunk_fn``; the
+engine does not serve them either (``serving/engine.py``).
 """
 from __future__ import annotations
 
@@ -18,9 +29,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.models import dense, moe, rwkv6
+from repro_torch.models import dense, encdec, moe, rwkv6, zamba2
 
-_FAMILY = {'dense': dense, 'vlm': dense, 'moe': moe, 'ssm': rwkv6}
+_FAMILY = {'dense': dense, 'vlm': dense, 'moe': moe, 'ssm': rwkv6,
+           'hybrid': zamba2, 'encdec': encdec}
+NO_KERNEL = ('hybrid', 'encdec')     # families with no kernel path
 
 
 @dataclass(frozen=True)
@@ -50,37 +63,73 @@ class Model:
         return cm.init_from_template(self.template(), gen, device,
                                      requires_grad=requires_grad)
 
+    def _no_kernel(self, use_kernel: bool, families=NO_KERNEL):
+        if use_kernel and self.cfg.family in families:
+            raise NotImplementedError(
+                f'family {self.cfg.family!r} has no kernel path here (the '
+                'reference runs none for it)')
+
     def cache_template(self, *, engine_pages: Optional[int] = None,
-                       batch_size: Optional[int] = None):
+                       batch_size: Optional[int] = None,
+                       max_seq: Optional[int] = None,
+                       enc_len: Optional[int] = None):
         """The cache's PSpec tree: the engine's global paged pool {'k',
         'v'} of (L, engine_pages, pg, Hkv, Dh) for the paged families, the
-        recurrent state of ``batch_size`` rows for ``ssm``."""
-        if self.cfg.family == 'ssm':
-            if engine_pages is not None:
-                raise NotImplementedError(
-                    'engine pool layout only for paged-KV families')
-            if batch_size is None:
-                raise ValueError('the ssm cache needs batch_size')
-            return rwkv6.cache_template(self.cfg, batch_size)
+        recurrent state of ``batch_size`` rows for ``ssm``; for ``hybrid``
+        {'mamba': the state of ``batch_size`` rows, 'attn': the shared
+        block's paged pools of ``engine_pages``, or with ``max_seq`` its
+        contiguous long-context KV}; for ``encdec`` the decoder's pool of
+        ``engine_pages`` and the cross K/V of ``batch_size`` rows of
+        ``enc_len`` frames."""
+        cfg, fam = self.cfg, self.cfg.family
+        if fam == 'ssm' and engine_pages is not None:
+            raise NotImplementedError(
+                'engine pool layout only for paged-KV families')
+        if fam in ('ssm', 'hybrid', 'encdec') and batch_size is None:
+            raise ValueError(f'the {fam} cache needs batch_size')
+        if fam == 'ssm':
+            return rwkv6.cache_template(cfg, batch_size)
+        if fam == 'hybrid' and max_seq is not None:
+            return {'mamba': zamba2.mamba_cache_template(cfg, batch_size),
+                    'attn': zamba2.attn_cache_template_dense(
+                        cfg, batch_size, max_seq)}
         if engine_pages is None:
             raise ValueError('the paged KV pool needs engine_pages')
-        return dense.cache_template(self.cfg, engine_pages)
+        if fam == 'hybrid':
+            return {'mamba': zamba2.mamba_cache_template(cfg, batch_size),
+                    'attn': zamba2.attn_cache_template(cfg, engine_pages)}
+        if fam == 'encdec':
+            if enc_len is None:
+                raise ValueError('the encdec cache needs enc_len')
+            return encdec.cache_template(cfg, engine_pages, batch_size,
+                                         enc_len)
+        return dense.cache_template(cfg, engine_pages)
 
     def init_cache(self, *, engine_pages: Optional[int] = None,
-                   batch_size: Optional[int] = None, device):
-        """:meth:`cache_template`'s cache, zeros, on ``device``."""
+                   batch_size: Optional[int] = None,
+                   max_seq: Optional[int] = None,
+                   enc_len: Optional[int] = None, device, dtype=None):
+        """:meth:`cache_template`'s cache, zeros, on ``device``; ``dtype``
+        (the model's, where it is not bf16) for every leaf but the f32
+        recurrent states."""
         return cm.zeros_from_template(
             self.cache_template(engine_pages=engine_pages,
-                                batch_size=batch_size), device)
+                                batch_size=batch_size, max_seq=max_seq,
+                                enc_len=enc_len), device, dtype)
 
     def loss_fn(self, params, batch, *, use_kernel=False):
         """The training loss: (mean NLL, {'tokens': count}), moe adding its
         aux loss (``{'aux_loss'}`` too).  batch: tokens, labels (B, S) [,
-        loss_mask (B, S), prefix_embeds (B, p, D)].  Differentiable
-        through the plain paths; ``use_kernel`` takes the flash-attention
-        kernel (dense, vlm, moe) or the WKV6 kernel (ssm), which have no
-        backward: under autograd on tensors that require grad they raise.
-        """
+        loss_mask (B, S), prefix_embeds (B, p, D)]; encdec also frames (B,
+        S_enc, D).  Differentiable through the plain paths; ``use_kernel``
+        takes the flash-attention kernel (dense, vlm, moe) or the WKV6
+        kernel (ssm), which have no backward: under autograd on tensors
+        that require grad they raise.  hybrid and encdec have no kernel
+        path."""
+        self._no_kernel(use_kernel)
+        if self.cfg.family in NO_KERNEL:
+            return _FAMILY[self.cfg.family].forward_train(self.cfg, params,
+                                                          batch)
         return _FAMILY[self.cfg.family].forward_train(
             self.cfg, params, batch, use_kernel=use_kernel)
 
@@ -88,24 +137,35 @@ class Model:
         """Whole-prompt prefill: (cache, (B, V) f32 scores of the last
         token).  Dense: into the global pool, the flash-attention kernel
         with ``use_kernel``.  ssm: from the recurrent state in ``cache``,
-        the WKV6 kernel with ``use_kernel``.  moe: the plain path only (the
-        reference's MoE prefill has no kernel path)."""
-        if self.cfg.family == 'moe':
-            if use_kernel:
-                raise NotImplementedError('moe prefill has no kernel path')
-            return moe.prefill(self.cfg, params, cache, batch)
-        self._only('dense', 'vlm', 'ssm')
-        return _FAMILY[self.cfg.family].prefill(
-            self.cfg, params, cache, batch, use_kernel=use_kernel)
+        the WKV6 kernel with ``use_kernel``.  moe, hybrid, encdec: the
+        plain path only (the reference has no kernel path for them)."""
+        fam = self.cfg.family
+        self._no_kernel(use_kernel, ('moe',) + NO_KERNEL)
+        if fam in ('moe',) + NO_KERNEL:
+            return _FAMILY[fam].prefill(self.cfg, params, cache, batch)
+        return _FAMILY[fam].prefill(self.cfg, params, cache, batch,
+                                    use_kernel=use_kernel)
 
-    def decode_fn(self, params, cache, batch, *, use_kernel=False):
+    def decode_fn(self, params, cache, batch, *, use_kernel=False,
+                  long_context=False):
         """One token a row: (cache, (B, V) f32 scores).  Dense and moe:
         the paged decode kernel with ``use_kernel``.  ssm: the single-token
-        recurrence step (no kernel, as in the reference)."""
-        if self.cfg.family == 'ssm':
-            return rwkv6.decode_step(self.cfg, params, cache, batch)
-        return _FAMILY[self.cfg.family].decode_step(
-            self.cfg, params, cache, batch, use_kernel=use_kernel)
+        recurrence step (no kernel, as in the reference).  hybrid: the
+        shared block through the page table, or with ``long_context`` over
+        the contiguous KV; encdec: through the page table (neither has a
+        kernel path)."""
+        fam = self.cfg.family
+        self._no_kernel(use_kernel)
+        if long_context and fam != 'hybrid':
+            raise NotImplementedError(
+                f'long-context decode is hybrid only, not {fam!r}')
+        if fam == 'hybrid':
+            return zamba2.decode_step(self.cfg, params, cache, batch,
+                                      long_context=long_context)
+        if fam in ('ssm', 'encdec'):
+            return _FAMILY[fam].decode_step(self.cfg, params, cache, batch)
+        return _FAMILY[fam].decode_step(self.cfg, params, cache, batch,
+                                        use_kernel=use_kernel)
 
     def decode_sample_fn(self, params, cache, batch, *, use_kernel=False,
                          temperature=0.0):

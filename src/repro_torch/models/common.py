@@ -59,18 +59,28 @@ def init_from_template(tmpl, gen: torch.Generator, device, *,
     return build(tmpl)
 
 
-def zeros_from_template(tmpl, device):
-    """A dict of zero tensors (KV caches)."""
-    return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
-            for k, v in tmpl.items()}
+def zeros_from_template(tmpl, device, dtype=None):
+    """Zero tensors nested like ``tmpl`` (caches: flat, or zamba2's
+    ``{'mamba': {...}, 'attn': {...}}``).  ``dtype``, if given, replaces the
+    default dtype (the model's compute dtype for its caches); a leaf that
+    names another dtype (an f32 recurrent state) keeps it."""
+    def build(node):
+        if isinstance(node, PSpec):
+            dt = node.dtype
+            if dtype is not None and dt == DEFAULT_DTYPE:
+                dt = dtype
+            return torch.zeros(node.shape, dtype=dt, device=device)
+        return {k: build(v) for k, v in node.items()}
+    return build(tmpl)
 
 
-def layer_views(params):
-    """Each layer's weights as a dict of views into the (L, ...) stacks,
-    taken with one ``unbind`` a stack: under autograd a ``w[i]`` per layer
-    would write a zero tensor the size of the whole stack in each select's
-    backward, where ``unbind``'s backward stacks the L gradients once."""
-    stacks = params['layers']
+def layer_views(params, key: str = 'layers'):
+    """Each layer's weights as a dict of views into the (L, ...) stacks of
+    ``params[key]``, taken with one ``unbind`` a stack: under autograd a
+    ``w[i]`` per layer would write a zero tensor the size of the whole
+    stack in each select's backward, where ``unbind``'s backward stacks the
+    L gradients once."""
+    stacks = params[key]
     views = {k: w.unbind(0) for k, w in stacks.items()}
     return [{k: v[i] for k, v in views.items()}
             for i in range(len(next(iter(views.values()))))]
@@ -144,16 +154,17 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
 def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
                       causal: bool = True):
     """:func:`attention` over query chunks of ``CHUNK`` rows, so the scores
-    are never (Sq x Skv) at once.  Sq must be a multiple of ``CHUNK`` when
-    it is longer.  Under autograd each chunk is checkpointed (recomputed in
-    the backward pass), as the reference's ``remat_chunks``: otherwise every
-    chunk's f32 scores and probabilities stay alive for the backward."""
+    are never (Sq x Skv) at once.  The reference asks for a multiple of
+    ``CHUNK`` past one chunk; here the last chunk may be shorter (each row's
+    output is the same whatever chunk holds it).  Under autograd each chunk
+    is checkpointed (recomputed in the backward pass), as the reference's
+    ``remat_chunks``: otherwise every chunk's f32 scores and probabilities
+    stay alive for the backward."""
     sq = q.shape[1]
     if sq <= CHUNK:
         return attention(q, k, v, q_positions=q_positions,
                          kv_positions=kv_positions, kv_valid=kv_valid,
                          causal=causal)
-    assert sq % CHUNK == 0, (sq, CHUNK)
 
     def chunk(qc, qpc):
         return attention(qc, k, v, q_positions=qpc,
@@ -210,13 +221,18 @@ def paged_gather(pool, page_table):
 def kv_write_prefill(pool, page_table, kv):
     """In-place write of a whole prefill's K or V, page by page.
 
-    kv: (B, S, Hkv, Dh) with S % page == 0, cast to the pool's dtype;
-    page_table (B, >= S // page) physical ids.  As the reference's
-    ``mode='drop'`` scatter: an id in [-P, 0) counts from the end of the
-    pool, and an id outside [-P, P) is dropped, not raised on.
+    kv: (B, S, Hkv, Dh), cast to the pool's dtype; page_table (B, >=
+    ceil(S / page)) physical ids.  As the reference's ``mode='drop'``
+    scatter: an id in [-P, 0) counts from the end of the pool, and an id
+    outside [-P, P) is dropped, not raised on.  The reference needs S % page
+    == 0; here a last partial page is written whole, its slots past S as
+    zeros (a row's length masks them, and decode writes them in turn).
     """
     b, s, hkv, dh = kv.shape
     n_pages, pg = pool.shape[:2]
+    if s % pg:
+        kv = F.pad(kv, (0, 0, 0, 0, 0, pg - s % pg))
+        s = kv.shape[1]
     idx = page_table[:, :s // pg].reshape(-1).long()
     idx = torch.where(idx < 0, idx + n_pages, idx)
     keep = (idx >= 0) & (idx < n_pages)

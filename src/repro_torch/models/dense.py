@@ -41,30 +41,43 @@ from repro_torch.models.common import PSpec
 # Template
 # ---------------------------------------------------------------------------
 
-def template(cfg: ModelConfig) -> Dict[str, Any]:
-    L, d, v, f = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    layers = {
-        'ln1': PSpec((L, d), 'ones'),
-        'ln2': PSpec((L, d), 'ones'),
+def attn_template(cfg: ModelConfig, L: int) -> Dict[str, PSpec]:
+    """A stack of L attention blocks: the projections, then the biases and
+    the q/k norms where the config has them."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = {
         'wq': PSpec((L, d, h * hd)),
         'wk': PSpec((L, d, hkv * hd)),
         'wv': PSpec((L, d, hkv * hd)),
         'wo': PSpec((L, h * hd, d)),
-        'wg': PSpec((L, d, f)),
-        'wu': PSpec((L, d, f)),
-        'wd': PSpec((L, f, d)),
     }
     if cfg.attn_bias:
         for n, w in (('bq', h), ('bk', hkv), ('bv', hkv)):
-            layers[n] = PSpec((L, w * hd), 'zeros')
+            t[n] = PSpec((L, w * hd), 'zeros')
     if cfg.qk_norm:
-        layers['q_norm'] = PSpec((L, hd), 'ones')
-        layers['k_norm'] = PSpec((L, hd), 'ones')
+        t['q_norm'] = PSpec((L, hd), 'ones')
+        t['k_norm'] = PSpec((L, hd), 'ones')
+    return t
+
+
+def mlp_template(cfg: ModelConfig, L: int) -> Dict[str, PSpec]:
+    """A stack of L SwiGLU MLPs."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {'wg': PSpec((L, d, f)), 'wu': PSpec((L, d, f)),
+            'wd': PSpec((L, f, d))}
+
+
+def template(cfg: ModelConfig) -> Dict[str, Any]:
+    L, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
     t: Dict[str, Any] = {
         'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
         'final_norm': PSpec((d,), 'ones'),
-        'layers': layers,
+        'layers': {
+            'ln1': PSpec((L, d), 'ones'),
+            'ln2': PSpec((L, d), 'ones'),
+            **attn_template(cfg, L),
+            **mlp_template(cfg, L),
+        },
     }
     if not cfg.tie_embeddings:
         # (V, D) row-major for the sampling kernel: the reference's (D, V)

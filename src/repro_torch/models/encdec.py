@@ -1,0 +1,206 @@
+"""seamless-m4t-medium in PyTorch: a speech encoder -> text decoder
+transformer, the reference's ``models/encdec.py`` [arXiv:2308.11596].
+
+The audio frontend is a stub, as in the reference: the inputs are
+precomputed speech frame embeddings (B, S_enc, d_model), rounded to bf16
+before ``frontend_proj`` whatever the weights' dtype.  The encoder is
+non-causal self-attention with RoPE.  The decoder is a causal transformer
+with cross-attention; its self-attention KV is paged (Valve-reclaimable),
+and the cross-attention K/V, computed once from the encoder output at
+prefill, is a dense per-request cache.  Cross K/V take the biases but no
+RoPE and no q/k norm, and neither does the cross query.
+
+A Python loop over layers replaces ``lax.scan``; the caches are updated in
+place.  The output head ``unembed`` is stored (V, D) row-major, as the
+dense family's.  No kernel runs here, as in the reference: the decoder's
+paged read is the gather oracle.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.sampling.ref import unembed_scores
+from repro_torch.models import common as cm
+from repro_torch.models import dense
+from repro_torch.models.common import PSpec
+
+# decoder prefix of an enc-dec prefill shape: seq_len / 8 tokens beside
+# seq_len encoder frames
+DEC_PREFIX_FRACTION = 8
+
+
+def template(cfg: ModelConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.vocab_size
+    Le, Ld = cfg.enc_layers, cfg.dec_layers
+    return {
+        'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
+        # (V, D): the reference's (D, V) transposed, same law (fan_in = d)
+        'unembed': PSpec((v, d), scale=d ** -0.5),
+        'frontend_proj': PSpec((d, d)),            # audio-stub adapter
+        'enc_final_norm': PSpec((d,), 'ones'),
+        'final_norm': PSpec((d,), 'ones'),
+        'enc_layers': {
+            'ln1': PSpec((Le, d), 'ones'),
+            'ln2': PSpec((Le, d), 'ones'),
+            **dense.attn_template(cfg, Le),
+            **dense.mlp_template(cfg, Le),
+        },
+        'dec_layers': {
+            'ln1': PSpec((Ld, d), 'ones'),
+            'ln2': PSpec((Ld, d), 'ones'),
+            'ln_cross': PSpec((Ld, d), 'ones'),
+            **dense.attn_template(cfg, Ld),
+            **{f'x{k}': s for k, s in dense.attn_template(cfg, Ld).items()},
+            **dense.mlp_template(cfg, Ld),
+        },
+    }
+
+
+def _xlp(lp):
+    """The cross-attention weights of a decoder layer (keys prefixed with
+    'x', the prefix stripped)."""
+    return {k[1:]: v for k, v in lp.items() if k.startswith('x')}
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """frames: (B, S_enc, D) stub embeddings -> encoder output (B, S_enc,
+    D).  The frames are rounded to bf16 first, as in the reference."""
+    b, s, _ = frames.shape
+    proj = params['frontend_proj']
+    h = frames.to(cm.DEFAULT_DTYPE).to(proj.dtype) @ proj
+    positions = _positions(b, s, frames.device)
+    for lp in cm.layer_views(params, 'enc_layers'):
+        x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
+        q, k, v = dense.qkv_proj(cfg, lp, x, positions)
+        out = cm.chunked_attention(q, k, v, q_positions=positions,
+                                   kv_positions=positions, causal=False)
+        h = h + out.reshape(b, s, -1) @ lp['wo']
+        x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
+        h = h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+    return cm.rms_norm(h, params['enc_final_norm'], cfg.norm_eps)
+
+
+def cross_kv(cfg: ModelConfig, params, enc_out):
+    """The cross-attention K/V of every decoder layer: (Ld, B, S_enc, Hkv,
+    Dh) each."""
+    b, s, _ = enc_out.shape
+    ks, vs = [], []
+    for lp in cm.layer_views(params, 'dec_layers'):
+        xlp = _xlp(lp)
+        k, v = enc_out @ xlp['wk'], enc_out @ xlp['wv']
+        if cfg.attn_bias and 'bk' in xlp:
+            k, v = k + xlp['bk'], v + xlp['bv']
+        ks.append(k.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+        vs.append(v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv):
+    b, t, _ = x.shape
+    xlp = _xlp(lp)
+    q = x @ xlp['wq']
+    if cfg.attn_bias and 'bq' in xlp:
+        q = q + xlp['bq']
+    q = q.reshape(b, t, cfg.n_heads, cfg.hd)
+    out = cm.chunked_attention(q, xk, xv, q_positions=positions,
+                               kv_positions=_positions(b, xk.shape[1],
+                                                       x.device),
+                               causal=False)
+    return out.reshape(b, t, -1) @ xlp['wo']
+
+
+def dec_layer(cfg: ModelConfig, lp, h, positions, mode, pool_k, pool_v,
+              page_table, xk, xv):
+    """One decoder layer.  ``mode``: ``train`` (no cache), ``prefill``
+    (positions (B, S); K/V into the pools), ``decode`` (positions (B,);
+    the pools read through the page table).  xk/xv: this layer's cross
+    K/V (B, S_enc, Hkv, Dh)."""
+    x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
+    if mode == 'train':
+        h = h + dense.self_attn_train(cfg, lp, x, positions)
+    elif mode == 'prefill':
+        h = h + dense.self_attn_prefill(cfg, lp, x, positions, pool_k,
+                                        pool_v, page_table)
+    else:
+        h = h + dense.self_attn_decode(cfg, lp, x, positions, pool_k, pool_v,
+                                       page_table)
+    x = cm.rms_norm(h, lp['ln_cross'], cfg.norm_eps)
+    pos2d = positions if positions.dim() == 2 else positions[:, None]
+    h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv)
+    x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
+    return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+
+
+def forward_train(cfg: ModelConfig, params, batch):
+    """Mean next-token NLL of batch['labels'] (B, S) given
+    batch['tokens'] (B, S) and batch['frames'] (B, S_enc, D), masked by
+    batch['loss_mask'] if present.  Each decoder layer is checkpointed
+    under autograd, as the reference's ``scan_dec``; the encoder is not.
+    -> (loss, {'tokens': count})."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames']))
+    positions = _positions(b, s, tokens.device)
+    h = params['embed'][tokens.long()]
+    for lp, xk, xv in zip(cm.layer_views(params, 'dec_layers'),
+                          xks.unbind(0), xvs.unbind(0)):
+        h = cm.remat(lambda h, lp, xk, xv: dec_layer(
+            cfg, lp, h, positions, 'train', None, None, None, xk, xv),
+            h, lp, xk, xv)
+    nll, cnt = cm.chunked_ce_loss(
+        h, params['final_norm'], params['unembed'], batch['labels'],
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+    return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
+
+
+def prefill(cfg: ModelConfig, params, cache, batch):
+    """Encode the frames, compute the cross K/V, prefill the decoder
+    prefix.  batch: frames (B, S_enc, D), tokens (B, S), page_table (B, >=
+    ceil(S / page)).  The cache's ``cross_k`` / ``cross_v`` (Ld, B, S_enc,
+    Hkv, Dh) take the cross K/V.  -> (cache, (B, V) f32 scores of the last
+    token)."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames']))
+    if cache['cross_k'].shape != xks.shape:
+        raise ValueError(f'cross K/V {tuple(xks.shape)} does not fit the '
+                         f'cache\'s {tuple(cache["cross_k"].shape)}')
+    cache['cross_k'].copy_(xks)
+    cache['cross_v'].copy_(xvs)
+    positions = _positions(b, s, tokens.device)
+    h = params['embed'][tokens.long()]
+    for i, lp in enumerate(cm.layer_views(params, 'dec_layers')):
+        h = dec_layer(cfg, lp, h, positions, 'prefill', cache['k'][i],
+                      cache['v'][i], batch['page_table'], xks[i], xvs[i])
+    last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, params['unembed'])
+
+
+def decode_step(cfg: ModelConfig, params, cache, batch):
+    """tokens (B,), positions (B,), page_table (B, maxp) -> (cache one
+    token on, (B, V) f32 scores)."""
+    h = params['embed'][batch['tokens'].long()][:, None, :]
+    for i, lp in enumerate(cm.layer_views(params, 'dec_layers')):
+        h = dec_layer(cfg, lp, h, batch['positions'], 'decode',
+                      cache['k'][i], cache['v'][i], batch['page_table'],
+                      cache['cross_k'][i], cache['cross_v'][i])
+    last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, params['unembed'])
+
+
+def cache_template(cfg: ModelConfig, n_pages: int, batch: int, enc_len: int):
+    """The decoder's paged self-attention KV (Ld, P, pg, Hkv, Dh), global
+    layout, and the dense cross K/V (Ld, B, enc_len, Hkv, Dh)."""
+    Ld = cfg.dec_layers
+    kv_shape = (Ld, n_pages, cfg.page_size, cfg.n_kv_heads, cfg.hd)
+    x_shape = (Ld, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+    return {'k': PSpec(kv_shape, 'zeros'), 'v': PSpec(kv_shape, 'zeros'),
+            'cross_k': PSpec(x_shape, 'zeros'),
+            'cross_v': PSpec(x_shape, 'zeros')}

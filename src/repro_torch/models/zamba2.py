@@ -1,0 +1,378 @@
+"""Zamba2 (zamba2-2.7b) in PyTorch: a Mamba2 backbone with one SHARED
+attention+MLP block applied every ``hybrid_attn_every`` layers, the
+reference's ``models/zamba2.py`` [arXiv:2411.15242].
+
+Mamba2 sequence paths use the chunked SSD form (intra-chunk matmuls with a
+decay matrix, then a scan of the chunks' states); decode takes the exact
+single-step recurrence.  The shared block attends over concat(hidden,
+token embedding), width 2 d_model, with one parameter set at every
+application; each application has its own paged KV pool -- the tensors
+Valve reclaims for this architecture.
+
+- ``forward_train``: every layer checkpointed under autograd, the shared
+  block in ``train`` mode, ``chunked_ce_loss``.
+- ``prefill``: a whole prompt from the Mamba state in the cache, the
+  shared block's K/V written into its pools through the page table.
+- ``decode_step``: one token a row; the shared block reads its pools
+  through the page table (``decode``) or, with ``long_context``, a
+  contiguous KV of ``max_seq`` tokens a row (``decode_dense``).
+
+A Python loop over layers takes the place of ``lax.scan`` + ``lax.cond``;
+the caches are updated in place.  Only the global pool layout is ported
+(the reference's per-request region layout comes with the mesh layer).
+No kernel runs here, as in the reference: the paged read is the gather
+oracle ``paged_attention_ref`` and the attentions are ``chunked_attention``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.sampling.ref import unembed_scores
+from repro_torch.models import common as cm
+from repro_torch.models.common import PSpec
+from repro_torch.models.dense import head_of
+
+SSD_CHUNK = 128
+
+
+def n_attn_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid_attn_every
+
+
+def _dims(cfg: ModelConfig):
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    hd = cfg.ssm_head_dim
+    return d, d_in, hd, d_in // hd, cfg.ssm_state
+
+
+def template(cfg: ModelConfig) -> Dict[str, Any]:
+    d, d_in, hd, h, n = _dims(cfg)
+    L, v = cfg.n_layers, cfg.vocab_size
+    conv_ch = d_in + 2 * n
+    d2 = 2 * d
+    ah = cfg.hybrid_attn_heads
+    ahd = d2 // ah
+    f = cfg.hybrid_attn_d_ff
+    t: Dict[str, Any] = {
+        'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
+        'final_norm': PSpec((d,), 'ones'),
+        'layers': {
+            'ln': PSpec((L, d), 'ones'),
+            'in_proj': PSpec((L, d, 2 * d_in + 2 * n + h)),
+            'conv_w': PSpec((L, cfg.conv_kernel, conv_ch), scale=0.5),
+            'conv_b': PSpec((L, conv_ch), 'zeros'),
+            'A_log': PSpec((L, h), 'zeros'),
+            'dt_bias': PSpec((L, h), 'zeros'),
+            'D': PSpec((L, h), 'ones'),
+            'norm': PSpec((L, d_in), 'ones'),
+            'out_proj': PSpec((L, d_in, d)),
+        },
+        # ONE shared attention+MLP block, a fresh KV pool per application
+        'shared': {
+            'ln1': PSpec((d2,), 'ones'),
+            'wq': PSpec((d2, ah * ahd)),
+            'wk': PSpec((d2, ah * ahd)),
+            'wv': PSpec((d2, ah * ahd)),
+            'wo': PSpec((ah * ahd, d)),
+            'ln2': PSpec((d2,), 'ones'),
+            'wg': PSpec((d2, f)),
+            'wu': PSpec((d2, f)),
+            'wd': PSpec((f, d)),
+        },
+    }
+    if not cfg.tie_embeddings:
+        # (V, D) row-major, as the dense family's: the reference's (D, V)
+        t['unembed'] = PSpec((v, d), scale=d ** -0.5)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+def ssd_step(x, b_t, c_t, a_t, state):
+    """Exact decode recurrence.  x: (B, H, P); b_t/c_t: (B, N); a_t: (B,
+    H); state: (B, H, P, N).  -> (y (B, H, P), new state)."""
+    state = a_t[..., None, None] * state \
+        + x[..., :, None] * b_t[:, None, None, :]
+    return torch.einsum('bhpn,bn->bhp', state, c_t), state
+
+
+def ssd_ref(x, b, c, a, state):
+    """Sequential oracle.  x: (B, T, H, P); b/c: (B, T, N); a: (B, T, H)."""
+    ys = []
+    for t in range(x.shape[1]):
+        y, state = ssd_step(x[:, t], b[:, t], c[:, t], a[:, t], state)
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_chunked(x, b, c, a, state, *, chunk: int = SSD_CHUNK):
+    """Chunked SSD (Dao & Gu 2024 block decomposition); matches
+    :func:`ssd_ref`.  x: (B, T, H, P) f32; b, c: (B, T, N); a: (B, T, H) in
+    (0, 1); state: (B, H, P, N).  A ragged T is padded with a = 1 (log 0),
+    so the state leaves the padding as it entered.
+
+    Within a chunk h_t = sum_{i<=t} exp(S_ti) x_i b_i, with S_ti the sum of
+    log a over (i, t].  The reference takes S_ti as L_t - L_i of the
+    cumulative sum L and exp of the whole square before masking it: above
+    the diagonal that exponent is a positive sum which overflows f32 once
+    the decays are small, and the masked inf's gradient is NaN; below it,
+    the difference of two large sums loses ~|L| ulps, which at T = 2048, N
+    = 64 puts some outputs past 1e-4 (1 + |y|) of the exact recurrence.
+    Here S is a cumulative sum of the log-decays masked to
+    (i, t] (Mamba2's ``segsum``), so every exponent is <= 0 and exact to a
+    few ulps, and it is -inf above the diagonal before ``exp``: the same
+    values, finite gradients.  The decay of each token to the chunk's end
+    is the last row of the square.
+    """
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    pad = -t % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+        a = F.pad(a, (0, 0, 0, pad), value=1.0)
+    nc = x.shape[1] // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p).permute(1, 0, 3, 2, 4)  # nc,B,H,c,P
+    bc = b.reshape(bsz, nc, chunk, n).transpose(0, 1)            # nc,B,c,N
+    cc = c.reshape(bsz, nc, chunk, n).transpose(0, 1)
+    ac = a.reshape(bsz, nc, chunk, h).permute(1, 0, 3, 2)        # nc,B,H,c
+
+    loga = torch.log(torch.clamp_min(ac, 1e-30))
+    lower = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    seg = torch.cumsum(loga[..., :, None].expand(*loga.shape, chunk)
+                       .masked_fill(~lower.tril(-1), 0.0), dim=-2)
+    M = torch.exp(seg.masked_fill(~lower, float('-inf')))       # nc,B,H,c,c
+    cb = cc @ bc.transpose(-1, -2)                               # nc,B,c,c
+    y_intra = (cb[:, :, None] * M) @ xc                          # nc,B,H,c,P
+
+    chunk_state = (xc * M[..., -1, :, None]).transpose(-1, -2) \
+        @ bc[:, :, None]                                         # nc,B,H,P,N
+    L = torch.cumsum(loga, dim=-1)
+    a_tot = torch.exp(L[..., -1])                                # nc,B,H
+    decay_in = torch.exp(L)
+
+    y_inter = []
+    for g in range(nc):
+        y_inter.append(torch.einsum('btn,bhpn->bhtp', cc[g], state)
+                       * decay_in[g][..., None])
+        state = a_tot[g][..., None, None] * state + chunk_state[g]
+    y = (y_intra + torch.stack(y_inter)).permute(1, 0, 3, 2, 4)
+    return y.reshape(bsz, nc * chunk, h, p)[:, :t], state
+
+
+def _causal_conv(xbc, conv_w, conv_b, conv_state):
+    """Depthwise causal conv.  xbc: (B, T, C); conv_w: (K, C); conv_state:
+    (B, K-1, C), the last K-1 inputs of the previous segment.  The taps sum
+    in the reference's order (each partial sum rounds in bf16).  -> (silu
+    output in xbc's dtype, new state: the last K-1 inputs, xbc's dtype)."""
+    k, t = conv_w.shape[0], xbc.shape[1]
+    full = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+    out = full[:, :t] * conv_w[0]
+    for i in range(1, k):
+        out = out + full[:, i:i + t] * conv_w[i]
+    new_state = full[:, -(k - 1):] if k > 1 else conv_state
+    return F.silu((out + conv_b).float()).to(xbc.dtype), new_state
+
+
+def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state):
+    """One Mamba2 layer.  h: (B, T, D); conv_state (B, K-1, C); ssm_state
+    (B, H, P, N) f32.  -> (h, new conv state, new ssm state)."""
+    d, d_in, hd, nh, n = _dims(cfg)
+    bsz, t, _ = h.shape
+    x = cm.rms_norm(h, lp['ln'], cfg.norm_eps)
+    z, xbc, dt = torch.split(x @ lp['in_proj'], [d_in, d_in + 2 * n, nh],
+                             dim=-1)
+    xbc, new_conv = _causal_conv(xbc, lp['conv_w'], lp['conv_b'], conv_state)
+    xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
+    xs = xs.reshape(bsz, t, nh, hd).float()
+    dt = F.softplus(dt.float() + lp['dt_bias'])                 # (B, T, H)
+    a = torch.exp(-torch.exp(lp['A_log'].float()) * dt)         # (0, 1)
+    xdt = xs * dt[..., None]
+    if t == 1:
+        y, new_ssm = ssd_step(xdt[:, 0], b[:, 0].float(), c[:, 0].float(),
+                              a[:, 0], ssm_state)
+        y = y[:, None]
+    else:
+        y, new_ssm = ssd_chunked(xdt, b.float(), c.float(), a, ssm_state)
+    y = (y + lp['D'][:, None] * xs).reshape(bsz, t, d_in)        # skip
+    y = cm.rms_norm(y * F.silu(z.float()), lp['norm'], cfg.norm_eps)
+    return h + y.to(h.dtype) @ lp['out_proj'], new_conv, new_ssm
+
+
+# ---------------------------------------------------------------------------
+# Shared attention block (a paged KV pool per application)
+# ---------------------------------------------------------------------------
+
+def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
+                pool_k=None, pool_v=None, page_table=None):
+    """h, e0: (B, T, D); positions (B, T).  ``mode``: ``train`` (no cache),
+    ``prefill`` (K/V into the pools (P, pg, AH, AHD) through the page
+    table), ``decode`` (one token, the pools read through the page table),
+    ``decode_dense`` (one token, contiguous pools (B, S_max, AH, AHD)).
+    The pools are written in place.  -> h'."""
+    b, t, d = h.shape
+    ah = cfg.hybrid_attn_heads
+    ahd = 2 * d // ah
+    x = cm.rms_norm(torch.cat([h, e0], dim=-1), sp['ln1'], cfg.norm_eps)
+    q = cm.rope((x @ sp['wq']).reshape(b, t, ah, ahd), positions,
+                cfg.rope_theta)
+    k = cm.rope((x @ sp['wk']).reshape(b, t, ah, ahd), positions,
+                cfg.rope_theta)
+    v = (x @ sp['wv']).reshape(b, t, ah, ahd)
+    if mode in ('train', 'prefill'):
+        if mode == 'prefill':
+            cm.kv_write_prefill(pool_k, page_table, k)
+            cm.kv_write_prefill(pool_v, page_table, v)
+        out = cm.chunked_attention(q, k, v, q_positions=positions,
+                                   kv_positions=positions, causal=True)
+    elif mode == 'decode_dense':
+        pos = positions[:, 0].long()
+        rows = torch.arange(b, device=h.device)
+        pool_k[rows, pos] = k[:, 0].to(pool_k.dtype)
+        pool_v[rows, pos] = v[:, 0].to(pool_v.dtype)
+        kv_pos = torch.arange(pool_k.shape[1], device=h.device).expand(b, -1)
+        out = cm.attention(q, pool_k, pool_v, q_positions=pos[:, None],
+                           kv_positions=kv_pos,
+                           kv_valid=kv_pos <= pos[:, None], causal=False)
+    else:                                   # decode
+        pos = positions[:, 0]
+        pg = pool_k.shape[1]
+        page_idx = page_table.gather(1, (pos // pg)[:, None].long())[:, 0]
+        cm.kv_write_token(pool_k, page_idx, pos % pg, k[:, 0])
+        cm.kv_write_token(pool_v, page_idx, pos % pg, v[:, 0])
+        out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
+                                     pos + 1)[:, None]
+    h = h + out.reshape(b, t, ah * ahd) @ sp['wo']
+    x = cm.rms_norm(torch.cat([h, e0], dim=-1), sp['ln2'], cfg.norm_eps)
+    return h + cm.swiglu(x, sp['wg'], sp['wu'], sp['wd'])
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def mamba_cache_template(cfg: ModelConfig, batch_size: int):
+    """The Mamba state: ``conv`` (L, B, K-1, C) in the model dtype (the
+    default, which ``zeros_from_template``'s ``dtype`` replaces: the
+    reference carries it in the dtype of the conv's input) and ``ssm`` (L,
+    B, H, P, N) f32."""
+    d, d_in, hd, h, n = _dims(cfg)
+    L = cfg.n_layers
+    return {
+        'conv': PSpec((L, batch_size, cfg.conv_kernel - 1, d_in + 2 * n),
+                      'zeros'),
+        'ssm': PSpec((L, batch_size, h, hd, n), 'zeros', dtype=torch.float32),
+    }
+
+
+def attn_cache_template(cfg: ModelConfig, n_pages: int):
+    """The shared block's paged KV, global layout: (n_apps, P, pg, AH,
+    AHD) for k and v; page 0 is the quarantine page."""
+    ah = cfg.hybrid_attn_heads
+    shape = (n_attn_apps(cfg), n_pages, cfg.page_size, ah,
+             2 * cfg.d_model // ah)
+    return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
+
+
+def attn_cache_template_dense(cfg: ModelConfig, batch: int, max_seq: int):
+    """Contiguous long-context KV: (n_apps, B, max_seq, AH, AHD)."""
+    ah = cfg.hybrid_attn_heads
+    shape = (n_attn_apps(cfg), batch, max_seq, ah, 2 * cfg.d_model // ah)
+    return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def train_layer(cfg: ModelConfig, idx: int, lp, sp, h, e0, positions):
+    """Layer ``idx`` of the training forward from a zero Mamba state, the
+    shared block after it where ``(idx + 1) % every == 0``."""
+    d, d_in, hd, nh, n = _dims(cfg)
+    b = h.shape[0]
+    conv0 = torch.zeros(b, cfg.conv_kernel - 1, d_in + 2 * n, dtype=h.dtype,
+                        device=h.device)
+    ssm0 = torch.zeros(b, nh, hd, n, dtype=torch.float32, device=h.device)
+    h = mamba_block(cfg, lp, h, conv0, ssm0)[0]
+    if (idx + 1) % cfg.hybrid_attn_every == 0:
+        h = shared_attn(cfg, sp, h, e0, positions, 'train')
+    return h
+
+
+def forward_train(cfg: ModelConfig, params, batch):
+    """Mean next-token NLL of batch['labels'] (B, S) given batch['tokens']
+    (B, S), masked by batch['loss_mask'] if present; each layer
+    checkpointed under autograd, as the reference's ``scan_layers``.  ->
+    (loss, {'tokens': count})."""
+    tokens = batch['tokens']
+    b, s = tokens.shape
+    h = e0 = params['embed'][tokens.long()]
+    positions = _positions(b, s, tokens.device)
+    sp = params['shared']
+    for idx, lp in enumerate(cm.layer_views(params)):
+        h = cm.remat(lambda h, lp, idx=idx: train_layer(
+            cfg, idx, lp, sp, h, e0, positions), h, lp)
+    nll, cnt = cm.chunked_ce_loss(
+        h, params['final_norm'], head_of(cfg, params), batch['labels'],
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+    return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
+
+
+def _run_layers(cfg: ModelConfig, params, h, positions, mode, cache,
+                page_table):
+    """Every layer from the Mamba state in ``cache['mamba']``, which takes
+    the state after, in place; application ``app = idx // every`` of the
+    shared block reads and writes ``cache['attn']``'s pool ``app``.  The
+    token embedding ``h`` is the shared block's ``e0``."""
+    e0 = h
+    mamba, attn = cache['mamba'], cache['attn']
+    sp = params['shared']
+    every = cfg.hybrid_attn_every
+    for idx, lp in enumerate(cm.layer_views(params)):
+        h, conv, ssm = mamba_block(cfg, lp, h, mamba['conv'][idx],
+                                   mamba['ssm'][idx])
+        mamba['conv'][idx].copy_(conv)
+        mamba['ssm'][idx].copy_(ssm)
+        if (idx + 1) % every == 0:
+            app = idx // every
+            h = shared_attn(cfg, sp, h, e0, positions, mode, attn['k'][app],
+                            attn['v'][app], page_table)
+    return h
+
+
+def prefill(cfg: ModelConfig, params, cache, batch):
+    """tokens (B, S), page_table (B, >= ceil(S / page)) -> (cache holding
+    the Mamba state after the prompt and its shared-block K/V, (B, V) f32
+    scores of the last token)."""
+    tokens = batch['tokens']
+    h = params['embed'][tokens.long()]
+    h = _run_layers(cfg, params, h, _positions(*tokens.shape, tokens.device),
+                    'prefill', cache, batch['page_table'])
+    last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, head_of(cfg, params))
+
+
+def decode_step(cfg: ModelConfig, params, cache, batch, *,
+                long_context: bool = False):
+    """tokens (B,), positions (B,) [, page_table (B, maxp)] -> (cache one
+    token on, (B, V) f32 scores).  ``long_context`` reads the contiguous KV
+    of :func:`attn_cache_template_dense` (no page table)."""
+    positions = batch['positions']
+    h = params['embed'][batch['tokens'].long()][:, None, :]
+    h = _run_layers(cfg, params, h, positions[:, None],
+                    'decode_dense' if long_context else 'decode', cache,
+                    batch.get('page_table'))
+    last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
+    return cache, unembed_scores(last, head_of(cfg, params))

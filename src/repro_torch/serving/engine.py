@@ -134,6 +134,10 @@ class Engine:
                  runtime=None, clock=None, device=None):
         self.model = model
         self.mcfg = model.cfg
+        if self.mcfg.family not in ('dense', 'vlm', 'moe'):
+            raise NotImplementedError(
+                'engine serves paged-KV decoder-only families, not '
+                f'{self.mcfg.family!r}')
         self.cfg = cfg or EngineConfig()
         self.device = resolve_device(device)
         if params['embed'].device != self.device:

@@ -17,6 +17,8 @@ flash attention, the bf16 rule above and 2e-5 in f32; WKV6, 1e-4 in f32
 (1e-3 at log-decays down to -12 and w = 0), 3e-2 for bf16 inputs, as in
 the reference's kernel tests.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -680,3 +682,63 @@ def test_disagg_kv_copy_is_bit_equal_on_the_card(cuda):
         assert torch.equal(dst[k].index_select(1, d),
                            src[k].index_select(1, s))
         assert not dst[k].index_select(1, rest).any()
+
+
+@pytest.mark.parametrize('arch', ['zamba2-2.7b', 'seamless-m4t-medium'])
+def test_hybrid_and_encdec_on_the_card_match_the_cpu(cuda, arch):
+    """Both families at reduced widths, f32 weights drawn on the CPU and
+    copied: a prefill and 4 greedy decode steps on the card against the
+    CPU (scores and caches within 1e-4, the same tokens), then the training
+    loss; no hand-written kernel is launched (the reference runs none for
+    these families)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.api import build_model
+
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    drawn = model.init_params(0, device='cpu').to(torch.float32)
+    rng = np.random.default_rng(0)
+    b, s, n_new = 2, 200, 4
+    maxp = -(-(s + n_new) // cfg.page_size)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = rng.integers(0, cfg.vocab_size, (b, s))
+    pt = (rng.permutation(b * maxp) + 1).reshape(b, maxp).astype(np.int32)
+    frames = rng.normal(size=(b, 64, cfg.d_model)) * 0.02
+    runs = {}
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for side, dev in (('card', cuda), ('cpu', torch.device('cpu'))):
+        params = copy.deepcopy(drawn).to(dev)
+        batch = {'tokens': torch.tensor(tokens, device=dev),
+                 'page_table': torch.tensor(pt, device=dev)}
+        kw = {}
+        if cfg.family == 'encdec':
+            kw['enc_len'] = 64
+            batch['frames'] = torch.tensor(frames, dtype=torch.float32,
+                                           device=dev)
+        cache = model.init_cache(engine_pages=1 + b * maxp, batch_size=b,
+                                 device=dev, dtype=torch.float32, **kw)
+        cache, scores = model.prefill_fn(params, cache, batch)
+        out, fed = [scores], []
+        for i in range(n_new):
+            nxt = scores.argmax(-1).to(torch.int32)
+            fed.append(nxt.cpu())
+            cache, scores = model.decode_fn(params, cache, {
+                'tokens': nxt, 'positions': torch.full_like(nxt, s + i),
+                'page_table': batch['page_table']})
+            out.append(scores)
+        loss, _ = model.loss_fn(params, dict(batch, labels=torch.tensor(
+            labels, device=dev)))
+        runs[side] = (out, fed, cache, loss)
+    assert not any(LAUNCHES.values()), LAUNCHES
+    (gs, gt, gc, gl), (ws, wt, wc, wl) = runs['card'], runs['cpu']
+    for a, w in zip(gs, ws):
+        torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-4)
+    assert all(torch.equal(a, w) for a, w in zip(gt, wt))
+
+    def leaves(tree):
+        return ([x for v in tree.values() for x in leaves(v)]
+                if isinstance(tree, dict) else [tree])
+    for a, w in zip(leaves(gc), leaves(wc)):
+        torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-4)
+    torch.testing.assert_close(gl.cpu(), wl, rtol=1e-5, atol=0)

@@ -8,6 +8,20 @@ runs autograd through ``loss_and_grads`` (its layers and chunks under
 ``torch.utils.checkpoint``).  Tolerances: the loss within 1e-5 relative,
 every gradient leaf within 1e-4 of that leaf's max |g| (same arithmetic
 in f32, another summation order).
+
+Two leaves of the new families need a word:
+- zamba2 at S=256: the reference's chunked SSD takes exp of the whole
+  (chunk, chunk) decay square before masking it; at these weights (mean
+  |log a| ~0.8) the masked half overflows and its gradients are NaN,
+  which the case asserts.  The port masks the exponent first (its
+  ``ssd_chunked``); the reference side then runs its own sequential oracle
+  ``ssd_ref`` in place of ``ssd_chunked``, the same function, which its
+  docstring says the chunked form matches.
+- seamless: the cross-attention key bias ``dec_layers/xbk`` adds the same
+  q . b to every score of a query (cross K has no RoPE), which softmax
+  ignores, so its exact gradient is 0 and both packages return rounding
+  noise.  It is held to that: both within 1e-6 of the largest gradient of
+  the decoder stack.
 """
 import dataclasses
 import functools
@@ -20,6 +34,7 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
+from repro.models import zamba2 as jzamba2
 from repro.models.api import build_model as j_build_model
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import params_from_jax, tree_to_jax
@@ -29,7 +44,9 @@ from repro_torch.training import tree as tr
 from repro_torch.training.train_step import loss_and_grads
 
 B = 2
-# (id, arch, reduced() overrides, sequence length, extra batch inputs)
+EXACT_ZERO = ('dec_layers/xbk',)     # gradient 0 in exact arithmetic
+# (id, arch, reduced() overrides, sequence length, extra batch inputs;
+# 'ssd_ref': the reference runs its sequential SSD, see above)
 CASES = [
     ('qwen3-0.6b', 'qwen3-0.6b', {}, 64, ()),
     # 1024 tokens: two query chunks of attention, two CE chunks, each
@@ -47,6 +64,10 @@ CASES = [
     ('valve-7b', 'valve-7b', {}, 64, ()),
     ('llava-next-mistral-7b', 'llava-next-mistral-7b', {}, 64,
      ('prefix_embeds',)),
+    ('zamba2-2.7b', 'zamba2-2.7b', {}, 64, ()),
+    # 256 tokens: two SSD chunks, the inter-chunk state carried
+    ('zamba2-2.7b-S256', 'zamba2-2.7b', {}, 256, ('ssd_ref',)),
+    ('seamless-m4t-medium', 'seamless-m4t-medium', {}, 64, ('frames',)),
 ]
 
 
@@ -71,6 +92,9 @@ def _batch(cfg, s, extra):
         p = 8
         batch['prefix_embeds'] = (rng.normal(size=(B, p, cfg.d_model))
                                   * 0.02).astype(np.float32)
+    if 'frames' in extra:                      # as make_inputs draws them
+        batch['frames'] = (rng.normal(size=(B, s, cfg.d_model))
+                           * 0.02).astype(np.float32)
     if 'loss_mask' in extra:
         mask = (rng.random((B, s)) < 0.7).astype(np.float32)
         mask[:, :8] = 0.0                      # no loss on the prefix
@@ -87,6 +111,13 @@ def test_loss_and_gradients_match_the_reference(case, monkeypatch):
     def jloss(p):
         return jmodel.loss_fn(p, {k: jnp.asarray(v)
                                   for k, v in batch.items()})
+    if 'ssd_ref' in extra:
+        jg = jax.grad(lambda p: jloss(p)[0])(jparams)
+        assert any(np.isnan(np.asarray(g)).any()
+                   for g in jax.tree.leaves(jg))
+        monkeypatch.setattr(jzamba2, 'ssd_chunked',
+                            lambda x, b, c, a, state: jzamba2.ssd_ref(
+                                x, b, c, a, state))
     (jl, jaux), jg = jax.value_and_grad(jloss, has_aux=True)(jparams)
 
     drops = []
@@ -107,9 +138,14 @@ def test_loss_and_gradients_match_the_reference(case, monkeypatch):
     want = jax.tree.map(np.asarray, jg)
     assert [k for k, _ in tr.leaves_with_paths(got)] == \
         [k for k, _ in tr.leaves_with_paths(want)]
+    stack = max((np.abs(b).max() for k, b in tr.leaves_with_paths(want)
+                 if k.startswith('dec_layers/')), default=0.0)
     for (key, a), (_, b) in zip(tr.leaves_with_paths(got),
                                 tr.leaves_with_paths(want)):
         assert a.shape == b.shape, key
+        if key in EXACT_ZERO:
+            assert max(np.abs(a).max(), np.abs(b).max()) <= 1e-6 * stack, key
+            continue
         scale = np.abs(b).max()
         assert scale > 0, key                  # every leaf is trained
         assert np.abs(a - b).max() <= 1e-4 * scale, (

@@ -383,22 +383,32 @@ def _manifest(d, step):
     return {k: (v['shape'], v['dtype']) for k, v in m['leaves'].items()}
 
 
-@pytest.mark.parametrize('writer', ['reference', 'port'])
-def test_checkpoint_restores_across_packages(writer, tmp_path):
+def _with_frames(cfg, batches, seed=0):
+    """encdec: each batch gains stub speech frames (normal * 0.02, as
+    ``make_inputs`` draws them)."""
+    if cfg.family != 'encdec':
+        return batches
+    rng = np.random.default_rng(seed)
+    return [dict(b, frames=(rng.normal(size=b['tokens'].shape
+                                       + (cfg.d_model,)) * 0.02)
+                 .astype(np.float32)) for b in batches]
+
+
+def _cross_restore(arch, writer, tmp_path):
     """One package trains 2 steps and saves; the other restores and runs
     2 more.  Both packages also continue their own run; the continued
     losses agree, and both packages' manifests name the same leaves with
     the same shapes and dtypes."""
-    jmodel, tmodel = _pair()
+    jmodel, tmodel = _pair(arch)
     ocfg = dict(lr=3e-3, warmup_steps=2)
     jstep, _ = j_make_train_step(jmodel, None,
                                  opt_cfg=jopt.AdamWConfig(**ocfg))
     tstep = make_train_step(tmodel, opt_cfg=opt.AdamWConfig(**ocfg))
-    first, then = _batches(jmodel.cfg, range(2)), _batches(jmodel.cfg,
-                                                           range(2, 4))
-    _, jp0 = _jparams()
+    batches = _with_frames(jmodel.cfg, _batches(jmodel.cfg, range(4)))
+    first, then = batches[:2], batches[2:]
+    _, jp0 = _jparams(arch)
     jp, js, _, _ = _run_j(jstep, jp0, jopt.init_opt_state(jp0), first)
-    tp = params_from_jax(_np(_jparams()[1]), requires_grad=True)
+    tp = params_from_jax(_np(_jparams(arch)[1]), requires_grad=True)
     tp, ts, _, _ = _run_t(tstep, tp, opt.init_opt_state(tp), first)
     jdir, tdir = str(tmp_path / 'j'), str(tmp_path / 't')
     jckpt.save(jdir, 2, {'params': jp, 'opt': js})
@@ -422,6 +432,22 @@ def test_checkpoint_restores_across_packages(writer, tmp_path):
         _, cont, _ = _run_j(jstep, state['params'], state['opt'], then)[1:]
     np.testing.assert_allclose(cont, jl, rtol=1e-5)
     np.testing.assert_allclose(cont, tl, rtol=1e-5)
+
+
+@pytest.mark.parametrize('writer', ['reference', 'port'])
+def test_checkpoint_restores_across_packages(writer, tmp_path):
+    _cross_restore(ARCH, writer, tmp_path)
+
+
+@pytest.mark.parametrize('writer', ['reference', 'port'])
+@pytest.mark.parametrize('arch', ['zamba2-2.7b', 'seamless-m4t-medium'])
+def test_checkpoint_restores_across_packages_hybrid_encdec(arch, writer,
+                                                           tmp_path):
+    """:func:`_cross_restore` for the hybrid family (a tied head, the
+    shared block's weights) and the encdec family (an untied ``unembed``,
+    (D, V) in the checkpoint and (V, D) in the port; frames in every
+    batch)."""
+    _cross_restore(arch, writer, tmp_path)
 
 
 def test_opt_state_bridge_round_trips():
@@ -469,6 +495,30 @@ def test_train_loss_decreases_and_restart_is_deterministic(tmp_path):
     assert len(losses2) == 4                            # steps 8..11
     np.testing.assert_allclose(losses2, losses[8:], rtol=2e-2, atol=2e-2)
     assert losses2 == losses[8:]                        # bit for bit
+
+
+def test_train_runs_zamba2(tmp_path):
+    """The hybrid family trains through ``train`` like any other config:
+    a checkpoint and a restart that retraces its losses."""
+    from repro_torch.launch.train import train
+    d = str(tmp_path / 'ck')
+    kw = dict(steps=3, batch=2, seq=32, use_reduced=True, log_every=100,
+              opt_cfg=opt.AdamWConfig(lr=3e-3, warmup_steps=1),
+              device='cpu', ckpt_dir=d)
+    _, _, losses = train('zamba2-2.7b', ckpt_every=2, **kw)
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    _, _, again = train('zamba2-2.7b', restore=True, **kw)
+    assert again == losses[2:]
+
+
+def test_train_refuses_encdec():
+    """The encdec loss needs frames the synthetic data does not make: the
+    entry point (and so the CLI) refuses the config before building
+    anything, where the reference's ``train`` fails inside its first
+    step."""
+    from repro_torch.launch.train import train
+    with pytest.raises(ValueError, match='frames'):
+        train('seamless-m4t-medium', steps=1, device='cpu')
 
 
 def test_train_without_cuda_raises(monkeypatch):
