@@ -120,7 +120,22 @@ Phases, each fatal on failure:
     prefill and decode times, tokens/s and peak memory; (e) two training
     steps of each at full width (bf16 weights, f32 moments, B=1, S=2048),
     finite, with step times and peak memory;
-16. one JSON line of per-kernel results, then the result line.
+16. tensor-parallel serving (``EngineConfig.mesh``), qwen3-0.6b at
+    published widths, ranks spawned by ``launch.ranks.run_ranks``: (a) a
+    mesh of one rank over NCCL, phase 4's drain unfused through K1/K2/K3:
+    every token and every live row's scores bit-equal to the meshless
+    drain; (b) two ranks sharing the card over gloo (``model`` = 2, 4
+    kv-heads each): an f32 drain with the **depth cut to 4 of 28 layers**
+    (greedy tokens equal to the meshless drain's, scores within 1e-4 of
+    |max|), then the bf16 drain at full depth with ``decode_kernel=True``,
+    every decode step held by the Witness rule to the meshless plain path
+    on the pool gathered from both ranks, K1/K2/K3 launched on each rank;
+    (c) online and offline engines on that mesh under a runtime with a gate
+    a device: an online burst gives at most 1 preemption per (request,
+    device), 2 device latencies an event; ms a decode step at meshless,
+    mesh 1 and mesh 2 printed (two ranks time-slicing one card: recorded,
+    not a claim);
+17. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -1522,23 +1537,37 @@ def drain_trace(model, params, kernels: bool, n_prompt_pages: int,
     sharing and the fused head where the model has one, under a
     ``witness_cls`` witness; the plain path none of them.  Returns (tokens,
     stats, witness)."""
+    witness = witness_cls(model) if kernels else None
+    fused = kernels and model.cfg.family != 'moe'
+    eng = trace_engine(witness or model, params, max_seq,
+                       decode_kernel=None if kernels else False,
+                       fused_sampling=fused, prefix_shared_attention=kernels)
+    return run_trace(eng, n_prompt_pages), eng.stats, witness
+
+
+def trace_engine(model, params, max_seq: int, *, device=None, **ecfg):
+    """An engine for :func:`run_trace`: a 16-handle pool whose memory plane
+    shares published prefixes, 4 rows, 32-token chunks."""
     from repro_torch.core.memory import MemoryPlane
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.serving.kvpool import KVPool
 
     pg = model.cfg.page_size
-    prompt = np.random.default_rng(7).integers(
-        1, model.cfg.vocab_size, n_prompt_pages * pg).tolist()
     pool = KVPool(16, max(4, max_seq // pg // 2), page_size=pg,
                   reserved_handles=1)
     MemoryPlane(pool, sharing=True)
-    witness = witness_cls(model) if kernels else None
-    fused = kernels and model.cfg.family != 'moe'
-    eng = Engine(witness or model, params, pool, EngineConfig(
-        max_batch=4, max_seq=max_seq, prefill_chunk=32,
-        decode_kernel=None if kernels else False,
-        fused_sampling=fused, prefix_shared_attention=kernels),
-        device=DEV)
+    return Engine(model, params, pool, EngineConfig(
+        max_batch=4, max_seq=max_seq, prefill_chunk=32, **ecfg),
+        device=device or DEV)
+
+
+def run_trace(eng, n_prompt_pages: int) -> list:
+    """The prefix-sharing trace: a prompt of ``n_prompt_pages`` pages
+    decodes alone until its prefix is published, then two more requests
+    with the same prompt join it; 16 new tokens each."""
+    cfg = eng.mcfg
+    prompt = np.random.default_rng(7).integers(
+        1, cfg.vocab_size, n_prompt_pages * cfg.page_size).tolist()
     rids = [eng.submit(prompt, max_new_tokens=16)]
     for _ in range(20):         # publish r0's prefix; decode it alone
         eng.step()
@@ -1547,7 +1576,7 @@ def drain_trace(model, params, kernels: bool, n_prompt_pages: int,
     rids += [eng.submit(prompt, max_new_tokens=16) for _ in range(2)]
     eng.run_to_completion()
     torch.cuda.synchronize()
-    return [eng.output_tokens(r) for r in rids], eng.stats, witness
+    return [eng.output_tokens(r) for r in rids]
 
 
 def engine_check(card: str, long: bool = False):
@@ -3243,6 +3272,469 @@ def hybrid_encdec_check(card: str, trace: bool = False) -> dict:
     assert not any(launches.values()), launches
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 16: tensor-parallel serving over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = 'qwen3-0.6b'
+MESH_F32_LAYERS = 4                # the two-rank f32 drain's depth, of 28
+MESH_TOL = 1e-4                    # f32 mesh vs meshless scores, of |max|
+MESH_TIMEOUT_S = 300               # bounds each spawned run of the phase
+MESH_PROMPT_PAGES, MESH_MAX_SEQ = 3, 96    # phase 4's trace
+
+
+class Recorder:
+    """A model whose engine entries keep a copy of the f32 scores of their
+    live rows (a padding row's table is all quarantine page), and the host
+    time of every decode step (synchronized at both ends)."""
+
+    def __init__(self, model):
+        self.model, self.scores, self.decode_s = model, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def _keep(self, batch, scores):
+        live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+        self.scores.append(scores[live].detach().clone())
+
+    def prefill_chunk_fn(self, params, cache, batch, **kw):
+        cache, scores = self.model.prefill_chunk_fn(params, cache, batch,
+                                                    **kw)
+        self._keep(batch, scores)
+        return cache, scores
+
+    def decode_fn(self, params, cache, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, scores = self.model.decode_fn(params, cache, batch, **kw)
+        torch.cuda.synchronize()
+        self.decode_s.append(time.perf_counter() - t0)
+        self._keep(batch, scores)
+        return cache, scores
+
+
+def host_batch(batch) -> dict:
+    """A staged batch back as host arrays (``distributed.tp.stage``'s
+    input)."""
+    return {k: host_batch(v) if isinstance(v, dict)
+            else v.cpu().numpy() if torch.is_tensor(v) else v
+            for k, v in batch.items()}
+
+
+class MeshOrders:
+    """The single-device plain path computed in the tensor-parallel
+    forward's summation orders over ``n`` ranks, independently of
+    ``distributed/tp.py``: while active, every layer product of the
+    weights ``params`` is split as a rank holds it -- q/k/v and gate/up by
+    column blocks (whole heads, d_ff / n), the attention output and down
+    projections by row blocks, each block a GEMM writing f32 and the blocks
+    added in f32, rounded once -- attention runs a block of heads at a
+    time, and the head scores a vocabulary block at a time.  Equal blocks:
+    ``n`` must divide the heads, kv-heads, d_ff and the vocabulary.  The
+    function is the model's; only the order of its sums moves, so the
+    tensor-parallel plain path, run on the mesh, should land where this
+    does (bit for bit where the kernels' shapes pick the same GEMMs)."""
+
+    def __init__(self, params, cfg, n: int):
+        from repro_torch.models import common as cm
+        from repro_torch.models.dense import head_of
+
+        assert all(w % n == 0 for w in (cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.d_ff, cfg.vocab_size))
+        self.n, self.plans = n, {}
+
+        def cut(w, dim):
+            return [c.contiguous() for c in w.detach().chunk(n, dim)]
+
+        for lp in cm.layer_views(params):
+            for k in ('wq', 'wk', 'wv', 'wg', 'wu'):
+                self._plan(lp[k], self._column(cut(lp[k], 1)))
+            for k in ('wo', 'wd'):
+                self._plan(lp[k], self._row(cut(lp[k], 0)))
+        self.head = cut(head_of(cfg, params), 0)
+
+    def _plan(self, w, fn):
+        self.plans[w.data_ptr(), tuple(w.shape)] = fn
+
+    @staticmethod
+    def _column(blocks):
+        return lambda x: torch.cat([x @ b for b in blocks], dim=-1)
+
+    @staticmethod
+    def _row(blocks):
+        def product(x):
+            parts = x.chunk(len(blocks), dim=-1)
+            total = None
+            for xr, b in zip(parts, blocks):
+                xr = xr.contiguous().reshape(-1, xr.shape[-1])
+                p = (torch.mm(xr, b, out_dtype=torch.float32)
+                     if xr.is_cuda and xr.dtype != torch.float32
+                     else xr.float() @ b.float())
+                total = p if total is None else total + p
+            return total.to(x.dtype).reshape(x.shape[:-1] + (-1,))
+        return product
+
+    @contextlib.contextmanager
+    def active(self):
+        from torch.overrides import TorchFunctionMode
+
+        from repro_torch.models import common as cm
+        from repro_torch.models import dense
+
+        plans, n, head = self.plans, self.n, self.head
+        scores, attend = dense.unembed_scores, cm.paged_attention_ref
+
+        class Products(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if getattr(func, '__name__', None) in ('matmul',
+                                                       '__matmul__') and \
+                        len(args) == 2 and torch.is_tensor(args[1]):
+                    plan = plans.get((args[1].data_ptr(),
+                                      tuple(args[1].shape)))
+                    if plan is not None:
+                        return plan(args[0])
+                return func(*args, **(kwargs or {}))
+
+        def by_heads(q, pool_k, pool_v, page_table, lengths, **kw):
+            return torch.cat([attend(qb.contiguous(), kb.contiguous(),
+                                     vb.contiguous(), page_table, lengths,
+                                     **kw)
+                              for qb, kb, vb in zip(q.chunk(n, 1),
+                                                    pool_k.chunk(n, 2),
+                                                    pool_v.chunk(n, 2))],
+                             dim=1)
+
+        dense.unembed_scores = lambda last, _: torch.cat(
+            [scores(last, b) for b in head], dim=-1)
+        cm.paged_attention_ref = by_heads
+        try:
+            with Products():
+                yield
+        finally:
+            dense.unembed_scores, cm.paged_attention_ref = scores, attend
+
+
+class MeshWitness(Witness):
+    """The Witness of a tensor-parallel engine's (unfused) decode steps,
+    two gates a step.  P is the single-device plain path with the whole
+    weights over the whole pool, gathered from every rank after the step:
+    the step wrote only its new tokens' slots, which P writes again before
+    it reads them, so P sees the cache state the step saw.  M is the mesh's
+    own plain path, run by ``shadow``, a second engine on the mesh whose
+    pool takes the engine's pages on every rank before each step.  E is
+    :class:`MeshOrders`: the single-device plain path in the mesh's
+    summation orders, written apart from the tensor-parallel code.
+
+    - The mesh's forward (``self.orders``): M held to P by the Witness rule
+      with E as the gated null (then the four single-device split-order
+      nulls of :class:`Witness` for the reach), so a fault of the
+      tensor-parallel forward, in bf16 too, fails the phase.
+    - The kernels on the mesh (this Witness): K, the mesh's own step -- K1,
+      or K2 + K3, on every rank's kv-heads -- held to P with M as the gated
+      null (it sums in the kernel path's dataflow, as phase 4's plan null
+      does), the reach over M, E and the four.
+
+    Printed beside them, not gated: E's and M's spread against the
+    single-device plan null's, and the live rows E reproduces M bit for
+    bit.  The sampled token is K's argmax (greedy)."""
+
+    def __init__(self, model, params, n: int):
+        super().__init__(model)
+        self.full, self.engine, self.shadow, self.decode_s = \
+            params, None, None, []
+        self.mesh_orders = MeshOrders(params, model.cfg, n)
+        self.orders = Witness(model)
+        self.single, self.e_same, self.rows = [], 0, 0
+
+    def decode_fn(self, params, cache, batch, *, use_kernel, tp):
+        from repro_torch.kernels.common import LAUNCHES
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, kern = self.model.decode_fn(params, cache, batch,
+                                           use_kernel=use_kernel, tp=tp)
+        torch.cuda.synchronize()
+        self.decode_s.append(time.perf_counter() - t0)
+        counts = dict(LAUNCHES)
+        unshared = {k: v for k, v in batch.items() if k != 'shared'}
+        shadow, pages = self.shadow, list(range(self.engine.pool.n_pages))
+        shadow.copy_kv_from(self.engine, pages, pages)
+        shadow._leader.announce('decode', host_batch(unshared),
+                                use_kernel=False)
+        mesh_plain = self.model.decode_fn(shadow.params, shadow.cache,
+                                          unshared, use_kernel=False,
+                                          tp=shadow._tp)[1]
+        pool = self.engine.gather_cache()
+
+        def scores(b, kernel):
+            c = {k: v.clone() for k, v in pool.items()}
+            return self.model.decode_fn(self.full, c, b,
+                                        use_kernel=kernel)[1]
+
+        plain = scores(unshared, False)
+        with self.mesh_orders.active():
+            split = scores(unshared, False)
+        singles = []
+        for order in NULL_ORDERS:
+            with plain_kernels(order):
+                singles.append(scores(batch, True))
+        LAUNCHES.update(counts)
+        live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+        m, e, p = mesh_plain[live], split[live], plain[live]
+        top = p.abs().amax(-1, keepdim=True)
+        self.single.append(((singles[0][live] - p).abs() / top).flatten())
+        self.e_same += int((e == m).all(-1).sum())
+        self.rows += len(live)
+        singles = torch.stack(singles)[:, live]
+        self.orders._check(m.argmax(-1), p, m,
+                           torch.cat([e[None], singles]))
+        self._check(kern[live].argmax(-1), p, kern[live],
+                    torch.cat([m[None], e[None], singles]))
+        return cache, kern
+
+    def verdict(self, what: str, card: str) -> list:
+        single = torch.cat(self.single)
+        e, m = torch.cat(self.orders.n_diffs), torch.cat(self.orders.k_diffs)
+        print(f'  {what}: the single-device plan null (not gated): median '
+              f'{single.median().item():.3e}, max {single.max().item():.3e} '
+              f'of |max|; the mesh\'s orders on one device (E) '
+              f'{e.median().item():.3e}, {e.max().item():.3e}; the mesh\'s '
+              f'plain path (M) {m.median().item():.3e}, '
+              f'{m.max().item():.3e}; E reproduces M bit for bit on '
+              f'{self.e_same} of {self.rows} live rows  [{card}]')
+        return (self.orders.verdict(f'{what}, the mesh\'s plain path (M) '
+                                    'against E', card)
+                + super().verdict(f'{what}, the kernel path against M',
+                                  card))
+
+
+def f32_copy(params):
+    """An f32 copy of ``params`` (no grad)."""
+    from torch import nn
+    if isinstance(params, nn.ParameterDict):
+        return nn.ParameterDict({k: f32_copy(v) for k, v in params.items()})
+    return nn.Parameter(params.detach().float(), requires_grad=False)
+
+
+def traced(model, params, mesh, dev, **ecfg):
+    """(tokens, engine) of :func:`run_trace` at phase 4's geometry over
+    ``mesh`` (None: one device), unfused, the pool in the weights' dtype
+    (a mesh engine's already is)."""
+    eng = trace_engine(model, params, MESH_MAX_SEQ, device=dev, mesh=mesh,
+                       **ecfg)
+    dtype = params['embed'].dtype
+    eng.cache = {k: v.to(dtype) for k, v in eng.cache.items()}
+    toks = run_trace(eng, MESH_PROMPT_PAGES)
+    eng.close()
+    return toks, eng
+
+
+def mesh_rank_one(rank: int, cfg, dev: str) -> dict:
+    """Phase 16 (a), on a mesh of one rank over NCCL: phase 4's drain,
+    unfused, through K1/K2/K3, with and without the mesh; every score and
+    token must be equal bit for bit."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    mesh = make_mesh((1,), ('model',), device=dev)
+    model = build_model(cfg)
+    params = model.init_params(0, device=dev)
+    runs = {}
+    for name, m in (('meshless', None), ('mesh', mesh)):
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        rec = Recorder(model)
+        toks, eng = traced(rec, params, m, dev, decode_kernel=True,
+                           prefix_shared_attention=True)
+        runs[name] = (toks, rec, dict(LAUNCHES),
+                      eng.stats.shared_page_reads_saved)
+    (a_toks, a_rec, _, _), (b_toks, b_rec, launches, saved) = \
+        runs['meshless'], runs['mesh']
+    return {'backend': str(torch.distributed.get_backend()),
+            'tokens_equal': a_toks == b_toks, 'n_tokens': sum(map(len, b_toks)),
+            'scores_equal': len(a_rec.scores) == len(b_rec.scores) and all(
+                torch.equal(x, y) for x, y in zip(a_rec.scores, b_rec.scores)),
+            'n_scores': len(b_rec.scores), 'launches': launches,
+            'saved': saved,
+            'ms': {k: 1e3 * statistics.median(r.decode_s)
+                   for k, (_, r, _, _) in runs.items()}}
+
+
+def mesh_burst(cfg, mesh, dev: str) -> dict:
+    """Phase 16 (c): online and offline engines of ``cfg``, tensor-parallel
+    on ``mesh``, under a runtime on that mesh (a gate a device): offline
+    work, then an online request mid-flight (the reference's
+    ``tests/test_gate_fanout.py`` burst); the preemption events."""
+    from repro_torch.core.clock import VirtualClock
+    from repro_torch.core.events import PreemptionEvent
+    from repro_torch.core.runtime import RuntimeConfig, ValveRuntime
+    from repro_torch.launch.node import NodeOrchestrator
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.kvpool import KVPool
+
+    pool = KVPool(5, 4, page_size=cfg.page_size, reserved_handles=1)
+    rt = ValveRuntime(pool, RuntimeConfig(mesh=mesh, t_cool_init=0.002,
+                                          gate_op_latency_s=0.0005),
+                      clock=VirtualClock())
+    node = NodeOrchestrator(rt, idle_advance=1e-3)
+    for klass, seed in (('online', 0), ('offline', 1)):
+        node.add_engine(cfg, EngineConfig(max_batch=4, max_seq=48,
+                                          prefill_chunk=8, klass=klass,
+                                          mesh=mesh),
+                        seed=seed, name=klass, device=dev)
+    rng = np.random.default_rng(7)
+    off = node.offline[0]
+    for _ in range(2):
+        off.submit(rng.integers(1, cfg.vocab_size, 12).tolist(),
+                   max_new_tokens=8)
+    for _ in range(4):
+        node.step()
+    node.online.submit(rng.integers(1, cfg.vocab_size, 28).tolist(),
+                       max_new_tokens=12)
+    node.drain(max_steps=5000)
+    rt.check_invariants()
+    evs = rt.bus.events(PreemptionEvent)
+    per = {}
+    for ev in evs:
+        for rid in ev.requests:
+            for d in range(len(ev.device_latencies_s)):
+                per[rid, d] = per.get((rid, d), 0) + 1
+    for eng in node.engines:
+        eng.close()
+    return {'gates': len(rt.gates.gates), 'events': len(evs),
+            'latencies': sorted({len(ev.device_latencies_s) for ev in evs}),
+            'max_per_device': max(per.values(), default=0),
+            'finished': [len(e.finished) for e in node.engines]}
+
+
+def mesh_rank_two(rank: int, cfg, cut, dev: str, card: str) -> dict:
+    """Phase 16 (b) and (c), two ranks sharing the card (gloo): the f32
+    drain at published widths cut to ``cut``'s depth, mesh vs meshless; the
+    bf16 full-depth drain through K1/K2/K3 under :class:`MeshWitness`; the
+    preemption burst.  Rank 1 serves."""
+    from repro_torch.distributed.tp import serve_rank, stop_ranks
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    mesh = make_mesh((2,), ('model',), device=dev)
+    if rank != 0:
+        return serve_rank(mesh)
+    try:
+        out = {'backend': str(torch.distributed.get_backend())}
+        model = build_model(cut)
+        params = f32_copy(model.init_params(0, device=dev))
+        runs = {}
+        for name, m in (('mesh', mesh), ('meshless', None)):
+            rec = Recorder(model)
+            # f32: the plain path (the decode kernels take bf16)
+            runs[name] = (traced(rec, params, m, dev,
+                                 decode_kernel=False)[0], rec)
+        (m_toks, m_rec), (s_toks, s_rec) = runs['mesh'], runs['meshless']
+        out['f32'] = {
+            'tokens_equal': m_toks == s_toks, 'n_scores': len(m_rec.scores),
+            'worst': max(((x - y).abs().max() / y.abs().max()).item()
+                         for x, y in zip(m_rec.scores, s_rec.scores)),
+            'same_count': len(m_rec.scores) == len(s_rec.scores)}
+        del model, params, runs, m_rec, s_rec
+
+        model = build_model(cfg)
+        params = model.init_params(0, device=dev)
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        witness = MeshWitness(model, params, mesh.shape['model'])
+        eng = trace_engine(witness, params, MESH_MAX_SEQ, device=dev,
+                           mesh=mesh, decode_kernel=True,
+                           prefix_shared_attention=True)
+        witness.engine = eng
+        witness.shadow = trace_engine(model, params, MESH_MAX_SEQ,
+                                      device=dev, mesh=mesh,
+                                      decode_kernel=False)
+        toks = run_trace(eng, MESH_PROMPT_PAGES)
+        eng.close()
+        witness.shadow.close()
+        out['bf16'] = {
+            'launches': dict(LAUNCHES), 'engine': eng._leader.id,
+            'n_tokens': sum(map(len, toks)),
+            'saved': eng.stats.shared_page_reads_saved,
+            'ms': 1e3 * statistics.median(witness.decode_s),
+            'failed': witness.verdict(
+                'mesh of 2, bf16 engine drain, every decode step', card)}
+        del eng, witness, params
+        out['burst'] = mesh_burst(cfg, mesh, dev)
+        return out
+    finally:
+        stop_ranks(mesh)
+
+
+def need_launches(counts: dict, what: str) -> None:
+    """K1, K2 and K3 each launched in ``counts``."""
+    assert all(counts[k] > 0 for k in DECODE_KERNELS[:3]), (what, counts)
+
+
+def mesh_check(card: str):
+    """Phase 16: (a) one rank over NCCL, bit-equal to the meshless drain;
+    (b) two ranks sharing the card, f32 within :data:`MESH_TOL` with equal
+    tokens, bf16 under the Witness with K1/K2/K3 launched on both ranks;
+    (c) the per-device preemption bound.  Returns the two-rank bf16
+    drain's launches over both ranks and what its Witness failed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MESH_ARCH)
+    cut = dataclasses.replace(cfg, n_layers=MESH_F32_LAYERS)
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    one = run_ranks(mesh_rank_one, 1, store_dir=store, device_type=kind,
+                    args=(cfg, DEV), timeout_s=MESH_TIMEOUT_S)[0]
+    print(f'  (a) mesh of 1 ({one["backend"]}): {one["n_tokens"]} tokens, '
+          f'{one["n_scores"]} score blocks, tokens equal to the meshless '
+          f'drain: {one["tokens_equal"]}, scores bit-equal: '
+          f'{one["scores_equal"]}; shared_page_reads_saved {one["saved"]}, '
+          f'launches {one["launches"]}  [{card}]')
+    lead, worker = run_ranks(mesh_rank_two, 2, store_dir=store,
+                             device_type=kind, args=(cfg, cut, DEV, card),
+                             timeout_s=MESH_TIMEOUT_S)
+    f32, bf16, burst = lead['f32'], lead['bf16'], lead['burst']
+    # rank 1's launches for the bf16 drain's engine alone (from 0 at its open)
+    rank1 = worker['launches'][bf16['engine']]
+    print(f'  (b) mesh of 2 ({lead["backend"]}, one card): f32 at '
+          f'{MESH_F32_LAYERS} of {cfg.n_layers} layers, {f32["n_scores"]} '
+          f'score blocks: tokens equal to the meshless drain: '
+          f'{f32["tokens_equal"]}, max |mesh - meshless| {f32["worst"]:.3e} '
+          f'of |max|; bf16 full depth: {bf16["n_tokens"]} tokens, '
+          f'shared_page_reads_saved {bf16["saved"]}, launches rank 0 '
+          f'{bf16["launches"]}, rank 1 {rank1}  [{card}]')
+    print(f'  decode step ({MESH_ARCH}, bf16, K1/K2/K3, unfused, <= 3 '
+          f'rows): meshless {one["ms"]["meshless"]:.2f} ms, mesh of 1 '
+          f'{one["ms"]["mesh"]:.2f} ms, mesh of 2 sharing the card '
+          f'{bf16["ms"]:.2f} ms (medians)  [{card}]')
+    print(f'  (c) burst on the mesh of 2: {burst["gates"]} gates, '
+          f'{burst["events"]} preemption events, device latencies an event '
+          f'{burst["latencies"]}, max preemptions per (request, device) '
+          f'{burst["max_per_device"]}, finished {burst["finished"]}  '
+          f'[{card}]')
+    assert 'nccl' in one['backend'] or kind == 'cpu', one['backend']
+    assert one['tokens_equal'] and one['scores_equal'], one
+    assert one['saved'] > 0
+    need_launches(one['launches'], 'mesh of 1')
+    assert f32['tokens_equal'] and f32['same_count'], f32
+    assert f32['worst'] <= MESH_TOL, f32
+    assert bf16['saved'] > 0
+    need_launches(bf16['launches'], 'mesh of 2, rank 0')
+    need_launches(rank1, 'mesh of 2, rank 1')
+    assert burst['gates'] == 2 and burst['latencies'] == [2], burst
+    assert burst['events'] > 0 and burst['max_per_device'] <= 1, burst
+    assert burst['finished'] == [1, 2], burst
+    launches = {k: bf16['launches'][k] + rank1[k] for k in bf16['launches']}
+    return launches, bf16['failed']
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -3380,7 +3872,13 @@ def main() -> int:
     by_phase['hybrid_encdec'] = hybrid_encdec_check(card, args.trace)
     done()
 
-    print(f'[16] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[16] mesh: {MESH_ARCH} full width, tensor-parallel over 1 rank '
+          f'(NCCL) and 2 ranks sharing the card (gloo)')
+    by_phase['mesh'], failed = mesh_check(card)
+    witnessed += failed
+    done()
+
+    print(f'[17] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -1,8 +1,9 @@
 #!/usr/bin/env bash
 # CI gate of the PyTorch port (src/repro_torch) on the CPU: the Valve patch
-# surface of the port's engine, the node smoke, the in-process HTTP smoke,
-# and a short reduced training run.  Nothing here imports jax; the CPU
-# parity tests against the reference are tests/test_torch_*.py.
+# surface of the port's engine, the node smoke, a tensor-parallel drain
+# over two gloo ranks (tests/test_torch_gate_fanout.py), the in-process
+# HTTP smoke, and a short reduced training run.  Nothing here imports jax;
+# the CPU parity tests against the reference are tests/test_torch_*.py.
 #
 # Usage:  scripts/ci_torch.sh
 set -euo pipefail
@@ -26,6 +27,9 @@ PY
 
 echo "== node demo smoke (heterogeneous colocation, CPU) =="
 python -m repro_torch.launch.serve --steps 50 --device cpu
+
+echo "== tensor-parallel drain (online + offline engines over 2 gloo ranks, CPU) =="
+python -m pytest -q -p no:cacheprovider tests/test_torch_gate_fanout.py
 
 echo "== serving front-end: in-process HTTP smoke (1 stream + 1 batch, no sockets) =="
 python - <<'PY'

@@ -90,3 +90,20 @@ def state_from_jax(state, *, dtype=torch.float32, device='cpu'):
     ``dtype`` (the model's)."""
     return {k: _tensor(v, torch.float32 if k == 'wkv' else dtype, device)
             for k, v in state.items()}
+
+
+def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu'):
+    """The reference's weights (numpy leaves, its layout) cut to the blocks
+    rank ``mesh.rank`` holds under tensor-parallel serving
+    (``distributed.tp.TensorParallel``), as an ``nn.ParameterDict``."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    tp = TensorParallel(model.cfg, mesh)
+
+    def build(node, key=None):
+        if isinstance(node, dict):
+            return nn.ParameterDict({k: build(v, k) for k, v in node.items()})
+        full = _tensor(node, dtype, 'cpu', key)
+        return nn.Parameter(tp.shard(key, full).contiguous().to(device),
+                            requires_grad=False)
+    return build(tree)

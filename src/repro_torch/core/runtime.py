@@ -56,7 +56,7 @@ from repro_torch.serving.kvpool import KVPool
 @dataclass
 class RuntimeConfig:
     n_devices: int = 1
-    # Device topology: a jax.sharding.Mesh (the one the engine shards
+    # Device topology: a launch.mesh.Mesh (the one the engines shard
     # over).  When set, the runtime instantiates one DeviceGate per mesh
     # device — overriding n_devices — so the gate fan-out is the real
     # flip across the serving mesh, not a modeled count.

@@ -1,0 +1,275 @@
+"""Logical-axis sharding, ported from the reference's
+``distributed/sharding.py``.
+
+Models annotate tensors with *logical* axis names (``PSpec.axes``); a rule
+set maps those to mesh axes.  The rule tables, ``logical_to_spec`` and the
+shape-aware ``shaped_spec`` are the reference's, verbatim.  A spec here is
+the tuple form of jax's ``PartitionSpec``: one entry a dimension, each
+``None`` (replicated), a mesh axis name or a tuple of names, trailing
+``None`` entries stripped -- so ``tuple(spec) == tuple(P)`` compares the two.
+
+There is no GSPMD behind a spec: :func:`local_shard` narrows a global
+tensor to one rank's block, in ``NamedSharding``'s block order, and the
+tensor-parallel forward (``distributed/tp.py``) places its collectives
+explicitly.  :func:`constrain` is therefore the identity, inside a rules
+context and outside it.  A mesh is anything with ``axis_names`` and a
+``shape`` mapping (``launch/mesh.py``'s :class:`Mesh`).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisVal, ...]
+
+# ---------------------------------------------------------------------------
+# Rule sets.  Values may name mesh axes that do not exist in the active mesh;
+# missing axes are dropped at resolution time, so one rule set serves both the
+# single-pod (data, model) and multi-pod (pod, data, model) meshes.
+# ---------------------------------------------------------------------------
+
+TRAIN_RULES: Dict[str, AxisVal] = {
+    'batch': ('pod', 'data'),
+    'seq': 'model',          # Megatron-style sequence parallelism on residuals
+    'embed': None,
+    'heads': 'model',
+    'kv_heads': 'model',
+    'head_dim': None,
+    'qkv': 'model',          # fused q/k/v output dim
+    'ffn': 'model',
+    'vocab': 'model',
+    'expert': 'model',       # expert parallelism
+    'layers': None,
+    'pages': None,
+    'state': None,
+}
+
+# Decode/prefill: batch over (pod, data), tensor-parallel dims over model.
+SERVE_RULES: Dict[str, AxisVal] = {
+    'batch': ('pod', 'data'),
+    'seq': None,
+    'embed': None,
+    'heads': 'model',
+    'kv_heads': 'model',
+    'head_dim': None,
+    'qkv': 'model',
+    'ffn': 'model',
+    'vocab': 'model',
+    'expert': 'model',
+    'layers': None,
+    'pages': None,
+    'kv_seq': None,
+    'state': None,
+}
+
+# long_500k (global_batch=1): nothing to shard on batch -- the KV sequence
+# dim itself is sharded over (pod, data).
+LONG_SERVE_RULES: Dict[str, AxisVal] = dict(
+    SERVE_RULES, batch=None, kv_seq=('pod', 'data'))
+
+# The reference's hill-climb variants (its EXPERIMENTS.md §Perf).
+# Decode H1 -- contract-over-Dh: q and the KV pool on head_dim.
+SERVE_DH_CONTRACT_RULES: Dict[str, AxisVal] = dict(
+    SERVE_RULES, heads=None, kv_heads=None, head_dim='model', qkv=None)
+
+# Decode H2 -- sequence-parallel KV: the pool's page dim over model.
+SERVE_SEQ_RULES: Dict[str, AxisVal] = dict(
+    SERVE_RULES, pages='model', kv_seq='model')
+
+# Decode H3 -- data-parallel attention: the KV pool replicated over model.
+SERVE_KV_DP_RULES: Dict[str, AxisVal] = dict(
+    SERVE_RULES, heads=None, kv_heads=None, head_dim=None)
+
+# Train H1 -- no sequence parallelism on the residual stream.
+TRAIN_NO_SP_RULES: Dict[str, AxisVal] = dict(TRAIN_RULES, seq=None)
+
+RULE_VARIANTS = {
+    'default': None,                      # resolved per shape kind
+    'serve_dh': SERVE_DH_CONTRACT_RULES,
+    'serve_seq': SERVE_SEQ_RULES,
+    'serve_kv_dp': SERVE_KV_DP_RULES,
+    'train_no_sp': TRAIN_NO_SP_RULES,
+}
+
+_tls = threading.local()
+
+
+def _current():
+    return getattr(_tls, 'ctx', None)
+
+
+@contextlib.contextmanager
+def axis_rules(mesh, rules: Dict[str, AxisVal]):
+    """Make (mesh, rules) the thread's rules context while inside;
+    ``mesh=None`` clears it."""
+    prev = _current()
+    _tls.ctx = (mesh, rules) if mesh is not None else None
+    try:
+        yield
+    finally:
+        _tls.ctx = prev
+
+
+def logical_to_spec(axes: Sequence[Optional[str]],
+                    rules: Dict[str, AxisVal], mesh=None) -> Spec:
+    """Map logical axis names to a spec, dropping absent mesh axes.
+
+    A rule whose mapped axes are *all* absent from the mesh resolves to
+    ``None`` (replicated) -- never a stale name tuple; ``mesh=None`` has no
+    axes at all, so every mapping degrades to replicated.
+    """
+    mesh_axes = set(mesh.axis_names) if mesh is not None else set()
+    used: set = set()
+    parts = []
+    for ax in axes:
+        val = rules.get(ax) if ax is not None else None
+        if val is None:
+            parts.append(None)
+            continue
+        val_t = (val,) if isinstance(val, str) else tuple(val)
+        val_t = tuple(v for v in val_t if v in mesh_axes)
+        val_t = tuple(v for v in val_t if v not in used)
+        used.update(val_t)
+        if not val_t:
+            parts.append(None)
+        elif len(val_t) == 1:
+            parts.append(val_t[0])
+        else:
+            parts.append(val_t)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+def constrain(x, axes: Sequence[Optional[str]]):
+    """The identity.  The reference pins an intermediate's sharding here and
+    GSPMD inserts the collectives; the port's tensor-parallel forward holds
+    local blocks and runs its collectives explicitly (``distributed/tp.py``),
+    so there is nothing to pin, inside a rules context or outside it."""
+    return x
+
+
+def shaped_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
+                rules: Dict[str, AxisVal], mesh) -> Spec:
+    """Shape-aware resolution for arguments (which must divide evenly).
+
+    Mesh axes whose size does not divide the mapped dimension are dropped
+    from that dimension and re-placed on the last unsharded, divisible
+    dimension instead (e.g. 8 KV heads can't shard over model=16 -> the
+    model axis moves to head_dim=128).  Deterministic.
+    """
+    sizes = dict(mesh.shape)
+    used: set = set()
+    groups: list = []
+    freed: list = []
+    for dim, ax in zip(shape, axes):
+        val = rules.get(ax) if ax is not None else None
+        if val is None:
+            groups.append([])
+            continue
+        val_t = (val,) if isinstance(val, str) else tuple(val)
+        val_t = [v for v in val_t if v in sizes and v not in used]
+        # drop trailing axes until the product divides the dim
+        while val_t:
+            prod = 1
+            for v in val_t:
+                prod *= sizes[v]
+            if dim % prod == 0:
+                break
+            freed.append(val_t.pop())
+        used.update(val_t)
+        groups.append(list(val_t))
+    # re-place freed axes on the last divisible unsharded dims
+    for v in freed:
+        for i in range(len(groups) - 1, -1, -1):
+            if not groups[i] and shape[i] % sizes[v] == 0 and shape[i] > 1:
+                groups[i].append(v)
+                used.add(v)
+                break
+    parts = [None if not g else (g[0] if len(g) == 1 else tuple(g))
+             for g in groups]
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A spec bound to a mesh (the reference's ``NamedSharding``)."""
+    mesh: object
+    spec: Spec
+
+    def shard(self, full, coords: Optional[Dict[str, int]] = None):
+        return local_shard(full, self.spec, self.mesh, coords)
+
+
+def spec_for(axes: Sequence[Optional[str]], rules: Dict[str, AxisVal],
+             mesh) -> Sharding:
+    return Sharding(mesh, logical_to_spec(axes, rules, mesh))
+
+
+def _is_axes_leaf(t) -> bool:
+    return isinstance(t, tuple) and all(
+        a is None or isinstance(a, str) for a in t)
+
+
+def _map_axes(fn, tree, *rest):
+    """``fn(axes_leaf, *matching leaves of rest)`` over a nested dict whose
+    leaves are logical-axes tuples; ``rest`` are trees of the same nesting."""
+    if _is_axes_leaf(tree):
+        return fn(tree, *rest)
+    return {k: _map_axes(fn, v, *(r[k] for r in rest))
+            for k, v in tree.items()}
+
+
+def tree_spec(logical_tree, rules: Dict[str, AxisVal], mesh):
+    """Map a nested dict of logical-axis tuples to :class:`Sharding` s."""
+    return _map_axes(lambda axes: spec_for(axes, rules, mesh), logical_tree)
+
+
+def tree_spec_shaped(logical_tree, shapes_tree, rules: Dict[str, AxisVal],
+                     mesh):
+    """Shape-aware :func:`tree_spec`; ``shapes_tree`` holds anything with a
+    ``shape`` (tensors, or ``PSpec`` leaves) nested like ``logical_tree``."""
+    return _map_axes(
+        lambda axes, s: Sharding(
+            mesh, shaped_spec(tuple(s.shape), axes, rules, mesh)),
+        logical_tree, shapes_tree)
+
+
+def block(size: int, parts: int, index: int) -> Tuple[int, int]:
+    """[lo, hi) of block ``index`` when ``size`` splits into ``parts``."""
+    if size % parts:
+        raise ValueError(f'{size} does not split into {parts} blocks')
+    step = size // parts
+    return index * step, (index + 1) * step
+
+
+def local_shard(full, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None):
+    """This rank's block of the global tensor ``full`` under ``spec``.
+
+    A dimension whose entry names mesh axes (a1, a2, ...) is split into
+    prod(sizes) blocks, and the rank takes block
+    ``(c1 * size2 + c2) * size3 + ...`` of its coordinates c on those axes:
+    row-major in the order the entry names them, as ``NamedSharding``
+    places blocks on the devices of a mesh.  ``coords`` (axis -> coordinate)
+    defaults to ``mesh.coords()``, the calling rank's.  A view (a basic
+    slice: a tensor or a numpy array).
+    """
+    coords = mesh.coords() if coords is None else coords
+    sizes = dict(mesh.shape)
+    out = full
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        parts, index = 1, 0
+        for a in names:
+            parts *= sizes[a]
+            index = index * sizes[a] + coords[a]
+        lo, hi = block(full.shape[dim], parts, index)
+        out = out[(slice(None),) * dim + (slice(lo, hi),)]
+    return out

@@ -1,0 +1,412 @@
+"""Tensor-parallel serving over a mesh's ``model`` axis.
+
+The reference shards the params and the KV pool by ``SERVE_RULES`` and
+lets GSPMD insert the collectives where the forward's ``constrain`` calls
+pin a layout.  Here each rank holds its blocks as ordinary tensors and the
+forward (``models/dense.py``, given a :class:`TensorParallel`) runs the
+collectives itself, over the ``model`` axis's process group:
+
+- q/k/v are column blocks of whole heads, ``wo`` a row block: attention's
+  output projection is a partial sum, then a reduction;
+- ``wg``/``wu`` column blocks and ``wd`` a row block: the MLP the same;
+- the embedding is vocab-parallel (a masked lookup of the rank's rows,
+  then a reduction), and so is the head (qwen3 ties it to the
+  embedding): each rank's block of scores is gathered before sampling;
+- the norms are replicated.
+
+**Never split head_dim.**  RoPE pairs dimensions d and d + Dh/2 and qwen3's
+q/k norms reduce over Dh, so blocks are whole heads, and the placement is
+planned over heads (:func:`head_blocks`), not by ``shaped_spec`` over the
+flattened (Hkv*Dh) width, which would cut a head in half where the mesh
+does not divide the heads.  Where it divides the kv-heads, rank r holds
+kv-heads [r Hkv/n, (r+1) Hkv/n) and their q-heads -- so the GQA groups stay
+on one rank and the pool shard holds 1/n of the kv-heads.  Where it does
+not, but divides the q-heads and each rank's q-heads read one kv-head
+(G % (H/n) == 0), each rank holds that one kv-head: its projection
+columns and its pool, replicated over the G n / H ranks that read it (the
+reference's ``shaped_spec`` moves the axis to head_dim instead; the
+function computed is the same).  Otherwise attention is replicated.  Where
+the mesh does not divide ``d_ff`` or the vocabulary, that part is
+replicated.  Every reduction is an all-reduce of f32 partial sums
+(:func:`reduce_sum`), rounded once to the activations' dtype: every rank
+receives the one reduced buffer, so the replicated activations hold the
+same bits on every rank.
+
+**One control plane.**  Rank 0 runs the engine, its scheduler, the
+``KVPool`` and the ``ValveRuntime``; each dispatch sends its op and its
+staged host batch to the other ranks (:class:`Leader`), which run the same
+model entry on their blocks (:func:`serve_rank`).  Were every rank to
+schedule for itself, a real clock would let the ranks' schedules diverge
+into collectives that never match.
+
+Transport: the dispatch messages over the default group's host side
+(``broadcast_object_list``), weight shards rank 0 -> worker and the cache
+gather worker -> rank 0 as host tensors (``send`` / ``gather`` on CPU
+copies: staged through host memory, so gloo takes them whether the ranks
+compute on the CPU or on CUDA); the forward's collectives on the tensors
+as they are (gloo takes CUDA tensors for ``all_reduce`` and
+``all_gather_into_tensor``; NCCL where each rank has a card of its own).
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.distributed.sharding import block
+
+MODEL = 'model'
+
+
+def head_blocks(n_heads: int, n_kv: int, n: int,
+                r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(q-heads [lo, hi), kv-heads [lo, hi)) rank ``r`` of ``n`` holds."""
+    if n_kv % n == 0:
+        return block(n_heads, n, r), block(n_kv, n, r)
+    group = n_heads // n_kv
+    if n_heads % n == 0 and group % (n_heads // n) == 0:
+        q = block(n_heads, n, r)
+        kv = q[0] // group
+        return q, (kv, kv + 1)
+    return (0, n_heads), (0, n_kv)
+
+
+class TensorParallel:
+    """One rank's plan over a mesh's ``model`` axis, and the collectives of
+    the tensor-parallel forward.  ``coords`` (axis -> coordinate) defaults
+    to the mesh's own rank's; another rank's plan needs no process group."""
+
+    def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None):
+        check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
+        self.n = mesh.shape.get(MODEL, 1)
+        self.rank = (mesh.coords() if coords is None else coords).get(MODEL, 0)
+        self.q_heads, self.kv_heads = head_blocks(
+            cfg.n_heads, cfg.n_kv_heads, self.n, self.rank)
+        self.attn_split = self.q_heads != (0, cfg.n_heads)
+        self.ffn = self._split(cfg.d_ff)
+        self.vocab = self._split(cfg.vocab_size)
+        self._group = None
+
+    def _split(self, size: int) -> Tuple[int, int]:
+        return block(size, self.n, self.rank) if size % self.n == 0 \
+            else (0, size)
+
+    @property
+    def group(self):
+        if self._group is None:
+            self._group = self.mesh.group(MODEL)
+        return self._group
+
+    # -- placement ---------------------------------------------------------
+    def ranges(self, key: str) -> Dict[int, Tuple[int, int]]:
+        """{dim: [lo, hi)} of this rank's block of the weight ``key`` (a
+        top-level name, or a layer stack's name); {} is replicated."""
+        hd = self.cfg.hd
+        q = (self.q_heads[0] * hd, self.q_heads[1] * hd)
+        kv = (self.kv_heads[0] * hd, self.kv_heads[1] * hd)
+        return {
+            'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
+            'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
+            'wk': {2: kv}, 'wv': {2: kv}, 'bk': {1: kv}, 'bv': {1: kv},
+            'wg': {2: self.ffn}, 'wu': {2: self.ffn}, 'wd': {1: self.ffn},
+        }.get(key, {})
+
+    def shard(self, key: str, full):
+        """This rank's block of the global weight ``full`` (a tensor or a
+        numpy array; a view)."""
+        out = full
+        for dim, (lo, hi) in self.ranges(key).items():
+            out = out[(slice(None),) * dim + (slice(lo, hi),)]
+        return out
+
+    def shard_params(self, params) -> nn.ParameterDict:
+        """The global weights cut to this rank's blocks (copies where cut)."""
+        def build(node, key):
+            if isinstance(node, (dict, nn.ParameterDict)):
+                return nn.ParameterDict({k: build(v, k)
+                                         for k, v in node.items()})
+            return nn.Parameter(self.shard(key, node.detach()).contiguous(),
+                                requires_grad=False)
+        return build(params, None)
+
+    def init_cache(self, n_pages: int, device, dtype):
+        """This rank's block of the global paged pool: its kv-heads."""
+        c = self.cfg
+        shape = (c.n_layers, n_pages, c.page_size,
+                 self.kv_heads[1] - self.kv_heads[0], c.hd)
+        return {k: torch.zeros(shape, dtype=dtype, device=device)
+                for k in ('k', 'v')}
+
+    # -- the forward's collectives -----------------------------------------
+    def reduce_sum(self, part: torch.Tensor, dtype) -> torch.Tensor:
+        """The sum of every rank's f32 ``part`` (reduced in place), rounded
+        once to ``dtype``: the same bits on every rank."""
+        torch.distributed.all_reduce(part, group=self.group)
+        return part.to(dtype)
+
+    def row_parallel(self, x, w, split: bool):
+        """``x @ w`` where ``w`` is this rank's row block of the full weight
+        (``split``) or the full weight: the partial product in f32, summed
+        over the ranks."""
+        if not split or self.n == 1:
+            return x @ w
+        return self.reduce_sum(f32_product(x, w), x.dtype)
+
+    def embed(self, table, tokens):
+        """Vocab-parallel lookup: each rank looks up the tokens in its rows
+        (zeros elsewhere), and the sum has one nonzero term a row: exact."""
+        tokens = tokens.long()
+        lo, hi = self.vocab
+        if self.n == 1 or (lo, hi) == (0, self.cfg.vocab_size):
+            return table[tokens]
+        local = tokens - lo
+        inside = (local >= 0) & (local < hi - lo)
+        h = table[local.clamp(0, hi - lo - 1)]
+        return self.reduce_sum(torch.where(inside[..., None], h.float(), 0.0),
+                               table.dtype)
+
+    def gather_vocab(self, scores):
+        """(B, V/n) blocks of scores -> (B, V), blocks in rank order."""
+        if self.n == 1 or self.vocab == (0, self.cfg.vocab_size):
+            return scores
+        b = scores.shape[0]
+        parts = scores.new_empty((self.n * b,) + scores.shape[1:])
+        torch.distributed.all_gather_into_tensor(parts, scores.contiguous(),
+                                                 group=self.group)
+        return torch.cat(parts.split(b), dim=-1)
+
+    def from_first(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank (the fused path's sampled tokens:
+        rank 0's sample is the one the engine records)."""
+        if self.n > 1:
+            torch.distributed.broadcast(
+                x, src=torch.distributed.get_global_rank(self.group, 0),
+                group=self.group)
+        return x
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an f32 result, rounded nowhere before it: on the card
+    one GEMM over the operands as they are that accumulates and writes f32
+    (no f32 copy of the weight); on the CPU the f32 product."""
+    if not x.is_cuda or x.dtype == torch.float32:
+        return x.float() @ w.float()
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(x.shape[:-1] + w.shape[-1:])
+
+
+def check_mesh(cfg, mesh) -> None:
+    """What this slice serves under a mesh, and what it refuses."""
+    if cfg.family not in ('dense', 'vlm'):
+        raise NotImplementedError(
+            f'a {cfg.family!r} engine under a mesh is not ported yet '
+            '(ROADMAP Queue 1 item 10b: expert parallelism for moe)')
+    other = {a: s for a, s in mesh.shape.items() if a != MODEL and s > 1}
+    if other:
+        raise NotImplementedError(
+            f'mesh axes {other}: only the model axis may exceed 1 (ROADMAP '
+            'Queue 1 item 10b: data-parallel serving)')
+
+
+# ---------------------------------------------------------------------------
+# The dispatch plane: rank 0 leads, every other rank follows.
+# ---------------------------------------------------------------------------
+
+def _send_op(msg) -> None:
+    torch.distributed.broadcast_object_list([msg], src=0)
+
+
+def _recv_op():
+    box = [None]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def stage(host, device, prev=None) -> Dict:
+    """A dispatch's host batch (numpy; ``shared`` nested) as device tensors,
+    as the engine stages it; a fused decode batch's ``tokens`` read from
+    ``prev``, the previous fused output, where ``use_prev`` says."""
+    out = {}
+    for k, v in host.items():
+        if isinstance(v, dict):
+            out[k] = stage(v, device)
+        elif isinstance(v, np.ndarray):
+            out[k] = torch.tensor(v, device=device)
+        else:
+            out[k] = v
+    if 'use_prev' in out:
+        out['tokens'] = torch.where(out.pop('use_prev') > 0,
+                                    prev[out.pop('src').long()],
+                                    out.pop('toks'))
+    return out
+
+
+def _leaves(params, prefix=()):
+    for k, v in params.items():
+        if isinstance(v, (dict, nn.ParameterDict)):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+class Leader:
+    """Rank 0's side of one engine's plane: opens the engine on every rank
+    (its config, cache geometry and weight blocks), then announces each
+    dispatch before rank 0 runs it.  With one rank, nothing is sent."""
+
+    _ids = itertools.count()
+
+    def __init__(self, model, params, mesh, *, n_pages: int, max_batch: int,
+                 cache_dtype):
+        self.mesh, self.cfg, self.id = mesh, model.cfg, next(Leader._ids)
+        self.workers = [int(r) for r in mesh.devices.flatten() if r != 0]
+        if not self.workers:
+            return
+        leaves = list(_leaves(params))
+        _send_op(('open', self.id, model.cfg, n_pages, max_batch,
+                  cache_dtype, [(path, t.dtype) for path, t in leaves]))
+        plans = {r: TensorParallel(model.cfg, mesh, mesh.coords(r))
+                 for r in self.workers}
+        for path, full in leaves:
+            for r in self.workers:
+                part = plans[r].shard(path[-1], full.detach())
+                # staged through host memory: gloo sends host tensors only
+                torch.distributed.send(part.cpu().contiguous(), dst=r)
+
+    def announce(self, op: str, host, **kw) -> None:
+        if self.workers:
+            _send_op((op, self.id, host, kw))
+
+    def gather_cache(self, cache) -> Dict[str, torch.Tensor]:
+        """The global pool (every kv-head), assembled on rank 0 from every
+        rank's block: a copy, on the cache's device (a check's view)."""
+        if not self.workers:
+            return {k: v.clone() for k, v in cache.items()}
+        _send_op(('gather_cache', self.id))
+        return _gather_cache(cache, self.cfg, self.mesh)
+
+    def close(self) -> None:
+        if self.workers:
+            _send_op(('close', self.id))
+
+
+def _gather_cache(cache, cfg, mesh):
+    """Every rank's pool block to rank 0 (host copies: gloo gathers host
+    tensors), placed at its kv-heads; None on the other ranks."""
+    dist = torch.distributed
+    ranks = [int(r) for r in mesh.devices.flatten()]
+    out = {}
+    for key in ('k', 'v'):
+        local = cache[key].cpu().contiguous()
+        parts = ([torch.empty_like(local) for _ in ranks]
+                 if dist.get_rank() == 0 else None)
+        dist.gather(local, parts, dst=0)
+        if parts is None:
+            continue
+        shape = list(local.shape)
+        shape[3] = cfg.n_kv_heads
+        full = torch.empty(shape, dtype=local.dtype)
+        for r, part in zip(ranks, parts):
+            lo, hi = TensorParallel(cfg, mesh, mesh.coords(r)).kv_heads
+            full[:, :, :, lo:hi] = part
+        out[key] = full.to(cache[key].device)
+    return out if out else None
+
+
+def stop_ranks(mesh) -> None:
+    """End every worker's :func:`serve_rank` (rank 0, once all its mesh
+    engines are done)."""
+    if mesh.size > 1:
+        _send_op(('stop',))
+
+
+class _Follower:
+    """A worker rank's copy of one engine: its weight blocks (received from
+    rank 0 in the order of ``leaves``), its cache block and its last fused
+    output (the device feed of the next fused batch)."""
+
+    def __init__(self, cfg, mesh, n_pages: int, max_batch: int, cache_dtype,
+                 leaves):
+        from repro_torch.models.api import build_model
+
+        self.model = build_model(cfg)
+        self.tp = TensorParallel(cfg, mesh)
+        shapes = self.model.param_shapes()
+        params: Dict = {}
+        for path, dtype in leaves:
+            shape = shapes
+            for k in path:
+                shape = shape[k]
+            shape = list(shape)
+            for dim, (lo, hi) in self.tp.ranges(path[-1]).items():
+                shape[dim] = hi - lo
+            buf = torch.empty(shape, dtype=dtype)
+            torch.distributed.recv(buf, src=0)
+            node = params
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = buf.to(mesh.device)
+        self.params = _parameter_dict(params)
+        self.cache = self.tp.init_cache(n_pages, mesh.device, cache_dtype)
+        self.prev = torch.zeros((max_batch,), dtype=torch.int32,
+                                device=mesh.device)
+
+    def run(self, op: str, host, kw) -> None:
+        batch = stage(host, self.tp.mesh.device, self.prev)
+        m, p, tp = self.model, self.params, self.tp
+        if op == 'mixed':
+            self.cache, _ = m.prefill_chunk_fn(p, self.cache, batch, tp=tp)
+        elif op == 'decode':
+            self.cache, _ = m.decode_fn(p, self.cache, batch, tp=tp, **kw)
+        elif op == 'decode_sample':
+            self.cache, self.prev = m.decode_sample_fn(p, self.cache, batch,
+                                                       tp=tp, **kw)
+        else:
+            raise ValueError(f'unknown op {op!r}')
+
+
+def _parameter_dict(tree) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: _parameter_dict(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+
+
+def serve_rank(mesh) -> Dict:
+    """A worker rank's loop: follow rank 0's engines on ``mesh`` until
+    :func:`stop_ranks`.  Returns, by engine id (``Leader.id``), each
+    engine's cache block shape and the kernel launches its own dispatches
+    made on this rank (the counters of ``kernels.common``, counted from 0
+    at its ``open``)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    engines: Dict[int, _Follower] = {}
+    shapes: Dict[int, Tuple[int, ...]] = {}
+    launches: Dict[int, Dict[str, int]] = {}
+    while True:
+        op, *rest = _recv_op()
+        if op == 'stop':
+            return {'launches': launches, 'cache_shapes': shapes}
+        eid = rest[0]
+        if op == 'open':
+            engines[eid] = _Follower(rest[1], mesh, *rest[2:])
+            shapes[eid] = tuple(engines[eid].cache['k'].shape)
+            launches[eid] = dict.fromkeys(LAUNCHES, 0)
+        elif op == 'close':
+            del engines[eid]
+        elif op == 'gather_cache':
+            f = engines[eid]
+            _gather_cache(f.cache, f.model.cfg, mesh)
+        elif op == 'copy_kv':
+            from repro_torch.serving.disagg.plane import copy_pages
+            src, src_pages, dst_pages = rest[1]
+            copy_pages(engines[src].cache, src_pages, engines[eid].cache,
+                       dst_pages)
+        else:
+            before = dict(LAUNCHES)
+            engines[eid].run(op, *rest[1:])
+            for k, n in LAUNCHES.items():
+                launches[eid][k] += n - before[k]

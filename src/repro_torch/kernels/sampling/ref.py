@@ -28,7 +28,13 @@ def unembed_sample_ref(last, head, seed: int = 0, *,
     Greedy is the first-occurrence argmax of the f32 scores; T > 0 adds
     counter-hash Gumbel noise to ``scores / T`` (exact categorical sample).
     """
-    scores = unembed_scores(last, head)
+    return sample_scores(unembed_scores(last, head), seed,
+                         temperature=temperature)
+
+
+def sample_scores(scores, seed: int = 0, *, temperature: float = 0.0):
+    """(B, V) f32 scores -> (B,) int32 tokens, as :func:`unembed_sample_ref`
+    samples them."""
     if temperature > 0.0:
         b, v = scores.shape
         rows = torch.arange(b, device=scores.device)[:, None]

@@ -1,0 +1,107 @@
+"""Meshes over the ranks of a process group, ported from the reference's
+``launch/mesh.py``.
+
+The reference builds a ``jax.sharding.Mesh`` over the devices of one
+process.  Here every rank is a process (``launch/ranks.py`` starts them),
+and a :class:`Mesh` lays the ranks of the default process group out on
+named axes through ``torch.distributed.device_mesh.init_device_mesh``.  It
+carries what the rest of the port reads: ``shape`` (axis -> size),
+``axis_names``, ``devices`` (a numpy array of ranks in mesh order, so
+``devices.size`` counts the mesh's devices, as the runtime's gate fan-out
+reads it), each rank's coordinates (``coords``, ``coord``), each axis's
+process group (``group``), and the torch device this rank computes on.
+
+A mesh built with ``Mesh(np.arange(n).reshape(shape), axes)`` and no
+process group is a description only: the sharding rules and the runtime's
+gate count read it, and ``group`` raises.
+
+The reference's TPU v5e constants (peak FLOP/s, HBM and ICI rates) are not
+carried: the port's numbers are the H100's, where a script needs them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+class Mesh:
+    """Ranks laid out on named axes (row-major, as ``init_device_mesh``)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str], *,
+                 rank: int = 0, device=None, device_mesh=None):
+        devices = np.asarray(devices)
+        if devices.ndim != len(axis_names):
+            raise ValueError(f'{devices.shape} vs axes {tuple(axis_names)}')
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        self.rank = rank
+        self.device = torch.device('cpu') if device is None else device
+        self._device_mesh = device_mesh
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """The coordinate on every axis of ``rank`` (this rank's)."""
+        rank = self.rank if rank is None else rank
+        pos = np.argwhere(self.devices == rank)
+        if len(pos) != 1:
+            raise ValueError(f'rank {rank} is not on this mesh once')
+        return dict(zip(self.axis_names, map(int, pos[0])))
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis``."""
+        return self.coords()[axis]
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``."""
+        if self._device_mesh is None:
+            raise RuntimeError('a mesh without a process group has no groups')
+        return self._device_mesh.get_group(axis)
+
+    def __repr__(self) -> str:
+        return f'Mesh({self.shape}, rank={self.rank}, device={self.device})'
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              device=None) -> Mesh:
+    """A mesh over every rank of the initialized default process group
+    (``prod(shape)`` of them), computing on ``device`` (the GPU unless
+    ``device='cpu'``; ranks that share one card all name it)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError('make_mesh needs an initialized process group '
+                           '(launch.ranks.run_ranks starts one a rank)')
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    n = int(np.prod(shape))
+    if n != dist.get_world_size():
+        raise ValueError(f'mesh {shape} needs {n} ranks, the group has '
+                         f'{dist.get_world_size()}')
+    device = resolve_device(device)
+    dm = init_device_mesh(device.type, shape, mesh_dim_names=axes)
+    ranks = np.asarray(dm.mesh.tolist(), dtype=np.int64).reshape(shape)
+    return Mesh(ranks, axes, rank=dist.get_rank(), device=device,
+                device_mesh=dm)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's production layouts: (data 16, model 16), or (pod 2,
+    data 16, model 16) -- over as many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')
+    return make_mesh(shape, axes, device=device)
+
+
+def chips(mesh: Optional[Mesh]) -> int:
+    n = 1
+    for v in (mesh.shape.values() if mesh is not None else ()):
+        n *= v
+    return n

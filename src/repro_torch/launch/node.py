@@ -48,7 +48,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.events import (
@@ -246,11 +245,7 @@ class NodeOrchestrator:
         # (page axis 1 of the engine pool layout); heterogeneous pairs keep
         # the bookkeeping-level rescue only
         if ev.src_pages and src.mcfg.name == dst.mcfg.name:
-            s = torch.as_tensor(ev.src_pages, device=src.device)
-            d = torch.as_tensor(ev.dst_pages, device=dst.device)
-            for key, dc in dst.cache.items():       # in place, page axis 1
-                dc.index_copy_(1, d, src.cache[key].index_select(1, s)
-                               .to(dst.device))
+            dst.copy_kv_from(src, ev.src_pages, ev.dst_pages)
         # control plane: hand the request off.  Pending fused-path tokens
         # reference src.requests by id — resolve them before the pop.
         src.flush_tokens()

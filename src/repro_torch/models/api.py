@@ -53,6 +53,14 @@ class Model:
     def template(self):
         return _FAMILY[self.cfg.family].template(self.cfg)
 
+    def param_shapes(self):
+        return cm.shapes_from_template(self.template())
+
+    def param_axes(self):
+        """The weights' logical axes (the reference's, with each (V, D)
+        head's axes in the port's row-major order)."""
+        return cm.axes_from_template(self.template())
+
     def init_params(self, seed: int = 0, *, device,
                     requires_grad: bool = False):
         """Weights drawn on ``device`` from a seeded ``torch.Generator`` (an
@@ -105,6 +113,10 @@ class Model:
                                          enc_len)
         return dense.cache_template(cfg, engine_pages)
 
+    def cache_axes(self, **kw):
+        """The logical axes of :meth:`cache_template` (same arguments)."""
+        return cm.axes_from_template(self.cache_template(**kw))
+
     def init_cache(self, *, engine_pages: Optional[int] = None,
                    batch_size: Optional[int] = None,
                    max_seq: Optional[int] = None,
@@ -147,15 +159,17 @@ class Model:
                                     use_kernel=use_kernel)
 
     def decode_fn(self, params, cache, batch, *, use_kernel=False,
-                  long_context=False):
+                  long_context=False, tp=None):
         """One token a row: (cache, (B, V) f32 scores).  Dense and moe:
         the paged decode kernel with ``use_kernel``.  ssm: the single-token
         recurrence step (no kernel, as in the reference).  hybrid: the
         shared block through the page table, or with ``long_context`` over
         the contiguous KV; encdec: through the page table (neither has a
-        kernel path)."""
+        kernel path).  ``tp``: a tensor-parallel rank's step (dense and vlm;
+        ``distributed/tp.py``)."""
         fam = self.cfg.family
         self._no_kernel(use_kernel)
+        tp_kw = self._tp(tp)
         if long_context and fam != 'hybrid':
             raise NotImplementedError(
                 f'long-context decode is hybrid only, not {fam!r}')
@@ -165,21 +179,29 @@ class Model:
         if fam in ('ssm', 'encdec'):
             return _FAMILY[fam].decode_step(self.cfg, params, cache, batch)
         return _FAMILY[fam].decode_step(self.cfg, params, cache, batch,
-                                        use_kernel=use_kernel)
+                                        use_kernel=use_kernel, **tp_kw)
 
     def decode_sample_fn(self, params, cache, batch, *, use_kernel=False,
-                         temperature=0.0):
+                         temperature=0.0, tp=None):
         """Fused decode+sampling step: (cache, (B,) int32 tokens).  Dense
         and vlm only, as in the reference."""
         self._only('dense', 'vlm')
         return dense.decode_step_sample(self.cfg, params, cache, batch,
                                         use_kernel=use_kernel,
-                                        temperature=temperature)
+                                        temperature=temperature, tp=tp)
 
-    def prefill_chunk_fn(self, params, cache, batch):
+    def prefill_chunk_fn(self, params, cache, batch, *, tp=None):
         self._only('dense', 'vlm', 'moe')
-        return _FAMILY[self.cfg.family].prefill_chunk(self.cfg, params,
-                                                      cache, batch)
+        return _FAMILY[self.cfg.family].prefill_chunk(
+            self.cfg, params, cache, batch, **self._tp(tp))
+
+    def _tp(self, tp):
+        """The ``tp`` keyword for a family's entry point: none without a
+        mesh; dense and vlm only with one."""
+        if tp is None:
+            return {}
+        self._only('dense', 'vlm')
+        return {'tp': tp}
 
 
 @functools.lru_cache(maxsize=None)

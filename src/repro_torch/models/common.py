@@ -2,8 +2,9 @@
 
 The weights of a model are an ``nn.ParameterDict`` (an ``nn.Module``) that
 nests like the reference's param tree.  Each family builds a *template* --
-the same nested structure with :class:`PSpec` leaves carrying shape and
-init law -- from which :func:`init_from_template` draws real weights with
+the same nested structure with :class:`PSpec` leaves carrying shape, logical
+sharding axes and init law -- from which :func:`init_from_template` draws
+real weights with
 a ``torch.Generator`` under the reference's init law.  The two frameworks
 draw different numbers from the same seed; parity tests feed the
 reference's own weights through ``repro_torch.bridge``.
@@ -28,11 +29,34 @@ CHUNK = 512        # query rows / tokens per chunk of the chunked functions
 
 @dataclass(frozen=True)
 class PSpec:
-    """Param template leaf: shape + init law."""
+    """Param template leaf: shape + logical axes (one name or None a
+    dimension, resolved to mesh axes by ``distributed.sharding``) + init
+    law."""
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = 'normal'       # 'normal' | 'zeros' | 'ones'
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in) for 'normal'
     dtype: Any = DEFAULT_DTYPE
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f'shape {self.shape} vs axes {self.axes}')
+
+
+def _map_template(fn, tmpl):
+    if isinstance(tmpl, PSpec):
+        return fn(tmpl)
+    return {k: _map_template(fn, v) for k, v in tmpl.items()}
+
+
+def shapes_from_template(tmpl):
+    """The template's shapes (``torch.Size``), nested like it."""
+    return _map_template(lambda leaf: torch.Size(leaf.shape), tmpl)
+
+
+def axes_from_template(tmpl):
+    """The template's logical-axes tuples, nested like it."""
+    return _map_template(lambda leaf: leaf.axes, tmpl)
 
 
 def _init_leaf(leaf: PSpec, gen: torch.Generator, device) -> torch.Tensor:
@@ -117,10 +141,12 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
-def swiglu(x, wg, wu, wd):
+def swiglu(x, wg, wu, wd, down=torch.matmul):
+    """SwiGLU; ``down(hidden, wd)`` is the down-projection (a
+    tensor-parallel rank passes its row-parallel product)."""
     g = x @ wg
     u = x @ wu
-    return (F.silu(g.float()).to(x.dtype) * u) @ wd
+    return down(F.silu(g.float()).to(x.dtype) * u, wd)
 
 
 def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,

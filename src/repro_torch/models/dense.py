@@ -20,9 +20,18 @@ in place.  The output head is (V, D) row-major (:func:`head_of`).  Each
 entry point takes the layer's MLP block as ``mlp(cfg, lp, h) -> h``
 (residual included; :func:`_mlp`, the SwiGLU, by default), so the MoE
 family (``models/moe.py``) runs these loops with its routed experts.
+
+The engine's entry points (``prefill_chunk``, ``decode_step``,
+``decode_step_sample``) also run tensor-parallel: given ``tp``, a
+:class:`~repro_torch.distributed.tp.TensorParallel`, the weights and the
+pool are this rank's blocks and the collectives sit where the reference
+calls ``constrain`` (the embedding, the ``wo`` and ``wd`` products, the
+head's scores).  Without ``tp`` they are the single-device code, with no
+collective and no extra copy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -32,7 +41,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention_decode, paged_attention_prefix_shared)
 from repro_torch.kernels.sampling.ops import fused_unembed_sample
-from repro_torch.kernels.sampling.ref import unembed_scores
+from repro_torch.kernels.sampling.ref import sample_scores, unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
 
@@ -46,43 +55,45 @@ def attn_template(cfg: ModelConfig, L: int) -> Dict[str, PSpec]:
     the q/k norms where the config has them."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = {
-        'wq': PSpec((L, d, h * hd)),
-        'wk': PSpec((L, d, hkv * hd)),
-        'wv': PSpec((L, d, hkv * hd)),
-        'wo': PSpec((L, h * hd, d)),
+        'wq': PSpec((L, d, h * hd), ('layers', 'embed', 'qkv')),
+        'wk': PSpec((L, d, hkv * hd), ('layers', 'embed', 'qkv')),
+        'wv': PSpec((L, d, hkv * hd), ('layers', 'embed', 'qkv')),
+        'wo': PSpec((L, h * hd, d), ('layers', 'qkv', 'embed')),
     }
     if cfg.attn_bias:
         for n, w in (('bq', h), ('bk', hkv), ('bv', hkv)):
-            t[n] = PSpec((L, w * hd), 'zeros')
+            t[n] = PSpec((L, w * hd), ('layers', 'qkv'), 'zeros')
     if cfg.qk_norm:
-        t['q_norm'] = PSpec((L, hd), 'ones')
-        t['k_norm'] = PSpec((L, hd), 'ones')
+        t['q_norm'] = PSpec((L, hd), ('layers', 'head_dim'), 'ones')
+        t['k_norm'] = PSpec((L, hd), ('layers', 'head_dim'), 'ones')
     return t
 
 
 def mlp_template(cfg: ModelConfig, L: int) -> Dict[str, PSpec]:
     """A stack of L SwiGLU MLPs."""
     d, f = cfg.d_model, cfg.d_ff
-    return {'wg': PSpec((L, d, f)), 'wu': PSpec((L, d, f)),
-            'wd': PSpec((L, f, d))}
+    return {'wg': PSpec((L, d, f), ('layers', 'embed', 'ffn')),
+            'wu': PSpec((L, d, f), ('layers', 'embed', 'ffn')),
+            'wd': PSpec((L, f, d), ('layers', 'ffn', 'embed'))}
 
 
 def template(cfg: ModelConfig) -> Dict[str, Any]:
     L, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
     t: Dict[str, Any] = {
-        'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
-        'final_norm': PSpec((d,), 'ones'),
+        'embed': PSpec((v, d), ('vocab', 'embed'),
+                       scale=d ** -0.5),           # tied-unembed-safe
+        'final_norm': PSpec((d,), ('embed',), 'ones'),
         'layers': {
-            'ln1': PSpec((L, d), 'ones'),
-            'ln2': PSpec((L, d), 'ones'),
+            'ln1': PSpec((L, d), ('layers', 'embed'), 'ones'),
+            'ln2': PSpec((L, d), ('layers', 'embed'), 'ones'),
             **attn_template(cfg, L),
             **mlp_template(cfg, L),
         },
     }
     if not cfg.tie_embeddings:
         # (V, D) row-major for the sampling kernel: the reference's (D, V)
-        # unembed transposed, same law (fan_in = d)
-        t['unembed'] = PSpec((v, d), scale=d ** -0.5)
+        # unembed transposed, same law (fan_in = d) and axes
+        t['unembed'] = PSpec((v, d), ('vocab', 'embed'), scale=d ** -0.5)
     return t
 
 
@@ -96,7 +107,8 @@ def cache_template(cfg: ModelConfig, n_pages: int) -> Dict[str, PSpec]:
     """Global paged KV pool: (L, P, pg, Hkv, Dh) for k and v; page 0 is the
     quarantine page Valve's handles remap to."""
     shape = (cfg.n_layers, n_pages, cfg.page_size, cfg.n_kv_heads, cfg.hd)
-    return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
+    axes = ('layers', 'pages', None, 'kv_heads', 'head_dim')
+    return {'k': PSpec(shape, axes, 'zeros'), 'v': PSpec(shape, axes, 'zeros')}
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +120,10 @@ def qkv_proj(cfg: ModelConfig, lp, x, positions):
     q, k, v = x @ lp['wq'], x @ lp['wk'], x @ lp['wv']
     if cfg.attn_bias and 'bq' in lp:
         q, k, v = q + lp['bq'], k + lp['bk'], v + lp['bv']
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    # -1 heads: a tensor-parallel rank's weights hold its heads only
+    q = q.reshape(b, s, -1, cfg.hd)
+    k = k.reshape(b, s, -1, cfg.hd)
+    v = v.reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm and 'q_norm' in lp:
         q = cm.rms_norm(q, lp['q_norm'], cfg.norm_eps)
         k = cm.rms_norm(k, lp['k_norm'], cfg.norm_eps)
@@ -118,8 +131,15 @@ def qkv_proj(cfg: ModelConfig, lp, x, positions):
             cm.rope(k, positions, cfg.rope_theta), v)
 
 
+def _out_proj(x, wo, tp):
+    """Attention's output projection; under ``tp`` the rank's heads'
+    partial product, summed over the ranks."""
+    return x @ wo if tp is None else tp.row_parallel(x, wo, tp.attn_split)
+
+
 def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
-                     page_table, *, use_kernel: bool = False, shared=None):
+                     page_table, *, use_kernel: bool = False, shared=None,
+                     tp=None):
     """x: (B, 1, D); positions: (B,) index of the new token.
 
     ``shared`` (optional) is the deduplicated shared-prefix run structure
@@ -146,7 +166,7 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     else:
         out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
                                      lengths)
-    return out.reshape(b, 1, -1) @ lp['wo']
+    return _out_proj(out.reshape(b, 1, -1), lp['wo'], tp)
 
 
 def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
@@ -183,7 +203,8 @@ def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
 
 
 def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
-                            pool_v, page_table, page_ids, offsets, kv_len):
+                            pool_v, page_table, page_ids, offsets, kv_len,
+                            tp=None):
     """One prefill chunk with past-KV readback.
 
     x: (B, C, D); positions: (B, C) absolute positions (padding repeats the
@@ -200,23 +221,37 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
     out = cm.attention(q, kg, vg, q_positions=positions.long(),
                        kv_positions=kv_pos,
                        kv_valid=kv_pos < kv_len.long()[:, None], causal=True)
-    return out.reshape(b, x.shape[1], -1) @ lp['wo']
+    return _out_proj(out.reshape(b, x.shape[1], -1), lp['wo'], tp)
 
 
-def _mlp(cfg, lp, h):
-    """The dense MLP block: pre-norm SwiGLU plus the residual."""
+def _mlp(cfg, lp, h, tp=None):
+    """The dense MLP block: pre-norm SwiGLU plus the residual; under
+    ``tp`` the rank's d_ff block, its ``wd`` product summed over the
+    ranks."""
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+    down = torch.matmul if tp is None else functools.partial(
+        tp.row_parallel, split=tp.ffn != (0, cfg.d_ff))
+    return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'], down)
+
+
+def _scores(cfg, params, last, tp):
+    """The head's f32 scores (B, V); under ``tp`` the rank's vocab block,
+    gathered."""
+    scores = unembed_scores(last, head_of(cfg, params))
+    return scores if tp is None else tp.gather_vocab(scores)
 
 
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
-def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None):
+def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+                 tp=None):
     """Token embeddings (B, S, D); with ``prefix_embeds`` (B, p, D) the
-    first p positions are those embeddings, cast to the embedding dtype."""
-    h = params['embed'][tokens.long()]
+    first p positions are those embeddings, cast to the embedding dtype.
+    Under ``tp`` a vocab-parallel lookup."""
+    h = (params['embed'][tokens.long()] if tp is None
+         else tp.embed(params['embed'], tokens))
     if prefix_embeds is not None:
         p = prefix_embeds.shape[1]
         h = torch.cat([prefix_embeds.to(h.dtype), h[:, p:]], dim=1)
@@ -272,7 +307,8 @@ def prefill(cfg: ModelConfig, params, cache, batch, *,
     return cache, unembed_scores(last, head_of(cfg, params))
 
 
-def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp):
+def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp,
+                  tp=None):
     """Chunked prefill step (the offline engine's preemptible dispatch unit).
 
     batch: tokens (B, C), positions (B, C), page_table (B, maxp),
@@ -281,50 +317,64 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp):
     (cache, f32 scores at last_idx).
     """
     positions = batch['positions']
-    h = embed_inputs(cfg, params, batch['tokens'], batch.get('prefix_embeds'))
+    h = embed_inputs(cfg, params, batch['tokens'], batch.get('prefix_embeds'),
+                     tp)
+    if tp is not None:
+        mlp = functools.partial(mlp, tp=tp)
     for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_prefill_chunk(
             cfg, lp, x, positions, cache['k'][i], cache['v'][i],
             batch['page_table'], batch['page_ids'], batch['offsets'],
-            batch['kv_len'])
+            batch['kv_len'], tp)
         h = mlp(cfg, lp, h)
     last = h[torch.arange(h.shape[0], device=h.device),
              batch['last_idx'].long()]
     last = cm.rms_norm(last, params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, head_of(cfg, params))
+    return cache, _scores(cfg, params, last, tp)
 
 
-def _decode_hidden(cfg, params, cache, batch, use_kernel, mlp=_mlp):
+def _decode_hidden(cfg, params, cache, batch, use_kernel, mlp=_mlp,
+                   tp=None):
     positions = batch['positions']
-    h = params['embed'][batch['tokens'].long()][:, None, :]
+    h = embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
+    if tp is not None:
+        mlp = functools.partial(mlp, tp=tp)
     for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_decode(cfg, lp, x, positions, cache['k'][i],
                                  cache['v'][i], batch['page_table'],
                                  use_kernel=use_kernel,
-                                 shared=batch.get('shared'))
+                                 shared=batch.get('shared'), tp=tp)
         h = mlp(cfg, lp, h)
     return cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *,
-                use_kernel: bool = False, mlp=_mlp):
+                use_kernel: bool = False, mlp=_mlp, tp=None):
     """tokens (B,), positions (B,), page_table (B, maxp) [, shared] ->
     (cache, (B, V) f32 scores)."""
-    last = _decode_hidden(cfg, params, cache, batch, use_kernel, mlp)
-    return cache, unembed_scores(last, head_of(cfg, params))
+    last = _decode_hidden(cfg, params, cache, batch, use_kernel, mlp, tp)
+    return cache, _scores(cfg, params, last, tp)
 
 
 def decode_step_sample(cfg: ModelConfig, params, cache, batch, *,
-                       use_kernel: bool = False, temperature: float = 0.0):
+                       use_kernel: bool = False, temperature: float = 0.0,
+                       tp=None):
     """``decode_step`` with the sampling tail fused into the unembed: the
     final-norm hidden goes straight into the fused unembed+argmax kernel and
     (cache, (B,) int32 tokens) comes back -- logits never reach memory.
     Greedy picks the argmax of the same f32 scores ``decode_step`` returns;
     temperature sampling uses counter-hash Gumbel noise seeded by
-    ``batch['seed']`` (an int)."""
-    last = _decode_hidden(cfg, params, cache, batch, use_kernel)
+    ``batch['seed']`` (an int).
+
+    Under ``tp`` the head is vocab-parallel: the plain sampler draws from
+    the gathered scores, and every rank takes rank 0's tokens."""
+    last = _decode_hidden(cfg, params, cache, batch, use_kernel, tp=tp)
+    if tp is not None:
+        return cache, tp.from_first(sample_scores(
+            _scores(cfg, params, last, tp), batch.get('seed', 0),
+            temperature=temperature))
     return cache, fused_unembed_sample(last, head_of(cfg, params),
                                        batch.get('seed', 0),
                                        temperature=temperature)

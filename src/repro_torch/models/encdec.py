@@ -36,22 +36,23 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab_size
     Le, Ld = cfg.enc_layers, cfg.dec_layers
     return {
-        'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
+        'embed': PSpec((v, d), ('vocab', 'embed'),
+                       scale=d ** -0.5),           # tied-unembed-safe
         # (V, D): the reference's (D, V) transposed, same law (fan_in = d)
-        'unembed': PSpec((v, d), scale=d ** -0.5),
-        'frontend_proj': PSpec((d, d)),            # audio-stub adapter
-        'enc_final_norm': PSpec((d,), 'ones'),
-        'final_norm': PSpec((d,), 'ones'),
+        'unembed': PSpec((v, d), ('vocab', 'embed'), scale=d ** -0.5),
+        'frontend_proj': PSpec((d, d), ('embed', 'embed')),  # audio stub
+        'enc_final_norm': PSpec((d,), ('embed',), 'ones'),
+        'final_norm': PSpec((d,), ('embed',), 'ones'),
         'enc_layers': {
-            'ln1': PSpec((Le, d), 'ones'),
-            'ln2': PSpec((Le, d), 'ones'),
+            'ln1': PSpec((Le, d), ('layers', 'embed'), 'ones'),
+            'ln2': PSpec((Le, d), ('layers', 'embed'), 'ones'),
             **dense.attn_template(cfg, Le),
             **dense.mlp_template(cfg, Le),
         },
         'dec_layers': {
-            'ln1': PSpec((Ld, d), 'ones'),
-            'ln2': PSpec((Ld, d), 'ones'),
-            'ln_cross': PSpec((Ld, d), 'ones'),
+            'ln1': PSpec((Ld, d), ('layers', 'embed'), 'ones'),
+            'ln2': PSpec((Ld, d), ('layers', 'embed'), 'ones'),
+            'ln_cross': PSpec((Ld, d), ('layers', 'embed'), 'ones'),
             **dense.attn_template(cfg, Ld),
             **{f'x{k}': s for k, s in dense.attn_template(cfg, Ld).items()},
             **dense.mlp_template(cfg, Ld),
@@ -201,6 +202,9 @@ def cache_template(cfg: ModelConfig, n_pages: int, batch: int, enc_len: int):
     Ld = cfg.dec_layers
     kv_shape = (Ld, n_pages, cfg.page_size, cfg.n_kv_heads, cfg.hd)
     x_shape = (Ld, batch, enc_len, cfg.n_kv_heads, cfg.hd)
-    return {'k': PSpec(kv_shape, 'zeros'), 'v': PSpec(kv_shape, 'zeros'),
-            'cross_k': PSpec(x_shape, 'zeros'),
-            'cross_v': PSpec(x_shape, 'zeros')}
+    kv_axes = ('layers', 'pages', None, 'kv_heads', 'head_dim')
+    x_axes = ('layers', 'batch', None, 'kv_heads', 'head_dim')
+    return {'k': PSpec(kv_shape, kv_axes, 'zeros'),
+            'v': PSpec(kv_shape, kv_axes, 'zeros'),
+            'cross_k': PSpec(x_shape, x_axes, 'zeros'),
+            'cross_v': PSpec(x_shape, x_axes, 'zeros')}

@@ -47,15 +47,18 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     layers = t['layers']
     for k in ('wg', 'wu', 'wd'):
         del layers[k]
-    layers['router'] = PSpec((L, d, e), scale=d ** -0.5)
-    layers['we_gate'] = PSpec((L, e, d, f))
-    layers['we_up'] = PSpec((L, e, d, f))
-    layers['we_down'] = PSpec((L, e, f, d))
+    layers['router'] = PSpec((L, d, e), ('layers', 'embed', 'expert'),
+                             scale=d ** -0.5)
+    layers['we_gate'] = PSpec((L, e, d, f),
+                              ('layers', 'expert', 'embed', 'ffn'))
+    layers['we_up'] = PSpec((L, e, d, f), ('layers', 'expert', 'embed', 'ffn'))
+    layers['we_down'] = PSpec((L, e, f, d),
+                              ('layers', 'expert', 'ffn', 'embed'))
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        layers['ws_gate'] = PSpec((L, d, fs))
-        layers['ws_up'] = PSpec((L, d, fs))
-        layers['ws_down'] = PSpec((L, fs, d))
+        layers['ws_gate'] = PSpec((L, d, fs), ('layers', 'embed', 'ffn'))
+        layers['ws_up'] = PSpec((L, d, fs), ('layers', 'embed', 'ffn'))
+        layers['ws_down'] = PSpec((L, fs, d), ('layers', 'ffn', 'embed'))
     return t
 
 

@@ -41,31 +41,33 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     hd = cfg.ssm_head_dim
     h = d // hd
     return {
-        'embed': PSpec((v, d), scale=d ** -0.5),
-        'final_norm': PSpec((d,), 'ones'),
+        'embed': PSpec((v, d), ('vocab', 'embed'), scale=d ** -0.5),
+        'final_norm': PSpec((d,), ('embed',), 'ones'),
         # (V, D): the reference's (D, V) transposed; the law is the
         # reference's fan_in = d, stated because shape[-2] here is V
-        'unembed': PSpec((v, d), scale=d ** -0.5),
+        'unembed': PSpec((v, d), ('vocab', 'embed'), scale=d ** -0.5),
         'layers': {
-            'ln1': PSpec((L, d), 'ones'),
-            'ln2': PSpec((L, d), 'ones'),
+            'ln1': PSpec((L, d), ('layers', 'embed'), 'ones'),
+            'ln2': PSpec((L, d), ('layers', 'embed'), 'ones'),
             # time mix
-            'mu': PSpec((L, 5, d), 'zeros'),            # r, k, v, w, g
-            'w_base': PSpec((L, d), 'zeros'),
-            'w_A': PSpec((L, d, LORA_DIM)),
-            'w_B': PSpec((L, LORA_DIM, d), scale=0.1),
-            'Wr': PSpec((L, d, d)),
-            'Wk': PSpec((L, d, d)),
-            'Wv': PSpec((L, d, d)),
-            'Wg': PSpec((L, d, d)),
-            'Wo': PSpec((L, d, d)),
-            'u': PSpec((L, h, hd), 'zeros'),
-            'ln_x': PSpec((L, d), 'ones'),
+            'mu': PSpec((L, 5, d), ('layers', None, 'embed'),
+                        'zeros'),                    # r, k, v, w, g
+            'w_base': PSpec((L, d), ('layers', 'embed'), 'zeros'),
+            'w_A': PSpec((L, d, LORA_DIM), ('layers', 'embed', None)),
+            'w_B': PSpec((L, LORA_DIM, d), ('layers', None, 'embed'),
+                         scale=0.1),
+            'Wr': PSpec((L, d, d), ('layers', 'embed', 'qkv')),
+            'Wk': PSpec((L, d, d), ('layers', 'embed', 'qkv')),
+            'Wv': PSpec((L, d, d), ('layers', 'embed', 'qkv')),
+            'Wg': PSpec((L, d, d), ('layers', 'embed', 'qkv')),
+            'Wo': PSpec((L, d, d), ('layers', 'qkv', 'embed')),
+            'u': PSpec((L, h, hd), ('layers', 'heads', 'head_dim'), 'zeros'),
+            'ln_x': PSpec((L, d), ('layers', 'embed'), 'ones'),
             # channel mix
-            'mu_cm': PSpec((L, 2, d), 'zeros'),
-            'Wk_cm': PSpec((L, d, f)),
-            'Wv_cm': PSpec((L, f, d)),
-            'Wr_cm': PSpec((L, d, d)),
+            'mu_cm': PSpec((L, 2, d), ('layers', None, 'embed'), 'zeros'),
+            'Wk_cm': PSpec((L, d, f), ('layers', 'embed', 'ffn')),
+            'Wv_cm': PSpec((L, f, d), ('layers', 'ffn', 'embed')),
+            'Wr_cm': PSpec((L, d, d), ('layers', 'embed', 'qkv')),
         },
     }
 
@@ -76,10 +78,12 @@ def cache_template(cfg: ModelConfig, batch_size: int) -> Dict[str, PSpec]:
     in the model dtype, zeros."""
     d, hd, L = cfg.d_model, cfg.ssm_head_dim, cfg.n_layers
     shift = (L, batch_size, d)
-    return {'wkv': PSpec((L, batch_size, d // hd, hd, hd), 'zeros',
+    shift_axes = ('layers', 'batch', 'embed')
+    return {'wkv': PSpec((L, batch_size, d // hd, hd, hd),
+                         ('layers', 'batch', 'heads', None, None), 'zeros',
                          dtype=torch.float32),
-            'shift_tm': PSpec(shift, 'zeros'),
-            'shift_cm': PSpec(shift, 'zeros')}
+            'shift_tm': PSpec(shift, shift_axes, 'zeros'),
+            'shift_cm': PSpec(shift, shift_axes, 'zeros')}
 
 
 def init_state(cfg: ModelConfig, batch_size: int, *, device):

@@ -19,7 +19,8 @@ Valve reclaims for this architecture.
 
 A Python loop over layers takes the place of ``lax.scan`` + ``lax.cond``;
 the caches are updated in place.  Only the global pool layout is ported
-(the reference's per-request region layout comes with the mesh layer).
+(the reference's per-request region layout comes with ``make_serve_step``,
+ROADMAP Queue 1 item 11).
 No kernel runs here, as in the reference: the paged read is the gather
 oracle ``paged_attention_ref`` and the attentions are ``chunked_attention``.
 """
@@ -59,35 +60,38 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     ahd = d2 // ah
     f = cfg.hybrid_attn_d_ff
     t: Dict[str, Any] = {
-        'embed': PSpec((v, d), scale=d ** -0.5),   # tied-unembed-safe
-        'final_norm': PSpec((d,), 'ones'),
+        'embed': PSpec((v, d), ('vocab', 'embed'),
+                       scale=d ** -0.5),           # tied-unembed-safe
+        'final_norm': PSpec((d,), ('embed',), 'ones'),
         'layers': {
-            'ln': PSpec((L, d), 'ones'),
-            'in_proj': PSpec((L, d, 2 * d_in + 2 * n + h)),
-            'conv_w': PSpec((L, cfg.conv_kernel, conv_ch), scale=0.5),
-            'conv_b': PSpec((L, conv_ch), 'zeros'),
-            'A_log': PSpec((L, h), 'zeros'),
-            'dt_bias': PSpec((L, h), 'zeros'),
-            'D': PSpec((L, h), 'ones'),
-            'norm': PSpec((L, d_in), 'ones'),
-            'out_proj': PSpec((L, d_in, d)),
+            'ln': PSpec((L, d), ('layers', 'embed'), 'ones'),
+            'in_proj': PSpec((L, d, 2 * d_in + 2 * n + h),
+                             ('layers', 'embed', 'qkv')),
+            'conv_w': PSpec((L, cfg.conv_kernel, conv_ch),
+                            ('layers', None, 'qkv'), scale=0.5),
+            'conv_b': PSpec((L, conv_ch), ('layers', 'qkv'), 'zeros'),
+            'A_log': PSpec((L, h), ('layers', 'heads'), 'zeros'),
+            'dt_bias': PSpec((L, h), ('layers', 'heads'), 'zeros'),
+            'D': PSpec((L, h), ('layers', 'heads'), 'ones'),
+            'norm': PSpec((L, d_in), ('layers', 'qkv'), 'ones'),
+            'out_proj': PSpec((L, d_in, d), ('layers', 'qkv', 'embed')),
         },
         # ONE shared attention+MLP block, a fresh KV pool per application
         'shared': {
-            'ln1': PSpec((d2,), 'ones'),
-            'wq': PSpec((d2, ah * ahd)),
-            'wk': PSpec((d2, ah * ahd)),
-            'wv': PSpec((d2, ah * ahd)),
-            'wo': PSpec((ah * ahd, d)),
-            'ln2': PSpec((d2,), 'ones'),
-            'wg': PSpec((d2, f)),
-            'wu': PSpec((d2, f)),
-            'wd': PSpec((f, d)),
+            'ln1': PSpec((d2,), ('embed',), 'ones'),
+            'wq': PSpec((d2, ah * ahd), ('embed', 'qkv')),
+            'wk': PSpec((d2, ah * ahd), ('embed', 'qkv')),
+            'wv': PSpec((d2, ah * ahd), ('embed', 'qkv')),
+            'wo': PSpec((ah * ahd, d), ('qkv', 'embed')),
+            'ln2': PSpec((d2,), ('embed',), 'ones'),
+            'wg': PSpec((d2, f), ('embed', 'ffn')),
+            'wu': PSpec((d2, f), ('embed', 'ffn')),
+            'wd': PSpec((f, d), ('ffn', 'embed')),
         },
     }
     if not cfg.tie_embeddings:
         # (V, D) row-major, as the dense family's: the reference's (D, V)
-        t['unembed'] = PSpec((v, d), scale=d ** -0.5)
+        t['unembed'] = PSpec((v, d), ('vocab', 'embed'), scale=d ** -0.5)
     return t
 
 
@@ -268,8 +272,10 @@ def mamba_cache_template(cfg: ModelConfig, batch_size: int):
     L = cfg.n_layers
     return {
         'conv': PSpec((L, batch_size, cfg.conv_kernel - 1, d_in + 2 * n),
-                      'zeros'),
-        'ssm': PSpec((L, batch_size, h, hd, n), 'zeros', dtype=torch.float32),
+                      ('layers', 'batch', None, 'qkv'), 'zeros'),
+        'ssm': PSpec((L, batch_size, h, hd, n),
+                     ('layers', 'batch', 'heads', None, 'state'), 'zeros',
+                     dtype=torch.float32),
     }
 
 
@@ -279,14 +285,16 @@ def attn_cache_template(cfg: ModelConfig, n_pages: int):
     ah = cfg.hybrid_attn_heads
     shape = (n_attn_apps(cfg), n_pages, cfg.page_size, ah,
              2 * cfg.d_model // ah)
-    return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
+    axes = ('layers', 'pages', None, 'heads', 'head_dim')
+    return {'k': PSpec(shape, axes, 'zeros'), 'v': PSpec(shape, axes, 'zeros')}
 
 
 def attn_cache_template_dense(cfg: ModelConfig, batch: int, max_seq: int):
     """Contiguous long-context KV: (n_apps, B, max_seq, AH, AHD)."""
     ah = cfg.hybrid_attn_heads
     shape = (n_attn_apps(cfg), batch, max_seq, ah, 2 * cfg.d_model // ah)
-    return {'k': PSpec(shape, 'zeros'), 'v': PSpec(shape, 'zeros')}
+    axes = ('layers', 'batch', 'kv_seq', 'heads', 'head_dim')
+    return {'k': PSpec(shape, axes, 'zeros'), 'v': PSpec(shape, axes, 'zeros')}
 
 
 # ---------------------------------------------------------------------------

@@ -341,7 +341,7 @@ class DisaggPlane:
         # data plane: same-architecture engines move the physical KV rows
         # (page axis 1 of the engine pool layout)
         if ev.src_pages and src.mcfg.name == dst.mcfg.name:
-            copy_pages(src.cache, ev.src_pages, dst.cache, ev.dst_pages)
+            dst.copy_kv_from(src, ev.src_pages, ev.dst_pages)
             self.stats.pages_copied += len(ev.src_pages)
         # control plane: hand the request off.  Pending fused-path tokens
         # reference src.requests by id — resolve them before the pop.

@@ -48,6 +48,13 @@ design.)
 
 The engine runs on the GPU unless built with ``device='cpu'``
 (:func:`repro_torch.resolve_device`).
+
+Tensor-parallel serving (``EngineConfig.mesh``, ``distributed/tp.py``):
+the engine lives on rank 0 of the mesh -- one scheduler, one pool, one
+Valve session -- and every other rank runs ``distributed.tp.serve_rank``.
+Each dispatch sends its op and its staged host batch to those ranks before
+rank 0 runs it; each rank runs the same model entry on its own weight and
+KV blocks, its kv-heads through the decode kernels.
 """
 from __future__ import annotations
 
@@ -100,6 +107,15 @@ class EngineConfig:
     # batch (kernels.paged_attention.prefix): each shared physical page is
     # read once per batch instead of once per request.
     prefix_shared_attention: bool = False
+    # Tensor-parallel serving: a ``launch.mesh.Mesh`` whose ``model`` axis
+    # every dispatch runs across (``distributed/tp.py``); this engine is
+    # rank 0's, the mesh's other ranks run ``distributed.tp.serve_rank``.
+    # Weights and KV pool are committed to rank 0's blocks at construction
+    # (the pool in the weights' dtype).  None -- the default -- is the
+    # single-device path.  With a mesh, decode_kernel=None resolves to the
+    # plain path, and fused sampling draws from the gathered scores with
+    # the plain sampler.
+    mesh: Optional[object] = None
 
     def scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(
@@ -139,6 +155,9 @@ class Engine:
                 'engine serves paged-KV decoder-only families, not '
                 f'{self.mcfg.family!r}')
         self.cfg = cfg or EngineConfig()
+        self.mesh = self.cfg.mesh
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         if params['embed'].device != self.device:
             raise ValueError(f'params on {params["embed"].device}, engine on '
@@ -160,8 +179,12 @@ class Engine:
                 self.cfg.klass, on_invalidate=self.on_pages_invalidated)
         else:
             self.session = PoolSession(self.pool, self.cfg.klass)
-        self.cache = model.init_cache(engine_pages=self.pool.n_pages,
-                                      device=self.device)
+        self._tp = self._leader = self._dec_host = None
+        if self.mesh is None:
+            self.cache = model.init_cache(engine_pages=self.pool.n_pages,
+                                          device=self.device)
+        else:
+            self._open_on_mesh(params)
         self.pg = self.mcfg.page_size
         self.maxp = self.cfg.max_seq // self.pg
         self.requests: Dict[str, Request] = {}
@@ -178,7 +201,7 @@ class Engine:
             self.cfg.seed)
         decode_kernel = self.cfg.decode_kernel
         if decode_kernel is None:
-            decode_kernel = self.device.type == 'cuda'
+            decode_kernel = self.device.type == 'cuda' and self.mesh is None
         self._use_kernel = decode_kernel
         self._init_buffers()
         # lazy-token bookkeeping (fused path): device tensors whose values
@@ -193,6 +216,59 @@ class Engine:
                                         dtype=torch.int32, device=self.device)
         self._prev_rows: Dict[str, int] = {}
         self._seed_ctr = itertools.count()
+
+    def _open_on_mesh(self, params) -> None:
+        """Open this engine on every rank of the mesh and commit the
+        weights and the pool to rank 0's blocks."""
+        from repro_torch.distributed.tp import Leader, TensorParallel
+
+        self._tp = TensorParallel(self.mcfg, self.mesh)
+        if self.mesh.rank != 0:
+            raise ValueError('a mesh engine runs on rank 0; the other ranks '
+                             'run distributed.tp.serve_rank')
+        dtype = params['embed'].dtype
+        self._leader = Leader(self.model, params, self.mesh,
+                              n_pages=self.pool.n_pages,
+                              max_batch=self.cfg.max_batch, cache_dtype=dtype)
+        self.params = self._tp.shard_params(params)
+        self.cache = self._tp.init_cache(self.pool.n_pages, self.device,
+                                         dtype)
+
+    def close(self) -> None:
+        """Release this engine's blocks on the mesh's other ranks (nothing
+        to do without a mesh)."""
+        if self._leader is not None:
+            self._leader.close()
+
+    def gather_cache(self) -> Dict[str, torch.Tensor]:
+        """A copy of the whole KV pool, every kv-head (under a mesh
+        gathered from every rank's block): for checks."""
+        if self._leader is None:
+            return {k: v.clone() for k, v in self.cache.items()}
+        return self._leader.gather_cache(self.cache)
+
+    def copy_kv_from(self, src: 'Engine', src_pages: Sequence[int],
+                     dst_pages: Sequence[int]) -> None:
+        """Copy the KV rows of ``src``'s pages into this engine's pages
+        (``serving.disagg.plane.copy_pages``), under a mesh on every rank's
+        block: the two engines share one mesh, or neither has one."""
+        from repro_torch.serving.disagg.plane import copy_pages
+
+        if src.mesh is not self.mesh:
+            raise ValueError('a KV copy between engines needs both on one '
+                             'mesh, or neither on a mesh')
+        if self._leader is not None:
+            self._leader.announce('copy_kv', (src._leader.id, list(src_pages),
+                                              list(dst_pages)))
+        copy_pages(src.cache, src_pages, self.cache, dst_pages)
+
+    def _tp_kw(self, op: str, host, **kw) -> Dict:
+        """Announce a dispatch to the mesh's other ranks; the ``tp``
+        keyword of rank 0's own call (none without a mesh)."""
+        if self._leader is None:
+            return {}
+        self._leader.announce(op, host, **kw)
+        return {'tp': self._tp}
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Stage a host buffer on the device (always a copy: the buffers
@@ -383,20 +459,16 @@ class Engine:
             m['kv_len'][row] = pos + 1
             m['last_idx'][row] = 0
             row += 1
-        mb = {
-            'tokens': self._put(m['toks']),
-            'positions': self._put(m['poss']),
-            'page_table': self._put(m['pts']),
-            'page_ids': self._put(m['pids']),
-            'offsets': self._put(m['offs']),
-            'kv_len': self._put(m['kv_len']),
-            'last_idx': self._put(m['last_idx']),
-        }
+        host = {'tokens': m['toks'], 'positions': m['poss'],
+                'page_table': m['pts'], 'page_ids': m['pids'],
+                'offsets': m['offs'], 'kv_len': m['kv_len'],
+                'last_idx': m['last_idx']}
+        mb = {k: self._put(v) for k, v in host.items()}
         db = (self._decode_inputs(batch.decode)
               if batch.decode and not in_chunk else None)
         self.session.iteration_start()                      # VALVE-SESSION
         self.cache, logits = self.model.prefill_chunk_fn(
-            self.params, self.cache, mb)
+            self.params, self.cache, mb, **self._tp_kw('mixed', host))
         out = self._decode_call(db) if db is not None else None
         self.session.iteration_end()                        # VALVE-SESSION
         self.stats.dispatches += 1
@@ -490,12 +562,13 @@ class Engine:
                     cap = 1
                     while cap < runs['n_slots']:
                         cap <<= 1
-                    st['shared'] = {
-                        'pages': self._put(runs['pages'][:cap]),
-                        'pos': self._put(runs['pos'][:cap]),
-                        'mask': self._put(runs['mask'][:, :cap]),
-                        'tail_pt': self._put(runs['tail_pt']),
-                        'start': self._put(runs['start'])}
+                    st['shared_host'] = {
+                        'pages': runs['pages'][:cap],
+                        'pos': runs['pos'][:cap],
+                        'mask': runs['mask'][:, :cap],
+                        'tail_pt': runs['tail_pt'], 'start': runs['start']}
+                    st['shared'] = {k: self._put(v) for k, v
+                                    in st['shared_host'].items()}
         db = {'positions': self._put(d['poss']), 'page_table': st['pts']}
         if st.get('shared') is not None:
             self.stats.shared_page_reads_saved += st['saved']
@@ -519,18 +592,40 @@ class Engine:
                                + next(self._seed_ctr)) & 0x7FFFFFFF)
         else:
             db['tokens'] = self._put(d['toks'])
+        if self._leader is not None:
+            self._dec_host = self._decode_host(db)
         return db
+
+    def _decode_host(self, db: Dict) -> Dict:
+        """The host arrays the decode batch ``db`` was staged from, for the
+        mesh's other ranks (``distributed.tp.stage`` restages them)."""
+        d = self._dec
+        host = {'positions': d['poss'].copy(), 'page_table': d['pts'].copy()}
+        if 'shared' in db:
+            host['shared'] = self._stage['shared_host']
+        if self.cfg.fused_sampling:
+            host.update(toks=d['toks'].copy(), use_prev=d['use_prev'].copy(),
+                        src=d['src'].copy())
+            if 'seed' in db:
+                host['seed'] = db['seed']
+        else:
+            host['tokens'] = d['toks'].copy()
+        return host
 
     def _decode_call(self, db: Dict):
         """The decode entry on a staged batch: (B,) sampled tokens on the
         device (fused) or (B, V) scores."""
         if self.cfg.fused_sampling:
+            kw = dict(use_kernel=self._use_kernel,
+                      temperature=float(self.cfg.temperature))
             self.cache, out = self.model.decode_sample_fn(
-                self.params, self.cache, db, use_kernel=self._use_kernel,
-                temperature=float(self.cfg.temperature))
+                self.params, self.cache, db, **kw,
+                **self._tp_kw('decode_sample', self._dec_host, **kw))
         else:
+            kw = dict(use_kernel=self._use_kernel)
             self.cache, out = self.model.decode_fn(
-                self.params, self.cache, db, use_kernel=self._use_kernel)
+                self.params, self.cache, db, **kw,
+                **self._tp_kw('decode', self._dec_host, **kw))
         return out
 
     def _decode_tokens(self, slots: List[DecodeSlot], out) -> None:

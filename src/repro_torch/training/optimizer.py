@@ -8,7 +8,7 @@ floats would be f64 and lose f32 parity, and reading them would sync the
 host each step.  The update runs in place under ``torch.no_grad``.
 
 The ZeRO-1 moment shardings (``zero1_moment_specs``, ``opt_state_specs``)
-wait for the port's mesh layer (ROADMAP Queue 1 item 10).
+are ROADMAP Queue 1 item 10b, the trainer's mesh branch.
 """
 from __future__ import annotations
 

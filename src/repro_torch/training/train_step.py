@@ -5,8 +5,10 @@ AdamW.
 Microbatching splits the global batch along its leading axis; each
 microbatch's gradients are summed in f32 and divided by the count, and the
 loss is the mean of the microbatch losses.  The mesh branch (data-parallel
-reduce, ZeRO-1 moments) waits for the port's mesh layer (ROADMAP Queue 1
-item 10), and ``make_serve_step`` for its per-cell report (item 11).
+reduce, ZeRO-1 moments, the compressed all-reduce) is ROADMAP Queue 1 item
+10b, over the port's mesh (``launch/mesh.py``) and sharding rules
+(``distributed/sharding.py``); ``make_serve_step`` comes with its per-cell
+report (item 11).
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ def make_train_step(model: Model, mesh=None, *,
     ``microbatches``."""
     if mesh is not None:
         raise NotImplementedError(
-            'make_train_step: the mesh branch waits for the port\'s mesh '
-            'layer (ROADMAP Queue 1 item 10)')
+            'make_train_step: the mesh branch (data-parallel reduce, '
+            'ZeRO-1 moments) is not ported yet (ROADMAP Queue 1 item 10b)')
     ocfg = opt_cfg or opt.AdamWConfig()
 
     def step(params, opt_state, batch):

@@ -742,3 +742,80 @@ def test_hybrid_and_encdec_on_the_card_match_the_cpu(cuda, arch):
     for a, w in zip(leaves(gc), leaves(wc)):
         torch.testing.assert_close(a.cpu(), w, rtol=0, atol=1e-4)
     torch.testing.assert_close(gl.cpu(), wl, rtol=1e-5, atol=0)
+
+
+def test_paged_decode_on_a_local_head_slice(cuda):
+    """A tensor-parallel rank's K1 call: the query and the pool hold only
+    the rank's kv-heads (a contiguous copy of their block, as the rank's
+    own pool is), and the kernel equals the plain version on that slice and
+    the full call's output for those heads."""
+    b, hq, hkv, d, pg, maxp = 8, 16, 8, 128, 16, 32       # qwen3-0.6b
+    q, pk, pv, pt, lengths = _paged_inputs(cuda, (b, hq, hkv, d, pg, maxp),
+                                           7)
+    full = pa.paged_decode(q, pk, pv, pt, lengths)
+    for n in (2, 4):
+        for r in range(n):
+            lo, hi = r * hkv // n, (r + 1) * hkv // n
+            args = (q[:, lo:hi].contiguous(), pk[:, :, lo:hi].contiguous(),
+                    pv[:, :, lo:hi].contiguous(), pt, lengths)
+            got = pa.paged_decode(*args)
+            torch.cuda.synchronize()
+            want = paged_decode_ref(*args)
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+            torch.testing.assert_close(got.float(), full[:, lo:hi].float(),
+                                       **BF16_TOL)
+
+
+def _mesh_drain_rank(rank, n):
+    """One rank of a reduced-width mesh drain on the card (kernels on)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.tp import serve_rank, stop_ranks
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.kvpool import KVPool
+
+    mesh = make_mesh((n,), ('model',))
+    if rank != 0:
+        return serve_rank(mesh)
+    try:
+        cfg = reduced(get_config('qwen3-0.6b'), page_size=16, head_dim=64)
+        model = build_model(cfg)
+        params = model.init_params(0, device=mesh.device)
+        prompt = np.random.default_rng(0).integers(1, cfg.vocab_size,
+                                                   40).tolist()
+        outs = {}
+        for name, m in (('meshless', None), ('mesh', mesh)):
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            eng = Engine(model, params, KVPool(8, 4, page_size=16),
+                         EngineConfig(max_batch=2, max_seq=64,
+                                      prefill_chunk=16, decode_kernel=True,
+                                      mesh=m), device=mesh.device)
+            rids = [eng.submit(prompt, max_new_tokens=8) for _ in range(2)]
+            eng.run_to_completion()
+            eng.close()
+            outs[name] = ([eng.output_tokens(r) for r in rids],
+                          LAUNCHES['paged_decode'],
+                          str(torch.distributed.get_backend()))
+        return outs
+    finally:
+        stop_ranks(mesh)
+
+
+@pytest.mark.parametrize('n', [1, 2])
+def test_mesh_over_nccl_decodes_through_the_kernels(cuda, tmp_path, n):
+    """A mesh of a card a rank over NCCL decodes through K1; one rank gives
+    the single-device engine's tokens bit for bit (two need two cards)."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f'a mesh of {n} over NCCL needs {n} cards')
+    out = run_ranks(_mesh_drain_rank, n, store_dir=tmp_path,
+                    device_type='cuda', args=(n,), timeout_s=120)[0]
+    (single, _, _), (mesh, launches, backend) = out['meshless'], out['mesh']
+    assert 'nccl' in backend
+    assert all(len(o) == 8 for o in mesh)
+    assert launches > 0
+    if n == 1:
+        assert mesh == single

@@ -375,9 +375,9 @@ def test_cache_templates_match_the_reference():
 
 
 def test_zeros_from_template_builds_nested_trees():
-    tmpl = {'mamba': {'conv': tcm.PSpec((2, 3)),
-                      'ssm': tcm.PSpec((2,), dtype=torch.float32)},
-            'attn': {'k': tcm.PSpec((4,), 'zeros')}}
+    tmpl = {'mamba': {'conv': tcm.PSpec((2, 3), (None, None)),
+                      'ssm': tcm.PSpec((2,), (None,), dtype=torch.float32)},
+            'attn': {'k': tcm.PSpec((4,), (None,), 'zeros')}}
     z = tcm.zeros_from_template(tmpl, 'cpu')
     assert set(z) == {'mamba', 'attn'} and set(z['mamba']) == {'conv', 'ssm'}
     assert z['mamba']['conv'].dtype == torch.bfloat16
