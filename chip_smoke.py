@@ -135,7 +135,23 @@ Phases, each fatal on failure:
     device), 2 device latencies an event; ms a decode step at meshless,
     mesh 1 and mesh 2 printed (two ranks time-slicing one card: recorded,
     not a claim);
-17. one JSON line of per-kernel results, then the result line.
+17. training over a mesh (``make_train_step(model, mesh)``,
+    ``launch.train.train(mesh=...)``), ranks spawned by
+    ``launch.ranks.run_ranks``, two sharing the card over gloo: (a)
+    qwen3-0.6b at published widths with the **depth cut to 2 of 28
+    layers**, f32, one step of 2 microbatches with a loss mask that gives
+    the data shards different token counts, at (data 2, model 1) and (data
+    1, model 2) against the meshless step on the card: loss and grad_norm
+    within 1e-5 relative, every gradient and parameter leaf within 1e-5 of
+    its max; ZeRO-1 on against off bit-equal; (b) full depth, bf16 weights,
+    f32 moments, (2, 1), global B=4, S=2048, 4 steps with a checkpoint at
+    step 2 from both ranks, then ``plan_recovery``'s shrink to one rank,
+    which restores it and runs steps 2-3 within 2e-2 of the unbroken run;
+    step times, the gradient reduce's bytes and seconds a step, peak memory
+    a rank; (c) the int8 compressed all-reduce of a (28, 1024, 3072) f32
+    leaf, card ranks bit-equal to CPU gloo ranks, the error falling after
+    the feedback round; 0 hand-written kernel launches;
+18. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -3735,6 +3751,433 @@ def mesh_check(card: str):
     return launches, bf16['failed']
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training over a mesh
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ('data', 'model')
+MT_LAYERS = 2                      # (a)'s depth, of 28
+MT_B, MT_S, MT_MICRO = 4, 512, 2   # (a): global batch, 2 microbatches
+MT_TOL = 1e-5                      # (a) f32: loss, grad_norm relative;
+                                   # every leaf of its max |x|
+MT_UPDATE_TOL = 0.25               # (a): each leaf's update (after -
+                                   # before) off the meshless one, in lr
+TP_STEPS = 2                       # (b) the bf16 steps at (1, 2)
+DP_B, DP_S, DP_STEPS, DP_CKPT = 4, 2048, 4, 2     # (b) bf16, full depth
+WG_SHAPE = (28, 1024, 3072)        # (c): qwen3-0.6b's wg stack, f32
+MESH_TRAIN_TIMEOUT_S = 300         # bounds each spawned run of the phase
+
+
+def masked_batch(cfg, b: int, s: int, step: int = 0) -> dict:
+    """``batch_at`` with a loss mask that gives each data shard of each
+    microbatch its own token count."""
+    from repro_torch.training.data import DataConfig, batch_at
+
+    batch = batch_at(DataConfig(seq_len=s, global_batch=b,
+                                vocab_size=cfg.vocab_size), step)
+    mask = np.ones((b, s), np.float32)
+    mask[0, :s // 3] = 0
+    mask[b - 1, s // 5:] = 0
+    return dict(batch, loss_mask=mask)
+
+
+def worst_block(blocks, full) -> float:
+    """The largest of each block's max |got - want| over its leaf's global
+    max |want| (``full``: the meshless tree; ``blocks``: path -> (tensor,
+    Block))."""
+    worst = 0.0
+    for k, (got, b) in blocks.items():
+        want = full[k]
+        err = (got - b.take(want)).abs().max() / want.abs().max()
+        worst = max(worst, float(err))
+    return worst
+
+
+def worst_update(blocks, before, delta, lr: float) -> float:
+    """The largest of each block's max |(after - before) - delta| over
+    ``lr`` (``blocks``: path -> (after, Block); ``before``: the global
+    weights before the step on the CPU; ``delta``: the meshless step's
+    update)."""
+    worst = 0.0
+    for k, (got, b) in blocks.items():
+        moved = got - b.take(before[k]).to(got.device)
+        worst = max(worst, float((moved - b.take(delta[k])).abs().max() / lr))
+    return worst
+
+
+def mesh_parity(cfg, dev: str) -> dict:
+    """Phase 17 (a), on one of two ranks sharing the card: f32 weights
+    drawn on the CPU, one step with 2 microbatches and a loss mask,
+    meshless on the card and at (2, 1) and (1, 2); ZeRO-1 on against off
+    at (2, 1).  Besides each parameter leaf against the meshless one, each
+    leaf's update is held to the meshless update as a share of lr: at the
+    first lr (3e-6) a parameter near 1 moves by ~3e-6 of its max, below
+    the leaf gate, so only the update gate sees a step that left a slice
+    unchanged (it would read ``unchanged``, the smallest leaf's max
+    |update| / lr)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as tr
+    from repro_torch.training.train_step import (
+        loss_and_grads, make_train_step, mesh_loss_and_grads, shard_batch)
+
+    model = build_model(cfg)
+    drawn = tr.tree_map(lambda x: x.detach().float(),
+                        model.init_params(0, device='cpu'))
+    host = masked_batch(cfg, MT_B, MT_S)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    params = f32_params(model.init_params(0, device='cpu'), dev)
+    loss, grads = loss_and_grads(model, params, batch, MT_MICRO)
+    step = make_train_step(model, microbatches=MT_MICRO)
+    _, _, m0 = step(params, opt.init_opt_state(params), batch)
+    grads = dict(tr.leaves_with_paths(grads))
+    after = {k: v.detach() for k, v in tr.leaves_with_paths(params)}
+    before = dict(tr.leaves_with_paths(drawn))
+    lr = float(m0['lr'])
+    delta = {k: v - before[k].to(dev) for k, v in after.items()}
+    out = {'backend': str(torch.distributed.get_backend()),
+           'meshless': {'loss': float(m0['loss']),
+                        'grad_norm': float(m0['grad_norm']), 'lr': lr,
+                        'unchanged': min(float(d.abs().max()) / lr
+                                         for d in delta.values())}}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(shape, MESH_AXES, device=dev)
+        step = make_train_step(model, mesh, microbatches=MT_MICRO)
+        plan = step.plan
+        p = plan.shard_params(drawn)
+        rows = shard_batch(host, plan, MT_MICRO)
+        _, g = mesh_loss_and_grads(model, plan, p, rows, MT_MICRO)
+        p, _, m = step(p, plan.init_opt_state(), rows)
+        blocks = lambda tree: {k: (v.detach(), plan.param_blocks[k])  # noqa
+                               for k, v in tr.leaves_with_paths(tree)}
+        res = {'loss': float(m['loss']), 'grad_norm': float(m['grad_norm']),
+               'grads': worst_block(blocks(g), grads),
+               'params': worst_block(blocks(p), after),
+               'update': worst_update(blocks(p), before, delta, lr)}
+        if shape == (2, 1):
+            off = make_train_step(model, mesh, microbatches=MT_MICRO,
+                                  zero1=False)
+            q, _, _ = off(off.plan.shard_params(drawn),
+                          off.plan.init_opt_state(), rows)
+            res['zero1_equal'] = all(torch.equal(a, b) for a, b in
+                                     zip(tr.leaves(p), tr.leaves(q)))
+            res['moment_elems'] = [
+                sum(x.numel() for x in tr.leaves(s.plan.init_opt_state()['mu']))
+                for s in (step, off)]
+        out[shape] = res
+    del params, grads, after, delta
+    return out
+
+
+class ReduceMeter:
+    """Times every all-reduce of a device tensor and counts its bytes,
+    while active: the trainer's data-parallel reduce.  Each waits at a
+    barrier of its group first (the device synchronized), timed apart
+    (``wait``): two ranks time-slice one card, so a rank that reaches the
+    reduce first would otherwise count the other's backward as transport.
+    The barriers add their own latency to the step."""
+
+    def __init__(self):
+        self.calls, self.nbytes, self.seconds, self.wait = 0, 0, 0.0, 0.0
+        self._orig = torch.distributed.all_reduce
+
+    def __enter__(self):
+        def metered(tensor, *args, **kw):
+            if not tensor.is_cuda and DEV != 'cpu':
+                return self._orig(tensor, *args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.barrier(group=kw.get('group'))
+            t1 = time.perf_counter()
+            self.wait += t1 - t0
+            out = self._orig(tensor, *args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t1
+            self.nbytes += tensor.numel() * tensor.element_size()
+            self.calls += 1
+            return out
+        torch.distributed.all_reduce = metered
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_reduce = self._orig
+
+
+def dp_train(shape, ckpt_dir: str, dev: str, restore: bool) -> dict:
+    """Phase 17 (b), on one rank: ``launch.train.train`` on full-width
+    qwen3-0.6b (bf16 weights, f32 moments) over ``shape``, the global batch
+    DP_B x DP_S, a checkpoint every DP_CKPT steps; with ``restore`` the
+    newest checkpoint restored onto this mesh, the steps after it, and no
+    checkpoint written."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    mesh = make_mesh(shape, MESH_AXES, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    with ReduceMeter() as meter:
+        _, _, losses = train(
+            TRAIN_ARCH, steps=DP_STEPS, batch=DP_B, seq=DP_S,
+            use_reduced=False, ckpt_dir=ckpt_dir,
+            ckpt_every=DP_STEPS + 1 if restore else DP_CKPT, restore=restore, mesh=mesh, log_every=DP_STEPS, history=hist,
+            opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    return {'losses': losses, 'seconds': [h['seconds'] for h in hist],
+            'grad_norms': [h['grad_norm'] for h in hist],
+            'reduce': (meter.calls, meter.nbytes, meter.seconds, meter.wait),
+            'peak': torch.cuda.max_memory_allocated(),
+            'backend': str(torch.distributed.get_backend())}
+
+
+def tp_train(dev: str) -> dict:
+    """Phase 17 (b), the tensor-parallel half, on one rank: TP_STEPS steps
+    of ``launch.train.train`` at (1, 2), bf16 at full depth on (b)'s first
+    global batches (the row-parallel products one bf16 GEMM that writes
+    f32, ``tp._F32Product``, under autograd); no meter, no checkpoint."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.training.optimizer import AdamWConfig
+
+    mesh = make_mesh((1, 2), MESH_AXES, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    _, _, losses = train(
+        TRAIN_ARCH, steps=TP_STEPS, batch=DP_B, seq=DP_S, use_reduced=False,
+        mesh=mesh, log_every=TP_STEPS, history=hist,
+        opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    return {'losses': losses, 'seconds': [h['seconds'] for h in hist],
+            'grad_norms': [h['grad_norm'] for h in hist],
+            'peak': torch.cuda.max_memory_allocated()}
+
+
+def compress_rank(rank: int, dev: str) -> dict:
+    """Phase 17 (c), one of two ranks: the int8 compressed all-reduce of a
+    ``WG_SHAPE`` f32 gradient (rank r's drawn from seed r) and of zeros with
+    the carried residual; digests of what came out, the error against the
+    exact mean of both ranks' gradients, before and after the feedback.
+    The CPU's ranks run it alone; the card's inside
+    :func:`mesh_train_rank`."""
+    import hashlib
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.compression import (init_error_state,
+                                                  make_compressed_allreduce)
+
+    mesh = make_mesh((2, 1), MESH_AXES, device=dev)
+    fn = make_compressed_allreduce(mesh, ('data',))
+    g = [torch.from_numpy(np.random.default_rng(r).standard_normal(
+        WG_SHAPE, dtype=np.float32)) for r in range(2)]
+    mean = ((g[0] + g[1]) / 2).to(dev)
+    grads = {'w': g[rank].to(dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    red, err = fn(grads, init_error_state(grads))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    red2, _ = fn({'w': torch.zeros_like(grads['w'])}, err)
+    top = mean.abs().max()
+    rel = float((red['w'] - mean).abs().max() / top)
+    rel2 = float((red['w'] + red2['w'] - mean).abs().max() / top)
+    digest = {name: hashlib.sha256(x['w'].cpu().numpy().tobytes()).hexdigest()
+              for name, x in (('out', red), ('residual', err),
+                              ('out2', red2))}
+    return {'digest': digest, 'rel': rel, 'rel2': rel2, 'seconds': seconds,
+            'backend': str(torch.distributed.get_backend())}
+
+
+def mesh_train_rank(rank: int, cut, ckpt_dir: str, dev: str) -> dict:
+    """Phase 17 on one of two ranks sharing the card: (a), (b)'s unbroken
+    run and its steps at (1, 2), (c) -- in one process a rank, which
+    starts once -- and the hand-written kernel launches of all of them."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    out = {'parity': mesh_parity(cut, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['train'] = dp_train((2, 1), ckpt_dir, dev, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['tp'] = tp_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['compress'] = compress_rank(rank, dev)
+    return dict(out, launches=dict(LAUNCHES))
+
+
+def restart_rank(rank: int, shape, ckpt_dir: str, dev: str) -> dict:
+    """Phase 17 (b)'s restart on the mesh ``plan_recovery`` gives, and its
+    hand-written kernel launches."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    return dict(dp_train(shape, ckpt_dir, dev, True),
+                launches=dict(LAUNCHES))
+
+
+def mesh_train_check(card: str) -> dict:
+    """Phase 17: (a) f32 parity of the mesh step with the meshless step
+    on the card, ZeRO-1 on against off; (b) bf16 data-parallel training at
+    full depth, a checkpoint from both ranks, ``plan_recovery``'s shrink to
+    one rank, the restart; (c) the compressed all-reduce, card against CPU
+    ranks.  Returns the phase's hand-written kernel launches (every rank's:
+    the trainer runs none)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.training.fault_tolerance import (
+        HeartbeatConfig, HeartbeatMonitor, plan_recovery)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    full = get_config(TRAIN_ARCH)
+    cut = dataclasses.replace(full, n_layers=MT_LAYERS)
+
+    (ROOT / 'build').mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix='mesh_train_', dir=ROOT / 'build'))
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_train_rank, 2, store_dir=store,
+                          device_type=kind, args=(cut, str(scratch), DEV),
+                          timeout_s=MESH_TRAIN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        mon = HeartbeatMonitor(['h0', 'h1'], HeartbeatConfig(
+            interval_s=1.0, miss_threshold=2))
+        mon.beat('h0', 10.0)                   # the second rank's host lost
+        # the run is lost after step DP_STEPS - 1: its last checkpoint
+        # never committed
+        shutil.rmtree(scratch / f'step_{DP_STEPS}')
+        plan = plan_recovery(mon, devices_per_host=1, model_parallel=1,
+                             last_ckpt_step=DP_CKPT, old_shape=(2, 1),
+                             now=10.0)
+        assert plan is not None and plan.new_shape == (1, 1), plan
+        t1 = time.perf_counter()
+        c = run_ranks(restart_rank, 1, store_dir=store, device_type=kind,
+                      args=(plan.new_shape, str(scratch), DEV),
+                      timeout_s=MESH_TRAIN_TIMEOUT_S)[0]
+        restart_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    a = [r['parity'] for r in ranks]
+    b = [r['train'] for r in ranks]
+    on_card = [r['compress'] for r in ranks]
+    print(f'  two ranks on the card (a, b, c): {wall:.1f} s; the restart '
+          f'on one: {restart_s:.1f} s  [{card}]')
+    ref = a[0]['meshless']
+    for shape in ((2, 1), (1, 2)):
+        res = [r[shape] for r in a]
+        lead = res[0]
+        loss_rel = abs(lead['loss'] - ref['loss']) / abs(ref['loss'])
+        norm_rel = abs(lead['grad_norm'] - ref['grad_norm']) / ref['grad_norm']
+        grads = max(r['grads'] for r in res)
+        params = max(r['params'] for r in res)
+        update = max(r['update'] for r in res)
+        print(f'  (a) {TRAIN_ARCH} at {MT_LAYERS} of {full.n_layers} layers, '
+              f'f32, mesh {shape} ({a[0]["backend"]}, 2 ranks on one card), '
+              f'B={MT_B}, S={MT_S}, {MT_MICRO} microbatches, a loss mask: '
+              f'loss {lead["loss"]:.7f} vs meshless {ref["loss"]:.7f} (rel '
+              f'{loss_rel:.3e}), grad_norm {lead["grad_norm"]:.6f} vs '
+              f'{ref["grad_norm"]:.6f} (rel {norm_rel:.3e}); worst gradient '
+              f'leaf {grads:.3e}, worst parameter leaf after the step '
+              f'{params:.3e} of its max (gate {MT_TOL:g}); worst leaf '
+              f'update off the meshless one {update:.3e} of lr '
+              f'{ref["lr"]:.3e} (gate {MT_UPDATE_TOL:g}; a leaf left '
+              f'unchanged would read at least {ref["unchanged"]:.3f})  '
+              f'[{card}]')
+        assert all(r['loss'] == lead['loss'] and
+                   r['grad_norm'] == lead['grad_norm'] for r in res), res
+        assert loss_rel <= MT_TOL and norm_rel <= MT_TOL, (shape, lead)
+        assert grads <= MT_TOL and params <= MT_TOL, (shape, grads, params)
+        assert update <= MT_UPDATE_TOL, (shape, update)
+    assert ref['unchanged'] >= 3 * MT_UPDATE_TOL, ref
+    z = [r[(2, 1)] for r in a]
+    print(f'  (a) ZeRO-1 on vs off at (2, 1): parameters bit-equal '
+          f'{all(r["zero1_equal"] for r in z)}; moment elements a rank '
+          f'{z[0]["moment_elems"][0]} (on) vs {z[0]["moment_elems"][1]} '
+          f'(off)  [{card}]')
+    assert all(r['zero1_equal'] for r in z), z
+    assert z[0]['moment_elems'][0] < z[0]['moment_elems'][1]
+
+    losses = b[0]['losses']
+    calls, nbytes, secs, wait = b[0]['reduce']
+    steps = len(losses)
+    step_s = [round(x * 1e3, 1) for x in b[0]['seconds']]
+    print(f'  (b) {TRAIN_ARCH} full width ({full.n_layers} layers), bf16 '
+          f'weights, f32 moments, mesh (2, 1) ({b[0]["backend"]}: two ranks '
+          f'share the card, the transport goes through host memory), global '
+          f'B={DP_B}, S={DP_S}: losses {[round(x, 4) for x in losses]}, '
+          f'grad norms {[round(x, 3) for x in b[0]["grad_norms"]]}; step '
+          f'times {step_s} ms (host clock, synchronized, the checkpoint '
+          f"writes outside them, the meter's barriers inside; the first "
+          f'warms up)  [{card}]')
+    print(f'  (b) gradient reduce a step (rank 0): {calls / steps:.1f} '
+          f'all-reduces, {nbytes / steps / 1e9:.3f} GB of f32, '
+          f'{secs / steps * 1e3:.1f} ms after a barrier of the group, '
+          f'{wait / steps * 1e3:.1f} ms waiting at the barriers for the '
+          f'other rank; peak memory rank 0 {b[0]["peak"] / 1e9:.2f} GB, '
+          f'rank 1 {b[1]["peak"] / 1e9:.2f} GB  [{card}]')
+    t = [r['tp'] for r in ranks]
+    tp_diff = np.abs(np.subtract(t[0]['losses'], losses[:TP_STEPS]))
+    print(f'  (b) the same model at (1, 2) (tensor-parallel, bf16, the '
+          f'row-parallel products one bf16 GEMM writing f32 under '
+          f'autograd), steps 0-{TP_STEPS - 1}: losses '
+          f'{[round(x, 4) for x in t[0]["losses"]]}, grad norms '
+          f'{[round(x, 3) for x in t[0]["grad_norms"]]}, largest loss '
+          f'difference from (2, 1) {tp_diff.max():.3e} (gate '
+          f'{RESTART_TOL:g} + {RESTART_TOL:g} |loss|); step times '
+          f'{[round(x * 1e3, 1) for x in t[0]["seconds"]]} ms (host '
+          f'clock, synchronized; the first warms up); peak memory rank 0 '
+          f'{t[0]["peak"] / 1e9:.2f} GB, rank 1 {t[1]["peak"] / 1e9:.2f} '
+          f'GB  [{card}]')
+    assert t[1]['losses'] == t[0]['losses'], t
+    np.testing.assert_allclose(t[0]['losses'], losses[:TP_STEPS],
+                               rtol=RESTART_TOL, atol=RESTART_TOL)
+    diff = np.abs(np.subtract(c['losses'], losses[DP_CKPT:]))
+    print(f'  (b) plan_recovery: {plan.lost_hosts} lost, new mesh '
+          f'{plan.new_shape} ({c["backend"]}), restored step '
+          f'{plan.restore_step}: losses {[round(x, 4) for x in c["losses"]]}'
+          f', largest difference from the unbroken run {diff.max():.3e} '
+          f'(gate {RESTART_TOL:g} + {RESTART_TOL:g} |loss|); peak '
+          f'{c["peak"] / 1e9:.2f} GB  [{card}]')
+    assert all(np.isfinite(losses)) and b[1]['losses'] == losses, b
+    assert len(c['losses']) == DP_STEPS - DP_CKPT
+    np.testing.assert_allclose(c['losses'], losses[DP_CKPT:],
+                               rtol=RESTART_TOL, atol=RESTART_TOL)
+
+    t0 = time.perf_counter()
+    on_cpu = run_ranks(compress_rank, 2, store_dir=store, device_type='cpu',
+                       args=('cpu',), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    n = int(np.prod(WG_SHAPE))
+    same = [x['digest'] == y['digest'] for x, y in zip(on_card, on_cpu)]
+    print(f'  (c) compressed all-reduce of a {WG_SHAPE} f32 leaf over 2 '
+          f'ranks ({on_card[0]["backend"]} on the card, int8 SUM on the '
+          f'wire: {n / 1e6:.1f} MB a rank against {4 * n / 1e6:.1f} MB in '
+          f'f32): outputs and residuals bit-equal to CPU gloo ranks\' '
+          f'{same}; error of |mean| {on_card[0]["rel"]:.4f}, after the '
+          f'feedback round {on_card[0]["rel2"]:.4f}; '
+          f'{on_card[0]["seconds"] * 1e3:.1f} ms a round on the card; the '
+          f'CPU ranks {time.perf_counter() - t0:.1f} s  [{card}]')
+    assert all(same), (on_card, on_cpu)
+    assert all(r['rel'] < 0.15 and r['rel2'] < r['rel'] for r in on_card)
+
+    launches = dict(LAUNCHES)
+    for r in ranks + [c]:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    assert not any(launches.values()), launches
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -3878,7 +4321,13 @@ def main() -> int:
     witnessed += failed
     done()
 
-    print(f'[17] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[17] training over a mesh: {TRAIN_ARCH}, f32 parity at '
+          f'{MT_LAYERS} layers over (2, 1) and (1, 2), bf16 data-parallel at '
+          f'full depth with a shrink to one rank, the compressed all-reduce')
+    by_phase['train_mesh'] = mesh_train_check(card)
+    done()
+
+    print(f'[18] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -92,10 +92,13 @@ def state_from_jax(state, *, dtype=torch.float32, device='cpu'):
             for k, v in state.items()}
 
 
-def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu'):
+def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu',
+                 requires_grad: bool = False):
     """The reference's weights (numpy leaves, its layout) cut to the blocks
-    rank ``mesh.rank`` holds under tensor-parallel serving
-    (``distributed.tp.TensorParallel``), as an ``nn.ParameterDict``."""
+    rank ``mesh.rank`` holds under the tensor-parallel plan
+    (``distributed.tp.TensorParallel``; the trainer places its weights the
+    same way), as an ``nn.ParameterDict`` whose leaves require grad with
+    ``requires_grad`` (training)."""
     from repro_torch.distributed.tp import TensorParallel
 
     tp = TensorParallel(model.cfg, mesh)
@@ -105,5 +108,12 @@ def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu'):
             return nn.ParameterDict({k: build(v, k) for k, v in node.items()})
         full = _tensor(node, dtype, 'cpu', key)
         return nn.Parameter(tp.shard(key, full).contiguous().to(device),
-                            requires_grad=False)
+                            requires_grad=requires_grad)
     return build(tree)
+
+
+def shard_opt_state(state, plan, *, device='cpu'):
+    """The reference's AdamW state (numpy leaves, its layout) cut to the
+    moment blocks of a ``training.train_step.TrainPlan``'s rank (its
+    ZeRO-1 slices): both packages can then start a step from one state."""
+    return plan.shard_opt_state(opt_state_from_jax(state, device=device))

@@ -9,7 +9,8 @@ the tuple form of jax's ``PartitionSpec``: one entry a dimension, each
 ``None`` entries stripped -- so ``tuple(spec) == tuple(P)`` compares the two.
 
 There is no GSPMD behind a spec: :func:`local_shard` narrows a global
-tensor to one rank's block, in ``NamedSharding``'s block order, and the
+tensor to one rank's block (:func:`local_bounds` names it as a
+:class:`Block`), in ``NamedSharding``'s block order, and the
 tensor-parallel forward (``distributed/tp.py``) places its collectives
 explicitly.  :func:`constrain` is therefore the identity, inside a rules
 context and outside it.  A mesh is anything with ``axis_names`` and a
@@ -232,11 +233,12 @@ def tree_spec(logical_tree, rules: Dict[str, AxisVal], mesh):
 
 def tree_spec_shaped(logical_tree, shapes_tree, rules: Dict[str, AxisVal],
                      mesh):
-    """Shape-aware :func:`tree_spec`; ``shapes_tree`` holds anything with a
-    ``shape`` (tensors, or ``PSpec`` leaves) nested like ``logical_tree``."""
+    """Shape-aware :func:`tree_spec`; ``shapes_tree`` holds shapes, or
+    anything with a ``shape`` (tensors, ``PSpec`` leaves), nested like
+    ``logical_tree``."""
     return _map_axes(
-        lambda axes, s: Sharding(
-            mesh, shaped_spec(tuple(s.shape), axes, rules, mesh)),
+        lambda axes, s: Sharding(mesh, shaped_spec(
+            tuple(getattr(s, 'shape', s)), axes, rules, mesh)),
         logical_tree, shapes_tree)
 
 
@@ -248,20 +250,62 @@ def block(size: int, parts: int, index: int) -> Tuple[int, int]:
     return index * step, (index + 1) * step
 
 
-def local_shard(full, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None):
-    """This rank's block of the global tensor ``full`` under ``spec``.
+def check_spec(spec: Spec, what: str = '') -> Spec:
+    """``spec`` itself, or ValueError where it names one mesh axis twice
+    (``shaped_spec`` can: ROADMAP Queue 3; jax's ``NamedSharding`` refuses
+    such a spec, and a placement must never be resolved from one)."""
+    seen: set = set()
+    for entry in spec:
+        for a in ((entry,) if isinstance(entry, str) else tuple(entry or ())):
+            if a in seen:
+                raise ValueError(f'{what or "spec"} {spec} names mesh axis '
+                                 f'{a!r} twice')
+            seen.add(a)
+    return spec
+
+
+@dataclass(frozen=True)
+class Block:
+    """One rank's block of a global tensor of ``shape``: [lo, hi) on every
+    dimension.  The trainer's placement under a mesh (heads, ZeRO-1 moment
+    slices) is not always a spec's, so checkpoints read and write blocks."""
+    shape: Tuple[int, ...]
+    bounds: Tuple[Tuple[int, int], ...]
+
+    @classmethod
+    def whole(cls, shape: Sequence[int]) -> 'Block':
+        return cls(tuple(shape), tuple((0, int(n)) for n in shape))
+
+    def take(self, full):
+        """This block of the global ``full`` (a view)."""
+        return full[tuple(slice(lo, hi) for lo, hi in self.bounds)]
+
+    def narrow(self, dim: int, lo: int, hi: int) -> 'Block':
+        """This block with [lo, hi) (global bounds) on ``dim``."""
+        return Block(self.shape, self.bounds[:dim] + ((lo, hi),)
+                     + self.bounds[dim + 1:])
+
+    def cut(self, dim: int, parts: int, index: int) -> 'Block':
+        """Block ``index`` of this block split into ``parts`` along
+        ``dim``."""
+        lo, hi = self.bounds[dim]
+        a, b = block(hi - lo, parts, index)
+        return self.narrow(dim, lo + a, lo + b)
+
+
+def local_bounds(shape: Sequence[int], spec: Spec, mesh,
+                 coords: Optional[Dict[str, int]] = None) -> Block:
+    """The :class:`Block` of a global tensor of ``shape`` that rank
+    ``coords`` (the calling rank's by default) holds under ``spec``.
 
     A dimension whose entry names mesh axes (a1, a2, ...) is split into
     prod(sizes) blocks, and the rank takes block
     ``(c1 * size2 + c2) * size3 + ...`` of its coordinates c on those axes:
     row-major in the order the entry names them, as ``NamedSharding``
-    places blocks on the devices of a mesh.  ``coords`` (axis -> coordinate)
-    defaults to ``mesh.coords()``, the calling rank's.  A view (a basic
-    slice: a tensor or a numpy array).
-    """
+    places blocks on the devices of a mesh."""
     coords = mesh.coords() if coords is None else coords
     sizes = dict(mesh.shape)
-    out = full
+    out = Block.whole(shape)
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
@@ -270,6 +314,13 @@ def local_shard(full, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None)
         for a in names:
             parts *= sizes[a]
             index = index * sizes[a] + coords[a]
-        lo, hi = block(full.shape[dim], parts, index)
-        out = out[(slice(None),) * dim + (slice(lo, hi),)]
+        out = out.cut(dim, parts, index)
     return out
+
+
+def local_shard(full, spec: Spec, mesh, coords: Optional[Dict[str, int]] = None):
+    """This rank's block of the global tensor ``full`` under ``spec``
+    (:func:`local_bounds`); ``coords`` (axis -> coordinate) defaults to
+    ``mesh.coords()``, the calling rank's.  A view (a basic slice: a tensor
+    or a numpy array)."""
+    return local_bounds(full.shape, spec, mesh, coords).take(full)

@@ -1,4 +1,5 @@
-"""Tensor-parallel serving over a mesh's ``model`` axis.
+"""Tensor parallelism over a mesh's ``model`` axis: serving, and the
+trainer's forward and backward.
 
 The reference shards the params and the KV pool by ``SERVE_RULES`` and
 lets GSPMD insert the collectives where the forward's ``constrain`` calls
@@ -39,6 +40,25 @@ model entry on their blocks (:func:`serve_rank`).  Were every rank to
 schedule for itself, a real clock would let the ranks' schedules diverge
 into collectives that never match.
 
+**Training** (``training/train_step.py``) runs the same forward under
+autograd, and the collectives carry their gradients as Megatron's pair:
+:class:`_ReduceFromModel` (forward: the f32 sum over the ranks, rounded
+once; backward: the identity, since its output is replicated and every
+rank holds the same gradient of it) after a row-parallel product, the
+vocab-parallel lookup and the head's partial sums, and
+:class:`_CopyToModel` (forward: the identity; backward: the sum of the
+ranks' gradients) where a replicated activation enters a rank's block of
+a column-parallel product.  ``torch.distributed.nn.functional.all_reduce``
+is not that pair: its backward sums gradients that are already whole, n
+times the gradient.  Where each rank holds one kv-head replicated over
+several ranks, that kv-head's ``wk``/``wv``/``bk``/``bv`` gradient on a
+rank covers its own q-heads only, so those weights pass through
+:class:`_CopyToModel` over the ranks that hold the same kv-head; so do
+qwen3's q/k norms, one vector for every head, over all the ranks
+(:meth:`TensorParallel.attn_weights`).  Serving runs no autograd, and its
+path stays op for op what it was: each of these applies only to a tensor
+that requires grad.
+
 Transport: the dispatch messages over the default group's host side
 (``broadcast_object_list``), weight shards rank 0 -> worker and the cache
 gather worker -> rank 0 as host tensors (``send`` / ``gather`` on CPU
@@ -61,6 +81,41 @@ from repro_torch.distributed.sharding import block
 MODEL = 'model'
 
 
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the sum of every rank's f32 ``part`` over ``group``;
+    backward: the identity (the sum is replicated, so is its gradient)."""
+
+    @staticmethod
+    def forward(ctx, part, group):
+        out = part.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity; backward: the sum of every rank's gradient
+    over ``group``, in f32, rounded once to the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.to(torch.float32, copy=True)
+        torch.distributed.all_reduce(total, group=ctx.group)
+        return total.to(grad.dtype), None
+
+
+def _traced(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
 def head_blocks(n_heads: int, n_kv: int, n: int,
                 r: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """(q-heads [lo, hi), kv-heads [lo, hi)) rank ``r`` of ``n`` holds."""
@@ -80,15 +135,19 @@ class TensorParallel:
     to the mesh's own rank's; another rank's plan needs no process group."""
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None):
-        check_mesh(cfg, mesh)
         self.cfg, self.mesh = cfg, mesh
         self.n = mesh.shape.get(MODEL, 1)
         self.rank = (mesh.coords() if coords is None else coords).get(MODEL, 0)
         self.q_heads, self.kv_heads = head_blocks(
             cfg.n_heads, cfg.n_kv_heads, self.n, self.rank)
         self.attn_split = self.q_heads != (0, cfg.n_heads)
+        # ranks holding this rank's kv-heads: > 1 where a kv-head is
+        # replicated over the ranks whose q-heads read it
+        self.kv_holders = (self.n * (self.kv_heads[1] - self.kv_heads[0])
+                           // cfg.n_kv_heads if self.attn_split else 1)
         self.ffn = self._split(cfg.d_ff)
         self.vocab = self._split(cfg.vocab_size)
+        self.vocab_split = self.vocab != (0, cfg.vocab_size)
         self._group = None
 
     def _split(self, size: int) -> Tuple[int, int]:
@@ -100,6 +159,22 @@ class TensorParallel:
         if self._group is None:
             self._group = self.mesh.group(MODEL)
         return self._group
+
+    @property
+    def kv_group(self):
+        """The group of the ranks that hold this rank's kv-heads (the
+        replicated case): the same coordinates off the ``model`` axis and
+        the same kv-heads.  Made on every rank at once (``Mesh.group_by``)."""
+        cfg, n = self.cfg, self.n
+        return self.mesh.group_by(('kv', MODEL), lambda c: tuple(
+            v for a, v in c.items() if a != MODEL) + head_blocks(
+                cfg.n_heads, cfg.n_kv_heads, n, c[MODEL])[1])
+
+    @property
+    def kv_first(self) -> bool:
+        """Whether this rank is the first of its kv-heads' holders."""
+        return self.kv_holders == 1 or \
+            self.q_heads[0] % (self.cfg.n_heads // self.cfg.n_kv_heads) == 0
 
     # -- placement ---------------------------------------------------------
     def ranges(self, key: str) -> Dict[int, Tuple[int, int]]:
@@ -143,10 +218,44 @@ class TensorParallel:
 
     # -- the forward's collectives -----------------------------------------
     def reduce_sum(self, part: torch.Tensor, dtype) -> torch.Tensor:
-        """The sum of every rank's f32 ``part`` (reduced in place), rounded
-        once to ``dtype``: the same bits on every rank."""
+        """The sum of every rank's f32 ``part`` (reduced in place; under
+        autograd a copy, with an identity backward), rounded once to
+        ``dtype``: the same bits on every rank."""
+        if _traced(part):
+            return _ReduceFromModel.apply(part, self.group).to(dtype)
         torch.distributed.all_reduce(part, group=self.group)
         return part.to(dtype)
+
+    def reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the ranks of ``x`` (no gradient: it
+        only steadies a softmax), reduced in place."""
+        torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.group)
+        return x
+
+    def copy(self, x: torch.Tensor, split: bool = True) -> torch.Tensor:
+        """``x``, replicated over the ranks, as the input of a product by
+        this rank's block (``split``): under autograd its gradient is
+        summed over the ranks; otherwise ``x`` itself."""
+        if not split or self.n == 1 or not _traced(x):
+            return x
+        return _CopyToModel.apply(x, self.group)
+
+    def attn_weights(self, lp):
+        """A layer's attention weights for a training forward over this
+        rank's heads, each passed through :class:`_CopyToModel` where its
+        gradient here covers only part of what uses it: the q/k norms (one
+        vector for every head) over the ``model`` ranks, and where this
+        rank's kv-heads are replicated, ``wk``/``wv``/``bk``/``bv`` over
+        :attr:`kv_group` (their holders' q-heads together read them)."""
+        if not self.attn_split or not _traced(lp['wq']):
+            return lp
+        groups = {'q_norm': self.group, 'k_norm': self.group}
+        if self.kv_holders > 1:
+            groups.update(dict.fromkeys(('wk', 'wv', 'bk', 'bv'),
+                                        self.kv_group))
+        return {k: _CopyToModel.apply(w, groups[k]) if k in groups else w
+                for k, w in lp.items()}
 
     def row_parallel(self, x, w, split: bool):
         """``x @ w`` where ``w`` is this rank's row block of the full weight
@@ -192,15 +301,44 @@ class TensorParallel:
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an f32 result, rounded nowhere before it: on the card
     one GEMM over the operands as they are that accumulates and writes f32
-    (no f32 copy of the weight); on the CPU the f32 product."""
+    (no f32 copy of the weight), under autograd too (:class:`_F32Product`);
+    on the CPU, and for f32 operands, the f32 product."""
     if not x.is_cuda or x.dtype == torch.float32:
         return x.float() @ w.float()
+    if _traced(x) or _traced(w):
+        return _F32Product.apply(x, w)
+    return _mm_f32(x, w)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
     return out.reshape(x.shape[:-1] + w.shape[-1:])
 
 
+class _F32Product(torch.autograd.Function):
+    """:func:`f32_product` of bf16 operands on the card, with the bf16
+    product's backward: the incoming f32 gradient holds bf16 values (the
+    reduction after it rounds once to bf16), so it is cast back and both
+    gradients are the bf16 GEMMs the meshless ``x @ w`` runs."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        gx = g @ w.t() if ctx.needs_input_grad[0] else None
+        gw = (x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
 def check_mesh(cfg, mesh) -> None:
-    """What this slice serves under a mesh, and what it refuses."""
+    """What an engine serves under a mesh, and what it refuses (the
+    trainer's check is ``training.train_step.check_train_mesh``)."""
     if cfg.family not in ('dense', 'vlm'):
         raise NotImplementedError(
             f'a {cfg.family!r} engine under a mesh is not ported yet '

@@ -8,8 +8,10 @@ named axes through ``torch.distributed.device_mesh.init_device_mesh``.  It
 carries what the rest of the port reads: ``shape`` (axis -> size),
 ``axis_names``, ``devices`` (a numpy array of ranks in mesh order, so
 ``devices.size`` counts the mesh's devices, as the runtime's gate fan-out
-reads it), each rank's coordinates (``coords``, ``coord``), each axis's
-process group (``group``), and the torch device this rank computes on.
+reads it), each rank's coordinates (``coords``, ``coord``), the process
+group of this rank's line along one axis or several (``group``; the
+data-parallel reduce of a ``('pod', 'data', 'model')`` mesh runs over
+``('pod', 'data')``), and the torch device this rank computes on.
 
 A mesh built with ``Mesh(np.arange(n).reshape(shape), axes)`` and no
 process group is a description only: the sharding rules and the runtime's
@@ -20,7 +22,7 @@ carried: the port's numbers are the H100's, where a script needs them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,6 +44,7 @@ class Mesh:
         self.rank = rank
         self.device = torch.device('cpu') if device is None else device
         self._device_mesh = device_mesh
+        self._groups: Dict[object, object] = {}
 
     @property
     def size(self) -> int:
@@ -59,11 +62,38 @@ class Mesh:
         """This rank's coordinate on ``axis``."""
         return self.coords()[axis]
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
+    def group(self, axes: Union[str, Sequence[str]]):
+        """The process group of this rank's line along ``axes`` (one axis,
+        or a tuple of them: the ranks that differ from this one on those
+        axes alone).  The groups of a tuple are made on first use, one for
+        every line of the mesh, and ``new_group`` is collective: every rank
+        of the mesh must ask for the same axes at the same point."""
         if self._device_mesh is None:
             raise RuntimeError('a mesh without a process group has no groups')
-        return self._device_mesh.get_group(axis)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) == 1:
+            return self._device_mesh.get_group(axes[0])
+        others = [a for a in self.axis_names if a not in axes]
+        return self.group_by(
+            axes, lambda c: tuple(c[a] for a in others))
+
+    def group_by(self, name, key: Callable[[Dict[str, int]], tuple]):
+        """This rank's group when the mesh's ranks are grouped by
+        ``key(coords)``, cached under ``name``.  Every group is made, in
+        the order of its key, on every rank: ``new_group`` is collective
+        over the whole default group, and a rank that skipped one would
+        hang the others."""
+        if name not in self._groups:
+            import torch.distributed as dist
+
+            lines: Dict[tuple, list] = {}
+            for r in self.devices.flatten().tolist():
+                lines.setdefault(key(self.coords(r)), []).append(r)
+            for k in sorted(lines):
+                g = dist.new_group(lines[k])
+                if self.rank in lines[k]:
+                    self._groups[name] = g
+        return self._groups[name]
 
     def __repr__(self) -> str:
         return f'Mesh({self.shape}, rank={self.rank}, device={self.device})'

@@ -23,17 +23,25 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, cell_supported
 from repro_torch.models import common as cm
 from repro_torch.models import dense, encdec, moe, rwkv6, zamba2
 
 _FAMILY = {'dense': dense, 'vlm': dense, 'moe': moe, 'ssm': rwkv6,
            'hybrid': zamba2, 'encdec': encdec}
 NO_KERNEL = ('hybrid', 'encdec')     # families with no kernel path
+
+
+@dataclass(frozen=True)
+class InputSpec:
+    """A step input's shape and torch dtype (the reference's
+    ``ShapeDtypeStruct`` stand-in)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclass(frozen=True)
@@ -129,7 +137,8 @@ class Model:
                                 batch_size=batch_size, max_seq=max_seq,
                                 enc_len=enc_len), device, dtype)
 
-    def loss_fn(self, params, batch, *, use_kernel=False):
+    def loss_fn(self, params, batch, *, use_kernel=False, tp=None,
+                data=None):
         """The training loss: (mean NLL, {'tokens': count}), moe adding its
         aux loss (``{'aux_loss'}`` too).  batch: tokens, labels (B, S) [,
         loss_mask (B, S), prefix_embeds (B, p, D)]; encdec also frames (B,
@@ -137,13 +146,57 @@ class Model:
         takes the flash-attention kernel (dense, vlm, moe) or the WKV6
         kernel (ssm), which have no backward: under autograd on tensors
         that require grad they raise.  hybrid and encdec have no kernel
-        path."""
+        path.  ``tp``: a tensor-parallel rank's loss over its weight blocks
+        (dense and vlm; ``distributed/tp.py``).  ``data``: ``batch`` is
+        this rank's block of the rows of a data-parallel call
+        (``training.train_step.DataShare``), and the loss is this rank's
+        share of the call's loss: its NLL over every rank's token count
+        (moe: with its share of the aux loss, routed over the whole call),
+        so that the ranks' losses and gradients sum to the call's."""
         self._no_kernel(use_kernel)
-        if self.cfg.family in NO_KERNEL:
-            return _FAMILY[self.cfg.family].forward_train(self.cfg, params,
-                                                          batch)
-        return _FAMILY[self.cfg.family].forward_train(
-            self.cfg, params, batch, use_kernel=use_kernel)
+        kw = self._tp(tp)
+        fam = self.cfg.family
+        if fam not in NO_KERNEL:
+            kw['use_kernel'] = use_kernel
+        if fam == 'moe':
+            return moe.forward_train(self.cfg, params, batch, data=data,
+                                     **kw)
+        loss, m = _FAMILY[fam].forward_train(self.cfg, params, batch, **kw)
+        if data is not None:
+            cnt = m['tokens'].detach()
+            loss = loss * (torch.clamp_min(cnt, 1.0) / torch.clamp_min(
+                data.sum(cnt.clone()), 1.0))
+        return loss, m
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
+        """Shape and dtype of each tensor of the step's ``batch`` for an
+        execution shape (the reference's ``input_specs``, as plain
+        descriptions).  The ``train`` kind; prefill and decode come with
+        ``make_serve_step`` (ROADMAP Queue 1 item 11)."""
+        ok, why = cell_supported(self.cfg, shape)
+        if not ok:
+            raise ValueError(f'{self.cfg.name} × {shape.name}: {why}')
+        if shape.kind != 'train':
+            raise NotImplementedError(
+                f'input specs of the {shape.kind!r} kind come with '
+                'make_serve_step (ROADMAP Queue 1 item 11)')
+        cfg = self.cfg
+        b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
+        specs = {'tokens': InputSpec((b, s), torch.int32),
+                 'labels': InputSpec((b, s), torch.int32)}
+        if cfg.family == 'encdec':
+            specs['frames'] = InputSpec((b, s, d), torch.bfloat16)
+        elif cfg.frontend is not None:
+            specs['prefix_embeds'] = InputSpec((b, cfg.frontend_tokens, d),
+                                               torch.bfloat16)
+        return specs
+
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, tuple]:
+        """The logical axes of each of :meth:`input_specs`' inputs."""
+        known = {'tokens': ('batch', 'seq'), 'labels': ('batch', 'seq'),
+                 'frames': ('batch', 'seq', 'embed'),
+                 'prefix_embeds': ('batch', None, 'embed')}
+        return {name: known[name] for name in self.input_specs(shape)}
 
     def prefill_fn(self, params, cache, batch, *, use_kernel=False):
         """Whole-prompt prefill: (cache, (B, V) f32 scores of the last

@@ -201,7 +201,8 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
                       for i in range(0, sq, CHUNK)], dim=1)
 
 
-def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
+def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5,
+                    tp=None):
     """Final norm -> unembed -> cross-entropy over about ``CHUNK``-token
     sequence chunks (S // CHUNK of them, at least one; S must split evenly),
     so the (B, S, V) logits never exist at once.  h: (B, S, D); head:
@@ -209,7 +210,16 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
     computed in the model dtype, then f32, as in the reference.  Under
     autograd each chunk is checkpointed, as in the reference: otherwise
     every chunk's (B, chunk, V) logits stay alive for the backward.
-    Returns (sum of masked NLL, sum of mask), f32 scalars."""
+    Returns (sum of masked NLL, sum of mask), f32 scalars.
+
+    ``tp`` (a ``distributed.tp.TensorParallel`` whose vocabulary is split):
+    ``head`` is the rank's vocabulary block, and the log-sum-exp is
+    assembled over the ranks -- the row max by an all-reduce MAX (detached:
+    it only steadies the exponentials), the sum of exponentials by an f32
+    all-reduce SUM, the gold logit by a masked pick on the rank that owns
+    the label and an all-reduce SUM (both with an identity backward).  A
+    checkpointed chunk re-issues these collectives when the backward
+    recomputes it, in the same order on every rank."""
     b, s, _ = h.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
@@ -222,11 +232,26 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5):
         gold = logits.gather(-1, lc[..., None].long())[..., 0]
         return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
 
+    def vocab_parallel_chunk(hc, lc, mc):
+        x = tp.copy(rms_norm(hc, norm_w, eps))
+        logits = (x @ head.T).float()
+        top = tp.reduce_max(logits.detach().amax(-1))
+        total = tp.reduce_sum(torch.exp(logits - top[..., None]).sum(-1),
+                              torch.float32)
+        lo, hi = tp.vocab
+        local = lc.long() - lo
+        pick = logits.gather(-1, local.clamp(0, hi - lo - 1)[..., None])[..., 0]
+        gold = tp.reduce_sum(
+            torch.where((local >= 0) & (local < hi - lo), pick, 0.0),
+            torch.float32)
+        return ((torch.log(total) + top - gold) * mc).sum()
+
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, step):
         m = mask[:, i:i + step].float()
-        nll = nll + remat(chunk, h[:, i:i + step], labels[:, i:i + step], m)
+        nll = nll + remat(chunk if tp is None else vocab_parallel_chunk,
+                          h[:, i:i + step], labels[:, i:i + step], m)
         cnt = cnt + m.sum()
     return nll, cnt
 

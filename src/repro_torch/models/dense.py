@@ -28,6 +28,14 @@ pool are this rank's blocks and the collectives sit where the reference
 calls ``constrain`` (the embedding, the ``wo`` and ``wd`` products, the
 head's scores).  Without ``tp`` they are the single-device code, with no
 collective and no extra copy.
+
+The training forward (``forward_train``) takes ``tp`` too: the rank's
+q/kv heads, its ``d_ff`` block and a vocab-parallel embedding and head,
+under autograd (the collectives' backward: ``distributed/tp.py``).  The
+residual stream stays replicated over ``model``: no sequence
+parallelism, the reference's ``TRAIN_NO_SP_RULES`` variant.  It computes
+the same function as ``TRAIN_RULES``, whose ``'seq': 'model'`` GSPMD
+uses only as a layout of the residuals.
 """
 from __future__ import annotations
 
@@ -170,19 +178,22 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
 
 
 def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, tp=None):
     """Causal self-attention over the whole sequence, no cache.  x: (B, S,
     D); positions: (B, S) = 0..S-1.  ``chunked_attention`` (checkpointed a
     query chunk under autograd), or the flash-attention kernel with
-    ``use_kernel``, which has no backward and raises under autograd."""
+    ``use_kernel``, which has no backward and raises under autograd.
+    Under ``tp`` the rank's heads, ``wo`` a row-parallel product."""
     b, s, _ = x.shape
+    if tp is not None:
+        x, lp = tp.copy(x, tp.attn_split), tp.attn_weights(lp)
     q, k, v = qkv_proj(cfg, lp, x, positions)
     if use_kernel:
         out = flash_attention(q, k, v, causal=True)
     else:
         out = cm.chunked_attention(q, k, v, q_positions=positions,
                                    kv_positions=positions, causal=True)
-    return out.reshape(b, s, -1) @ lp['wo']
+    return _out_proj(out.reshape(b, s, -1), lp['wo'], tp)
 
 
 def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
@@ -229,9 +240,11 @@ def _mlp(cfg, lp, h, tp=None):
     ``tp`` the rank's d_ff block, its ``wd`` product summed over the
     ranks."""
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    down = torch.matmul if tp is None else functools.partial(
-        tp.row_parallel, split=tp.ffn != (0, cfg.d_ff))
-    return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'], down)
+    if tp is None:
+        return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+    split = tp.ffn != (0, cfg.d_ff)
+    return h + cm.swiglu(tp.copy(x, split), lp['wg'], lp['wu'], lp['wd'],
+                         functools.partial(tp.row_parallel, split=split))
 
 
 def _scores(cfg, params, last, tp):
@@ -259,31 +272,34 @@ def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
 
 
 def train_layer(cfg: ModelConfig, lp, h, positions, *,
-                use_kernel: bool = False):
-    """One decoder layer of the training forward."""
+                use_kernel: bool = False, tp=None):
+    """One decoder layer of the training forward (``tp``: a rank's)."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
-    h = h + self_attn_train(cfg, lp, x, positions, use_kernel=use_kernel)
-    return _mlp(cfg, lp, h)
+    h = h + self_attn_train(cfg, lp, x, positions, use_kernel=use_kernel,
+                            tp=tp)
+    return _mlp(cfg, lp, h, tp)
 
 
 def forward_train(cfg: ModelConfig, params, batch, *,
-                  use_kernel: bool = False):
+                  use_kernel: bool = False, tp=None):
     """Mean next-token NLL of batch['labels'] (B, S) given batch['tokens']
     (B, S) [, prefix_embeds (B, p, D)], masked by batch['loss_mask'] if
     present.  Each layer is checkpointed under autograd, as the reference's
-    ``scan_layers`` does; the loss is ``chunked_ce_loss``.  -> (loss,
-    {'tokens': count})."""
+    ``scan_layers`` does; the loss is ``chunked_ce_loss``.  Under ``tp``
+    the weights are a rank's blocks (module docstring) and the loss is
+    replicated over the ranks.  -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
+    h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'), tp)
     for lp in cm.layer_views(params):
         h = cm.remat(lambda h, lp: train_layer(cfg, lp, h, positions,
-                                               use_kernel=use_kernel),
+                                               use_kernel=use_kernel, tp=tp),
                      h, lp)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], head_of(cfg, params), batch['labels'],
-        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps,
+        tp=tp if tp is not None and tp.vocab_split else None)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 

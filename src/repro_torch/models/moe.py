@@ -21,6 +21,17 @@ averaged over layers, at weight 0.01.
 ``prefill`` has no kernel path (the reference's has none); ``decode_step``
 reads through the paged-decode kernel with ``use_kernel`` and through the
 prefix-shared kernels when the batch carries ``shared``.
+
+**Data-parallel training** (``forward_train(..., data=)``, a
+``training.train_step.DataShare``): each rank holds a block of the call's
+rows, after the lower data ranks' blocks, and routes as the whole call
+routes on one device.  An assignment's rank in its expert counts the lower
+ranks' assignments to that expert (their per-expert counts, summed over
+the data group), the capacity counts every rank's tokens, and the aux
+loss's expert fractions are the whole call's; the rank returns its share
+of the call's loss (its NLL over every rank's token count, and the aux
+terms of its own router probabilities), so the ranks' shares and their
+gradients sum to the loss and the gradients of the call.
 """
 from __future__ import annotations
 
@@ -76,36 +87,49 @@ def route(cfg: ModelConfig, lp, xf, capacity_factor: float):
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     onehot = F.one_hot(top_i.reshape(-1), e)
     pos = (onehot.cumsum(0) * onehot).sum(-1) - 1
-    cap = int(math.ceil(k * n / e * capacity_factor))
-    return probs, top_i, top_w, pos, cap
+    return probs, top_i, top_w, pos, capacity(k, n, e, capacity_factor)
+
+
+def capacity(k: int, n: int, e: int, capacity_factor: float) -> int:
+    """Slots an expert has in a call of ``n`` tokens."""
+    return int(math.ceil(k * n / e * capacity_factor))
 
 
 def moe_mlp(cfg: ModelConfig, lp, x, *,
-            capacity_factor: float = PREFILL_CAPACITY):
+            capacity_factor: float = PREFILL_CAPACITY, data=None):
     """x: (B, S, D) -> (B, S, D), the Switch load-balance aux loss (f32
-    scalar; serving ignores it)."""
+    scalar; serving ignores it).  ``data``: this rank's rows of a
+    data-parallel call (module docstring); the aux loss is then this
+    rank's share."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     n = b * s
     xf = x.reshape(n, d)
     probs, top_i, top_w, pos, cap = route(cfg, lp, xf, capacity_factor)
     flat_e = top_i.reshape(-1)
-    keep = pos < cap
+    rows, keep = cap, pos < cap
+    if data is not None:
+        # ranked after the lower ranks' assignments, against the capacity
+        # of every rank's tokens; an expert holds at most n of this rank's
+        counts = torch.bincount(flat_e, minlength=e)
+        cap = capacity(k, n * data.n, e, capacity_factor)
+        keep = pos + data.before(counts)[flat_e] < cap
+        rows = min(cap, n)
     tok = torch.arange(n * k, device=x.device) // k
 
     # each kept row to its (expert, rank) slot, every dropped row to one
     # spare slot past the end that is cut off: selecting the kept rows by
     # mask would sync the host with the device in every layer
-    slot = torch.where(keep, flat_e * cap + pos, e * cap)
-    buf = x.new_zeros((e * cap + 1, d))
+    slot = torch.where(keep, flat_e * rows + pos, e * rows)
+    buf = x.new_zeros((e * rows + 1, d))
     buf[slot] = xf[tok]
-    buf = buf[:-1].view(e, cap, d)
+    buf = buf[:-1].view(e, rows, d)
     g = torch.bmm(buf, lp['we_gate'])
     u = torch.bmm(buf, lp['we_up'])
     h = F.silu(g.float()).to(x.dtype) * u
     out = torch.bmm(h, lp['we_down'])                 # (E, C, D)
 
-    gathered = out[flat_e, pos.clamp(max=cap - 1)]    # (N*k, D)
+    gathered = out[flat_e, pos.clamp(max=rows - 1)]   # (N*k, D)
     contrib = torch.where(keep[:, None],
                           gathered * top_w.reshape(-1, 1).to(x.dtype),
                           torch.zeros_like(gathered)).reshape(n, k, d)
@@ -115,8 +139,13 @@ def moe_mlp(cfg: ModelConfig, lp, x, *,
     if cfg.n_shared_experts:
         y = y + cm.swiglu(xf, lp['ws_gate'], lp['ws_up'], lp['ws_down'])
 
-    frac = F.one_hot(top_i, e).float().mean(dim=(0, 1))
-    aux = e * (frac * probs.mean(0)).sum()
+    if data is None:
+        frac = F.one_hot(top_i, e).float().mean(dim=(0, 1))
+        aux = e * (frac * probs.mean(0)).sum()
+    else:
+        total = n * data.n
+        frac = data.sum(counts.float()) / (total * k)
+        aux = e * (frac * (probs.sum(0) / total)).sum()
     return y.reshape(b, s, d), aux
 
 
@@ -128,38 +157,41 @@ def moe_block(cfg: ModelConfig, lp, h, *, capacity_factor: float):
 
 
 def train_layer(cfg: ModelConfig, lp, h, positions, *,
-                use_kernel: bool = False):
+                use_kernel: bool = False, data=None):
     """One MoE layer of the training forward (capacity factor 1.25): ->
     (h, the layer's load-balance aux loss)."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
     h = h + dense.self_attn_train(cfg, lp, x, positions,
                                   use_kernel=use_kernel)
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    y, aux = moe_mlp(cfg, lp, x, capacity_factor=PREFILL_CAPACITY)
+    y, aux = moe_mlp(cfg, lp, x, capacity_factor=PREFILL_CAPACITY,
+                     data=data)
     return h + y, aux
 
 
 def forward_train(cfg: ModelConfig, params, batch, *,
-                  use_kernel: bool = False):
+                  use_kernel: bool = False, data=None):
     """The dense training forward with routed experts: mean NLL plus
     ``AUX_WEIGHT`` times the aux loss averaged over layers; each layer
     checkpointed under autograd.  The capacity counts every token of the
-    call (B x S), as in serving.  -> (loss, {'tokens', 'aux_loss'})."""
+    call (B x S), as in serving.  -> (loss, {'tokens', 'aux_loss'}).
+    ``data``: this rank's share of a data-parallel call (module
+    docstring); ``aux_loss`` is then this rank's share too."""
     tokens = batch['tokens']
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     h = dense.embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in cm.layer_views(params):
-        h, a = cm.remat(lambda h, lp: train_layer(cfg, lp, h, positions,
-                                                  use_kernel=use_kernel),
-                        h, lp)
+        h, a = cm.remat(lambda h, lp: train_layer(
+            cfg, lp, h, positions, use_kernel=use_kernel, data=data), h, lp)
         aux = aux + a
     aux = aux / cfg.n_layers
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], dense.head_of(cfg, params),
         batch['labels'], mask=batch.get('loss_mask'), eps=cfg.norm_eps)
-    loss = nll / torch.clamp_min(cnt, 1.0) + AUX_WEIGHT * aux
+    total = cnt if data is None else data.sum(cnt.detach().clone())
+    loss = nll / torch.clamp_min(total, 1.0) + AUX_WEIGHT * aux
     return loss, {'tokens': cnt, 'aux_loss': aux}
 
 

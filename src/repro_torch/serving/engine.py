@@ -220,8 +220,10 @@ class Engine:
     def _open_on_mesh(self, params) -> None:
         """Open this engine on every rank of the mesh and commit the
         weights and the pool to rank 0's blocks."""
-        from repro_torch.distributed.tp import Leader, TensorParallel
+        from repro_torch.distributed.tp import (Leader, TensorParallel,
+                                                check_mesh)
 
+        check_mesh(self.mcfg, self.mesh)
         self._tp = TensorParallel(self.mcfg, self.mesh)
         if self.mesh.rank != 0:
             raise ValueError('a mesh engine runs on rank 0; the other ranks '

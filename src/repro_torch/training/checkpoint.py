@@ -5,7 +5,7 @@ Layout::
 
     <dir>/step_<N>.tmp/          # written and fsynced first
         manifest.json            # step, leaves: global shape, dtype, shards
-        host0.npz                # the arrays, one shard a leaf
+        host<k>.npz              # rank k's blocks, each with its bounds
     <dir>/step_<N>/              # atomic rename after fsync -- a crashed
                                  # writer never leaves a half-checkpoint
 
@@ -13,9 +13,18 @@ Leaves are named by their keys joined with ``/`` (``params/layers/wq``,
 ``opt/mu/embed``, ``opt/step``).  npz cannot store bf16, so bf16 goes
 through f32 (exact) and the manifest records the true dtype.  Every leaf
 named ``unembed`` (the params' and the moments') is written in the
-reference's (D, V) layout and read back as the port's (V, D).  The port
-writes from one process; restore assembles every shard it finds, as the
-reference's does.
+reference's (D, V) layout, its bounds too, and read back as the port's
+(V, D).
+
+Under a mesh every rank writes the blocks it holds (``specs``: a
+:class:`~repro_torch.distributed.sharding.Block` a leaf) to
+``host<rank>.npz``; a block several ranks hold is written once, by the
+lowest of them.  The manifest's shard ids are unique a leaf across the
+files, and rank 0 writes the manifest and commits after every rank has
+written.  Restore assembles the blocks a target asks for
+(``shardings``) from every file's overlapping shards: onto another mesh
+than the writer's (the elastic reshard after ``plan_recovery``), or
+whole.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import torch
 from torch import nn
 
 from repro_torch.bridge import HEAD, to_jax_layout
+from repro_torch.distributed.sharding import Block
 from repro_torch.training import tree as tr
+
 
 def _fsync(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
@@ -39,33 +50,75 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
+def _disk_bounds(key: str, block: Block) -> list:
+    """A block's bounds in the on-disk layout (``unembed`` transposed)."""
+    bounds = [list(b) for b in block.bounds]
+    return bounds[::-1] if key.rsplit('/', 1)[-1] == HEAD else bounds
+
+
+def _sync(mesh) -> None:
+    """Every rank of ``mesh`` has arrived (a host-tensor all-reduce, which
+    gloo carries whatever the ranks compute on)."""
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.all_reduce(torch.zeros(1))
+
+
+def save(ckpt_dir: str, step: int, tree, *, mesh=None, specs=None) -> str:
     """Write one checkpoint of ``tree`` (nested dicts / ParameterDicts of
-    tensors or numbers); returns the committed directory."""
+    tensors or numbers); returns the committed directory.  Under ``mesh``
+    every rank of it calls ``save`` with its own blocks and ``specs``,
+    their :class:`Block` s (a tree like ``tree``; a leaf not named is
+    whole)."""
+    rank, n = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     tmp = os.path.join(ckpt_dir, f'step_{step}.tmp')
     final = os.path.join(ckpt_dir, f'step_{step}')
-    os.makedirs(tmp, exist_ok=True)
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    _sync(mesh)
 
-    arrays, leaves = {}, {}
+    blocks = dict(tr.leaves_with_paths(specs)) if specs is not None else {}
+    mine, leaves = {}, {}
     for key, leaf in tr.leaves_with_paths(tree):
         t = torch.as_tensor(leaf)
-        a = to_jax_layout(t, key.rsplit('/', 1)[-1])
-        arrays[f'{key}::0'] = a
-        leaves[key] = {'shape': list(a.shape),
-                       'dtype': str(t.dtype).removeprefix('torch.'),
-                       'shards': {'0': [[0, n] for n in a.shape]}}
+        b = blocks.get(key) or Block.whole(t.shape)
+        mine[key] = (t, _disk_bounds(key, b))
+        leaves[key] = {'shape': [hi for _, hi in
+                                 _disk_bounds(key, Block.whole(b.shape))],
+                       'dtype': str(t.dtype).removeprefix('torch.')}
+    # every rank's bounds: a leaf's shard ids, and which rank writes each
+    if n > 1:
+        every = [None] * n
+        torch.distributed.all_gather_object(
+            every, {k: b for k, (_, b) in mine.items()})
+    else:
+        every = [{k: b for k, (_, b) in mine.items()}]
+    arrays = {}
+    for key, entry in leaves.items():
+        shards = {}
+        for r, bounds in enumerate(b[key] for b in every):
+            if bounds not in shards.values():
+                sid = str(len(shards))
+                shards[sid] = bounds
+                if r == rank:
+                    arrays[f'{key}::{sid}'] = to_jax_layout(
+                        mine[key][0], key.rsplit('/', 1)[-1])
+        entry['shards'] = shards
 
-    npz = os.path.join(tmp, 'host0.npz')
+    npz = os.path.join(tmp, f'host{rank}.npz')
     np.savez(npz, **arrays)
     _fsync(npz)
-    with open(os.path.join(tmp, 'manifest.json'), 'w') as f:
-        json.dump({'step': step, 'leaves': leaves, 'n_processes': 1}, f)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic commit
-    _fsync(ckpt_dir)
+    _sync(mesh)
+    if rank == 0:
+        with open(os.path.join(tmp, 'manifest.json'), 'w') as f:
+            json.dump({'step': step, 'leaves': leaves, 'n_processes': n}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic commit
+        _fsync(ckpt_dir)
+    _sync(mesh)
     return final
 
 
@@ -77,36 +130,50 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _assemble(stores, key: str, entry) -> np.ndarray:
-    """One leaf's global array from the shards in ``stores`` (f32 for
-    bf16, as staged)."""
+def _assemble(stores, key: str, entry, bounds=None) -> np.ndarray:
+    """The block ``bounds`` (the whole leaf by default; on-disk layout) of
+    one leaf, from the overlapping shards in ``stores`` (f32 for bf16, as
+    staged)."""
     dt = entry['dtype']
     buf_dt = np.float32 if dt == 'bfloat16' else np.dtype(dt)
-    out = np.zeros(entry['shape'], dtype=buf_dt)
-    filled = np.zeros(entry['shape'], dtype=bool) if entry['shape'] else None
+    bounds = bounds or [[0, n] for n in entry['shape']]
+    out = np.zeros([hi - lo for lo, hi in bounds], dtype=buf_dt)
+    filled = np.zeros(out.shape, dtype=bool) if out.ndim else None
     for store in stores:
-        for sid, bounds in entry['shards'].items():
+        for sid, shard in entry['shards'].items():
             akey = f'{key}::{sid}'
             if akey not in store:
                 continue
-            sl = tuple(slice(lo, hi) for lo, hi in bounds)
-            out[sl] = store[akey]
+            cut = [(max(lo, a), min(hi, b))
+                   for (lo, hi), (a, b) in zip(bounds, shard)]
+            if any(lo >= hi for lo, hi in cut):
+                continue
+            src = tuple(slice(lo - a, hi - a)
+                        for (lo, hi), (a, _) in zip(cut, shard))
+            dst = tuple(slice(lo - a, hi - a)
+                        for (lo, hi), (a, _) in zip(cut, bounds))
+            out[dst] = store[akey][src]
             if filled is not None:
-                filled[sl] = True
+                filled[dst] = True
     if filled is not None and not filled.all():
         raise ValueError(f'checkpoint leaf {key} has holes')
     return out
 
 
-def restore(ckpt_dir: str, step: int, target_tree):
+def restore(ckpt_dir: str, step: int, target_tree, *, shardings=None):
     """Rebuild ``target_tree`` from checkpoint ``step``: new tensors of each
     target leaf's dtype and device (an ``nn.Parameter`` keeps its
-    requires_grad; a ParameterDict stays one), and the step restored."""
+    requires_grad; a ParameterDict stays one), and the step restored.
+    ``shardings``: the :class:`Block` of each leaf that this rank holds on
+    the *current* mesh (a tree like the target; a leaf not named is
+    whole), assembled from whatever blocks the writer's ranks wrote."""
     d = os.path.join(ckpt_dir, f'step_{step}')
     with open(os.path.join(d, 'manifest.json')) as f:
         manifest = json.load(f)
     stores = [np.load(os.path.join(d, fn)) for fn in sorted(os.listdir(d))
               if fn.endswith('.npz')]
+    blocks = (dict(tr.leaves_with_paths(shardings))
+              if shardings is not None else {})
     try:
         def build(node, key=''):
             if isinstance(node, tr.NODES):
@@ -115,7 +182,9 @@ def restore(ckpt_dir: str, step: int, target_tree):
                 return (nn.ParameterDict(kids)
                         if isinstance(node, nn.ParameterDict) else kids)
             tgt = torch.as_tensor(node)
-            a = _assemble(stores, key, manifest['leaves'][key])
+            b = blocks.get(key)
+            a = _assemble(stores, key, manifest['leaves'][key],
+                          _disk_bounds(key, b) if b is not None else None)
             if key.rsplit('/', 1)[-1] == HEAD:          # (D, V) -> (V, D)
                 a = a.T
             t = torch.from_numpy(np.ascontiguousarray(a)).to(

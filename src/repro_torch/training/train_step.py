@@ -1,44 +1,73 @@
-"""The train step, as the reference's meshless ``make_train_step``:
-microbatch gradient accumulation, remat (inside the model's layer loop),
-AdamW.
+"""The train step, as the reference's ``make_train_step``: microbatch
+gradient accumulation, remat (inside the model's layer loop), AdamW, and
+under a mesh the data-parallel reduce, ZeRO-1 moments and a
+tensor-parallel forward and backward.
 
-Microbatching splits the global batch along its leading axis; each
-microbatch's gradients are summed in f32 and divided by the count, and the
-loss is the mean of the microbatch losses.  The mesh branch (data-parallel
-reduce, ZeRO-1 moments, the compressed all-reduce) is ROADMAP Queue 1 item
-10b, over the port's mesh (``launch/mesh.py``) and sharding rules
-(``distributed/sharding.py``); ``make_serve_step`` comes with its per-cell
-report (item 11).
+Microbatching splits the batch along its leading axis; each microbatch's
+gradients are summed in f32 and divided by the count, and the loss is the
+mean of the microbatch losses.
+
+**Under a mesh** (``('data', 'model')`` or ``('pod', 'data', 'model')``,
+``launch/mesh.py``) each rank is a process holding its blocks
+(:class:`TrainPlan`): the weights cut over ``model`` as tensor-parallel
+serving cuts them (``distributed/tp.py``: whole heads, ``d_ff`` and
+vocabulary blocks; dense and vlm only), and with ZeRO-1 each moment cut
+further over the data axes.  The step computes what GSPMD computes for the
+reference on the global batch:
+
+- microbatch i is rows [i B/M, (i+1) B/M) of the global batch, cut over
+  the data ranks (:func:`batch_rows` says which rows a rank holds, in
+  microbatch order);
+- each microbatch's loss is the masked NLL summed over every data rank
+  divided by their summed token count: a rank's objective is its share of
+  it (``Model.loss_fn(data=)``, a :class:`DataShare`: its NLL over the
+  all-reduced count), so the sum of the ranks' objectives is the global
+  loss and a mean of per-rank means never arises; moe routes the global
+  microbatch (its capacity, expert ranks and aux loss are the whole
+  microbatch's, ``models/moe.py``);
+- the gradients, summed in f32 over the microbatches, are all-reduced in
+  f32 over the data axes (the sum of the ranks' objectives' gradients is
+  the global gradient) and divided by the microbatch count;
+- AdamW over the rank's blocks (``optimizer.adamw_update(plan=...)``):
+  the global norm over every block once, ZeRO-1's slice update and the
+  gather of the parameter's slices.
+
+``loss``, ``lr`` and ``grad_norm`` are then the same on every rank.  The
+int8 compressed all-reduce (``training/compression.py``) is a function of
+its own, which the step does not call, as in the reference.
+``param_specs`` and ``batch_specs`` are the reference's ``TRAIN_RULES``
+specs; the port's placement follows its blocks instead (no sequence
+parallelism: the residuals stay replicated over ``model``, the
+reference's ``TRAIN_NO_SP_RULES``, the same function).
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.distributed.sharding import (
+    TRAIN_RULES, Block, Sharding, check_spec, shaped_spec, tree_spec_shaped)
 from repro_torch.models.api import Model
 from repro_torch.training import optimizer as opt
 from repro_torch.training import tree as tr
+
+DATA_AXES = ('pod', 'data')
+MODEL = 'model'
 
 
 def loss_and_grads(model: Model, params, batch, microbatches: int = 1):
     """(loss, grads shaped like ``params``) of ``model.loss_fn`` on the
     plain paths.  One microbatch: gradients in the parameters' dtypes; more:
     f32 sums over the microbatches divided by their count."""
-    leaves = tr.leaves(params)
-    if not all(p.requires_grad for p in leaves):
-        raise ValueError('params must require grad: draw them with '
-                         'init_params(..., requires_grad=True)')
-
+    leaves = _grad_leaves(params)
     if microbatches == 1:
         loss, _ = model.loss_fn(params, batch)
         return loss.detach(), tr.unflatten(
             params, torch.autograd.grad(loss, leaves))
-    b = next(iter(batch.values())).shape[0]
-    if b % microbatches:
-        raise ValueError(f'batch {b} does not split into {microbatches} '
-                         'microbatches')
-    n = b // microbatches
+    n = _split(batch, microbatches)
     gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for p in leaves]
     lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
@@ -52,22 +81,324 @@ def loss_and_grads(model: Model, params, batch, microbatches: int = 1):
         params, [g / microbatches for g in gsum])
 
 
+def _grad_leaves(params) -> list:
+    leaves = tr.leaves(params)
+    if not all(p.requires_grad for p in leaves):
+        raise ValueError('params must require grad: draw them with '
+                         'init_params(..., requires_grad=True)')
+    return leaves
+
+
+def _split(batch, microbatches: int) -> int:
+    b = next(iter(batch.values())).shape[0]
+    if b % microbatches:
+        raise ValueError(f'batch {b} does not split into {microbatches} '
+                         'microbatches')
+    return b // microbatches
+
+
+# ---------------------------------------------------------------------------
+# The reference's specs
+# ---------------------------------------------------------------------------
+
+def _checked(tree, what):
+    if isinstance(tree, dict):
+        return {k: _checked(v, what) for k, v in tree.items()}
+    check_spec(tree.spec, what)
+    return tree
+
+
+def param_specs(model: Model, mesh, rules=None):
+    """The params' ``Sharding`` s under ``TRAIN_RULES`` (the port's (V, D)
+    ``unembed`` spec is the reference's (D, V) one read transposed).  A
+    spec naming one mesh axis twice is refused."""
+    return _checked(tree_spec_shaped(model.param_axes(), model.param_shapes(),
+                                     rules or TRAIN_RULES, mesh),
+                    'param spec')
+
+
+def batch_specs(model: Model, shape, mesh, rules=None):
+    """The step inputs' ``Sharding`` s for a ``train`` shape."""
+    rules = rules or TRAIN_RULES
+    specs = model.input_specs(shape)
+    return {k: Sharding(mesh, check_spec(
+        shaped_spec(specs[k].shape, v, rules, mesh), f'{k} spec'))
+        for k, v in model.input_axes(shape).items()}
+
+
+# ---------------------------------------------------------------------------
+# One rank's blocks
+# ---------------------------------------------------------------------------
+
+def check_train_mesh(cfg, mesh) -> None:
+    """What trains under a mesh: every family over the data axes, dense and
+    vlm also over ``model``."""
+    other = {a: s for a, s in mesh.shape.items()
+             if a not in DATA_AXES + (MODEL,) and s > 1}
+    if other:
+        raise NotImplementedError(
+            f'mesh axes {other}: the trainer reduces over {DATA_AXES} and '
+            'splits over model only (expert parallelism is ROADMAP Queue 1 '
+            'item 10b-ii)')
+    if mesh.shape.get(MODEL, 1) > 1 and cfg.family not in ('dense', 'vlm'):
+        raise NotImplementedError(
+            f'training a {cfg.family!r} model with model > 1 is not ported '
+            'yet (ROADMAP Queue 1 item 10b-ii); data-parallel training '
+            '(model = 1) is')
+
+
+class TrainPlan:
+    """Rank ``mesh.rank``'s share of the training state on ``mesh``.
+
+    ``param_blocks``: each weight's :class:`Block` (global bounds) under
+    the tensor-parallel plan (``tp``, None where ``model`` is 1);
+    :meth:`moment_block`: with ``zero1``, each moment's block -- its
+    param's, cut over the data axes along the dimension
+    ``optimizer.zero1_dim`` picks (the rule of ``zero1_moment_specs``, on
+    the port's blocks) -- else the param's.  Making a plan makes its
+    process groups, which is collective: every rank makes its plan at the
+    same point.  With ``coords`` (axis -> coordinate) the plan is another
+    rank's blocks only, and makes no group."""
+
+    def __init__(self, model: Model, mesh, *, zero1: bool = True,
+                 coords: Optional[dict] = None):
+        from repro_torch.distributed.tp import TensorParallel
+
+        cfg = model.cfg
+        check_train_mesh(cfg, mesh)
+        self.model, self.mesh = model, mesh
+        self.device = mesh.device
+        self.data_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+        described = coords is not None
+        coords = mesh.coords() if coords is None else coords
+        self.n_data, self.data_index = 1, 0
+        for a in self.data_axes:
+            self.n_data *= mesh.shape[a]
+            self.data_index = self.data_index * mesh.shape[a] + coords[a]
+        n_model = mesh.shape.get(MODEL, 1)
+        self.tp = TensorParallel(cfg, mesh, coords) if n_model > 1 else None
+        shapes = dict(tr.leaves_with_paths(model.param_shapes()))
+        self.param_blocks, self.zdims = {}, {}
+        for path, shape in shapes.items():
+            b = Block.whole(shape)
+            if self.tp is not None:
+                for dim, (lo, hi) in self.tp.ranges(path.rsplit('/')[-1]
+                                                    ).items():
+                    b = b.narrow(dim, lo, hi)
+            self.param_blocks[path] = b
+            self.zdims[path] = opt.zero1_dim(
+                b.shape, [(lo, hi) != (0, n) for (lo, hi), n
+                          in zip(b.bounds, b.shape)],
+                self.n_data) if zero1 and self.n_data > 1 else None
+        self.data_group = self.model_group = self.kv_group = self.data = None
+        if described:               # another rank's blocks: no groups
+            return
+        # the groups, made here on every rank in one order
+        if self.n_data > 1:
+            self.data_group = mesh.group(self.data_axes)
+            self.data = DataShare(self.data_group, self.n_data,
+                                  self.data_index)
+        self.model_group = self.tp.group if self.tp is not None else None
+        self.kv_group = (self.tp.kv_group if self.tp is not None
+                         and self.tp.kv_holders > 1 else None)
+
+    # -- the optimizer's view (``optimizer.adamw_update(plan=...)``) -------
+    def norm_share(self, path: str) -> str:
+        """'replicated' (counted by every rank), 'split' (summed over
+        ``model``) or 'duplicate' (another holder counts it)."""
+        b = self.param_blocks[path]
+        if b.bounds == Block.whole(b.shape).bounds:
+            return 'replicated'
+        name = path.rsplit('/')[-1]
+        if name in ('wk', 'wv', 'bk', 'bv') and not self.tp.kv_first:
+            return 'duplicate'
+        return 'split'
+
+    def moment_slice(self, path: str):
+        """(dim, start, length) of this data rank's ZeRO-1 slice of the
+        param block, or None where its moments are the whole block."""
+        dim = self.zdims[path]
+        if dim is None:
+            return None
+        b = self.param_blocks[path]
+        n = (b.bounds[dim][1] - b.bounds[dim][0]) // self.n_data
+        return dim, self.data_index * n, n
+
+    def gather_slices(self, p: torch.Tensor, dim: int) -> None:
+        """Every data rank's updated slice of ``p`` (along ``dim``) into
+        ``p`` on every data rank."""
+        n = p.shape[dim] // self.n_data
+        mine = p.narrow(dim, self.data_index * n, n).movedim(dim, 0)
+        parts = p.new_empty((self.n_data * n,) + tuple(mine.shape[1:]))
+        torch.distributed.all_gather_into_tensor(parts, mine.contiguous(),
+                                                 group=self.data_group)
+        p.copy_(parts.movedim(0, dim))
+
+    # -- blocks -------------------------------------------------------------
+    def moment_block(self, path: str) -> Block:
+        b = self.param_blocks[path]
+        dim = self.zdims[path]
+        return b if dim is None else b.cut(dim, self.n_data, self.data_index)
+
+    def blocks(self):
+        """{'params', 'opt'}: the :class:`Block` of every leaf of a training
+        state (``checkpoint.save(specs=)`` / ``restore(shardings=)``)."""
+        params = tr.unflatten(self.model.param_shapes(),
+                              list(self.param_blocks.values()))
+        moments = tr.unflatten(self.model.param_shapes(),
+                               [self.moment_block(p) for p in self.param_blocks])
+        return {'params': params,
+                'opt': {'step': Block.whole(()), 'mu': moments,
+                        'nu': moments}}
+
+    def shard_params(self, full, *, requires_grad: bool = True
+                     ) -> nn.ParameterDict:
+        """The global weights ``full`` cut to this rank's blocks (copies on
+        the mesh's device, requiring grad for training)."""
+        it = iter(self.param_blocks.values())
+        return _parameter_dict(tr.tree_map(
+            lambda w: nn.Parameter(_copy(next(it).take(w.detach()),
+                                         self.device),
+                                   requires_grad=requires_grad), full))
+
+    def init_opt_state(self) -> dict:
+        """AdamW's state over this rank's moment blocks (f32 zeros)."""
+        def zeros(path):
+            b = self.moment_block(path)
+            return torch.zeros([hi - lo for lo, hi in b.bounds],
+                               dtype=torch.float32, device=self.device)
+        moments = lambda: tr.unflatten(  # noqa: E731
+            self.model.param_shapes(), [zeros(p) for p in self.param_blocks])
+        return {'step': torch.zeros((), dtype=torch.int32,
+                                    device=self.device),
+                'mu': moments(), 'nu': moments()}
+
+    def shard_opt_state(self, full) -> dict:
+        """A global AdamW state (the port's layout) cut to this rank's
+        moment blocks."""
+        def cut(tree):
+            it = iter(self.param_blocks)
+            return tr.tree_map(lambda m: _copy(
+                self.moment_block(next(it)).take(m), self.device), tree)
+        return {'step': full['step'].to(self.device), 'mu': cut(full['mu']),
+                'nu': cut(full['nu'])}
+
+
+class DataShare:
+    """A data-parallel rank's place among the ``n`` data ranks of a call
+    (``Model.loss_fn(data=)``): rank ``index`` holds the rows after those
+    of ranks 0 .. index-1."""
+
+    def __init__(self, group, n: int, index: int):
+        self.group, self.n, self.index = group, n, index
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data ranks, in place."""
+        torch.distributed.all_reduce(x, group=self.group)
+        return x
+
+    def before(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the lower data ranks (zeros on the first)."""
+        rows = x.new_zeros((self.n,) + tuple(x.shape))
+        rows[self.index] = x
+        return self.sum(rows)[:self.index].sum(0)
+
+
+def _copy(t: torch.Tensor, device) -> torch.Tensor:
+    return t.to(device, memory_format=torch.contiguous_format, copy=True)
+
+
+def _parameter_dict(tree) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _parameter_dict(v) if isinstance(v, dict)
+                             else v for k, v in tree.items()})
+
+
+def batch_rows(global_batch: int, plan: TrainPlan,
+               microbatches: int = 1) -> np.ndarray:
+    """The rows of a global batch that ``plan``'s rank holds, in microbatch
+    order: for each microbatch i, its data rank's block of rows [i B/M,
+    (i+1) B/M)."""
+    if global_batch % (microbatches * plan.n_data):
+        raise ValueError(f'global batch {global_batch} does not split into '
+                         f'{microbatches} microbatches over {plan.n_data} '
+                         'data ranks')
+    per = global_batch // microbatches
+    n = per // plan.n_data
+    return np.concatenate([np.arange(i * per + plan.data_index * n,
+                                     i * per + (plan.data_index + 1) * n)
+                           for i in range(microbatches)])
+
+
+def shard_batch(batch, plan: TrainPlan, microbatches: int = 1):
+    """This rank's rows (:func:`batch_rows`) of a global batch (host numpy
+    arrays or tensors), as tensors on the mesh's device."""
+    rows = batch_rows(next(iter(batch.values())).shape[0], plan, microbatches)
+    return {k: torch.as_tensor(np.asarray(v)[rows] if isinstance(v, np.ndarray)
+                               else v[torch.as_tensor(rows)]).to(plan.device)
+            for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
 def make_train_step(model: Model, mesh=None, *,
                     opt_cfg: Optional[opt.AdamWConfig] = None,
-                    microbatches: int = 1):
+                    microbatches: int = 1, zero1: bool = True):
     """``step(params, opt_state, batch) -> (params, opt_state, {'lr',
-    'grad_norm', 'loss'})``, updating params and moments in place.  batch:
-    tensors on the params' device, split along the leading axis into
-    ``microbatches``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'make_train_step: the mesh branch (data-parallel reduce, '
-            'ZeRO-1 moments) is not ported yet (ROADMAP Queue 1 item 10b)')
-    ocfg = opt_cfg or opt.AdamWConfig()
+    'grad_norm', 'loss'})``, updating params and moments in place.
 
-    def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(model, params, batch, microbatches)
-        params, opt_state, metrics = opt.adamw_update(ocfg, params, grads,
-                                                      opt_state)
+    Meshless: batch holds tensors on the params' device, split along the
+    leading axis into ``microbatches``.  Under ``mesh``: params and
+    opt_state are this rank's blocks (``step.plan``, a :class:`TrainPlan`:
+    ``shard_params``, ``init_opt_state``) and batch its rows of the global
+    batch (:func:`shard_batch`); every rank of the mesh calls the step.
+    The reference's ``rules`` argument has no counterpart: the placement
+    is the plan's."""
+    ocfg = opt_cfg or opt.AdamWConfig()
+    if mesh is None:
+        def step(params, opt_state, batch):
+            loss, grads = loss_and_grads(model, params, batch, microbatches)
+            params, opt_state, metrics = opt.adamw_update(ocfg, params, grads,
+                                                          opt_state)
+            return params, opt_state, dict(metrics, loss=loss)
+        return step
+
+    plan = TrainPlan(model, mesh, zero1=zero1)
+
+    def mesh_step(params, opt_state, batch):
+        loss, grads = mesh_loss_and_grads(model, plan, params, batch,
+                                          microbatches)
+        params, opt_state, metrics = opt.adamw_update(
+            ocfg, params, grads, opt_state, plan=plan)
         return params, opt_state, dict(metrics, loss=loss)
-    return step
+
+    mesh_step.plan = plan
+    return mesh_step
+
+
+def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
+                        microbatches: int = 1):
+    """:func:`loss_and_grads` of the global batch on a mesh (module
+    docstring): ``params`` this rank's blocks, ``batch`` its rows
+    (:func:`shard_batch`).  Returns the global loss and this rank's blocks
+    of the global gradients, f32, the same on every data rank."""
+    def data_sum(x: torch.Tensor) -> torch.Tensor:
+        return x if plan.data is None else plan.data.sum(x)
+
+    leaves = _grad_leaves(params)
+    n = _split(batch, microbatches)
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in leaves]
+    lsum = torch.zeros((), dtype=torch.float32, device=plan.device)
+    for i in range(microbatches):
+        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        part, _ = model.loss_fn(params, mb, tp=plan.tp, data=plan.data)
+        gsum = [a + g.to(torch.float32) for a, g in
+                zip(gsum, torch.autograd.grad(part, leaves))]
+        lsum = lsum + part.detach()
+    for g in gsum:
+        data_sum(g)
+    if microbatches > 1:
+        gsum = [g / microbatches for g in gsum]
+    return data_sum(lsum) / microbatches, tr.unflatten(params, gsum)

@@ -744,6 +744,32 @@ def test_hybrid_and_encdec_on_the_card_match_the_cpu(cuda, arch):
     torch.testing.assert_close(gl.cpu(), wl, rtol=1e-5, atol=0)
 
 
+def test_f32_product_trains_as_the_bf16_product(cuda):
+    """A row-parallel product under autograd on the card
+    (``tp.f32_product`` of bf16 operands, as a bf16 tensor-parallel
+    training step runs it): the one GEMM that writes f32, bit-equal to the
+    product without autograd, and gradients as the plain bf16 ``x @ w``'s
+    for the same bf16 output gradient (torch's bf16 tolerance: the two
+    may order the backward GEMMs' operands differently)."""
+    from repro_torch.distributed.tp import f32_product
+
+    rng = np.random.default_rng(0)
+    x0 = _bf16(cuda, rng, 2, 64, 384)
+    w0 = _bf16(cuda, rng, 384, 256, scale=0.05)
+    g = _bf16(cuda, rng, 2, 64, 256)
+    with torch.no_grad():
+        want = f32_product(x0, w0)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    out = f32_product(x, w)
+    assert out.dtype == torch.float32 and torch.equal(out, want)
+    out.to(torch.bfloat16).backward(g)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    (xr @ wr).backward(g)
+    assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(x.grad, xr.grad)
+    torch.testing.assert_close(w.grad, wr.grad)
+
+
 def test_paged_decode_on_a_local_head_slice(cuda):
     """A tensor-parallel rank's K1 call: the query and the pool hold only
     the rank's kv-heads (a contiguous copy of their block, as the rank's
@@ -819,3 +845,93 @@ def test_mesh_over_nccl_decodes_through_the_kernels(cuda, tmp_path, n):
     assert launches > 0
     if n == 1:
         assert mesh == single
+
+
+def _train_rank(rank, shape, micro):
+    """One rank of a reduced-width f32 training step on the card over
+    ``shape``, and the meshless step from the same weights on the same
+    card: (backend, mesh metrics, meshless metrics, the worst gradient and
+    parameter leaf of this rank's blocks against the meshless ones, of the
+    leaf's max, and whether every block is bit-equal)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as tr
+    from repro_torch.training.data import DataConfig, batch_at
+    from repro_torch.training.train_step import (
+        loss_and_grads, make_train_step, mesh_loss_and_grads, shard_batch)
+
+    mesh = make_mesh(shape, ('data', 'model'))
+    dev = mesh.device
+    model = build_model(reduced(get_config('qwen3-0.6b')))
+    drawn = tr.tree_map(lambda x: x.detach().float(),
+                        model.init_params(0, device='cpu'))
+    host = batch_at(DataConfig(seq_len=64, global_batch=4,
+                               vocab_size=model.cfg.vocab_size), 0)
+    host['loss_mask'] = np.ones((4, 64), np.float32)
+    host['loss_mask'][0, :20] = 0
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    params = tr.tree_map(lambda x: x.to(dev, copy=True).requires_grad_(),
+                         drawn)
+    _, grads = loss_and_grads(model, params, batch, micro)
+    _, _, m0 = make_train_step(model, microbatches=micro)(
+        params, opt.init_opt_state(params), batch)
+    step = make_train_step(model, mesh, microbatches=micro)
+    plan = step.plan
+    p = plan.shard_params(drawn)
+    rows = shard_batch(host, plan, micro)
+    _, g = mesh_loss_and_grads(model, plan, p, rows, micro)
+    p, _, m = step(p, plan.init_opt_state(), rows)
+    want = {'grads': dict(tr.leaves_with_paths(grads)),
+            'params': dict(tr.leaves_with_paths(params))}
+    worst, equal = {}, True
+    for what, tree in (('grads', g), ('params', p)):
+        worst[what] = 0.0
+        for k, v in tr.leaves_with_paths(tree):
+            w = plan.param_blocks[k].take(want[what][k].detach())
+            equal &= torch.equal(v.detach(), w)
+            worst[what] = max(worst[what], float(
+                (v.detach() - w).abs().max()
+                / want[what][k].detach().abs().max()))
+    metrics = lambda x: {k: float(v) for k, v in x.items()}  # noqa: E731
+    return (str(torch.distributed.get_backend()), metrics(m), metrics(m0),
+            worst, equal)
+
+
+@pytest.mark.parametrize('n', [1, 2])
+def test_training_over_nccl_matches_the_meshless_step(cuda, tmp_path, n):
+    """A data-parallel mesh of a card a rank over NCCL: one rank trains bit
+    for bit as the meshless step (same card, f32, 2 microbatches); two
+    need two cards."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f'a mesh of {n} over NCCL needs {n} cards')
+    out = run_ranks(_train_rank, n, store_dir=tmp_path, device_type='cuda',
+                    args=((n, 1), 2), timeout_s=120)
+    for backend, m, m0, worst, equal in out:
+        assert 'nccl' in backend
+        if n == 1:
+            assert equal and m == m0, (m, m0, worst)
+        else:
+            assert worst['grads'] <= 1e-5 and worst['params'] <= 1e-5, worst
+
+
+@pytest.mark.parametrize('shape', [(2, 1), (1, 2)])
+def test_two_gloo_ranks_train_on_one_card(cuda, tmp_path, shape):
+    """Two ranks sharing the card over gloo, data- or tensor-parallel, f32,
+    2 microbatches and a loss mask: loss and grad_norm within 1e-5
+    relative of the meshless step's on the card, every gradient and
+    parameter block within 1e-5 of its leaf's max (chip_smoke phase 17
+    (a)'s rule)."""
+    from repro_torch.launch.ranks import run_ranks
+
+    out = run_ranks(_train_rank, 2, store_dir=tmp_path, device_type='cuda',
+                    backend='gloo', args=(shape, 2), timeout_s=120)
+    for backend, m, m0, worst, _ in out:
+        assert backend == 'gloo'
+        assert m['loss'] == pytest.approx(m0['loss'], rel=1e-5)
+        assert m['grad_norm'] == pytest.approx(m0['grad_norm'], rel=1e-5)
+        assert worst['grads'] <= 1e-5 and worst['params'] <= 1e-5, worst
+    assert out[0][1] == out[1][1]

@@ -230,9 +230,14 @@ def test_head_blocks_keep_gqa_groups_on_one_rank():
 
 
 def test_mesh_refuses_moe_and_a_data_axis():
+    """An engine refuses a data axis (the trainer's plan takes one) and an
+    MoE model under a mesh."""
     data = Mesh(np.arange(2).reshape(2, 1), ('data', 'model'))
+    dense = build_model(_cfg())
     with pytest.raises(NotImplementedError, match='data-parallel'):
-        TensorParallel(_cfg(), data)
+        Engine(dense, dense.init_params(0, device='cpu'),
+               KVPool(4, 4, page_size=4), EngineConfig(mesh=data),
+               device='cpu')
     model = build_model(reduced(get_config('phi3.5-moe-42b-a6.6b'),
                                 page_size=4))
     params = model.init_params(0, device='cpu')

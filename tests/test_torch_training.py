@@ -37,6 +37,7 @@ from repro.training.train_step import make_train_step as j_make_train_step
 from repro_torch import configs as tconfigs
 from repro_torch.bridge import (opt_state_from_jax, params_from_jax,
                                 tree_to_jax)
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.api import build_model as t_build_model
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import optimizer as opt
@@ -373,8 +374,10 @@ def test_microbatches_split_the_batch():
         loss_and_grads(tmodel, tp, batch, 3)
     with pytest.raises(ValueError, match='require grad'):
         loss_and_grads(tmodel, params_from_jax(_np(_jparams()[1])), batch)
+    moe = _pair('phi3.5-moe-42b-a6.6b')[1]
     with pytest.raises(NotImplementedError, match='item 10'):
-        make_train_step(tmodel, mesh=object())
+        make_train_step(moe, mesh=Mesh(np.arange(2).reshape(1, 2),
+                                       ('data', 'model')))
 
 
 def _manifest(d, step):
