@@ -122,7 +122,8 @@ Phases, each fatal on failure:
     finite, with step times and peak memory;
 16. tensor-parallel serving (``EngineConfig.mesh``), qwen3-0.6b at
     published widths, ranks spawned by ``launch.ranks.run_ranks``: (a) a
-    mesh of one rank over NCCL, phase 4's drain unfused through K1/K2/K3:
+    mesh of one rank over NCCL, phase 4's drain (its new tokens **cut to
+    8 a request**, as in phase 18) unfused through K1/K2/K3:
     every token and every live row's scores bit-equal to the meshless
     drain; (b) two ranks sharing the card over gloo (``model`` = 2, 4
     kv-heads each): an f32 drain with the **depth cut to 4 of 28 layers**
@@ -151,7 +152,30 @@ Phases, each fatal on failure:
     a rank; (c) the int8 compressed all-reduce of a (28, 1024, 3072) f32
     leaf, card ranks bit-equal to CPU gloo ranks, the error falling after
     the feedback round; 0 hand-written kernel launches;
-18. one JSON line of per-kernel results, then the result line.
+18. data- and expert-parallel serving, ranks sharing the card over gloo:
+    (a) qwen3-0.6b at published widths on (data 2, model 1) and (data 2,
+    model 2) (2 and 4 ranks, each dispatch's rows over ``data``): phase
+    16's f32 drain (8 new tokens a request) with the **depth cut to 4 of
+    28 layers** (tokens equal
+    to the meshless drain, scores and the gathered pool within 1e-4),
+    then the bf16 drain at full depth with K1/K2/K3 and K4 on (fused
+    sampling: K4 on each rank's vocabulary block, the bests combined over
+    ``model``), every step under phase 16's two Witness gates, K1-K4
+    launched on every rank, every replica's pool bit-equal; the burst on
+    (2, 2) with 4 gates; (b) phi3.5-moe at published widths on (data 1,
+    model 2), 8 experts a rank, K1/K2/K3 at G=4 on each rank's 4
+    kv-heads: f32 at **2 of 32 layers** (tokens equal to the meshless
+    drain, drops in the calls), bf16 at phase 13's **16 of 32 layers**,
+    its weights built on the host and shipped a block at a time (rank 0's
+    peak below the whole set), every decode step under the MoE Witness
+    over the mesh's own plain path and nulls (probe dispatches on every
+    rank), the routing flips printed; (c) K4 over 2 and 4 blocks of the
+    151936 x 1024 head, T = 0 and 0.8, ties planted across a block edge:
+    the combine bit-equal to K4 over the whole head, a mutant drawing
+    noise at local columns rejected, each block's and the combine's time
+    against bounds and library calls; (d) phi3.5-moe training at **1 of
+    32 layers**, f32, (1, 2), under phase 17 (a)'s gates; 0 launches;
+19. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -1395,6 +1419,8 @@ class Witness:
     plan's null and every null reproduce P bit for bit.  The launches made
     to score K are taken back off the counters."""
 
+    gated = "the kernels' plans"          # what the gated null is
+
     def __init__(self, model):
         self.model = model
         self.k_diffs, self.n_diffs, self.flips, self.past = [], [], [], []
@@ -1436,6 +1462,7 @@ class Witness:
         self.k_same += int((kern == plain).all(-1).sum())
         self.n_same += int((nulls[0] == plain).all(-1).sum())
         self.all_same += int((nulls == plain).all(-1).all(0).sum())
+        self.n_nulls = len(nulls)
         for r, a in enumerate(toks.tolist()):
             kb, pb = int(kern[r].argmax()), int(plain[r].argmax())
             assert a == kb or near_tie(kern[r], a, kb), \
@@ -1459,11 +1486,11 @@ class Witness:
                           for g, r in self.flips) or 'none'
         print(f'  {what}: {self.tokens} tokens; |kernel - plain| median '
               f'{k_med:.3e}, max {k_max:.3e} of |max|; null {n_med:.3e}, '
-              f'{n_max:.3e} (the kernels\' plans); tokens off the plain '
+              f'{n_max:.3e} ({self.gated}); tokens off the plain '
               f'argmax within the nulls\' reach: {len(self.flips)} '
               f'(plain-score gap in reach: {flips}, of |max|); rows equal to '
               f'the plain path bit for bit: kernel path {self.k_same}, null under the '
-              f'plans {self.n_same}, all {len(NULL_ORDERS)} nulls '
+              f'plans {self.n_same}, all {self.n_nulls} nulls '
               f'{self.all_same} of {self.tokens}  [{card}]')
         for a, pb, gap, reach, kdiff in self.past:
             print(f'  {what}: token {a} off the plain argmax {pb} past the '
@@ -1577,19 +1604,20 @@ def trace_engine(model, params, max_seq: int, *, device=None, **ecfg):
         device=device or DEV)
 
 
-def run_trace(eng, n_prompt_pages: int) -> list:
+def run_trace(eng, n_prompt_pages: int, new_tokens: int = 16) -> list:
     """The prefix-sharing trace: a prompt of ``n_prompt_pages`` pages
     decodes alone until its prefix is published, then two more requests
-    with the same prompt join it; 16 new tokens each."""
+    with the same prompt join it; ``new_tokens`` new tokens each."""
     cfg = eng.mcfg
     prompt = np.random.default_rng(7).integers(
         1, cfg.vocab_size, n_prompt_pages * cfg.page_size).tolist()
-    rids = [eng.submit(prompt, max_new_tokens=16)]
+    rids = [eng.submit(prompt, max_new_tokens=new_tokens)]
     for _ in range(20):         # publish r0's prefix; decode it alone
         eng.step()
         if len(eng.requests[rids[0]].generated) >= 3:
             break
-    rids += [eng.submit(prompt, max_new_tokens=16) for _ in range(2)]
+    rids += [eng.submit(prompt, max_new_tokens=new_tokens)
+             for _ in range(2)]
     eng.run_to_completion()
     torch.cuda.synchronize()
     return [eng.output_tokens(r) for r in rids]
@@ -2516,6 +2544,12 @@ class MoEWitness(Witness):
         live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
         self._check(out[live].argmax(-1), plain[live], kern[live],
                     torch.stack(nulls)[:, live])
+        self._routing(logs, live)
+        return cache, out
+
+    def _routing(self, logs, live) -> None:
+        """Count the live token-layers whose top-k expert set differs
+        between the plain and the kernel path, and each path's drops."""
         for (p_ids, p_drop), (k_ids, k_drop) in zip(logs['plain'],
                                                     logs['kernel']):
             same = (p_ids.sort(-1).values == k_ids.sort(-1).values).all(-1)
@@ -2523,7 +2557,6 @@ class MoEWitness(Witness):
             self.route_total += len(live)
             self.dropped['plain'] += p_drop
             self.dropped['kernel'] += k_drop
-        return cache, out
 
 
 class LaunchTap:
@@ -2710,13 +2743,14 @@ def moe_check(card: str, trace: bool = False):
 # ---------------------------------------------------------------------------
 
 def f32_params(params, device):
-    """An f32 copy of ``params`` on ``device`` whose leaves require grad."""
+    """An f32 copy of ``params`` (an ``nn.ParameterDict`` or a nested dict)
+    on ``device`` whose leaves require grad."""
     from torch import nn
-    if isinstance(params, nn.ParameterDict):
+    if isinstance(params, (dict, nn.ParameterDict)):
         return nn.ParameterDict({k: f32_params(v, device)
                                  for k, v in params.items()})
     return nn.Parameter(params.detach().to(device=device,
-                                           dtype=torch.float32))
+                                           dtype=torch.float32, copy=True))
 
 
 def grads_close(got, want, tol: float) -> float:
@@ -3297,6 +3331,8 @@ MESH_F32_LAYERS = 4                # the two-rank f32 drain's depth, of 28
 MESH_TOL = 1e-4                    # f32 mesh vs meshless scores, of |max|
 MESH_TIMEOUT_S = 300               # bounds each spawned run of the phase
 MESH_PROMPT_PAGES, MESH_MAX_SEQ = 3, 96    # phase 4's trace
+MESH_NEW_TOKENS = 8                # its 16 new tokens a request cut to 8
+                                   # in phases 16 and 18 (the time limit)
 
 
 class Recorder:
@@ -3431,6 +3467,12 @@ class MeshOrders:
             dense.unembed_scores, cm.paged_attention_ref = scores, attend
 
 
+def live_rows(batch) -> torch.Tensor:
+    """The rows of a decode batch that hold a request (a padding row's
+    table is all quarantine page 0)."""
+    return (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+
+
 class MeshWitness(Witness):
     """The Witness of a tensor-parallel engine's (unfused) decode steps,
     two gates a step.  P is the single-device plain path with the whole
@@ -3449,11 +3491,16 @@ class MeshWitness(Witness):
     - The kernels on the mesh (this Witness): K, the mesh's own step -- K1,
       or K2 + K3, on every rank's kv-heads -- held to P with M as the gated
       null (it sums in the kernel path's dataflow, as phase 4's plan null
-      does), the reach over M, E and the four.
+      does), the reach over M, E and the four.  With one ``model`` rank
+      (a data axis alone) M is P bit for bit, no null at all, and K is
+      held to the single-device kernel path on the same state (phase 4's
+      K, which phase 4 holds to P): a data axis may move the kernels'
+      scores only as far as the kernels themselves move them.
 
     Printed beside them, not gated: E's and M's spread against the
     single-device plan null's, and the live rows E reproduces M bit for
-    bit.  The sampled token is K's argmax (greedy)."""
+    bit.  The sampled token is K's argmax (greedy) in an unfused drain,
+    K4's (each rank's vocabulary block, combined) in a fused one."""
 
     def __init__(self, model, params, n: int):
         super().__init__(model)
@@ -3461,17 +3508,54 @@ class MeshWitness(Witness):
             params, None, None, []
         self.mesh_orders = MeshOrders(params, model.cfg, n)
         self.orders = Witness(model)
-        self.single, self.e_same, self.rows = [], 0, 0
+        self.n = n
+        if n > 1:
+            self.gated, self.orders.gated = 'M', 'E'
+        else:
+            self.gated = 'the single-device kernel path'
+        self.single, self.e_same, self.ks_same, self.rows = [], 0, 0, 0
 
     def decode_fn(self, params, cache, batch, *, use_kernel, tp):
-        from repro_torch.kernels.common import LAUNCHES
-
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cache, kern = self.model.decode_fn(params, cache, batch,
                                            use_kernel=use_kernel, tp=tp)
         torch.cuda.synchronize()
         self.decode_s.append(time.perf_counter() - t0)
+        self._witness(batch, kern, None)
+        return cache, kern
+
+    def decode_sample_fn(self, params, cache, batch, *, use_kernel,
+                         temperature, tp):
+        """The fused step (K4 on every rank's vocabulary block, combined),
+        then K's scores from the shadow's kernel step on a copy of the
+        engine's pages (the step rewrites the slots the fused step wrote,
+        with the same bits); every token must be K's argmax up to an
+        f32-order tie."""
+        from repro_torch.kernels.common import LAUNCHES
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, toks = self.model.decode_sample_fn(
+            params, cache, batch, use_kernel=use_kernel,
+            temperature=temperature, tp=tp)
+        torch.cuda.synchronize()
+        self.decode_s.append(time.perf_counter() - t0)
+        counts = dict(LAUNCHES)
+        shadow, pages = self.shadow, list(range(self.engine.pool.n_pages))
+        shadow.copy_kv_from(self.engine, pages, pages)
+        shadow._leader.announce('decode', host_batch(batch), use_kernel=True)
+        kern = self.model.decode_fn(shadow.params, shadow.cache, batch,
+                                    use_kernel=True, tp=shadow._tp)[1]
+        LAUNCHES.update(counts)
+        self._witness(batch, kern, toks)
+        return cache, toks
+
+    def _witness(self, batch, kern, toks):
+        """The two gates on one step whose kernel-path scores are ``kern``
+        (``toks``: the tokens it sampled; None: ``kern``'s argmax)."""
+        from repro_torch.kernels.common import LAUNCHES
+
         counts = dict(LAUNCHES)
         unshared = {k: v for k, v in batch.items() if k != 'shared'}
         shadow, pages = self.shadow, list(range(self.engine.pool.n_pages))
@@ -3495,19 +3579,30 @@ class MeshWitness(Witness):
         for order in NULL_ORDERS:
             with plain_kernels(order):
                 singles.append(scores(batch, True))
+        if self.n == 1:
+            kern_single = scores(batch, True)[live_rows(batch)]
+            self.ks_same += int((kern[live_rows(batch)] == kern_single)
+                                .all(-1).sum())
         LAUNCHES.update(counts)
-        live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+        live = live_rows(batch)
         m, e, p = mesh_plain[live], split[live], plain[live]
         top = p.abs().amax(-1, keepdim=True)
         self.single.append(((singles[0][live] - p).abs() / top).flatten())
         self.e_same += int((e == m).all(-1).sum())
         self.rows += len(live)
         singles = torch.stack(singles)[:, live]
-        self.orders._check(m.argmax(-1), p, m,
-                           torch.cat([e[None], singles]))
-        self._check(kern[live].argmax(-1), p, kern[live],
-                    torch.cat([m[None], e[None], singles]))
-        return cache, kern
+        # with one model rank E reorders nothing (it is P on the card);
+        # M then differs from P only by the GEMMs' row counts, held to the
+        # kernels' plan null as any correct reordering is
+        self.orders._check(m.argmax(-1), p, m, torch.cat(
+            [e[None], singles] if self.n > 1 else [singles, e[None]]))
+        # the gated null: M where the model axis reorders the mesh's sums;
+        # with one model rank M is P itself, and K is held to the
+        # single-device kernel path (phase 4's K) on the same state
+        nulls = ([m, e] + list(singles) if self.n > 1
+                 else [kern_single, m, e] + list(singles))
+        self._check(kern[live].argmax(-1) if toks is None else toks[live],
+                    p, kern[live], torch.stack(nulls))
 
     def verdict(self, what: str, card: str) -> list:
         single = torch.cat(self.single)
@@ -3518,11 +3613,14 @@ class MeshWitness(Witness):
               f'{e.median().item():.3e}, {e.max().item():.3e}; the mesh\'s '
               f'plain path (M) {m.median().item():.3e}, '
               f'{m.max().item():.3e}; E reproduces M bit for bit on '
-              f'{self.e_same} of {self.rows} live rows  [{card}]')
+              f'{self.e_same} of {self.rows} live rows'
+              + (f'; the kernel path reproduces the single-device kernel '
+                 f'path bit for bit on {self.ks_same} of {self.rows}'
+                 if self.n == 1 else '') + f'  [{card}]')
         return (self.orders.verdict(f'{what}, the mesh\'s plain path (M) '
                                     'against E', card)
-                + super().verdict(f'{what}, the kernel path against M',
-                                  card))
+                + super().verdict(f'{what}, the kernel path against '
+                                  + ('M' if self.n > 1 else 'P'), card))
 
 
 def f32_copy(params):
@@ -3541,7 +3639,7 @@ def traced(model, params, mesh, dev, **ecfg):
                        **ecfg)
     dtype = params['embed'].dtype
     eng.cache = {k: v.to(dtype) for k, v in eng.cache.items()}
-    toks = run_trace(eng, MESH_PROMPT_PAGES)
+    toks = run_trace(eng, MESH_PROMPT_PAGES, MESH_NEW_TOKENS)
     eng.close()
     return toks, eng
 
@@ -3668,7 +3766,7 @@ def mesh_rank_two(rank: int, cfg, cut, dev: str, card: str) -> dict:
         witness.shadow = trace_engine(model, params, MESH_MAX_SEQ,
                                       device=dev, mesh=mesh,
                                       decode_kernel=False)
-        toks = run_trace(eng, MESH_PROMPT_PAGES)
+        toks = run_trace(eng, MESH_PROMPT_PAGES, MESH_NEW_TOKENS)
         eng.close()
         witness.shadow.close()
         out['bf16'] = {
@@ -3765,6 +3863,8 @@ MT_UPDATE_TOL = 0.25               # (a): each leaf's update (after -
 TP_STEPS = 2                       # (b) the bf16 steps at (1, 2)
 DP_B, DP_S, DP_STEPS, DP_CKPT = 4, 2048, 4, 2     # (b) bf16, full depth
 WG_SHAPE = (28, 1024, 3072)        # (c): qwen3-0.6b's wg stack, f32
+EXPERT_LEAVES = ('layers/router', 'layers/we_gate', 'layers/we_up',
+                 'layers/we_down')
 MESH_TRAIN_TIMEOUT_S = 300         # bounds each spawned run of the phase
 
 
@@ -3788,7 +3888,8 @@ def worst_block(blocks, full) -> float:
     worst = 0.0
     for k, (got, b) in blocks.items():
         want = full[k]
-        err = (got - b.take(want)).abs().max() / want.abs().max()
+        err = ((got - b.take(want).to(got.device)).abs().max()
+               / want.abs().max())
         worst = max(worst, float(err))
     return worst
 
@@ -3797,18 +3898,23 @@ def worst_update(blocks, before, delta, lr: float) -> float:
     """The largest of each block's max |(after - before) - delta| over
     ``lr`` (``blocks``: path -> (after, Block); ``before``: the global
     weights before the step on the CPU; ``delta``: the meshless step's
-    update)."""
+    update, on the CPU)."""
     worst = 0.0
     for k, (got, b) in blocks.items():
         moved = got - b.take(before[k]).to(got.device)
-        worst = max(worst, float((moved - b.take(delta[k])).abs().max() / lr))
+        worst = max(worst, float(
+            (moved - b.take(delta[k]).to(got.device)).abs().max() / lr))
     return worst
 
 
-def mesh_parity(cfg, dev: str) -> dict:
+def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
+                s: int = MT_S, micro: int = MT_MICRO,
+                in_turn: bool = False) -> dict:
     """Phase 17 (a), on one of two ranks sharing the card: f32 weights
-    drawn on the CPU, one step with 2 microbatches and a loss mask,
-    meshless on the card and at (2, 1) and (1, 2); ZeRO-1 on against off
+    drawn on the card (the same on every rank) and kept on the host, one
+    step with 2 microbatches and a loss mask, meshless on the card (its
+    results kept on the host) and at (2, 1) and (1, 2); ZeRO-1 on against
+    off
     at (2, 1).  Besides each parameter leaf against the meshless one, each
     leaf's update is held to the meshless update as a share of lr: at the
     first lr (3e-6) a parameter near 1 moves by ~3e-6 of its max, below
@@ -3823,40 +3929,52 @@ def mesh_parity(cfg, dev: str) -> dict:
         loss_and_grads, make_train_step, mesh_loss_and_grads, shard_batch)
 
     model = build_model(cfg)
-    drawn = tr.tree_map(lambda x: x.detach().float(),
-                        model.init_params(0, device='cpu'))
-    host = masked_batch(cfg, MT_B, MT_S)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
-    params = f32_params(model.init_params(0, device='cpu'), dev)
-    loss, grads = loss_and_grads(model, params, batch, MT_MICRO)
-    step = make_train_step(model, microbatches=MT_MICRO)
-    _, _, m0 = step(params, opt.init_opt_state(params), batch)
-    grads = dict(tr.leaves_with_paths(grads))
-    after = {k: v.detach() for k, v in tr.leaves_with_paths(params)}
+    drawn = tr.tree_map(lambda x: x.detach().float().cpu(),
+                        model.init_params(0, device=dev))
+    host = masked_batch(cfg, b, s)
+    # the meshless step, kept on the host; ``in_turn``: on each rank in
+    # turn (two ranks' at once do not fit the card at phi3.5-moe's widths)
+    for r in range(torch.distributed.get_world_size() if in_turn else 1):
+        if not in_turn or r == torch.distributed.get_rank():
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            params = f32_params(drawn, dev)
+            loss, grads = loss_and_grads(model, params, batch, micro)
+            step = make_train_step(model, microbatches=micro)
+            _, _, m0 = step(params, opt.init_opt_state(params), batch)
+            grads = {k: v.cpu() for k, v in tr.leaves_with_paths(grads)}
+            after = {k: v.detach().cpu()
+                     for k, v in tr.leaves_with_paths(params)}
+            del params, batch, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        if in_turn:
+            torch.distributed.barrier()
     before = dict(tr.leaves_with_paths(drawn))
     lr = float(m0['lr'])
-    delta = {k: v - before[k].to(dev) for k, v in after.items()}
+    delta = {k: v - before[k] for k, v in after.items()}
     out = {'backend': str(torch.distributed.get_backend()),
            'meshless': {'loss': float(m0['loss']),
                         'grad_norm': float(m0['grad_norm']), 'lr': lr,
                         'unchanged': min(float(d.abs().max()) / lr
                                          for d in delta.values())}}
-    for shape in ((2, 1), (1, 2)):
+    for shape in shapes:
         mesh = make_mesh(shape, MESH_AXES, device=dev)
-        step = make_train_step(model, mesh, microbatches=MT_MICRO)
+        step = make_train_step(model, mesh, microbatches=micro)
         plan = step.plan
         p = plan.shard_params(drawn)
-        rows = shard_batch(host, plan, MT_MICRO)
-        _, g = mesh_loss_and_grads(model, plan, p, rows, MT_MICRO)
+        rows = shard_batch(host, plan, micro)
+        _, g = mesh_loss_and_grads(model, plan, p, rows, micro)
         p, _, m = step(p, plan.init_opt_state(), rows)
         blocks = lambda tree: {k: (v.detach(), plan.param_blocks[k])  # noqa
                                for k, v in tr.leaves_with_paths(tree)}
         res = {'loss': float(m['loss']), 'grad_norm': float(m['grad_norm']),
                'grads': worst_block(blocks(g), grads),
+               'experts': worst_block({k: v for k, v in blocks(g).items()
+                                       if k in EXPERT_LEAVES}, grads),
                'params': worst_block(blocks(p), after),
                'update': worst_update(blocks(p), before, delta, lr)}
         if shape == (2, 1):
-            off = make_train_step(model, mesh, microbatches=MT_MICRO,
+            off = make_train_step(model, mesh, microbatches=micro,
                                   zero1=False)
             q, _, _ = off(off.plan.shard_params(drawn),
                           off.plan.init_opt_state(), rows)
@@ -3866,7 +3984,7 @@ def mesh_parity(cfg, dev: str) -> dict:
                 sum(x.numel() for x in tr.leaves(s.plan.init_opt_state()['mu']))
                 for s in (step, off)]
         out[shape] = res
-    del params, grads, after, delta
+    del grads, after, delta
     return out
 
 
@@ -4178,6 +4296,589 @@ def mesh_train_check(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: data- and expert-parallel serving, K4 on blocks, MoE training
+# ---------------------------------------------------------------------------
+
+DP_SHAPES = ((2, 1), (2, 2))       # (a): (data, model), 2 and 4 gloo ranks
+EP_SHAPE = (1, 2)                  # (b), (d): 8 experts a rank
+EP_F32_LAYERS = 2                  # (b) the f32 drain's depth, of 32
+EP_LAYERS = MOE_LAYERS             # (b) the bf16 drain's: phase 13's 16
+EP_TRAIN_LAYERS = 1                # (d) f32 depth, of 32 (5.03 GB of
+                                   # experts, then gradients, 2 moments)
+EP_B, EP_S, EP_MICRO = 4, 256, 2   # (d): global batch, 2 microbatches
+K4_BLOCKS = (2, 4)                 # (c): the vocabulary over model
+K4_T = 0.8                         # (c): the sampling temperature
+
+
+HALVES = 'halves'                  # MeshMoEWitness's order null
+
+
+@contextlib.contextmanager
+def halved_products():
+    """While inside, every product of two bf16 tensors (``matmul``, ``@``,
+    ``bmm``, ``mm``) with an even inner dimension sums that dimension as
+    two halves, each over exact products in f32, the halves added in f32
+    and rounded once to the output dtype: a correct implementation that
+    rounds the layers' products other than cuBLAS's single pass, so its
+    scores move on every row -- a null with reach where the attention
+    nulls reproduce the plain path bit for bit."""
+    from torch.overrides import TorchFunctionMode
+
+    names = ('matmul', '__matmul__', 'bmm', 'mm')
+
+    class Halves(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if getattr(func, '__name__', None) in names and len(args) == 2 \
+                    and all(torch.is_tensor(a) and a.dtype == torch.bfloat16
+                            for a in args) and args[0].shape[-1] % 2 == 0:
+                x, w = args
+                k = x.shape[-1] // 2
+                halves = [x[..., i:i + k].float() @ w[..., i:i + k, :].float()
+                          for i in (0, k)]
+                return (halves[0] + halves[1]).to(
+                    kwargs.get('out_dtype') or x.dtype)
+            return func(*args, **kwargs)
+
+    with Halves():
+        yield
+
+
+def null_context(order):
+    """The context of a null ``order``: :func:`halved_products`, one of
+    :data:`NULL_ORDERS` (:func:`plain_kernels`), or None (nothing)."""
+    if order == HALVES:
+        return halved_products()
+    return plain_kernels(order) if order else contextlib.nullcontext()
+
+
+def probe_follower() -> None:
+    """Let this worker rank's followers run probe dispatches: a dispatch
+    whose keywords name ``probe`` runs on a copy of the follower's pool
+    (``probe`` an order of :data:`NULL_ORDERS`: under
+    :func:`plain_kernels` in that order; None: as it is) and leaves the
+    pool as it was.  Rank 0's :class:`MeshMoEWitness` sends them."""
+    from repro_torch.distributed import tp as tpm
+    from repro_torch.kernels.common import LAUNCHES
+
+    run = tpm._Follower.run
+
+    def probed(self, op, host, kw):
+        if 'probe' not in kw:
+            return run(self, op, host, kw)
+        kw = dict(kw)
+        order = kw.pop('probe')
+        pool, counts = self.cache, dict(LAUNCHES)
+        self.cache = {k: v.clone() for k, v in pool.items()}
+        try:
+            with null_context(order):
+                run(self, op, host, kw)
+        finally:
+            self.cache = pool
+            LAUNCHES.update(counts)        # a probe is no main-path launch
+    tpm._Follower.run = probed
+
+
+class MeshMoEWitness(MoEWitness):
+    """Phase 13's :class:`MoEWitness` over a mesh, every score the mesh's
+    own: after each kernel-path step (K1, or K2 + K3, on every rank's
+    kv-heads) the mesh's plain path P, its kernel path K and the nulls
+    (the plain models of the kernels' split algorithms, every rank under
+    the same order) are computed on copies of every rank's pool by probe
+    dispatches (:func:`probe_follower`): the step wrote only its new
+    tokens' slots, which each probe writes again before it reads them.
+    Beside the four attention nulls, the reach takes a fifth: the plain
+    path with every bf16 product summed in halves
+    (:func:`halved_products`).  The attention nulls alone reproduce P bit
+    for bit on some rows, and a token off P's argmax there has reach 0
+    however near the tie (the first card run failed two such rows, gaps
+    1.7e-4 and 9.4e-4 of |max|); the spread gate still reads the kernels'
+    plan null.  No weights beyond the ranks' blocks are held (the bf16
+    expert stacks fill the card), so the single-device plain path is not
+    a witness here; the routing rank 0 sees is the whole dispatch's."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.engine = None
+
+    def decode_fn(self, params, cache, batch, *, use_kernel, tp):
+        from repro_torch.kernels.common import LAUNCHES
+        assert use_kernel
+
+        cache, out = self.model.decode_fn(params, cache, batch,
+                                          use_kernel=True, tp=tp)
+        counts = dict(LAUNCHES)
+
+        def scores(b, kernel, log, order=None):
+            self.engine._leader.announce('decode', host_batch(b),
+                                         use_kernel=kernel, probe=order)
+            c = {k: v.clone() for k, v in cache.items()}
+            with routing_log(log), null_context(order):
+                return self.model.decode_fn(params, c, b, use_kernel=kernel,
+                                            tp=tp)[1]
+
+        logs = {'plain': [], 'kernel': []}
+        unshared = {k: v for k, v in batch.items() if k != 'shared'}
+        plain = scores(unshared, False, logs['plain'])
+        kern = scores(batch, True, logs['kernel'])
+        nulls = [scores(batch, True, [], order) for order in NULL_ORDERS]
+        nulls.append(scores(unshared, False, [], HALVES))
+        LAUNCHES.update(counts)
+        live = (batch['page_table'][:, 0] != 0).nonzero()[:, 0]
+        self._check(out[live].argmax(-1), plain[live], kern[live],
+                    torch.stack(nulls)[:, live])
+        self._routing(logs, live)
+        return cache, out
+
+
+def dp_rank(rank: int, shape, cfg, cut, dev: str, card: str) -> dict:
+    """Phase 18 (a) on one rank of a (data, model) mesh sharing the card:
+    the f32 drain cut to ``cut``'s depth (plain path, unfused), mesh vs
+    meshless, the gathered pool against the meshless one; then the bf16
+    drain at full depth, K1/K2/K3 and K4 on, every fused step under
+    :class:`MeshWitness`; every replica's pool bit-equal
+    (``gather_cache`` refuses replicas that differ); at (2, 2) the burst.
+    Rank 0 leads; the others serve."""
+    from repro_torch.distributed.tp import serve_rank, stop_ranks
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    mesh = make_mesh(shape, MESH_AXES, device=dev)
+    if rank != 0:
+        return serve_rank(mesh)
+    try:
+        out = {'backend': str(torch.distributed.get_backend())}
+        model = build_model(cut)
+        params = f32_copy(model.init_params(0, device=dev))
+        runs = {}
+        for name, m in (('mesh', mesh), ('meshless', None)):
+            rec = Recorder(model)
+            eng = trace_engine(rec, params, MESH_MAX_SEQ, device=dev,
+                               mesh=m, decode_kernel=False)
+            eng.cache = {k: v.float() for k, v in eng.cache.items()}
+            toks = run_trace(eng, MESH_PROMPT_PAGES, MESH_NEW_TOKENS)
+            runs[name] = (toks, rec, eng.gather_cache(),
+                          m is not None and eng._tp.split_rows)
+            eng.close()
+        (m_toks, m_rec, m_pool, split), (s_toks, s_rec, s_pool, _) = \
+            runs['mesh'], runs['meshless']
+        out['f32'] = {
+            'tokens_equal': m_toks == s_toks, 'n_scores': len(m_rec.scores),
+            'same_count': len(m_rec.scores) == len(s_rec.scores),
+            'worst': max(((x - y).abs().max() / y.abs().max()).item()
+                         for x, y in zip(m_rec.scores, s_rec.scores)),
+            'pool': max(cache_rel(m_pool[k], s_pool[k]) for k in m_pool),
+            'split': split}
+        del model, params, runs, m_rec, s_rec, m_pool, s_pool
+
+        model = build_model(cfg)
+        params = model.init_params(0, device=dev)
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        witness = MeshWitness(model, params, mesh.shape['model'])
+        eng = trace_engine(witness, params, MESH_MAX_SEQ, device=dev,
+                           mesh=mesh, decode_kernel=True, fused_sampling=True,
+                           prefix_shared_attention=True)
+        witness.engine = eng
+        witness.shadow = trace_engine(model, params, MESH_MAX_SEQ,
+                                      device=dev, mesh=mesh,
+                                      decode_kernel=False)
+        toks = run_trace(eng, MESH_PROMPT_PAGES, MESH_NEW_TOKENS)
+        launches = dict(LAUNCHES)
+        eng.gather_cache()                 # every replica bit-equal
+        eng.close()
+        witness.shadow.close()
+        out['bf16'] = {
+            'launches': launches, 'engine': eng._leader.id,
+            'n_tokens': sum(map(len, toks)),
+            'saved': eng.stats.shared_page_reads_saved,
+            'ms': 1e3 * statistics.median(witness.decode_s),
+            'failed': witness.verdict(
+                f'mesh {shape}, bf16 fused drain, every decode step', card)}
+        del eng, witness, params
+        if shape == (2, 2):
+            out['burst'] = mesh_burst(cfg, mesh, dev)
+        return out
+    finally:
+        stop_ranks(mesh)
+
+
+def host_params(model) -> dict:
+    """``model``'s seed-0 weights drawn on the card, then moved to the
+    host a leaf at a time (a nested dict of CPU tensors)."""
+    drawn = model.init_params(0, device=DEV)
+
+    def move(node):
+        return {k: move(v) if isinstance(v, (dict, torch.nn.ParameterDict))
+                else v.detach().cpu() for k, v in node.items()}
+    moved = move(drawn)
+    del drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return moved
+
+
+def ep_rank(rank: int, cut, cfg, dev: str, card: str) -> dict:
+    """Phase 18 (b) on one of two ranks sharing the card, experts over
+    ``model``: the f32 MoE drain cut to ``cut``'s depth, mesh vs meshless;
+    then the bf16 drain at ``cfg``'s depth, its weights built on the host
+    and shipped a block at a time (rank 0's card never holds the whole
+    set), K1/K2/K3 at G=4 on each rank's 4 kv-heads, every decode step
+    under :class:`MeshMoEWitness`.  Rank 0 leads; rank 1 serves, running
+    the witness's probes."""
+    from repro_torch.distributed.tp import serve_rank, stop_ranks
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    mesh = make_mesh(EP_SHAPE, MESH_AXES, device=dev)
+    if rank != 0:
+        probe_follower()
+        out = serve_rank(mesh)
+        return dict(out, peak=torch.cuda.max_memory_allocated())
+    try:
+        out = {'backend': str(torch.distributed.get_backend())}
+        model = build_model(cut)
+        params = f32_copy(model.init_params(0, device=dev))
+        runs = {}
+        for name, m in (('meshless', None), ('mesh', mesh)):
+            log = []
+            with routing_log(log):
+                toks, eng = traced(model, params, m, dev, decode_kernel=False)
+            runs[name] = (toks, sum(d for _, d in log))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out['f32'] = {'tokens_equal': runs['mesh'][0] == runs['meshless'][0],
+                      'n_tokens': sum(map(len, runs['mesh'][0])),
+                      'drops': (runs['meshless'][1], runs['mesh'][1])}
+        del model, params, runs, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = host_params(model)
+        whole = sum(w.numel() * w.element_size()
+                    for node in (params, params['layers'])
+                    for w in node.values() if torch.is_tensor(w))
+        drawn_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        witness = MeshMoEWitness(model)
+        t0 = time.perf_counter()
+        eng = trace_engine(witness, params, MESH_MAX_SEQ, device=dev,
+                           mesh=mesh, decode_kernel=True,
+                           prefix_shared_attention=True)
+        open_s = time.perf_counter() - t0
+        del params
+        witness.engine = eng
+        toks = run_trace(eng, MESH_PROMPT_PAGES, MESH_NEW_TOKENS)
+        eng.close()
+        out['bf16'] = {
+            'launches': dict(LAUNCHES), 'engine': eng._leader.id,
+            'n_tokens': sum(map(len, toks)), 'whole': whole,
+            'block': sum(w.numel() * w.element_size()
+                         for w in eng.params.parameters()),
+            'peak': torch.cuda.max_memory_allocated(),
+            'drawn_s': drawn_s, 'open_s': open_s,
+            'saved': eng.stats.shared_page_reads_saved,
+            'route': (witness.route_diff, witness.route_total),
+            'dropped': dict(witness.dropped),
+            'failed': witness.verdict(
+                f'MoE mesh {EP_SHAPE}, bf16 drain, every decode step', card)}
+        return out
+    finally:
+        stop_ranks(mesh)
+
+
+def ep_train_rank(rank: int, cut, dev: str) -> dict:
+    """Phase 18 (d) on one of two ranks sharing the card: phase 17 (a)'s
+    parity, phi3.5-moe cut to ``cut``'s depth, at (1, 2), and the
+    hand-written kernel launches (none: the trainer runs the plain
+    paths)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    torch.cuda.reset_peak_memory_stats()
+    out = mesh_parity(cut, dev, shapes=(EP_SHAPE,), b=EP_B, s=EP_S,
+                      micro=EP_MICRO, in_turn=True)
+    return {'parity': out, 'peak': torch.cuda.max_memory_allocated(),
+            'launches': dict(LAUNCHES)}
+
+
+def local_noise_kernel():
+    """K4 built from a copy of ``sampling.cu`` that draws each block's
+    noise at its local columns (the global index still reported): the
+    mutant the block check must reject.  Returns ``fn(last, head, seed,
+    temperature, col0)`` -> (values, columns)."""
+    import ctypes
+
+    from repro_torch.kernels import common as kc
+    from repro_torch.kernels.sampling import ops as so
+
+    text = (ROOT / SOURCES['unembed_sample'][0]).read_text()
+    drawn = 'gumbel(seed, row0 + col, col0 + row)'
+    assert text.count(drawn) == 1, 'no global-column draw to mutate'
+    out_dir = kc.library_path().parent / 'k4_local'
+    out_dir.mkdir(exist_ok=True)
+    src, lib = out_dir / 'sampling_local.cu', out_dir / 'libk4_local.so'
+    src.write_text(text.replace(drawn, 'gumbel(seed, row0 + col, row)'))
+    subprocess.run([kc._nvcc(), *kc.NVCC_FLAGS, '-I',
+                    str((ROOT / SOURCES['unembed_sample'][0]).parent),
+                    '-shared', '-o', str(lib), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).valve_unembed_sample
+    fn.argtypes, fn.restype = list(so._ARGS), ctypes.c_int
+
+    def run(last, head, seed, temperature, col0):
+        b, d = last.shape
+        v = head.shape[0]
+        rows = so.plan_vocab_ranges(v, sms())
+        n_ctas = -(-v // rows)
+        part_v = torch.empty((n_ctas, b), dtype=torch.float32, device=DEV)
+        part_i = torch.empty((n_ctas, b), dtype=torch.int32, device=DEV)
+        val = torch.empty((b,), dtype=torch.float32, device=DEV)
+        idx = torch.empty((b,), dtype=torch.int32, device=DEV)
+        kc.check_launch(fn(last.data_ptr(), head.data_ptr(), b, d, v, rows,
+                           float(temperature), seed, 0, col0,
+                           part_v.data_ptr(), part_i.data_ptr(),
+                           val.data_ptr(), idx.data_ptr(),
+                           kc.stream_ptr(last)), 'K4, noise at local columns')
+        return val, idx
+    return run
+
+
+def k4_block_check(card: str) -> list:
+    """Phase 18 (c): K4 over n = 2 and 4 blocks of qwen3-0.6b's head (V =
+    151936, D = 1024, B = 8: a rank's block as its own tensor), at T = 0
+    and T > 0, with winners tied exactly across the first block boundary,
+    combined (larger value, ties to the lower column): bit-equal to K4 over
+    the whole head and to the combine of the plain block version up to
+    f32-order ties; rows from row0 = 3 draw the whole batch's noise; the
+    local-column mutant rejected.  Each block's time, the combine's, their
+    bounds and library times.  Returns the timing lines' numbers."""
+    from repro_torch.kernels.common import gumbel_hash_noise
+    from repro_torch.kernels.sampling.ops import (fused_unembed_sample,
+                                                  unembed_argmax_block)
+    from repro_torch.kernels.sampling.ref import (combine_bests,
+                                                  unembed_argmax_block_ref,
+                                                  unembed_scores)
+
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    v, d = V_QWEN, D_QWEN
+    head = (torch.randn((v, d), generator=gen, device=DEV)
+            * d ** -0.5).to(torch.bfloat16)
+    last = torch.randn((B, d), generator=gen, device=DEV).to(torch.bfloat16)
+    mutant = local_noise_kernel()
+    timer, rows = Timer(), []
+    for n in K4_BLOCKS:
+        w = v // n
+        assert v % n == 0
+        h = head.clone()
+        # rows 0, 1: winners just before the first block edge, the same
+        # bits again just past it
+        lf = last[:2].float()
+        h[[w - 1, w - 2]] = (lf * (64.0 / lf.pow(2).sum(-1, keepdim=True))
+                             ).to(h.dtype)
+        h[w], h[w + 5] = h[w - 1], h[w - 2]
+        blocks = [h[c:c + w].contiguous() for c in range(0, v, w)]
+        for t in (0.0, K4_T):
+            def pick(fn, x=last, row0=0):
+                parts = [fn(x, blk, 11, t, row0, c * w)
+                         for c, blk in enumerate(blocks)]
+                return combine_bests(torch.stack([p[0] for p in parts]),
+                                     torch.stack([p[1] for p in parts]))
+            kern = lambda x, blk, seed, t, row0, col0: unembed_argmax_block(  # noqa
+                x, blk, seed, temperature=t, row0=row0, col0=col0)
+            plain = lambda x, blk, seed, t, row0, col0: \
+                unembed_argmax_block_ref(x, blk, seed, temperature=t,  # noqa
+                                         row0=row0, col0=col0)
+            whole = fused_unembed_sample(last, h, 11, temperature=t)
+            got, ref = pick(kern), pick(plain)
+            assert torch.equal(got, whole), (n, t, got, whole)
+            if t == 0.0:
+                assert got[:2].tolist() == [w - 1, w - 2], got
+            scores = unembed_scores(last, h)
+            if t > 0:
+                scores = scores / t + gumbel_hash_noise(
+                    11, torch.arange(B, device=DEV)[:, None],
+                    torch.arange(v, device=DEV)[None, :])
+            for r, (a, b) in enumerate(zip(got.tolist(), ref.tolist())):
+                assert a == b or near_tie(scores[r], a, b), (n, t, r, a, b)
+            sub = pick(kern, last[3:], 3)
+            assert torch.equal(sub, whole[3:]), (n, t, sub, whole)
+            if t > 0:
+                bad = pick(lambda x, blk, seed, t, row0, col0: mutant(
+                    x, blk, seed, t, col0))
+                assert not torch.equal(bad, whole), \
+                    f'K4 noise at local columns not rejected (n={n})'
+        vals = torch.randn((n, B), generator=gen, device=DEV)
+        idxs = torch.randint(0, v, (n, B), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        blk = blocks[0]
+        t_blk = timer(lambda: unembed_argmax_block(last, blk, 11,
+                                                   temperature=K4_T))
+        lib_blk = timer(lambda: torch.argmax(last @ blk.T, dim=-1))
+        t_cmb = timer(lambda: combine_bests(vals, idxs))
+        lib_cmb = timer(lambda: idxs.gather(0, vals.argmax(0)[None]))
+        b_blk = bound(w * d * 2 + B * d * 2 + B * 8, 2 * B * w * d)
+        b_cmb = bound(n * B * 8 + B * 4, 2 * n * B)
+        print(f'  K4 over a block of {w} x {d} (n={n}, B={B}, T={K4_T}): '
+              f'ms {t_blk:.4f}  library_ms {lib_blk:.4f} (argmax(last @ '
+              f'W_block.T))  bound_ms {b_blk[0]:.4f} ({b_blk[1]}); the '
+              f'combine of {n} (value, column) bests: ms {t_cmb:.4f}  '
+              f'library_ms {lib_cmb:.4f} (argmax over the blocks, then the '
+              f'gather of its column)  bound_ms {b_cmb[0]:.6f} '
+              f'({b_cmb[1]})  [{card}]')
+        rows.append((n, t_blk, lib_blk, b_blk[0], t_cmb, lib_cmb, b_cmb[0]))
+    print(f'  K4 on blocks: n = {K4_BLOCKS}, T = 0 and {K4_T}: the combine '
+          f'bit-equal to K4 over the whole head, ties across the block '
+          f'edge to the first, row0 = 3 equal, the plain block version '
+          f'equal up to f32-order ties, the local-column mutant rejected  '
+          f'[{card}]')
+    return rows
+
+
+def dp_ep_check(card: str):
+    """Phase 18: (a) data-parallel serving of qwen3-0.6b at (2, 1) and
+    (2, 2); (b) the MoE engine over (1, 2); (c) K4 on blocks; (d) MoE
+    training over (1, 2).  Returns the phase's main-path launches (the
+    bf16 drains of (a) and (b), every rank) and what the witnesses
+    failed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    cfg = get_config(MESH_ARCH)
+    cut = dataclasses.replace(cfg, n_layers=MESH_F32_LAYERS)
+    launches, failed = None, []
+
+    def add(counts):
+        nonlocal launches
+        launches = dict(counts) if launches is None else {
+            k: launches[k] + counts[k] for k in launches}
+
+    for shape in DP_SHAPES:
+        t0 = time.perf_counter()
+        ranks = run_ranks(dp_rank, int(np.prod(shape)), store_dir=store,
+                          device_type=kind,
+                          args=(shape, cfg, cut, DEV, card),
+                          timeout_s=MESH_TIMEOUT_S)
+        lead, f32, bf16 = ranks[0], ranks[0]['f32'], ranks[0]['bf16']
+        others = [r['launches'][bf16['engine']] for r in ranks[1:]]
+        print(f'  (a) {MESH_ARCH} on (data, model) = {shape} '
+              f'({lead["backend"]}, {len(ranks)} ranks on one card, '
+              f'{time.perf_counter() - t0:.1f} s): f32 at {MESH_F32_LAYERS} '
+              f'of {cfg.n_layers} layers, rows split over data '
+              f'{f32["split"]}: tokens equal to the meshless drain '
+              f'{f32["tokens_equal"]}, max |mesh - meshless| '
+              f'{f32["worst"]:.3e} of |max| over {f32["n_scores"]} score '
+              f'blocks, gathered pool off the meshless one by '
+              f'{f32["pool"]:.3e}; bf16 full depth, fused: '
+              f'{bf16["n_tokens"]} tokens, shared_page_reads_saved '
+              f'{bf16["saved"]}, replicas bit-equal, decode step '
+              f'{bf16["ms"]:.2f} ms (median, ranks time-slicing one card: '
+              f'recorded, not a claim), launches rank 0 {bf16["launches"]}, '
+              f'the others {others}  [{card}]')
+        assert f32['tokens_equal'] and f32['same_count'] and f32['split'], \
+            f32
+        assert f32['worst'] <= MESH_TOL and f32['pool'] <= MESH_TOL, f32
+        assert bf16['saved'] > 0
+        for r, counts in enumerate([bf16['launches']] + others):
+            assert all(counts[k] > 0 for k in DECODE_KERNELS), \
+                (shape, r, counts)
+            add(counts)
+        failed += bf16['failed']
+        if 'burst' in lead:
+            burst = lead['burst']
+            print(f'  (a) burst on {shape}: {burst["gates"]} gates, '
+                  f'{burst["events"]} preemption events, device latencies '
+                  f'an event {burst["latencies"]}, max preemptions per '
+                  f'(request, device) {burst["max_per_device"]}, finished '
+                  f'{burst["finished"]}  [{card}]')
+            assert burst['gates'] == 4 and burst['latencies'] == [4], burst
+            assert burst['events'] > 0 and burst['max_per_device'] <= 1
+            assert burst['finished'] == [1, 2], burst
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = get_config(MOE_ARCH)
+    moe_cut = dataclasses.replace(moe, n_layers=EP_F32_LAYERS)
+    moe_cfg = dataclasses.replace(moe, n_layers=EP_LAYERS)
+    t0 = time.perf_counter()
+    lead, worker = run_ranks(ep_rank, 2, store_dir=store, device_type=kind,
+                             args=(moe_cut, moe_cfg, DEV, card),
+                             timeout_s=MESH_TIMEOUT_S)
+    f32, bf16 = lead['f32'], lead['bf16']
+    rank1 = worker['launches'][bf16['engine']]
+    print(f'  (b) {MOE_ARCH} on (data, model) = {EP_SHAPE} '
+          f'({lead["backend"]}, {time.perf_counter() - t0:.1f} s), 8 '
+          f'experts a rank: f32 at {EP_F32_LAYERS} of 32 layers: '
+          f'{f32["n_tokens"]} tokens equal to the meshless drain '
+          f'{f32["tokens_equal"]}, assignments dropped (meshless, mesh) '
+          f'{f32["drops"]}; bf16 at {EP_LAYERS} of 32 layers: weights '
+          f'{bf16["whole"] / 1e9:.2f} GB built on the host in '
+          f'{bf16["drawn_s"]:.1f} s, shipped in {bf16["open_s"]:.1f} s, '
+          f'rank 0 holds {bf16["block"] / 1e9:.2f} GB of them, peak '
+          f'{bf16["peak"] / 1e9:.2f} GB (rank 1 {worker["peak"] / 1e9:.2f} '
+          f'GB); {bf16["n_tokens"]} tokens, shared_page_reads_saved '
+          f'{bf16["saved"]}; routing: {bf16["route"][0]} of '
+          f'{bf16["route"][1]} live token-layers choose another expert set '
+          f'on the kernel path than on the mesh\'s plain path, dropped '
+          f'{bf16["dropped"]}; launches rank 0 {bf16["launches"]}, rank 1 '
+          f'{rank1}  [{card}]')
+    assert f32['tokens_equal'] and sum(f32['drops']) > 0, f32
+    assert bf16['peak'] < bf16['whole'], bf16
+    assert bf16['saved'] > 0
+    for counts in (bf16['launches'], rank1):
+        need_launches(counts, 'MoE mesh')
+        add(counts)
+    failed += bf16['failed']
+
+    k4_block_check(card)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_cut = dataclasses.replace(moe, n_layers=EP_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    ranks = run_ranks(ep_train_rank, 2, store_dir=store, device_type=kind,
+                      args=(t_cut, DEV), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    ref = ranks[0]['parity']['meshless']
+    res = [r['parity'][EP_SHAPE] for r in ranks]
+    lead = res[0]
+    loss_rel = abs(lead['loss'] - ref['loss']) / abs(ref['loss'])
+    norm_rel = abs(lead['grad_norm'] - ref['grad_norm']) / ref['grad_norm']
+    grads, params = max(r['grads'] for r in res), max(r['params'] for r in res)
+    experts = max(r['experts'] for r in res)
+    update = max(r['update'] for r in res)
+    print(f'  (d) {MOE_ARCH} training at {EP_TRAIN_LAYERS} of 32 layers, '
+          f'f32, {EP_SHAPE} ({time.perf_counter() - t0:.1f} s, 2 ranks on '
+          f'one card), B={EP_B}, S={EP_S}, {EP_MICRO} microbatches, a loss '
+          f'mask: loss {lead["loss"]:.7f} vs meshless {ref["loss"]:.7f} '
+          f'(rel {loss_rel:.3e}), grad_norm {lead["grad_norm"]:.6f} vs '
+          f'{ref["grad_norm"]:.6f} (rel {norm_rel:.3e}); worst gradient '
+          f'leaf {grads:.3e} (router and we_*: {experts:.3e}), worst '
+          f'parameter leaf {params:.3e} of its max (gate {MT_TOL:g}); '
+          f'worst leaf update off the meshless one {update:.3e} of lr '
+          f'(gate {MT_UPDATE_TOL:g}); peak memory rank 0 '
+          f'{ranks[0]["peak"] / 1e9:.2f} GB, rank 1 '
+          f'{ranks[1]["peak"] / 1e9:.2f} GB  [{card}]')
+    assert all(r['loss'] == lead['loss'] and
+               r['grad_norm'] == lead['grad_norm'] for r in res), res
+    assert loss_rel <= MT_TOL and norm_rel <= MT_TOL, (lead, ref)
+    assert grads <= MT_TOL and params <= MT_TOL, (grads, params)
+    assert update <= MT_UPDATE_TOL and ref['unchanged'] >= 3 * MT_UPDATE_TOL
+    assert not any(v for r in ranks for v in r['launches'].values())
+    return launches, failed
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -4327,7 +5028,15 @@ def main() -> int:
     by_phase['train_mesh'] = mesh_train_check(card)
     done()
 
-    print(f'[18] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[18] data- and expert-parallel serving: {MESH_ARCH} on (data, '
+          f'model) = {DP_SHAPES[0]} and {DP_SHAPES[1]} (K1-K4 on each '
+          f'rank\'s rows and blocks), {MOE_ARCH} over {EP_SHAPE}, K4 on '
+          f'{K4_BLOCKS} vocabulary blocks, MoE training over {EP_SHAPE}')
+    by_phase['mesh_dp_ep'], failed = dp_ep_check(card)
+    witnessed += failed
+    done()
+
+    print(f'[19] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

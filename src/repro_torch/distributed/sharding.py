@@ -242,6 +242,33 @@ def tree_spec_shaped(logical_tree, shapes_tree, rules: Dict[str, AxisVal],
         logical_tree, shapes_tree)
 
 
+# The serving batch's mesh axes (``SERVE_RULES['batch']``; the trainer's
+# data axes, ``training.train_step.DATA_AXES``, are the same pair).
+BATCH_AXES: Tuple[str, ...] = ('pod', 'data')
+
+
+def batch_coords(mesh, coords: Optional[Dict[str, int]] = None,
+                 axes: Sequence[str] = BATCH_AXES) -> Tuple[int, int]:
+    """(ranks over the mesh's ``axes``, the index of rank ``coords`` (the
+    calling rank's by default) among them): row-major in the order ``axes``
+    names them, the block order of ``local_bounds``."""
+    coords = mesh.coords() if coords is None else coords
+    n, index = 1, 0
+    for a in axes:
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+            index = index * mesh.shape[a] + coords[a]
+    return n, index
+
+
+def row_block(rows: int, parts: int, index: int) -> Tuple[int, int]:
+    """[lo, hi) of a dispatch's ``rows`` that batch rank ``index`` of
+    ``parts`` computes: contiguous blocks in rank order, or every row where
+    ``parts`` does not divide ``rows`` (replicated, as ``shaped_spec``
+    drops an axis that does not divide its dimension)."""
+    return block(rows, parts, index) if rows % parts == 0 else (0, rows)
+
+
 def block(size: int, parts: int, index: int) -> Tuple[int, int]:
     """[lo, hi) of block ``index`` when ``size`` splits into ``parts``."""
     if size % parts:

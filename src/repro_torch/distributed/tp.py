@@ -59,6 +59,28 @@ qwen3's q/k norms, one vector for every head, over all the ranks
 path stays op for op what it was: each of these applies only to a tensor
 that requires grad.
 
+**Data-parallel serving.**  The batch axes (``pod``, ``data``:
+``SERVE_RULES['batch']``) split each dispatch's ``max_batch`` rows into
+contiguous blocks in rank order (:func:`~repro_torch.distributed.sharding.
+row_block`; every row where they do not divide it): a rank computes its
+block's rows over its ``model`` blocks, and the weights are replicated over
+the batch axes.  The pool is replicated too (the reference keeps ``pages``
+unsharded, and a row's pages may be read by another batch rank at the next
+dispatch), so every replica writes every row's K/V: each layer's new K/V
+rows are gathered over the batch axes before they are written.  The scores
+and the sampled tokens are gathered over the batch axes, so every rank
+holds the whole batch's.
+
+**Expert parallelism.**  Where ``model`` divides the experts, rank r holds
+experts [r E/n, (r+1) E/n) of ``we_gate``/``we_up``/``we_down`` and their
+``router`` columns (``expert`` over ``model`` in ``SERVE_RULES`` and
+``TRAIN_RULES``); where it does not, every rank holds every expert and
+cuts each one's ``d_ff`` (the reference's ``shaped_spec`` moves the axis
+onto another dimension; the function computed is the same).  The router's
+logits are gathered over ``model`` before the softmax, so every rank routes
+alike; a rank runs its experts on its slots and its f32 partial joins one
+:func:`reduce_sum` (``models/moe.py``).
+
 Transport: the dispatch messages over the default group's host side
 (``broadcast_object_list``), weight shards rank 0 -> worker and the cache
 gather worker -> rank 0 as host tensors (``send`` / ``gather`` on CPU
@@ -76,7 +98,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import block
+from repro_torch.distributed.sharding import (BATCH_AXES, batch_coords,
+                                              block, row_block)
+from repro_torch.kernels.sampling.ref import combine_bests
 
 MODEL = 'model'
 
@@ -112,6 +136,31 @@ class _CopyToModel(torch.autograd.Function):
         return total.to(grad.dtype), None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: every rank's block of the last dimension, gathered in rank
+    order over ``group``; backward: this rank's block of the gradient (the
+    computation after the gather is replicated, so every rank holds the
+    whole gradient already: no sum)."""
+
+    @staticmethod
+    def forward(ctx, part, group, rank):
+        ctx.width, ctx.rank = part.shape[-1], rank
+        return _gather_last(part, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.width
+        return grad[..., lo:lo + ctx.width], None, None
+
+
+def _gather_last(part: torch.Tensor, group) -> torch.Tensor:
+    n = torch.distributed.get_world_size(group)
+    rows = part.movedim(-1, 0).contiguous()
+    out = rows.new_empty((n * rows.shape[0],) + tuple(rows.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, rows, group=group)
+    return out.movedim(0, -1)
+
+
 def _traced(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
@@ -132,12 +181,17 @@ def head_blocks(n_heads: int, n_kv: int, n: int,
 class TensorParallel:
     """One rank's plan over a mesh's ``model`` axis, and the collectives of
     the tensor-parallel forward.  ``coords`` (axis -> coordinate) defaults
-    to the mesh's own rank's; another rank's plan needs no process group."""
+    to the mesh's own rank's; another rank's plan needs no process group.
+    ``max_batch``: a serving plan's dispatch rows, cut over the batch axes
+    (:attr:`rows`); a plan without it (the trainer's) computes every row
+    of what it is given."""
 
-    def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None):
+    def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
+                 *, max_batch: Optional[int] = None):
         self.cfg, self.mesh = cfg, mesh
+        coords = mesh.coords() if coords is None else coords
         self.n = mesh.shape.get(MODEL, 1)
-        self.rank = (mesh.coords() if coords is None else coords).get(MODEL, 0)
+        self.rank = coords.get(MODEL, 0)
         self.q_heads, self.kv_heads = head_blocks(
             cfg.n_heads, cfg.n_kv_heads, self.n, self.rank)
         self.attn_split = self.q_heads != (0, cfg.n_heads)
@@ -148,7 +202,21 @@ class TensorParallel:
         self.ffn = self._split(cfg.d_ff)
         self.vocab = self._split(cfg.vocab_size)
         self.vocab_split = self.vocab != (0, cfg.vocab_size)
-        self._group = None
+        # experts: whole ones where model divides them, else every expert
+        # with its d_ff cut (module docstring)
+        e = cfg.n_experts
+        self.experts = self._split(e) if e else (0, 0)
+        self.expert_split = self.experts != (0, e)
+        self.expert_ffn = (0, cfg.d_ff) if self.expert_split else self.ffn
+        self.experts_partial = self.expert_split or self.ffn != (0, cfg.d_ff)
+        self.shared_ffn = self._split(cfg.d_ff * max(cfg.n_shared_experts, 1))
+        # the serving batch's rows over the batch axes
+        self.n_batch, self.batch_index = (
+            batch_coords(mesh, coords) if max_batch else (1, 0))
+        self.rows = slice(*row_block(max_batch or 1, self.n_batch,
+                                     self.batch_index))
+        self.split_rows = self.rows.stop - self.rows.start < (max_batch or 1)
+        self._group = self._batch_group = None
 
     def _split(self, size: int) -> Tuple[int, int]:
         return block(size, self.n, self.rank) if size % self.n == 0 \
@@ -159,6 +227,25 @@ class TensorParallel:
         if self._group is None:
             self._group = self.mesh.group(MODEL)
         return self._group
+
+    @property
+    def batch_group(self):
+        """The group of the ranks that hold this rank's ``model`` blocks
+        and the other rows of its dispatches (made on first use, at one
+        point of every rank's forward)."""
+        if self._batch_group is None:
+            self._batch_group = self.mesh.group(
+                tuple(a for a in BATCH_AXES if a in self.mesh.axis_names))
+        return self._batch_group
+
+    @property
+    def data(self) -> Optional['DataShare']:
+        """This rank's place among the batch ranks of a dispatch whose rows
+        are split (MoE routes the whole dispatch: ``models/moe.py``), or
+        None."""
+        if not self.split_rows:
+            return None
+        return DataShare(self.batch_group, self.n_batch, self.batch_index)
 
     @property
     def kv_group(self):
@@ -183,11 +270,16 @@ class TensorParallel:
         hd = self.cfg.hd
         q = (self.q_heads[0] * hd, self.q_heads[1] * hd)
         kv = (self.kv_heads[0] * hd, self.kv_heads[1] * hd)
+        ex, ef, sf = self.experts, self.expert_ffn, self.shared_ffn
+        up = {1: ex} if self.expert_split else {3: ef}
         return {
             'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
             'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
             'wk': {2: kv}, 'wv': {2: kv}, 'bk': {1: kv}, 'bv': {1: kv},
             'wg': {2: self.ffn}, 'wu': {2: self.ffn}, 'wd': {1: self.ffn},
+            'router': {2: ex}, 'we_gate': up, 'we_up': up,
+            'we_down': {1: ex} if self.expert_split else {2: ef},
+            'ws_gate': {2: sf}, 'ws_up': {2: sf}, 'ws_down': {1: sf},
         }.get(key, {})
 
     def shard(self, key: str, full):
@@ -199,12 +291,15 @@ class TensorParallel:
         return out
 
     def shard_params(self, params) -> nn.ParameterDict:
-        """The global weights cut to this rank's blocks (copies where cut)."""
+        """The global weights cut to this rank's blocks, on the mesh's
+        device (copies where cut or moved; the weights may lie on the
+        host)."""
         def build(node, key):
             if isinstance(node, (dict, nn.ParameterDict)):
                 return nn.ParameterDict({k: build(v, k)
                                          for k, v in node.items()})
-            return nn.Parameter(self.shard(key, node.detach()).contiguous(),
+            part = self.shard(key, node.detach())
+            return nn.Parameter(part.to(self.mesh.device).contiguous(),
                                 requires_grad=False)
         return build(params, None)
 
@@ -282,20 +377,71 @@ class TensorParallel:
         """(B, V/n) blocks of scores -> (B, V), blocks in rank order."""
         if self.n == 1 or self.vocab == (0, self.cfg.vocab_size):
             return scores
-        b = scores.shape[0]
-        parts = scores.new_empty((self.n * b,) + scores.shape[1:])
-        torch.distributed.all_gather_into_tensor(parts, scores.contiguous(),
-                                                 group=self.group)
-        return torch.cat(parts.split(b), dim=-1)
+        return _gather_last(scores, self.group)
 
-    def from_first(self, x: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``x`` on every rank (the fused path's sampled tokens:
-        rank 0's sample is the one the engine records)."""
-        if self.n > 1:
-            torch.distributed.broadcast(
-                x, src=torch.distributed.get_global_rank(self.group, 0),
-                group=self.group)
+    def gather_experts(self, logits):
+        """(N, E/n) router logits of this rank's experts -> (N, E), blocks
+        in rank order; under autograd the gradient keeps this rank's
+        block (:class:`_GatherFromModel`)."""
+        if not self.expert_split:
+            return logits
+        if _traced(logits):
+            return _GatherFromModel.apply(logits, self.group, self.rank)
+        return _gather_last(logits, self.group)
+
+    def combine_argmax(self, value, index):
+        """Each rank's best (B,) (value, global column) of its vocabulary
+        block -> the (B,) int32 columns of the best over every rank: the
+        larger value, ties to the lower column (blocks lie in rank order,
+        so that is the first occurrence over the whole head).  Every rank
+        gets the same columns."""
+        if not self.vocab_split:
+            return index
+        b = value.shape[0]
+        vals = value.new_empty((self.n * b,))
+        idxs = index.new_empty((self.n * b,))
+        torch.distributed.all_gather_into_tensor(vals, value.contiguous(),
+                                                 group=self.group)
+        torch.distributed.all_gather_into_tensor(idxs, index.contiguous(),
+                                                 group=self.group)
+        return combine_bests(vals.view(self.n, b), idxs.view(self.n, b))
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (:attr:`rows`) of a dispatch -> every row,
+        gathered over the batch axes in rank order; ``x`` itself where the
+        rows are not split."""
+        if not self.split_rows:
+            return x
+        x = x.contiguous()
+        out = x.new_empty((self.n_batch * x.shape[0],) + tuple(x.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, x,
+                                                 group=self.batch_group)
+        return out
+
+    def local(self, x):
+        """This rank's rows of a dispatch's per-row tensor (or None)."""
+        return x if x is None or not self.split_rows else x[self.rows]
+
+
+class DataShare:
+    """A rank's place among the ``n`` data (batch) ranks of a call whose
+    rows are split over them (``Model.loss_fn(data=)``, a serving plan's
+    :attr:`TensorParallel.data`): rank ``index`` holds the rows after those
+    of ranks 0 .. index-1."""
+
+    def __init__(self, group, n: int, index: int):
+        self.group, self.n, self.index = group, n, index
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data ranks, in place."""
+        torch.distributed.all_reduce(x, group=self.group)
         return x
+
+    def before(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the lower data ranks (zeros on the first)."""
+        rows = x.new_zeros((self.n,) + tuple(x.shape))
+        rows[self.index] = x
+        return self.sum(rows)[:self.index].sum(0)
 
 
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -338,16 +484,18 @@ class _F32Product(torch.autograd.Function):
 
 def check_mesh(cfg, mesh) -> None:
     """What an engine serves under a mesh, and what it refuses (the
-    trainer's check is ``training.train_step.check_train_mesh``)."""
-    if cfg.family not in ('dense', 'vlm'):
+    trainer's check is ``training.train_step.check_train_mesh``): the
+    paged-KV families the engine serves, on the ``pod``/``data`` batch
+    axes and the ``model`` axis."""
+    if cfg.family not in ('dense', 'vlm', 'moe'):
         raise NotImplementedError(
-            f'a {cfg.family!r} engine under a mesh is not ported yet '
-            '(ROADMAP Queue 1 item 10b: expert parallelism for moe)')
-    other = {a: s for a, s in mesh.shape.items() if a != MODEL and s > 1}
+            f'a {cfg.family!r} engine under a mesh: the engine serves the '
+            'paged-KV families only')
+    other = [a for a in mesh.axis_names if a not in BATCH_AXES + (MODEL,)]
     if other:
         raise NotImplementedError(
-            f'mesh axes {other}: only the model axis may exceed 1 (ROADMAP '
-            'Queue 1 item 10b: data-parallel serving)')
+            f'mesh axes {other}: an engine serves over {BATCH_AXES} (the '
+            'batch) and model only')
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +560,9 @@ class Leader:
         for path, full in leaves:
             for r in self.workers:
                 part = plans[r].shard(path[-1], full.detach())
-                # staged through host memory: gloo sends host tensors only
+                # staged through host memory (gloo sends host tensors only),
+                # a block at a time: weights on the host are never copied
+                # whole to the card
                 torch.distributed.send(part.cpu().contiguous(), dst=r)
 
     def announce(self, op: str, host, **kw) -> None:
@@ -434,7 +584,10 @@ class Leader:
 
 def _gather_cache(cache, cfg, mesh):
     """Every rank's pool block to rank 0 (host copies: gloo gathers host
-    tensors), placed at its kv-heads; None on the other ranks."""
+    tensors), placed at its kv-heads; None on the other ranks.  A block
+    held by several ranks (the batch axes' replicas, a kv-head replicated
+    over ``model``) is read from the first and must be bit-equal on the
+    others."""
     dist = torch.distributed
     ranks = [int(r) for r in mesh.devices.flatten()]
     out = {}
@@ -448,8 +601,16 @@ def _gather_cache(cache, cfg, mesh):
         shape = list(local.shape)
         shape[3] = cfg.n_kv_heads
         full = torch.empty(shape, dtype=local.dtype)
+        first: Dict[Tuple[int, int], int] = {}
         for r, part in zip(ranks, parts):
             lo, hi = TensorParallel(cfg, mesh, mesh.coords(r)).kv_heads
+            if (lo, hi) in first:
+                if not torch.equal(full[:, :, :, lo:hi], part):
+                    raise AssertionError(
+                        f'pool replicas differ: rank {r} against rank '
+                        f'{first[lo, hi]}, kv-heads [{lo}, {hi})')
+                continue
+            first[lo, hi] = r
             full[:, :, :, lo:hi] = part
         out[key] = full.to(cache[key].device)
     return out if out else None
@@ -472,7 +633,7 @@ class _Follower:
         from repro_torch.models.api import build_model
 
         self.model = build_model(cfg)
-        self.tp = TensorParallel(cfg, mesh)
+        self.tp = TensorParallel(cfg, mesh, max_batch=max_batch)
         shapes = self.model.param_shapes()
         params: Dict = {}
         for path, dtype in leaves:

@@ -39,8 +39,14 @@
 //   column across the CTA's tiles; then the 8 lanes that share a column
 //   (shuffles), then the 4 warps (shared memory): one (value, index)
 //   partial per (CTA, batch row).  A second small kernel reduces the
-//   partials.  The TPU kernel carried the argmax across a sequential grid;
-//   the CTAs here run in parallel and in no order.
+//   partials into each row's best (value, index).  The TPU kernel carried
+//   the argmax across a sequential grid; the CTAs here run in parallel and
+//   in no order.
+// - A block of the head (a vocabulary split over ranks): `col0` is the
+//   block's first column in the whole head.  The noise is drawn, and the
+//   index reported, at the global column col0 + row, so each rank's best
+//   (value, index) over its block, combined over the ranks (larger value,
+//   then lower index), is the whole head's pick.
 // - One launch takes at most 16 batch rows; the wrapper launches once per
 //   block of 16 rows, so a larger batch reads the head once per block.
 //
@@ -154,7 +160,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 unembed_wgmma_kernel(const __grid_constant__ CUtensorMap head_map,
                      const __grid_constant__ CUtensorMap last_map, int batch, int d, int vocab,
                      int tiles_per_cta, int stages, float temperature, uint32_t seed,
-                     uint32_t row0, float* __restrict__ part_val, int* __restrict__ part_idx) {
+                     uint32_t row0, int col0, float* __restrict__ part_val,
+                     int* __restrict__ part_idx) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ float red_val[kConsumers / 32][kMaxBatch];
   __shared__ int red_idx[kConsumers / 32][kMaxBatch];
@@ -237,11 +244,11 @@ unembed_wgmma_kernel(const __grid_constant__ CUtensorMap head_map,
         const int row = ra + ((i & 2) ? 8 : 0);
         if (col < batch && row < vocab) {
           float sc = acc[i];
-          if (temperature > 0.f) sc = sc / temperature + gumbel(seed, row0 + col, row);
+          if (temperature > 0.f) sc = sc / temperature + gumbel(seed, row0 + col, col0 + row);
           const int cs = 2 * (i / 4) + (i & 1);
           if (sc > best_v[cs]) {                     // strict: first occurrence wins
             best_v[cs] = sc;
-            best_i[cs] = row;
+            best_i[cs] = col0 + row;
           }
         }
       }
@@ -284,7 +291,7 @@ unembed_wgmma_kernel(const __grid_constant__ CUtensorMap head_map,
 // grid (B): reduce the per-CTA partials of one batch row.
 __global__ void argmax_reduce_kernel(const float* __restrict__ part_val,
                                      const int* __restrict__ part_idx, int batch, int n_parts,
-                                     int* __restrict__ out) {
+                                     float* __restrict__ out_val, int* __restrict__ out) {
   __shared__ float red_val[kReduceThreads];
   __shared__ int red_idx[kReduceThreads];
   const int b = blockIdx.x;
@@ -310,7 +317,10 @@ __global__ void argmax_reduce_kernel(const float* __restrict__ part_val,
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[b] = red_idx[0];
+  if (threadIdx.x == 0) {
+    out_val[b] = red_val[0];
+    out[b] = red_idx[0];
+  }
 }
 
 // A 2-D map (D, rows) over a contiguous (rows, D) bf16 matrix; boxes of 64
@@ -329,7 +339,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int d,
 template <int N>
 cudaError_t launch(const void* last, const void* head, int batch, int d, int vocab,
                    int tiles_per_cta, float temperature, uint32_t seed, uint32_t row0,
-                   float* part_val, int* part_idx, cudaStream_t stream) {
+                   int col0, float* part_val, int* part_idx, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap head_map, last_map;
@@ -348,7 +358,7 @@ cudaError_t launch(const void* last, const void* head, int batch, int d, int voc
   const int n_ctas = (n_tiles + tiles_per_cta - 1) / tiles_per_cta;
   unembed_wgmma_kernel<N><<<n_ctas, kThreads, smem, stream>>>(
       head_map, last_map, batch, d, vocab, tiles_per_cta, stages, temperature, seed, row0,
-      part_val, part_idx);
+      col0, part_val, part_idx);
   return cudaGetLastError();
 }
 
@@ -358,29 +368,32 @@ cudaError_t launch(const void* last, const void* head, int batch, int d, int voc
 // entries (one partial per CTA and row; ops.plan_vocab_ranges gives
 // rows_per_cta, a multiple of 64).  At most kMaxBatch rows per launch;
 // `row0` is the first row's index in the caller's batch, so a batch split
-// over launches draws the same noise.  last (batch, d) and head (vocab, d)
-// bf16, contiguous, 16-byte aligned; d % 8 == 0.
+// over launches (or ranks) draws the same noise; `col0` the head's first
+// column in the whole head (0 for the whole head).  Writes each row's best
+// value to out_val and its global column to out.  last (batch, d) and head
+// (vocab, d) bf16, contiguous, 16-byte aligned; d % 8 == 0.
 extern "C" int valve_unembed_sample(const void* last, const void* head, int batch, int d,
                                     int vocab, int rows_per_cta, float temperature, int seed,
-                                    int row0, void* part_val, void* part_idx, void* out,
-                                    void* stream) {
+                                    int row0, int col0, void* part_val, void* part_idx,
+                                    void* out_val, void* out, void* stream) {
   if (batch == 0) return 0;
   if (batch > kMaxBatch || d % 8 != 0 || d <= 0 || vocab <= 0 || rows_per_cta <= 0 ||
-      rows_per_cta % kTileRows != 0)
+      rows_per_cta % kTileRows != 0 || col0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_per_cta = rows_per_cta / kTileRows;
   cudaError_t err =
       batch <= 8 ? launch<8>(last, head, batch, d, vocab, tiles_per_cta, temperature,
-                             static_cast<uint32_t>(seed), static_cast<uint32_t>(row0),
+                             static_cast<uint32_t>(seed), static_cast<uint32_t>(row0), col0,
                              static_cast<float*>(part_val), static_cast<int*>(part_idx), s)
                  : launch<16>(last, head, batch, d, vocab, tiles_per_cta, temperature,
-                              static_cast<uint32_t>(seed), static_cast<uint32_t>(row0),
+                              static_cast<uint32_t>(seed), static_cast<uint32_t>(row0), col0,
                               static_cast<float*>(part_val), static_cast<int*>(part_idx), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_parts = (vocab + rows_per_cta - 1) / rows_per_cta;
   argmax_reduce_kernel<<<batch, kReduceThreads, 0, s>>>(static_cast<const float*>(part_val),
                                                         static_cast<const int*>(part_idx), batch,
-                                                        n_parts, static_cast<int*>(out));
+                                                        n_parts, static_cast<float*>(out_val),
+                                                        static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

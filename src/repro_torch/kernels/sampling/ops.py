@@ -1,9 +1,12 @@
-"""Wrapper of the fused unembed + sampling kernel (K4).
+"""Wrappers of the fused unembed + sampling kernel (K4).
 
-:func:`fused_unembed_sample` checks its tensors, takes the plain version
-(``ref.py``) for CPU tensors only, and on a CUDA tensor launches the
-kernel (a persistent tensor-core pass over :func:`plan_vocab_ranges`'
-vocab ranges, then the argmax reduction) or raises.
+:func:`fused_unembed_sample` (the whole head -> tokens) and
+:func:`unembed_argmax_block` (a block of the head -> each row's best
+value and global column, for a vocabulary split over ranks) check their
+tensors, take the plain versions (``ref.py``) for CPU tensors only, and on
+a CUDA tensor launch the kernel (a persistent tensor-core pass over
+:func:`plan_vocab_ranges`' vocab ranges, then the argmax reduction) or
+raise.
 """
 from __future__ import annotations
 
@@ -12,13 +15,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import common as kc
-from repro_torch.kernels.sampling.ref import unembed_sample_ref
+from repro_torch.kernels.sampling.ref import (unembed_argmax_block_ref,
+                                              unembed_sample_ref)
 
 TILE_ROWS = 64          # vocab rows of one tensor-core tile (sampling.cu)
 MAX_BATCH = 16          # rows one launch takes (wgmma N <= 16)
 MAX_HEAD_DIM = 4096     # `last` stays in shared memory beside the head ring
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P)
+_ARGS = (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P)
 
 
 def plan_vocab_ranges(vocab: int, sms: int) -> int:
@@ -42,15 +46,43 @@ def fused_unembed_sample(last, head, seed: int = 0, *,
     of the f32 scores; T > 0 is an exact categorical sample via the
     Gumbel-max trick with counter-hash noise.
     """
+    _check(last, head)
+    if kc.on_cpu(last):
+        return unembed_sample_ref(last, head, int(seed),
+                                  temperature=temperature)
+    return _launch(last, head, int(seed), temperature, 0, 0)[1]
+
+
+def unembed_argmax_block(last, head, seed: int = 0, *,
+                         temperature: float = 0.0, row0: int = 0,
+                         col0: int = 0):
+    """K4 over a block of the head: ``last`` (B, D) holds rows row0.. of
+    the batch, ``head`` (Vb, D) columns col0.. of the whole head.  Returns
+    each row's best ((B,) f32 value, (B,) int32 global column): the value
+    is the score, at T > 0 the score / T plus the noise drawn at the
+    global (row, column), so the best over blocks (ties to the lower
+    column) is :func:`fused_unembed_sample` over the whole head."""
+    _check(last, head)
+    if kc.on_cpu(last):
+        return unembed_argmax_block_ref(last, head, int(seed),
+                                        temperature=temperature, row0=row0,
+                                        col0=col0)
+    return _launch(last, head, int(seed), temperature, int(row0), int(col0))
+
+
+def _check(last, head) -> None:
     if head.dim() != 2 or last.dim() != 2 or head.shape[1] != last.shape[1]:
         raise ValueError(f'head {tuple(head.shape)} must be (V, D) for '
                          f'last {tuple(last.shape)}')
     if not head.is_contiguous():
         raise ValueError('head must be (V, D) row-major; pass the embedding '
                          'table itself, not a transposed view')
-    seed = int(seed)
-    if kc.on_cpu(last):
-        return unembed_sample_ref(last, head, seed, temperature=temperature)
+
+
+def _launch(last, head, seed: int, temperature: float, row0: int,
+            col0: int):
+    """The kernel over ``head``: ((B,) f32 best values, (B,) int32 best
+    global columns)."""
     (b, d), v = last.shape, head.shape[0]
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f'kernel takes D % 8 == 0 and D <= {MAX_HEAD_DIM} '
@@ -66,7 +98,8 @@ def fused_unembed_sample(last, head, seed: int = 0, *,
                            device=last.device)
     part_idx = torch.empty((n_ctas, rows), dtype=torch.int32,
                            device=last.device)
-    out = torch.empty((b,), dtype=torch.int32, device=last.device)
+    value = torch.empty((b,), dtype=torch.float32, device=last.device)
+    index = torch.empty((b,), dtype=torch.int32, device=last.device)
     fn = kc.kernel_fn('valve_unembed_sample', _ARGS)
     # one launch takes MAX_BATCH rows: one launch per block of rows, each
     # reading the whole head
@@ -74,9 +107,10 @@ def fused_unembed_sample(last, head, seed: int = 0, *,
         n = min(MAX_BATCH, b - r0)
         with torch.cuda.device(last.device):
             err = fn(last[r0].data_ptr(), head.data_ptr(), n, d, v,
-                     rows_per_cta, float(temperature), seed, r0,
-                     part_val.data_ptr(), part_idx.data_ptr(),
-                     out[r0].data_ptr(), kc.stream_ptr(last))
+                     rows_per_cta, float(temperature), seed, row0 + r0,
+                     col0, part_val.data_ptr(), part_idx.data_ptr(),
+                     value[r0].data_ptr(), index[r0].data_ptr(),
+                     kc.stream_ptr(last))
         kc.check_launch(err, 'unembed_sample')
         kc.LAUNCHES['unembed_sample'] += 1
-    return out
+    return value, index

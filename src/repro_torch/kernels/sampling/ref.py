@@ -35,9 +35,38 @@ def unembed_sample_ref(last, head, seed: int = 0, *,
 def sample_scores(scores, seed: int = 0, *, temperature: float = 0.0):
     """(B, V) f32 scores -> (B,) int32 tokens, as :func:`unembed_sample_ref`
     samples them."""
+    return _perturbed_max(scores, seed, temperature, 0, 0)[1]
+
+
+def unembed_argmax_block_ref(last, head, seed: int = 0, *,
+                             temperature: float = 0.0, row0: int = 0,
+                             col0: int = 0):
+    """The sampler over a block of the head: last (B, D) holds rows row0..
+    of the batch, head (Vb, D) columns col0.. of the whole head.  Returns
+    each row's best (value, global column): (B,) f32 values -- the score,
+    at T > 0 the score / T plus the noise drawn at the global (row,
+    column) -- and (B,) int32 columns, the first occurrence.  Over blocks
+    in column order, the best value with ties to the lower column is
+    :func:`unembed_sample_ref` over the whole head."""
+    return _perturbed_max(unembed_scores(last, head), seed, temperature,
+                          row0, col0)
+
+
+def combine_bests(values, indices):
+    """(n, B) best values and global columns of n blocks of the head ->
+    (B,) int32 columns of the best over the blocks: the larger value, ties
+    to the lower column (the first occurrence, as over the whole head)."""
+    best = values.amax(0)
+    cand = torch.where(values == best, indices, torch.iinfo(indices.dtype).max)
+    return cand.amin(0).to(torch.int32)
+
+
+def _perturbed_max(scores, seed, temperature, row0, col0):
     if temperature > 0.0:
         b, v = scores.shape
-        rows = torch.arange(b, device=scores.device)[:, None]
-        cols = torch.arange(v, device=scores.device)[None, :]
+        rows = torch.arange(row0, row0 + b, device=scores.device)[:, None]
+        cols = torch.arange(col0, col0 + v, device=scores.device)[None, :]
         scores = scores / temperature + gumbel_hash_noise(seed, rows, cols)
-    return scores.argmax(dim=-1).to(torch.int32)
+    index = scores.argmax(dim=-1)
+    value = scores.gather(1, index[:, None])[:, 0]
+    return value, (index + col0).to(torch.int32)

@@ -147,12 +147,13 @@ class Model:
         kernel (ssm), which have no backward: under autograd on tensors
         that require grad they raise.  hybrid and encdec have no kernel
         path.  ``tp``: a tensor-parallel rank's loss over its weight blocks
-        (dense and vlm; ``distributed/tp.py``).  ``data``: ``batch`` is
-        this rank's block of the rows of a data-parallel call
-        (``training.train_step.DataShare``), and the loss is this rank's
-        share of the call's loss: its NLL over every rank's token count
-        (moe: with its share of the aux loss, routed over the whole call),
-        so that the ranks' losses and gradients sum to the call's."""
+        (dense, vlm, and moe with its experts; ``distributed/tp.py``).
+        ``data``: ``batch`` is this rank's block of the rows of a
+        data-parallel call (``distributed.tp.DataShare``), and the loss is
+        this rank's share of the call's loss: its NLL over every rank's
+        token count (moe: with its share of the aux loss, routed over the
+        whole call), so that the ranks' losses and gradients sum to the
+        call's."""
         self._no_kernel(use_kernel)
         kw = self._tp(tp)
         fam = self.cfg.family
@@ -218,8 +219,8 @@ class Model:
         recurrence step (no kernel, as in the reference).  hybrid: the
         shared block through the page table, or with ``long_context`` over
         the contiguous KV; encdec: through the page table (neither has a
-        kernel path).  ``tp``: a tensor-parallel rank's step (dense and vlm;
-        ``distributed/tp.py``)."""
+        kernel path).  ``tp``: a tensor-parallel rank's step (dense, vlm and
+        moe; ``distributed/tp.py``)."""
         fam = self.cfg.family
         self._no_kernel(use_kernel)
         tp_kw = self._tp(tp)
@@ -250,10 +251,10 @@ class Model:
 
     def _tp(self, tp):
         """The ``tp`` keyword for a family's entry point: none without a
-        mesh; dense and vlm only with one."""
+        mesh; dense, vlm and moe only with one."""
         if tp is None:
             return {}
-        self._only('dense', 'vlm')
+        self._only('dense', 'vlm', 'moe')
         return {'tp': tp}
 
 

@@ -26,8 +26,12 @@ The engine's entry points (``prefill_chunk``, ``decode_step``,
 :class:`~repro_torch.distributed.tp.TensorParallel`, the weights and the
 pool are this rank's blocks and the collectives sit where the reference
 calls ``constrain`` (the embedding, the ``wo`` and ``wd`` products, the
-head's scores).  Without ``tp`` they are the single-device code, with no
-collective and no extra copy.
+head's scores).  Where the plan splits the dispatch's rows over the batch
+axes (``tp.split_rows``), a rank computes its rows (``tp.local``), gathers
+each layer's new K/V rows over the batch axes and writes every row's into
+its replica of the pool, and gathers the scores and the sampled tokens, so
+every rank returns the whole batch's.  Without ``tp`` they are the
+single-device code, with no collective and no extra copy.
 
 The training forward (``forward_train``) takes ``tp`` too: the rank's
 q/kv heads, its ``d_ff`` block and a vocab-parallel embedding and head,
@@ -48,8 +52,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention_decode, paged_attention_prefix_shared)
-from repro_torch.kernels.sampling.ops import fused_unembed_sample
-from repro_torch.kernels.sampling.ref import sample_scores, unembed_scores
+from repro_torch.kernels.sampling.ops import (fused_unembed_sample,
+                                              unembed_argmax_block)
+from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
 
@@ -139,6 +144,14 @@ def qkv_proj(cfg: ModelConfig, lp, x, positions):
             cm.rope(k, positions, cfg.rope_theta), v)
 
 
+def _row_ops(tp):
+    """(this rank's rows of a per-row tensor, every row gathered from the
+    ranks' blocks) under ``tp``; the identity twice without it."""
+    if tp is None:
+        return (lambda t: t), (lambda t: t)
+    return tp.local, tp.gather_rows
+
+
 def _out_proj(x, wo, tp):
     """Attention's output projection; under ``tp`` the rank's heads'
     partial product, summed over the ranks."""
@@ -154,27 +167,29 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     (``kernels.paged_attention.prefix.build_shared_runs``, as tensors): the
     read then goes through the prefix-shared kernels, each shared physical
     page read once per batch.  The KV *write* always indexes the row's own
-    ``page_table``.
+    ``page_table``.  Under ``tp`` with split rows, ``x`` holds this rank's
+    rows and ``positions``/``page_table`` every row's (module docstring).
     """
-    b = x.shape[0]
     pg = pool_k.shape[1]
-    q, k, v = qkv_proj(cfg, lp, x, positions[:, None])
+    local, gather = _row_ops(tp)
+    q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None])
     page_idx = page_table.gather(1, (positions // pg)[:, None].long())[:, 0]
     offs = positions % pg
-    cm.kv_write_token(pool_k, page_idx, offs, k[:, 0])
-    cm.kv_write_token(pool_v, page_idx, offs, v[:, 0])
-    lengths = positions + 1
+    cm.kv_write_token(pool_k, page_idx, offs, gather(k[:, 0]))
+    cm.kv_write_token(pool_v, page_idx, offs, gather(v[:, 0]))
+    lengths = local(positions) + 1
     if shared is not None:
         out = paged_attention_prefix_shared(
             q[:, 0], pool_k, pool_v, shared['pages'], shared['pos'],
-            shared['mask'], shared['tail_pt'], shared['start'], lengths)
+            local(shared['mask']), local(shared['tail_pt']),
+            local(shared['start']), lengths)
     elif use_kernel:
-        out = paged_attention_decode(q[:, 0], pool_k, pool_v, page_table,
-                                     lengths)
+        out = paged_attention_decode(q[:, 0], pool_k, pool_v,
+                                     local(page_table), lengths)
     else:
-        out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
-                                     lengths)
-    return _out_proj(out.reshape(b, 1, -1), lp['wo'], tp)
+        out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v,
+                                     local(page_table), lengths)
+    return _out_proj(out.reshape(x.shape[0], 1, -1), lp['wo'], tp)
 
 
 def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
@@ -220,18 +235,23 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
 
     x: (B, C, D); positions: (B, C) absolute positions (padding repeats the
     last real one); page_ids/offsets: (B, C) write targets (padding ->
-    quarantine page 0); kv_len: (B,) valid tokens after this chunk.
+    quarantine page 0); kv_len: (B,) valid tokens after this chunk.  Under
+    ``tp`` with split rows, ``x`` holds this rank's rows and the rest every
+    row's (module docstring).
     """
+    local, gather = _row_ops(tp)
+    positions = local(positions)
     q, k, v = qkv_proj(cfg, lp, x, positions)
-    cm.kv_write_tokens(pool_k, page_ids, offsets, k)
-    cm.kv_write_tokens(pool_v, page_ids, offsets, v)
-    kg = cm.paged_gather(pool_k, page_table)   # (B, maxp*pg, Hkv, Dh)
-    vg = cm.paged_gather(pool_v, page_table)
+    cm.kv_write_tokens(pool_k, page_ids, offsets, gather(k))
+    cm.kv_write_tokens(pool_v, page_ids, offsets, gather(v))
+    kg = cm.paged_gather(pool_k, local(page_table))  # (B, maxp*pg, Hkv, Dh)
+    vg = cm.paged_gather(pool_v, local(page_table))
     b, skv = kg.shape[:2]
     kv_pos = torch.arange(skv, device=x.device).expand(b, -1)
     out = cm.attention(q, kg, vg, q_positions=positions.long(),
                        kv_positions=kv_pos,
-                       kv_valid=kv_pos < kv_len.long()[:, None], causal=True)
+                       kv_valid=kv_pos < local(kv_len).long()[:, None],
+                       causal=True)
     return _out_proj(out.reshape(b, x.shape[1], -1), lp['wo'], tp)
 
 
@@ -248,10 +268,10 @@ def _mlp(cfg, lp, h, tp=None):
 
 
 def _scores(cfg, params, last, tp):
-    """The head's f32 scores (B, V); under ``tp`` the rank's vocab block,
-    gathered."""
+    """The head's f32 scores (B, V); under ``tp`` the rank's vocab block
+    of its rows, gathered over ``model`` and the batch axes."""
     scores = unembed_scores(last, head_of(cfg, params))
-    return scores if tp is None else tp.gather_vocab(scores)
+    return scores if tp is None else tp.gather_rows(tp.gather_vocab(scores))
 
 
 # ---------------------------------------------------------------------------
@@ -333,8 +353,9 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp,
     (cache, f32 scores at last_idx).
     """
     positions = batch['positions']
-    h = embed_inputs(cfg, params, batch['tokens'], batch.get('prefix_embeds'),
-                     tp)
+    local = _row_ops(tp)[0]
+    h = embed_inputs(cfg, params, local(batch['tokens']),
+                     local(batch.get('prefix_embeds')), tp)
     if tp is not None:
         mlp = functools.partial(mlp, tp=tp)
     for i, lp in enumerate(cm.layer_views(params)):
@@ -345,7 +366,7 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp,
             batch['kv_len'], tp)
         h = mlp(cfg, lp, h)
     last = h[torch.arange(h.shape[0], device=h.device),
-             batch['last_idx'].long()]
+             local(batch['last_idx']).long()]
     last = cm.rms_norm(last, params['final_norm'], cfg.norm_eps)
     return cache, _scores(cfg, params, last, tp)
 
@@ -353,7 +374,8 @@ def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp,
 def _decode_hidden(cfg, params, cache, batch, use_kernel, mlp=_mlp,
                    tp=None):
     positions = batch['positions']
-    h = embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
+    tokens = _row_ops(tp)[0](batch['tokens'])
+    h = embed_inputs(cfg, params, tokens, tp=tp)[:, None, :]
     if tp is not None:
         mlp = functools.partial(mlp, tp=tp)
     for i, lp in enumerate(cm.layer_views(params)):
@@ -384,13 +406,18 @@ def decode_step_sample(cfg: ModelConfig, params, cache, batch, *,
     temperature sampling uses counter-hash Gumbel noise seeded by
     ``batch['seed']`` (an int).
 
-    Under ``tp`` the head is vocab-parallel: the plain sampler draws from
-    the gathered scores, and every rank takes rank 0's tokens."""
+    Under ``tp`` each rank samples its rows over its vocabulary block (the
+    kernel's block form: the noise drawn at the global row and column) and
+    the ranks' bests are combined over ``model`` (``tp.combine_argmax``):
+    the single-device kernel's tokens bit for bit where the block's scores
+    are the whole head's; then the tokens are gathered over the batch
+    axes."""
     last = _decode_hidden(cfg, params, cache, batch, use_kernel, tp=tp)
+    seed = batch.get('seed', 0)
     if tp is not None:
-        return cache, tp.from_first(sample_scores(
-            _scores(cfg, params, last, tp), batch.get('seed', 0),
-            temperature=temperature))
-    return cache, fused_unembed_sample(last, head_of(cfg, params),
-                                       batch.get('seed', 0),
+        value, index = unembed_argmax_block(
+            last, head_of(cfg, params), seed, temperature=temperature,
+            row0=tp.rows.start, col0=tp.vocab[0])
+        return cache, tp.gather_rows(tp.combine_argmax(value, index))
+    return cache, fused_unembed_sample(last, head_of(cfg, params), seed,
                                        temperature=temperature)

@@ -23,7 +23,7 @@ reads through the paged-decode kernel with ``use_kernel`` and through the
 prefix-shared kernels when the batch carries ``shared``.
 
 **Data-parallel training** (``forward_train(..., data=)``, a
-``training.train_step.DataShare``): each rank holds a block of the call's
+``distributed.tp.DataShare``): each rank holds a block of the call's
 rows, after the lower data ranks' blocks, and routes as the whole call
 routes on one device.  An assignment's rank in its expert counts the lower
 ranks' assignments to that expert (their per-expert counts, summed over
@@ -31,7 +31,23 @@ the data group), the capacity counts every rank's tokens, and the aux
 loss's expert fractions are the whole call's; the rank returns its share
 of the call's loss (its NLL over every rank's token count, and the aux
 terms of its own router probabilities), so the ranks' shares and their
-gradients sum to the loss and the gradients of the call.
+gradients sum to the loss and the gradients of the call.  Serving takes
+the same path where a dispatch's rows are split over the batch axes
+(``tp.data``, ``distributed/tp.py``): the capacity counts every token of
+the dispatch, padding included, on every rank.
+
+**Expert parallelism** (``tp``, a ``distributed.tp.TensorParallel``): a
+rank holds its experts (or, where ``model`` does not divide them, every
+expert's ``d_ff`` block) and their router columns.  Its router logits are
+gathered over ``model`` before the softmax, so every rank routes alike; it
+fills only its experts' slots, runs its experts and sums its weighted
+contributions in k order as an f32 partial, which the shared expert's
+row-parallel partial joins in one ``reduce_sum``, rounded once.  Under
+autograd the token rows and the renormalised top-k weights enter the
+rank's experts through ``tp.copy`` (their gradients summed over the
+ranks), the gathered logits' gradient keeps the rank's columns, and the
+aux loss, computed alike on every rank from the replicated probabilities,
+enters the objective once.
 """
 from __future__ import annotations
 
@@ -43,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import f32_product
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.common import PSpec
@@ -73,13 +90,17 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     return t
 
 
-def route(cfg: ModelConfig, lp, xf, capacity_factor: float):
+def route(cfg: ModelConfig, lp, xf, capacity_factor: float, tp=None):
     """Top-k routing with capacity.  xf: (N, D) -> (probs (N, E) f32, top_i
     (N, k) expert ids, top_w (N, k) f32 renormalised weights, pos (N*k,) the
-    rank of each token-major assignment in its expert, cap)."""
+    rank of each token-major assignment in its expert, cap).  Under ``tp``
+    the router is this rank's expert columns, gathered."""
     n = xf.shape[0]
     e, k = cfg.n_experts, cfg.moe_top_k
-    probs = torch.softmax(xf.float() @ lp['router'].float(), dim=-1)
+    logits = xf.float() @ lp['router'].float()
+    if tp is not None:
+        logits = tp.gather_experts(logits)
+    probs = torch.softmax(logits, dim=-1)
     # a stable descending sort: equal probabilities keep the lower expert
     # id first, as jax.lax.top_k does (torch.topk promises no order)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -96,16 +117,23 @@ def capacity(k: int, n: int, e: int, capacity_factor: float) -> int:
 
 
 def moe_mlp(cfg: ModelConfig, lp, x, *,
-            capacity_factor: float = PREFILL_CAPACITY, data=None):
+            capacity_factor: float = PREFILL_CAPACITY, data=None, tp=None):
     """x: (B, S, D) -> (B, S, D), the Switch load-balance aux loss (f32
     scalar; serving ignores it).  ``data``: this rank's rows of a
     data-parallel call (module docstring); the aux loss is then this
-    rank's share."""
+    rank's share.  ``tp``: this rank's experts (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     n = b * s
     xf = x.reshape(n, d)
-    probs, top_i, top_w, pos, cap = route(cfg, lp, xf, capacity_factor)
+    partial = tp is not None and tp.experts_partial
+    # under autograd a replicated input of this rank's block has its
+    # gradient summed over the ranks: the router's columns, the experts
+    xr = tp.copy(xf, tp.expert_split) if tp is not None else xf
+    # the meshless call keeps route's four arguments
+    probs, top_i, top_w, pos, cap = (
+        route(cfg, lp, xr, capacity_factor) if tp is None
+        else route(cfg, lp, xr, capacity_factor, tp=tp))
     flat_e = top_i.reshape(-1)
     rows, keep = cap, pos < cap
     if data is not None:
@@ -116,28 +144,52 @@ def moe_mlp(cfg: ModelConfig, lp, x, *,
         keep = pos + data.before(counts)[flat_e] < cap
         rows = min(cap, n)
     tok = torch.arange(n * k, device=x.device) // k
+    # this rank's experts [lo, hi): every expert but under expert
+    # parallelism
+    lo, hi = (0, e) if tp is None or not tp.expert_split else tp.experts
+    mine = keep & (flat_e >= lo) & (flat_e < hi) if hi - lo < e else keep
+    local_e = flat_e - lo
 
-    # each kept row to its (expert, rank) slot, every dropped row to one
+    # each kept row to its (expert, rank) slot, every other row to one
     # spare slot past the end that is cut off: selecting the kept rows by
     # mask would sync the host with the device in every layer
-    slot = torch.where(keep, flat_e * rows + pos, e * rows)
-    buf = x.new_zeros((e * rows + 1, d))
-    buf[slot] = xf[tok]
-    buf = buf[:-1].view(e, rows, d)
+    slot = torch.where(mine, local_e * rows + pos, (hi - lo) * rows)
+    xe = tp.copy(xf) if partial else xf
+    buf = xf.new_zeros(((hi - lo) * rows + 1, d))
+    buf[slot] = xe[tok]
+    buf = buf[:-1].view(hi - lo, rows, d)
     g = torch.bmm(buf, lp['we_gate'])
     u = torch.bmm(buf, lp['we_up'])
     h = F.silu(g.float()).to(x.dtype) * u
     out = torch.bmm(h, lp['we_down'])                 # (E, C, D)
 
-    gathered = out[flat_e, pos.clamp(max=rows - 1)]   # (N*k, D)
-    contrib = torch.where(keep[:, None],
-                          gathered * top_w.reshape(-1, 1).to(x.dtype),
-                          torch.zeros_like(gathered)).reshape(n, k, d)
-    y = torch.zeros_like(xf)
-    for j in range(k):          # the reference's scatter-add, in k order
-        y = y + contrib[:, j]
-    if cfg.n_shared_experts:
-        y = y + cm.swiglu(xf, lp['ws_gate'], lp['ws_up'], lp['ws_down'])
+    gathered = out[local_e.clamp(0, hi - lo - 1), pos.clamp(max=rows - 1)]
+    if not partial:
+        contrib = torch.where(keep[:, None],
+                              gathered * top_w.reshape(-1, 1).to(x.dtype),
+                              torch.zeros_like(gathered)).reshape(n, k, d)
+        y = torch.zeros_like(xf)
+        for j in range(k):      # the reference's scatter-add, in k order
+            y = y + contrib[:, j]
+        if cfg.n_shared_experts:
+            y = y + _shared(cfg, lp, xf, tp)
+    else:
+        # this rank's experts' f32 partial, and the shared expert's row-
+        # parallel one, summed over the ranks once
+        w = tp.copy(top_w).reshape(-1, 1)
+        contrib = torch.where(mine[:, None], gathered.float() * w,
+                              torch.zeros_like(gathered, dtype=torch.float32)
+                              ).reshape(n, k, d)
+        part = torch.zeros_like(xf, dtype=torch.float32)
+        for j in range(k):
+            part = part + contrib[:, j]
+        shared_split = cfg.n_shared_experts and _shared_split(cfg, tp)
+        if shared_split:
+            part = part + cm.swiglu(tp.copy(xf), lp['ws_gate'], lp['ws_up'],
+                                    lp['ws_down'], f32_product)
+        y = tp.reduce_sum(part, x.dtype)
+        if cfg.n_shared_experts and not shared_split:
+            y = y + _shared(cfg, lp, xf, None)
 
     if data is None:
         frac = F.one_hot(top_i, e).float().mean(dim=(0, 1))
@@ -149,47 +201,68 @@ def moe_mlp(cfg: ModelConfig, lp, x, *,
     return y.reshape(b, s, d), aux
 
 
-def moe_block(cfg: ModelConfig, lp, h, *, capacity_factor: float):
+def _shared_split(cfg: ModelConfig, tp) -> bool:
+    return tp.shared_ffn != (0, cfg.d_ff * cfg.n_shared_experts)
+
+
+def _shared(cfg: ModelConfig, lp, xf, tp):
+    """The shared expert (a SwiGLU); under ``tp`` with its ``d_ff`` split,
+    this rank's block, its down product summed over the ranks."""
+    if tp is None or not _shared_split(cfg, tp):
+        return cm.swiglu(xf, lp['ws_gate'], lp['ws_up'], lp['ws_down'])
+    return cm.swiglu(tp.copy(xf), lp['ws_gate'], lp['ws_up'], lp['ws_down'],
+                     functools.partial(tp.row_parallel, split=True))
+
+
+def moe_block(cfg: ModelConfig, lp, h, *, capacity_factor: float, tp=None):
     """The MoE layer's MLP block for the dense loops: pre-norm routed
-    experts plus the residual."""
+    experts plus the residual; under ``tp`` a rank's experts (and its
+    rows: their routing is the whole dispatch's, ``tp.data``)."""
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    return h + moe_mlp(cfg, lp, x, capacity_factor=capacity_factor)[0]
+    return h + moe_mlp(cfg, lp, x, capacity_factor=capacity_factor, tp=tp,
+                       data=None if tp is None else tp.data)[0]
 
 
 def train_layer(cfg: ModelConfig, lp, h, positions, *,
-                use_kernel: bool = False, data=None):
+                use_kernel: bool = False, data=None, tp=None):
     """One MoE layer of the training forward (capacity factor 1.25): ->
     (h, the layer's load-balance aux loss)."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
     h = h + dense.self_attn_train(cfg, lp, x, positions,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, tp=tp)
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
     y, aux = moe_mlp(cfg, lp, x, capacity_factor=PREFILL_CAPACITY,
-                     data=data)
+                     data=data, tp=tp)
     return h + y, aux
 
 
 def forward_train(cfg: ModelConfig, params, batch, *,
-                  use_kernel: bool = False, data=None):
+                  use_kernel: bool = False, data=None, tp=None):
     """The dense training forward with routed experts: mean NLL plus
     ``AUX_WEIGHT`` times the aux loss averaged over layers; each layer
     checkpointed under autograd.  The capacity counts every token of the
     call (B x S), as in serving.  -> (loss, {'tokens', 'aux_loss'}).
     ``data``: this rank's share of a data-parallel call (module
-    docstring); ``aux_loss`` is then this rank's share too."""
+    docstring); ``aux_loss`` is then this rank's share too.  ``tp``: a
+    rank's heads, experts and vocabulary block (``dense.forward_train``'s
+    plan, with expert parallelism); the loss is replicated over
+    ``model``."""
     tokens = batch['tokens']
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    h = dense.embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
+    h = dense.embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'),
+                           tp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in cm.layer_views(params):
         h, a = cm.remat(lambda h, lp: train_layer(
-            cfg, lp, h, positions, use_kernel=use_kernel, data=data), h, lp)
+            cfg, lp, h, positions, use_kernel=use_kernel, data=data, tp=tp),
+            h, lp)
         aux = aux + a
     aux = aux / cfg.n_layers
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], dense.head_of(cfg, params),
-        batch['labels'], mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+        batch['labels'], mask=batch.get('loss_mask'), eps=cfg.norm_eps,
+        tp=tp if tp is not None and tp.vocab_split else None)
     total = cnt if data is None else data.sum(cnt.detach().clone())
     loss = nll / torch.clamp_min(total, 1.0) + AUX_WEIGHT * aux
     return loss, {'tokens': cnt, 'aux_loss': aux}
@@ -202,19 +275,20 @@ def prefill(cfg: ModelConfig, params, cache, batch):
         moe_block, capacity_factor=PREFILL_CAPACITY))
 
 
-def prefill_chunk(cfg: ModelConfig, params, cache, batch):
+def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """Chunked prefill with past-KV readback (see ``dense.prefill_chunk``),
-    capacity factor 2.0."""
+    capacity factor 2.0; ``tp``: a rank's step (module docstring)."""
     return dense.prefill_chunk(cfg, params, cache, batch, mlp=functools.partial(
-        moe_block, capacity_factor=SERVE_CAPACITY))
+        moe_block, capacity_factor=SERVE_CAPACITY), tp=tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *,
-                use_kernel: bool = False):
+                use_kernel: bool = False, tp=None):
     """One token a row (see ``dense.decode_step``), capacity factor 2.0."""
     return dense.decode_step(cfg, params, cache, batch, use_kernel=use_kernel,
                              mlp=functools.partial(
-                                 moe_block, capacity_factor=SERVE_CAPACITY))
+                                 moe_block, capacity_factor=SERVE_CAPACITY),
+                             tp=tp)
 
 
 cache_template = dense.cache_template

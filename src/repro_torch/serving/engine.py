@@ -49,12 +49,14 @@ design.)
 The engine runs on the GPU unless built with ``device='cpu'``
 (:func:`repro_torch.resolve_device`).
 
-Tensor-parallel serving (``EngineConfig.mesh``, ``distributed/tp.py``):
-the engine lives on rank 0 of the mesh -- one scheduler, one pool, one
-Valve session -- and every other rank runs ``distributed.tp.serve_rank``.
-Each dispatch sends its op and its staged host batch to those ranks before
-rank 0 runs it; each rank runs the same model entry on its own weight and
-KV blocks, its kv-heads through the decode kernels.
+Serving over a mesh (``EngineConfig.mesh``, ``distributed/tp.py``): the
+engine lives on rank 0 of the mesh -- one scheduler, one pool, one Valve
+session -- and every other rank runs ``distributed.tp.serve_rank``.  Each
+dispatch sends its op and its staged host batch to those ranks before rank
+0 runs it; each rank runs the same model entry on its own weight and KV
+blocks (its kv-heads through the decode kernels, an MoE model's experts)
+and on its block of the dispatch's rows over the batch axes (``pod``,
+``data``); the scores and sampled tokens come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -107,14 +109,17 @@ class EngineConfig:
     # batch (kernels.paged_attention.prefix): each shared physical page is
     # read once per batch instead of once per request.
     prefix_shared_attention: bool = False
-    # Tensor-parallel serving: a ``launch.mesh.Mesh`` whose ``model`` axis
-    # every dispatch runs across (``distributed/tp.py``); this engine is
-    # rank 0's, the mesh's other ranks run ``distributed.tp.serve_rank``.
-    # Weights and KV pool are committed to rank 0's blocks at construction
-    # (the pool in the weights' dtype).  None -- the default -- is the
-    # single-device path.  With a mesh, decode_kernel=None resolves to the
-    # plain path, and fused sampling draws from the gathered scores with
-    # the plain sampler.
+    # Serving over a mesh: a ``launch.mesh.Mesh`` whose ``model`` axis
+    # (heads, d_ff, vocabulary, experts) and batch axes (``pod``, ``data``:
+    # the dispatch's rows) every dispatch runs across
+    # (``distributed/tp.py``); this engine is rank 0's, the mesh's other
+    # ranks run ``distributed.tp.serve_rank``.  Weights (global, on the
+    # engine's device or on the host) and KV pool are committed to rank 0's
+    # blocks at construction (the pool in the weights' dtype).  None -- the
+    # default -- is the single-device path.  With a mesh, decode_kernel=None
+    # still means the kernels on CUDA: K1 (or K2 + K3 with prefix sharing)
+    # on each rank's kv-heads and rows, and with fused sampling K4 on each
+    # rank's vocabulary block, its bests combined over ``model``.
     mesh: Optional[object] = None
 
     def scheduler_config(self) -> SchedulerConfig:
@@ -159,7 +164,8 @@ class Engine:
         if self.mesh is not None and device is None:
             device = self.mesh.device
         self.device = resolve_device(device)
-        if params['embed'].device != self.device:
+        on_host = self.mesh is not None and params['embed'].device.type == 'cpu'
+        if params['embed'].device != self.device and not on_host:
             raise ValueError(f'params on {params["embed"].device}, engine on '
                              f'{self.device}')
         self.params = params
@@ -201,7 +207,7 @@ class Engine:
             self.cfg.seed)
         decode_kernel = self.cfg.decode_kernel
         if decode_kernel is None:
-            decode_kernel = self.device.type == 'cuda' and self.mesh is None
+            decode_kernel = self.device.type == 'cuda'
         self._use_kernel = decode_kernel
         self._init_buffers()
         # lazy-token bookkeeping (fused path): device tensors whose values
@@ -219,12 +225,15 @@ class Engine:
 
     def _open_on_mesh(self, params) -> None:
         """Open this engine on every rank of the mesh and commit the
-        weights and the pool to rank 0's blocks."""
+        weights and the pool to rank 0's blocks (weights on the host are
+        shipped and committed a block at a time: the card never holds the
+        whole set)."""
         from repro_torch.distributed.tp import (Leader, TensorParallel,
                                                 check_mesh)
 
         check_mesh(self.mcfg, self.mesh)
-        self._tp = TensorParallel(self.mcfg, self.mesh)
+        self._tp = TensorParallel(self.mcfg, self.mesh,
+                                  max_batch=self.cfg.max_batch)
         if self.mesh.rank != 0:
             raise ValueError('a mesh engine runs on rank 0; the other ranks '
                              'run distributed.tp.serve_rank')

@@ -11,7 +11,8 @@ mean of the microbatch losses.
 ``launch/mesh.py``) each rank is a process holding its blocks
 (:class:`TrainPlan`): the weights cut over ``model`` as tensor-parallel
 serving cuts them (``distributed/tp.py``: whole heads, ``d_ff`` and
-vocabulary blocks; dense and vlm only), and with ZeRO-1 each moment cut
+vocabulary blocks, moe's experts and their router columns; dense, vlm and
+moe), and with ZeRO-1 each moment cut
 further over the data axes.  The step computes what GSPMD computes for the
 reference on the global batch:
 
@@ -49,12 +50,14 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (
-    TRAIN_RULES, Block, Sharding, check_spec, shaped_spec, tree_spec_shaped)
+    BATCH_AXES, TRAIN_RULES, Block, Sharding, batch_coords, check_spec,
+    shaped_spec, tree_spec_shaped)
+from repro_torch.distributed.tp import DataShare
 from repro_torch.models.api import Model
 from repro_torch.training import optimizer as opt
 from repro_torch.training import tree as tr
 
-DATA_AXES = ('pod', 'data')
+DATA_AXES = BATCH_AXES
 MODEL = 'model'
 
 
@@ -131,19 +134,19 @@ def batch_specs(model: Model, shape, mesh, rules=None):
 # ---------------------------------------------------------------------------
 
 def check_train_mesh(cfg, mesh) -> None:
-    """What trains under a mesh: every family over the data axes, dense and
-    vlm also over ``model``."""
+    """What trains under a mesh: every family over the data axes; dense,
+    vlm and moe (its experts over ``model``) also over ``model``."""
     other = {a: s for a, s in mesh.shape.items()
              if a not in DATA_AXES + (MODEL,) and s > 1}
     if other:
         raise NotImplementedError(
             f'mesh axes {other}: the trainer reduces over {DATA_AXES} and '
-            'splits over model only (expert parallelism is ROADMAP Queue 1 '
-            'item 10b-ii)')
-    if mesh.shape.get(MODEL, 1) > 1 and cfg.family not in ('dense', 'vlm'):
+            'splits over model only')
+    if mesh.shape.get(MODEL, 1) > 1 and cfg.family not in ('dense', 'vlm',
+                                                          'moe'):
         raise NotImplementedError(
             f'training a {cfg.family!r} model with model > 1 is not ported '
-            'yet (ROADMAP Queue 1 item 10b-ii); data-parallel training '
+            'yet (ROADMAP Queue 1 item 10b-iii); data-parallel training '
             '(model = 1) is')
 
 
@@ -171,10 +174,7 @@ class TrainPlan:
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
         described = coords is not None
         coords = mesh.coords() if coords is None else coords
-        self.n_data, self.data_index = 1, 0
-        for a in self.data_axes:
-            self.n_data *= mesh.shape[a]
-            self.data_index = self.data_index * mesh.shape[a] + coords[a]
+        self.n_data, self.data_index = batch_coords(mesh, coords)
         n_model = mesh.shape.get(MODEL, 1)
         self.tp = TensorParallel(cfg, mesh, coords) if n_model > 1 else None
         shapes = dict(tr.leaves_with_paths(model.param_shapes()))
@@ -282,26 +282,6 @@ class TrainPlan:
                 self.moment_block(next(it)).take(m), self.device), tree)
         return {'step': full['step'].to(self.device), 'mu': cut(full['mu']),
                 'nu': cut(full['nu'])}
-
-
-class DataShare:
-    """A data-parallel rank's place among the ``n`` data ranks of a call
-    (``Model.loss_fn(data=)``): rank ``index`` holds the rows after those
-    of ranks 0 .. index-1."""
-
-    def __init__(self, group, n: int, index: int):
-        self.group, self.n, self.index = group, n, index
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the data ranks, in place."""
-        torch.distributed.all_reduce(x, group=self.group)
-        return x
-
-    def before(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the lower data ranks (zeros on the first)."""
-        rows = x.new_zeros((self.n,) + tuple(x.shape))
-        rows[self.index] = x
-        return self.sum(rows)[:self.index].sum(0)
 
 
 def _copy(t: torch.Tensor, device) -> torch.Tensor:

@@ -35,7 +35,8 @@ from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import (wkv6_chunked, wkv6_ref,
                                            wkv6_tiled_ref)
 from repro_torch.kernels.sampling import ops as sops
-from repro_torch.kernels.sampling.ops import fused_unembed_sample
+from repro_torch.kernels.sampling.ops import (fused_unembed_sample,
+                                              unembed_argmax_block)
 from repro_torch.kernels.sampling.ref import (unembed_sample_ref,
                                               unembed_scores)
 
@@ -504,6 +505,63 @@ def test_unembed_sample_exact_ties_across_ctas_go_to_the_first(cuda, b):
     _plant(head, last, torch.tensor(hi, device=cuda), src)
     _plant(head, last, torch.tensor(lo, device=cuda), src)
     assert fused_unembed_sample(last, head).tolist() == lo
+
+
+def _block_pick(last, head, n, seed, temperature, row0=0):
+    """K4 over n equal column blocks of ``head`` (copies, as a rank holds
+    its block), combined: the larger value, ties to the lower column."""
+    from repro_torch.kernels.sampling.ref import combine_bests
+
+    v = head.shape[0]
+    parts = [unembed_argmax_block(last, head[c0:c0 + v // n].contiguous(),
+                                  seed, temperature=temperature, row0=row0,
+                                  col0=c0)
+             for c0 in range(0, v, v // n)]
+    return combine_bests(torch.stack([p[0] for p in parts]),
+                         torch.stack([p[1] for p in parts]))
+
+
+@pytest.mark.parametrize('v,d,n', [(151936, 1024, 2), (151936, 1024, 4),
+                                   (32064, 4096, 2)],
+                         ids=['qwen3-2', 'qwen3-4', 'phi3.5-2'])
+@pytest.mark.parametrize('temperature', [0.0, 0.8])
+def test_unembed_block_combine_is_bit_equal_to_the_whole_head(
+        cuda, v, d, n, temperature):
+    """K4 over n blocks of qwen3-0.6b's and phi3.5-moe's heads (V / n:
+    blocks that start inside a whole-head tile at 151936 / 4) plus the
+    combine picks the whole head's K4 tokens bit for bit, with an exact
+    tie planted across a block boundary; equal to the plain block version;
+    rows from row0 = 3 draw the whole batch's noise."""
+    from repro_torch.kernels.sampling.ref import unembed_argmax_block_ref
+
+    b = 8
+    rng = np.random.default_rng(n)
+    last = _bf16(cuda, rng, b, d, scale=1.0)
+    head = _bf16(cuda, rng, v, d, scale=d ** -0.5)
+    edge = v // n
+    # rows 0 and 1: winners just before the first block edge, the same
+    # bits again just past it
+    _plant(head, last, torch.tensor([edge - 1, edge - 2], device=cuda),
+           torch.tensor([0, 1], device=cuda))
+    head[edge] = head[edge - 1]
+    head[edge + 5] = head[edge - 2]
+    whole = fused_unembed_sample(last, head, 7, temperature=temperature)
+    got = _block_pick(last, head, n, 7, temperature)
+    assert torch.equal(got, whole)
+    if temperature == 0.0:
+        assert got[:2].tolist() == [edge - 1, edge - 2]
+    plain = [unembed_argmax_block_ref(last, head[c0:c0 + edge], 7,
+                                      temperature=temperature, col0=c0)
+             for c0 in range(0, v, edge)]
+    kern = [unembed_argmax_block(last, head[c0:c0 + edge].contiguous(), 7,
+                                 temperature=temperature, col0=c0)
+            for c0 in range(0, v, edge)]
+    for (pv, pi), (kv, ki) in zip(plain, kern):
+        same = pi == ki
+        gap = (pv - kv).abs() <= 1e-5 * pv.abs().clamp_min(1.0)
+        assert (same | gap).all()
+    sub = _block_pick(last[3:], head, n, 7, temperature, row0=3)
+    assert torch.equal(sub, whole[3:])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

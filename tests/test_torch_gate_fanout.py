@@ -158,8 +158,8 @@ def test_runtime_gate_count_follows_mesh():
     assert len(rt.gates.gates) == N_DEV
 
 
-def _mesh_burst_rank(rank, n):
-    mesh = make_mesh((n,), ('model',), device='cpu')
+def _mesh_burst_rank(rank, n, shape=None, axes=('model',)):
+    mesh = make_mesh(shape or (n,), axes, device='cpu')
     if rank != 0:
         return serve_rank(mesh)
     try:
@@ -184,4 +184,18 @@ def test_tensor_parallel_burst_bounds_preemptions_per_device(tmp_path):
     assert out['gates'] == 2
     assert out['latencies'] and set(out['latencies']) == {2}
     assert out['per_device'] and max(out['per_device'].values()) <= 1
+    assert out['finished'] == [1, 2]
+
+
+def test_data_and_model_burst_bounds_preemptions_per_device(tmp_path):
+    """The same burst on the production mesh's shape, (data 2, model 2):
+    each dispatch's rows over data, the heads over model; 4 gates (one a
+    mesh device, batch ranks included), 4 device latencies an event, at
+    most one preemption per (request, device)."""
+    out = run_ranks(_mesh_burst_rank, 4, store_dir=tmp_path,
+                    args=(4, (2, 2), ('data', 'model')), timeout_s=120)[0]
+    assert out['gates'] == 4
+    assert out['latencies'] and set(out['latencies']) == {4}
+    assert out['per_device'] and max(out['per_device'].values()) <= 1
+    assert len({d for _, d in out['per_device']}) == 4
     assert out['finished'] == [1, 2]

@@ -136,3 +136,94 @@ def test_plan_vocab_ranges_covers_every_row_once(vocab, sms):
               for c in range(n_ctas)]
     assert all(len(r) > 0 for r in ranges)
     assert [v for r in ranges for v in r] == list(range(vocab))
+
+
+def _blocks(v, n):
+    """n column blocks of a vocabulary of v: equal where n divides v, else
+    the last one shorter."""
+    step = -(-v // n)
+    return [(lo, min(lo + step, v)) for lo in range(0, v, step)]
+
+
+@pytest.mark.parametrize('n', [2, 3, 4])
+@pytest.mark.parametrize('temperature,seed', [(0.0, 0), (0.7, 3), (1.3, 11)])
+@pytest.mark.parametrize('rows', [(0, 5), (2, 5), (3, 4)],
+                         ids=['all', 'row0=2', 'row0=3'])
+def test_block_sampler_and_combine_equal_the_whole_head(n, temperature,
+                                                        seed, rows):
+    """``unembed_argmax_block`` over n blocks of the head, on rows
+    row0..hi of the batch, combined (larger value, ties to the lower
+    column) equals the reference's sampler over the whole head on the
+    whole batch at those rows: the noise is drawn at the global (row,
+    column)."""
+    from repro_torch.kernels.sampling.ops import unembed_argmax_block
+    from repro_torch.kernels.sampling.ref import combine_bests
+
+    b, d, v = 5, 48, 1000
+    last, unembed = _setup((b, d, v, 0), seed=7)
+    want = np.asarray(j_ref(jnp.asarray(last), jnp.asarray(unembed),
+                            seed=seed, temperature=temperature))
+    lo, hi = rows
+    head = torch.from_numpy(np.ascontiguousarray(unembed.T))
+    x = torch.from_numpy(last[lo:hi])
+    parts = [unembed_argmax_block(x, head[c0:c1].contiguous(), seed,
+                                  temperature=temperature, row0=lo, col0=c0)
+             for c0, c1 in _blocks(v, n)]
+    for (val, idx), (c0, c1) in zip(parts, _blocks(v, n)):
+        assert val.dtype == torch.float32 and idx.dtype == torch.int32
+        assert ((idx >= c0) & (idx < c1)).all()
+    got = combine_bests(torch.stack([p[0] for p in parts]),
+                        torch.stack([p[1] for p in parts]))
+    np.testing.assert_array_equal(got.numpy(), want[lo:hi])
+    whole = unembed_argmax_block(x, head, seed, temperature=temperature,
+                                 row0=lo)
+    assert torch.equal(whole[1], got)
+
+
+def test_block_tie_across_blocks_goes_to_the_lower_column():
+    """Equal best scores in two blocks (and twice inside one): the combine
+    returns the first occurrence over the whole head, as the reference."""
+    from repro_torch.kernels.sampling.ops import unembed_argmax_block
+    from repro_torch.kernels.sampling.ref import combine_bests
+
+    d, v = 16, 64
+    last = np.zeros((3, d), np.float32)
+    last[:, 0] = 1.0
+    unembed = np.zeros((d, v), np.float32)
+    unembed[0, [20, 40, 45]] = 2.0          # row r: ties at 20 | 40, 45
+    unembed[0, 31] = 1.0
+    want = np.asarray(j_ref(jnp.asarray(last), jnp.asarray(unembed)))
+    assert (want == 20).all()
+    head = torch.from_numpy(np.ascontiguousarray(unembed.T))
+    for cut in (32, 21, 41):               # blocks [0, cut), [cut, v)
+        parts = [unembed_argmax_block(torch.from_numpy(last),
+                                      head[a:b].contiguous(), col0=a)
+                 for a, b in ((0, cut), (cut, v))]
+        got = combine_bests(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts]))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_noise_at_local_columns_is_rejected():
+    """The mutant that draws each block's noise at its local columns (and
+    reports global ones) samples other tokens than the whole head: the
+    block sampler must draw at the global column."""
+    from repro_torch.kernels.sampling.ref import (combine_bests,
+                                                  unembed_argmax_block_ref)
+
+    b, d, v, n = 16, 32, 1024, 4
+    last, unembed = _setup((b, d, v, 0), seed=9)
+    want = np.asarray(j_ref(jnp.asarray(last), jnp.asarray(unembed), seed=5,
+                            temperature=1.0))
+    x = torch.from_numpy(last)
+    head = torch.from_numpy(np.ascontiguousarray(unembed.T))
+    for local in (False, True):
+        parts = []
+        for c0, c1 in _blocks(v, n):
+            val, idx = unembed_argmax_block_ref(
+                x, head[c0:c1], 5, temperature=1.0,
+                col0=0 if local else c0)
+            parts.append((val, idx + c0 if local else idx))
+        got = combine_bests(torch.stack([p[0] for p in parts]),
+                            torch.stack([p[1] for p in parts])).numpy()
+        assert (got == want).all() != local, local

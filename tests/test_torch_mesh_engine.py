@@ -1,7 +1,8 @@
-"""Tensor-parallel serving in the port (``EngineConfig.mesh``,
-``distributed/tp.py``) against the reference's mesh engine
-(``tests/test_mesh_engine.py``) and against the port's own single-device
-engine.
+"""Serving over a mesh in the port (``EngineConfig.mesh``,
+``distributed/tp.py``): tensor-parallel over ``model``, data-parallel over
+the batch axes (``pod``, ``data``) and both, against the reference's mesh
+engine (``tests/test_mesh_engine.py``) and against the port's own
+single-device engine.
 
 Ranks are processes: :func:`launch.ranks.run_ranks` spawns them (the
 ``spawn`` start method: this process holds JAX's threads) into a gloo
@@ -103,13 +104,14 @@ def drain(model, params, mesh=None, *, shared=False, **ecfg):
     return [eng.output_tokens(r) for r in rids], eng
 
 
-def _mesh_rank(rank, n, npz, cfg_kw):
+def _mesh_rank(rank, shape, axes, npz, cfg_kw):
     """One rank of a mesh run: rank 0 drains the reference trace (stock
     and with every kernel path on the prefix trace) and returns its tokens,
-    its pool block's shape, the gathered pool and whether its weight blocks
-    are the reference's weights cut by ``bridge.shard_params``; the others
-    serve and return their pool blocks' shapes."""
-    mesh = make_mesh((n,), ('model',), device='cpu')
+    its pool block's shape, the gathered pool (every replica bit-equal:
+    ``gather_cache`` checks) and whether its weight blocks are the
+    reference's weights cut by ``bridge.shard_params``; the others serve
+    and return their pool blocks' shapes."""
+    mesh = make_mesh(shape, axes, device='cpu')
     if rank != 0:
         return dict(serve_rank(mesh), jax=('jax' in sys.modules))
     try:
@@ -136,14 +138,15 @@ def _mesh_rank(rank, n, npz, cfg_kw):
                 'gathered': gathered, 'committed': committed,
                 'copied': copied,
                 'saved': keng.stats.shared_page_reads_saved,
+                'split': (eng._tp.split_rows, keng._tp.split_rows),
                 'jax': 'jax' in sys.modules}
     finally:
         stop_ranks(mesh)
 
 
-def _reference(cfg_kw, n, make_virtual_mesh):
+def _reference(cfg_kw, shape, axes, make_virtual_mesh):
     """(f32 weights as numpy, the reference's drain over a virtual mesh of
-    ``n`` devices)."""
+    ``shape`` on ``axes``)."""
     import jax
     import jax.numpy as jnp
 
@@ -161,7 +164,7 @@ def _reference(cfg_kw, n, make_virtual_mesh):
     pool = JKVPool(8, 4, page_size=4, reserved_handles=1)
     eng = JEngine(jmodel, jparams, pool,
                   JEngineConfig(max_batch=4, max_seq=48, prefill_chunk=8,
-                                mesh=make_virtual_mesh((n,), ('model',))),
+                                mesh=make_virtual_mesh(shape, axes)),
                   clock=VirtualClock())
     eng.cache = f32(eng.cache)
     rids = [eng.submit(p, max_new_tokens=8)
@@ -171,22 +174,39 @@ def _reference(cfg_kw, n, make_virtual_mesh):
             [eng.output_tokens(r) for r in rids])
 
 
-@pytest.mark.parametrize('n,cfg_kw', [
-    (2, {}),                                # kv 2 / 2: GQA group 2
-    (4, {}),                                # kv 2 at 4: each kv-head on 2
-    (2, dict(n_heads=8, n_kv_heads=2)),     # GQA group 4
-], ids=['model2', 'model4-kv2', 'model2-group4'])
+MODEL = ('model',)
+DM = ('data', 'model')
+PDM = ('pod', 'data', 'model')
+
+
+@pytest.mark.parametrize('shape,axes,cfg_kw', [
+    ((2,), MODEL, {}),                      # kv 2 / 2: GQA group 2
+    ((4,), MODEL, {}),                      # kv 2 at 4: each kv-head on 2
+    ((2,), MODEL, dict(n_heads=8, n_kv_heads=2)),   # GQA group 4
+    ((2, 1), DM, {}),                       # rows over data
+    ((2, 2), DM, {}),                       # the production mesh's shape
+    ((2, 1, 1), PDM, {}),                   # rows over pod
+], ids=['model2', 'model4-kv2', 'model2-group4', 'data2', 'data2-model2',
+        'pod2'])
 def test_mesh_drain_matches_reference_and_single_device(
-        n, cfg_kw, make_virtual_mesh, tmp_path):
-    tree, want = _reference(cfg_kw, n, make_virtual_mesh)
+        shape, axes, cfg_kw, make_virtual_mesh, tmp_path):
+    """Greedy f32 tokens equal to the reference's mesh drain and the
+    meshless drain; the fused + shared path's equal to the meshless fused
+    drain's (the prefix trace runs 3 rows, which 2 batch ranks do not
+    divide: rows replicated); every pool replica bit-equal, the gathered
+    pool within 1e-4 of the meshless pool."""
+    n = int(np.prod(shape))
+    tree, want = _reference(cfg_kw, shape, axes, make_virtual_mesh)
     npz = tmp_path / 'params.npz'
     np.savez(npz, **_flat(tree))
     model = build_model(_cfg(**cfg_kw))
     single, seng = drain(model, params_from_jax(tree))
-    shared_single, _ = drain(model, params_from_jax(tree), shared=True)
+    shared_single, _ = drain(model, params_from_jax(tree), shared=True,
+                             **KERNELS)
 
     out = run_ranks(_mesh_rank, n, store_dir=tmp_path, device_type='cpu',
-                    args=(n, str(npz), cfg_kw), timeout_s=RANK_TIMEOUT_S)
+                    args=(shape, axes, str(npz), cfg_kw),
+                    timeout_s=RANK_TIMEOUT_S)
     lead = out[0]
     assert all(len(t) == 8 for t in want)
     assert lead['tokens'] == want == single
@@ -194,9 +214,12 @@ def test_mesh_drain_matches_reference_and_single_device(
     assert lead['saved'] > 0
     assert lead['committed'] and lead['copied']
     assert not any(o['jax'] for o in out)
-    # every rank's pool block: 1/n of the kv-heads where n divides them
-    cfg = model.cfg
-    local = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else 1
+    # 4 rows split over 2 batch ranks; the prefix trace's 3 replicated
+    assert lead['split'] == (n > dict(zip(axes, shape))['model'], False)
+    # every rank's pool block: 1/m of the kv-heads where the model axis m
+    # divides them; the batch axes replicate it
+    cfg, m = model.cfg, dict(zip(axes, shape))['model']
+    local = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
     shapes = [lead['shape']] + [s for o in out[1:]
                                 for s in o['cache_shapes'].values()]
     assert shapes and all(s[3] == local for s in shapes)
@@ -229,19 +252,39 @@ def test_head_blocks_keep_gqa_groups_on_one_rank():
         assert held == set(range(kv))
 
 
-def test_mesh_refuses_moe_and_a_data_axis():
-    """An engine refuses a data axis (the trainer's plan takes one) and an
-    MoE model under a mesh."""
-    data = Mesh(np.arange(2).reshape(2, 1), ('data', 'model'))
-    dense = build_model(_cfg())
-    with pytest.raises(NotImplementedError, match='data-parallel'):
-        Engine(dense, dense.init_params(0, device='cpu'),
-               KVPool(4, 4, page_size=4), EngineConfig(mesh=data),
-               device='cpu')
-    model = build_model(reduced(get_config('phi3.5-moe-42b-a6.6b'),
-                                page_size=4))
-    params = model.init_params(0, device='cpu')
-    with pytest.raises(NotImplementedError, match='10b'):
-        Engine(model, params, KVPool(4, 4, page_size=4),
-               EngineConfig(mesh=Mesh(np.arange(2), ('model',))),
-               device='cpu')
+def test_mesh_refuses_an_axis_outside_pod_data_model():
+    """An engine serves over ``pod``/``data`` (the batch) and ``model``
+    only; another axis name is refused before anything is opened."""
+    mesh = Mesh(np.arange(2).reshape(1, 2), ('data', 'expert'))
+    for arch in (ARCH, 'phi3.5-moe-42b-a6.6b'):
+        model = build_model(reduced(get_config(arch), page_size=4))
+        with pytest.raises(NotImplementedError, match="'expert'"):
+            Engine(model, model.init_params(0, device='cpu'),
+                   KVPool(4, 4, page_size=4), EngineConfig(mesh=mesh),
+                   device='cpu')
+
+
+@pytest.mark.parametrize('rows,parts', [(8, 2), (8, 4), (3, 2), (4, 1)])
+def test_row_blocks_cover_the_batch_once_or_replicate(rows, parts):
+    """A dispatch's rows in contiguous blocks over the batch ranks, in
+    rank order, or every row on every rank where the ranks do not divide
+    them; ``TensorParallel.rows`` reads the block off the mesh."""
+    from repro_torch.distributed.sharding import batch_coords, row_block
+
+    blocks = [row_block(rows, parts, i) for i in range(parts)]
+    if rows % parts:
+        assert blocks == [(0, rows)] * parts
+    else:
+        assert [lo for lo, _ in blocks] == sorted(lo for lo, _ in blocks)
+        covered = [r for lo, hi in blocks for r in range(lo, hi)]
+        assert covered == list(range(rows))
+    mesh = Mesh(np.arange(2 * parts).reshape(2, parts, 1),
+                ('pod', 'data', 'model'))
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        n, index = batch_coords(mesh, c)
+        assert (n, index) == (2 * parts, c['pod'] * parts + c['data'])
+        tp = TensorParallel(_cfg(), mesh, c, max_batch=rows)
+        lo, hi = row_block(rows, n, index)
+        assert (tp.rows.start, tp.rows.stop) == (lo, hi)
+        assert tp.split_rows == (hi - lo < rows)

@@ -64,11 +64,17 @@ B, S = 4, 32
 STEP_CASES = [((2, 1), 1, 'base', 1.0), ((2, 1), 2, 'base', 1.0),
               ((1, 2), 1, 'base', 1.0), ((1, 2), 2, 'base', 1.0),
               ((2, 2), 1, 'base', 1.0), ((2, 2), 2, 'base', 100.0),
-              ((1, 4), 1, 'kv', 1.0), ((2, 2), 1, 'vlm', 1.0)]
+              ((1, 4), 1, 'kv', 1.0), ((2, 2), 1, 'vlm', 1.0),
+              ((1, 2), 1, 'moe', 1.0), ((1, 2), 2, 'moe', 1.0),
+              ((2, 2), 1, 'moe', 1.0)]
 CONFIGS = {'base': dict(arch='qwen3-0.6b'),
            'kv': dict(arch='qwen3-0.6b', n_heads=8, n_kv_heads=2),
            'vlm': dict(arch='llava-next-mistral-7b'),
+           'moe': dict(arch='phi3.5-moe-42b-a6.6b', n_experts=16),
            'ckpt': dict(arch='internlm2-1.8b')}
+# the leaves expert parallelism cuts
+EXPERT_LEAVES = ('layers/router', 'layers/we_gate', 'layers/we_up',
+                 'layers/we_down')
 # data-parallel families: (arch, reduced() overrides); at 16 experts the
 # capacity (1.25) drops assignments at this size
 FAMILIES = {'rwkv6-3b': {}, 'zamba2-2.7b': {}, 'seamless-m4t-medium': {},
@@ -183,6 +189,26 @@ def _rank_four(rank, npzs, g_global, ckpt_npz, dirs):
             'opt': shard_opt_state(dict(state['opt'], step=1), plan)}
     ckpt.save(dirs['port'], 1, tree, mesh=mesh, specs=plan.blocks())
 
+    # moe at (2, 2): ZeRO-1 on against off over two steps, then a
+    # checkpoint of the ZeRO-1 run
+    moe = build_model(_cfg('moe'))
+    full = params_from_jax(_unflat(dict(np.load(npzs['moe']))))
+    ends = []
+    for zero1 in (True, False):
+        step = make_train_step(moe, mesh, opt_cfg=opt.AdamWConfig(**FAIL),
+                               zero1=zero1)
+        params, state = step.plan.shard_params(full), step.plan.init_opt_state()
+        for s in range(2):
+            params, state, _ = step(params, state, shard_batch(
+                _batch(moe.cfg, s), step.plan))
+        ends.append((params, state, step.plan))
+    out['moe_zero1'] = all(torch.equal(a, b) for a, b in
+                           zip(tr.leaves(ends[0][0]), tr.leaves(ends[1][0])))
+    params, state, plan = ends[0]
+    ckpt.save(dirs['moe'], 2, {'params': params, 'opt': state}, mesh=mesh,
+              specs=plan.blocks())
+    out['moe_saved'] = _blocks(params, plan)
+
     model = build_model(_cfg('base'))
     step = make_train_step(model, mesh, opt_cfg=opt.AdamWConfig(**FAIL))
     plan = step.plan
@@ -254,6 +280,9 @@ def _rank_two(rank, npzs, dirs, new_shape, restore_step):
     out['port_onto_12'] = _restore_blocks(dirs['port'], 1, plan)
     plan = TrainPlan(build_model(_cfg('ckpt')), mesh)
     out['ref_onto_21'] = _restore_blocks(dirs['ref'], 1, plan)
+    plan = TrainPlan(build_model(_cfg('moe')), make_mesh((1, 2), AXES,
+                                                         device='cpu'))
+    out['moe_onto_12'] = _restore_blocks(dirs['moe'], 2, plan)
 
     mesh = make_mesh(new_shape, AXES, device='cpu')
     step = make_train_step(model, mesh, opt_cfg=opt.AdamWConfig(**FAIL))
@@ -310,9 +339,9 @@ def world(tmp_path_factory, make_virtual_mesh):
     from repro.training.train_step import param_specs as j_param_specs
 
     root = tmp_path_factory.mktemp('train_mesh')
-    dirs = {k: str(root / k) for k in ('port', 'ref', 'fail')}
+    dirs = {k: str(root / k) for k in ('port', 'ref', 'fail', 'moe')}
     trees, npzs = {}, {}
-    for name in ('base', 'kv', 'vlm'):
+    for name in ('base', 'kv', 'vlm', 'moe'):
         trees[name] = _np(_jparams(name))
         npzs[name] = str(root / f'{name}.npz')
         np.savez(npzs[name], **_flat(trees[name]))
@@ -372,8 +401,14 @@ def _padded(spec, ndim):
     return tuple(spec) + (None,) * (ndim - len(tuple(spec)))
 
 
+SPEC_CONFIGS = {'internlm2': dict(arch='internlm2-1.8b', d_model=64,
+                                  d_ff=256),
+                'qwen3': dict(arch='qwen3-0.6b'),
+                'moe': dict(arch='phi3.5-moe-42b-a6.6b')}
+
+
 @pytest.mark.parametrize('shape', [(4, 2), (2, 2, 2)], ids=['4x2', '2x2x2'])
-@pytest.mark.parametrize('name', ['internlm2', 'qwen3'])
+@pytest.mark.parametrize('name', ['internlm2', 'qwen3', 'moe'])
 def test_specs_equal_the_reference(name, shape, make_virtual_mesh):
     """``param_specs``, ``batch_specs`` and ``opt_state_specs(zero1=True)``
     on a description mesh equal the reference's on virtual devices; the
@@ -383,8 +418,7 @@ def test_specs_equal_the_reference(name, shape, make_virtual_mesh):
     from repro.training.train_step import batch_specs as j_batch_specs
     from repro.training.train_step import param_specs as j_param_specs
 
-    cfg_kw = (dict(arch='internlm2-1.8b', d_model=64, d_ff=256)
-              if name == 'internlm2' else dict(arch='qwen3-0.6b'))
+    cfg_kw = dict(SPEC_CONFIGS[name])
     arch = cfg_kw.pop('arch')
     _, _, j_get_config, j_reduced, j_build_model = _j()
     jmodel = j_build_model(j_reduced(j_get_config(arch), **cfg_kw))
@@ -420,7 +454,7 @@ def test_specs_equal_the_reference(name, shape, make_virtual_mesh):
 
 
 @pytest.mark.parametrize('shape', [(2, 2), (2, 2, 2)], ids=['2x2', '2x2x2'])
-@pytest.mark.parametrize('name', ['internlm2', 'qwen3'])
+@pytest.mark.parametrize('name', ['internlm2', 'qwen3', 'moe'])
 def test_plan_blocks_follow_the_specs(name, shape):
     """Every rank's ``TrainPlan`` blocks (a description plan: no process
     group) equal the blocks ``local_bounds`` reads off ``param_specs`` and
@@ -428,8 +462,7 @@ def test_plan_blocks_follow_the_specs(name, shape):
     specs, places every moment alike."""
     from repro_torch.distributed.sharding import local_bounds
 
-    cfg_kw = (dict(arch='internlm2-1.8b', d_model=64, d_ff=256)
-              if name == 'internlm2' else dict(arch='qwen3-0.6b'))
+    cfg_kw = dict(SPEC_CONFIGS[name])
     model = build_model(reduced(get_config(cfg_kw.pop('arch')), **cfg_kw))
     axes = ('pod',) + AXES if len(shape) == 3 else AXES
     mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
@@ -542,6 +575,9 @@ def test_mesh_step_matches_meshless_and_the_reference(case, world):
         if all((lo, hi) == (0, n) for (lo, hi), n in zip(bounds,
                                                          grads[k].shape)):
             assert all(np.array_equal(a, g['grads'][k][0]) for g in got), k
+    if name == 'moe':              # the experts and the router are cut
+        assert all(k in lead['grads'] and lead['grads'][k][1] != tuple(
+            (0, n) for n in grads[k].shape) for k in EXPERT_LEAVES)
     # the reference's meshless step
     assert lead['loss'] == pytest.approx(float(jm['loss']), rel=1e-5)
     assert lead['grad_norm'] == pytest.approx(float(jm['grad_norm']),
@@ -638,15 +674,56 @@ def test_moe_trains_data_parallel(world, monkeypatch):
     _each_block([b for _, b in got], want, 1e-4, 'reference')
 
 
-@pytest.mark.parametrize('arch', ['phi3.5-moe-42b-a6.6b', 'rwkv6-3b',
-                                  'zamba2-2.7b', 'seamless-m4t-medium'])
+@pytest.mark.parametrize('arch', ['rwkv6-3b', 'zamba2-2.7b',
+                                  'seamless-m4t-medium'])
 def test_model_axis_is_refused_for_other_families(arch):
     model = build_model(reduced(get_config(arch)))
-    with pytest.raises(NotImplementedError, match='item 10b-ii'):
+    with pytest.raises(NotImplementedError, match='item 10b-iii'):
         make_train_step(model, Mesh(np.arange(4).reshape(2, 2), AXES))
-    with pytest.raises(NotImplementedError, match='expert parallelism'):
+    with pytest.raises(NotImplementedError, match="mesh axes {'expert'"):
         make_train_step(model, Mesh(np.arange(2).reshape(1, 2),
                                     ('data', 'expert')))
+
+
+def test_moe_zero1_on_and_off_give_bit_equal_params(world):
+    """phi3.5-moe at (2, 2), two steps at lr 3e-3: the expert stacks'
+    moments cut over data beside their expert blocks, the params bit-equal
+    to the run without ZeRO-1 on every rank."""
+    assert all(r['moe_zero1'] for r in world['four'])
+
+
+def _assembled(blocks_by_rank, shapes):
+    full = {k: np.full(shp, np.nan, np.float32) for k, shp in shapes.items()}
+    for blocks in blocks_by_rank:
+        for k, (a, bounds) in blocks.items():
+            full[k][tuple(slice(lo, hi) for lo, hi in bounds)] = a
+    assert not any(np.isnan(v).any() for v in full.values())
+    return full
+
+
+def test_moe_checkpoint_from_2x2_restores_onto_1x1_and_1x2(world):
+    """The (2, 2) ZeRO-1 run's checkpoint (each expert block written once
+    though the data ranks both hold it) restores onto (1, 2), each rank's
+    8 experts, and onto (1, 1), the whole model: every parameter equal to
+    what the ranks held, the moments of (1, 2) the blocks of (1, 1)'s."""
+    model = build_model(_cfg('moe'))
+    shapes = dict(tr.leaves_with_paths(model.param_shapes()))
+    saved = _assembled([r['moe_saved'] for r in world['four']], shapes)
+    plan = TrainPlan(model, Mesh(np.arange(1).reshape(1, 1), AXES),
+                     coords={'data': 0, 'model': 0})
+    step, whole = _restore_blocks(world['dirs']['moe'], 2, plan)
+    assert step == 2 and whole.pop('step') == 2
+    for k, (a, _) in whole.items():
+        if k.startswith('params/'):
+            np.testing.assert_array_equal(a, saved[k[len('params/'):]], k)
+    for r in world['two']:
+        got, blocks = r['moe_onto_12']
+        assert got == 2 and blocks.pop('step') == 2
+        assert blocks.keys() == whole.keys()
+        for k, (a, bounds) in blocks.items():
+            np.testing.assert_array_equal(
+                a, whole[k][0][tuple(slice(lo, hi) for lo, hi in bounds)], k)
+        assert blocks['params/layers/we_gate'][1][1] in ((0, 8), (8, 16))
 
 
 # ---------------------------------------------------------------------------
