@@ -175,7 +175,20 @@ Phases, each fatal on failure:
     noise at local columns rejected, each block's and the combine's time
     against bounds and library calls; (d) phi3.5-moe training at **1 of
     32 layers**, f32, (1, 2), under phase 17 (a)'s gates; 0 launches;
-19. one JSON line of per-kernel results, then the result line.
+19. tensor-parallel training of the other families, two ranks sharing
+    the card over gloo at (data 1, model 2): rwkv6-3b (**2 of 32
+    layers**), zamba2-2.7b (**12 of 54**: two applications of the shared
+    block) and seamless-m4t-medium (**2 + 2 of 12 + 12**) at published
+    widths; (a) f32, one step of 2 microbatches with a loss mask against
+    the meshless step on the card: loss within 1e-5 relative, grad_norm,
+    every gradient leaf (of its max) and every leaf's update (in lr)
+    within 1e-5 / 1e-5 / 0.25, or within twice the meshless step's own
+    spread over its nulls where that is larger (every f32 product summed
+    in two halves of its inner dimension, or of its columns, and the
+    recurrence at chunk 64), seamless's exact-zero ``xbk`` gradient held
+    apart; (b) two bf16 steps (B=4, S=1024) at (1, 2) beside two meshless
+    ones, their times and each rank's peak memory; 0 launches;
+20. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -191,6 +204,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3878,20 +3892,28 @@ def masked_batch(cfg, b: int, s: int, step: int = 0) -> dict:
     mask = np.ones((b, s), np.float32)
     mask[0, :s // 3] = 0
     mask[b - 1, s // 5:] = 0
+    if cfg.family == 'encdec':             # the speech frames, f32
+        batch['frames'] = (np.random.default_rng(step).standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32) * 0.02)
     return dict(batch, loss_mask=mask)
 
 
-def worst_block(blocks, full) -> float:
-    """The largest of each block's max |got - want| over its leaf's global
-    max |want| (``full``: the meshless tree; ``blocks``: path -> (tensor,
-    Block))."""
-    worst = 0.0
+def leaf_errors(blocks, full) -> dict:
+    """{path: max |got - want| over the leaf's global max |want|} of each
+    block (``full``: the meshless tree; ``blocks``: path -> (tensor,
+    Block)); NaN reads inf."""
+    out = {}
     for k, (got, b) in blocks.items():
         want = full[k]
-        err = ((got - b.take(want).to(got.device)).abs().max()
-               / want.abs().max())
-        worst = max(worst, float(err))
-    return worst
+        err = float((got - b.take(want).to(got.device)).abs().max()
+                    / want.abs().max())
+        out[k] = math.inf if math.isnan(err) else err
+    return out
+
+
+def worst_block(blocks, full) -> float:
+    """The largest of :func:`leaf_errors`."""
+    return max(leaf_errors(blocks, full).values(), default=0.0)
 
 
 def worst_update(blocks, before, delta, lr: float) -> float:
@@ -3907,20 +3929,84 @@ def worst_update(blocks, before, delta, lr: float) -> float:
     return worst
 
 
+def update_shares(blocks, before, delta) -> dict:
+    """{path: ||(after - before) - delta|| / ||delta||} over each block
+    (arguments as :func:`worst_update`'s): a block the step left unchanged
+    reads 1 and one moved the other way 2, while AdamW's first update, lr
+    times the sign of each gradient element, adds ~2 sqrt(f) where
+    rounding flips the sign of a share f of a block's elements (an
+    element-wise gate in lr reads up to 2 for one such element)."""
+    out = {}
+    for k, (got, b) in blocks.items():
+        want = b.take(delta[k]).to(got.device)
+        miss = torch.linalg.vector_norm(
+            got - b.take(before[k]).to(got.device) - want)
+        norm = torch.linalg.vector_norm(want)
+        out[k] = float(miss / norm) if norm > 0 else (
+            0.0 if miss == 0 else math.inf)
+    return out
+
+
+def null_spread(model, drawn, batch, micro: int, dev: str, grads, after,
+                m0, nulls) -> dict:
+    """The meshless step's spread over ``nulls`` ({name: context}: the same
+    function summed in another order), on this rank: under each, the
+    gradients (``loss_and_grads``) against ``grads`` per leaf as a share of
+    its max, the step from them (``make_train_step``'s AdamW) against
+    ``after`` per leaf as :func:`update_shares`, and grad_norm relative;
+    the largest over the nulls, and each null's gradient errors
+    (``by_null``).  ``grads`` and ``after`` lie on the card, ``drawn`` on
+    the host or the card."""
+    from repro_torch.distributed.sharding import Block
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as tr
+    from repro_torch.training.train_step import loss_and_grads
+
+    before = dict(tr.leaves_with_paths(drawn))
+    delta = {k: v - before[k].to(v.device) for k, v in after.items()} \
+        if nulls else {}
+    out = {'grads': {}, 'update': {}, 'grad_norm': 0.0, 'by_null': {}}
+    whole = lambda tree: {  # noqa: E731
+        k: (v.detach(), Block.whole(tuple(v.shape)))
+        for k, v in tr.leaves_with_paths(tree)}
+    for name, context in nulls.items():
+        params = f32_params(drawn, dev)
+        with context():
+            _, g = loss_and_grads(model, params, batch, micro)
+        errs = leaf_errors(whole(g), grads)
+        _, _, mn = opt.adamw_update(opt.AdamWConfig(), params, g,
+                                    opt.init_opt_state(params))
+        shares = update_shares(whole(params), before, delta)
+        for k, e in errs.items():
+            out['grads'][k] = max(out['grads'].get(k, 0.0), e)
+            out['update'][k] = max(out['update'].get(k, 0.0), shares[k])
+        out['grad_norm'] = max(out['grad_norm'], abs(
+            float(mn['grad_norm']) / float(m0['grad_norm']) - 1))
+        out['by_null'][name] = errs
+        del params, g
+    return out
+
+
 def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
                 s: int = MT_S, micro: int = MT_MICRO,
-                in_turn: bool = False) -> dict:
+                in_turn: bool = False, nulls=None, keep: str = 'cpu') -> dict:
     """Phase 17 (a), on one of two ranks sharing the card: f32 weights
     drawn on the card (the same on every rank) and kept on the host, one
     step with 2 microbatches and a loss mask, meshless on the card (its
-    results kept on the host) and at (2, 1) and (1, 2); ZeRO-1 on against
-    off
-    at (2, 1).  Besides each parameter leaf against the meshless one, each
-    leaf's update is held to the meshless update as a share of lr: at the
-    first lr (3e-6) a parameter near 1 moves by ~3e-6 of its max, below
-    the leaf gate, so only the update gate sees a step that left a slice
-    unchanged (it would read ``unchanged``, the smallest leaf's max
-    |update| / lr)."""
+    results kept on the host) and at each of ``shapes``; ZeRO-1 on against
+    off at (2, 1).  Besides each parameter leaf against the meshless one,
+    each leaf's update is held to the meshless update as a share of lr: at
+    the first lr (3e-6) a parameter near 1 moves by ~3e-6 of its max,
+    below the leaf gate, so only the update gate sees a step that left a
+    slice unchanged (it would read ``unchanged``, the smallest leaf's max
+    |update| / lr).  Each shape's result also holds every leaf's gradient
+    error (``leaf_grads``), update share (``leaf_update``,
+    :func:`update_shares`) and largest |gradient| (``grad_max``; the
+    meshless ones in ``meshless['grad_max']``).  ``nulls`` ({name:
+    context}): the meshless step's spread over them (:func:`null_spread`)
+    in ``out['nulls']``.  ``keep``: where the drawn weights and the
+    meshless results stay (the host, or the card where they fit: no
+    copies back and forth)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
     from repro_torch.training import optimizer as opt
@@ -3929,10 +4015,10 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
         loss_and_grads, make_train_step, mesh_loss_and_grads, shard_batch)
 
     model = build_model(cfg)
-    drawn = tr.tree_map(lambda x: x.detach().float().cpu(),
+    drawn = tr.tree_map(lambda x: x.detach().float().to(keep),
                         model.init_params(0, device=dev))
     host = masked_batch(cfg, b, s)
-    # the meshless step, kept on the host; ``in_turn``: on each rank in
+    # the meshless step, kept on ``keep``; ``in_turn``: on each rank in
     # turn (two ranks' at once do not fit the card at phi3.5-moe's widths)
     for r in range(torch.distributed.get_world_size() if in_turn else 1):
         if not in_turn or r == torch.distributed.get_rank():
@@ -3941,10 +4027,14 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
             loss, grads = loss_and_grads(model, params, batch, micro)
             step = make_train_step(model, microbatches=micro)
             _, _, m0 = step(params, opt.init_opt_state(params), batch)
-            grads = {k: v.cpu() for k, v in tr.leaves_with_paths(grads)}
-            after = {k: v.detach().cpu()
-                     for k, v in tr.leaves_with_paths(params)}
-            del params, batch, step
+            grads = dict(tr.leaves_with_paths(grads))
+            after = {k: v.detach() for k, v in tr.leaves_with_paths(params)}
+            del params, step
+            spread = null_spread(model, drawn, batch, micro, dev, grads,
+                                 after, m0, nulls or {})
+            grads = {k: v.to(keep) for k, v in grads.items()}
+            after = {k: v.to(keep) for k, v in after.items()}
+            del batch
             gc.collect()
             torch.cuda.empty_cache()
         if in_turn:
@@ -3953,10 +4043,13 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
     lr = float(m0['lr'])
     delta = {k: v - before[k] for k, v in after.items()}
     out = {'backend': str(torch.distributed.get_backend()),
+           'tf32': torch.backends.cuda.matmul.allow_tf32, 'nulls': spread,
            'meshless': {'loss': float(m0['loss']),
                         'grad_norm': float(m0['grad_norm']), 'lr': lr,
                         'unchanged': min(float(d.abs().max()) / lr
-                                         for d in delta.values())}}
+                                         for d in delta.values()),
+                        'grad_max': {k: float(v.abs().max())
+                                     for k, v in grads.items()}}}
     for shape in shapes:
         mesh = make_mesh(shape, MESH_AXES, device=dev)
         step = make_train_step(model, mesh, microbatches=micro)
@@ -3967,12 +4060,18 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
         p, _, m = step(p, plan.init_opt_state(), rows)
         blocks = lambda tree: {k: (v.detach(), plan.param_blocks[k])  # noqa
                                for k, v in tr.leaves_with_paths(tree)}
+        leaf_grads = leaf_errors(blocks(g), grads)
         res = {'loss': float(m['loss']), 'grad_norm': float(m['grad_norm']),
-               'grads': worst_block(blocks(g), grads),
+               'grads': max(leaf_grads.values()), 'leaf_grads': leaf_grads,
+               'grad_max': {k: float(v.abs().max())
+                            for k, v in tr.leaves_with_paths(g)},
                'experts': worst_block({k: v for k, v in blocks(g).items()
                                        if k in EXPERT_LEAVES}, grads),
                'params': worst_block(blocks(p), after),
-               'update': worst_update(blocks(p), before, delta, lr)}
+               'update': worst_update(blocks(p), before, delta, lr),
+               'leaf_update': update_shares(blocks(p), before, delta),
+               'split': [k for k, bl in plan.param_blocks.items()
+                         if not bl.is_whole()]}
         if shape == (2, 1):
             off = make_train_step(model, mesh, microbatches=micro,
                                   zero1=False)
@@ -4314,40 +4413,12 @@ K4_T = 0.8                         # (c): the sampling temperature
 HALVES = 'halves'                  # MeshMoEWitness's order null
 
 
-@contextlib.contextmanager
-def halved_products():
-    """While inside, every product of two bf16 tensors (``matmul``, ``@``,
-    ``bmm``, ``mm``) with an even inner dimension sums that dimension as
-    two halves, each over exact products in f32, the halves added in f32
-    and rounded once to the output dtype: a correct implementation that
-    rounds the layers' products other than cuBLAS's single pass, so its
-    scores move on every row -- a null with reach where the attention
-    nulls reproduce the plain path bit for bit."""
-    from torch.overrides import TorchFunctionMode
-
-    names = ('matmul', '__matmul__', 'bmm', 'mm')
-
-    class Halves(TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            if getattr(func, '__name__', None) in names and len(args) == 2 \
-                    and all(torch.is_tensor(a) and a.dtype == torch.bfloat16
-                            for a in args) and args[0].shape[-1] % 2 == 0:
-                x, w = args
-                k = x.shape[-1] // 2
-                halves = [x[..., i:i + k].float() @ w[..., i:i + k, :].float()
-                          for i in (0, k)]
-                return (halves[0] + halves[1]).to(
-                    kwargs.get('out_dtype') or x.dtype)
-            return func(*args, **kwargs)
-
-    with Halves():
-        yield
-
-
 def null_context(order):
-    """The context of a null ``order``: :func:`halved_products`, one of
+    """The context of a null ``order``: ``orders.halved_products`` (every
+    bf16 product's inner dimension summed as two halves in f32), one of
     :data:`NULL_ORDERS` (:func:`plain_kernels`), or None (nothing)."""
+    from repro_torch.orders import halved_products
+
     if order == HALVES:
         return halved_products()
     return plain_kernels(order) if order else contextlib.nullcontext()
@@ -4390,7 +4461,7 @@ class MeshMoEWitness(MoEWitness):
     tokens' slots, which each probe writes again before it reads them.
     Beside the four attention nulls, the reach takes a fifth: the plain
     path with every bf16 product summed in halves
-    (:func:`halved_products`).  The attention nulls alone reproduce P bit
+    (``orders.halved_products``).  The attention nulls alone reproduce P bit
     for bit on some rows, and a token off P's argmax there has reach 0
     however near the tie (the first card run failed two such rows, gaps
     1.7e-4 and 9.4e-4 of |max|); the spread gate still reads the kernels'
@@ -4879,6 +4950,274 @@ def dp_ep_check(card: str):
     return launches, failed
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor-parallel training of rwkv6, zamba2 and seamless
+# ---------------------------------------------------------------------------
+
+# (arch, depth): rwkv6-3b 2 of 32 layers, zamba2-2.7b 12 of 54 (two
+# applications of the shared block), seamless-m4t-medium 2 + 2 of 12 + 12
+FM_FAMILIES = (('rwkv6-3b', 2), ('zamba2-2.7b', 12),
+               ('seamless-m4t-medium', 2))
+FM_SHAPE = (1, 2)                  # (data, model): 2 gloo ranks
+FM_B, FM_S, FM_MICRO = 4, 512, 2   # (a) f32: global batch, 2 microbatches
+FM_BF16_S, FM_STEPS = 1024, 2      # (b) bf16: B = FM_B; the first warms up
+ZERO_GRAD = 'dec_layers/xbk'       # seamless: the exact-zero gradient
+FM_NULL = 2                        # (a): a gradient gate may widen to 2x
+                                   # the leaf's null
+FM_UPDATE_TOL = 0.1                # (a): each block's update off the
+                                   # meshless one, a share of its norm
+                                   # (unchanged reads 1; update_shares)
+
+
+def family_cut(arch: str, layers: int):
+    """``arch`` at its published widths, depth cut to ``layers`` (encoder
+    and decoder each, for an encoder-decoder)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.family == 'encdec':
+        return dataclasses.replace(cfg, enc_layers=layers, dec_layers=layers)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+@contextlib.contextmanager
+def plain_ssd_chunk(chunk: int):
+    """zamba2's chunked SSD at another chunk: the same function summed in
+    another order."""
+    from repro_torch.models import zamba2
+
+    saved = zamba2.ssd_chunked
+    zamba2.ssd_chunked = functools.partial(saved, chunk=chunk)
+    try:
+        yield
+    finally:
+        zamba2.ssd_chunked = saved
+
+
+def family_nulls(cfg) -> dict:
+    """The meshless step's nulls for ``cfg``'s family, {name: context}:
+    the step again as it is (the card's run-to-run spread), every f32
+    product in two halves of its sum or of its columns
+    (``orders.halved_products``), and the recurrence's chunked form at
+    chunk 64."""
+    from repro_torch.orders import halved_products
+
+    nulls = {'again': contextlib.nullcontext,
+             'sum halves': functools.partial(halved_products, torch.float32,
+                                             'sum'),
+             'column halves': functools.partial(halved_products,
+                                                torch.float32, 'columns')}
+    if cfg.family == 'ssm':
+        nulls['wkv chunk 64'] = functools.partial(plain_wkv_chunk, 64)
+    elif cfg.family == 'hybrid':
+        nulls['ssd chunk 64'] = functools.partial(plain_ssd_chunk, 64)
+    return nulls
+
+
+def family_bf16(cfg, dev: str) -> dict:
+    """Phase 19 (b), on one of two ranks sharing the card: bf16 weights
+    drawn on the card, FM_STEPS meshless steps on rank 0 (the other rank
+    waits), then FM_STEPS steps at :data:`FM_SHAPE` on both, global batch
+    FM_B x FM_BF16_S; each step's seconds (host clock, synchronized) and
+    each run's peak memory on this rank."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step, shard_batch
+
+    model = build_model(cfg)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    hosts = [masked_batch(cfg, FM_B, FM_BF16_S, s) for s in range(FM_STEPS)]
+
+    def run(step, params, state, batches):
+        losses, seconds = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m['loss']))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return losses, seconds
+
+    out = {}
+    if torch.distributed.get_rank() == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(0, device=dev, requires_grad=True)
+        losses, seconds = run(
+            make_train_step(model, opt_cfg=ocfg), params,
+            opt.init_opt_state(params),
+            [{k: torch.from_numpy(v).to(dev) for k, v in h.items()}
+             for h in hosts])
+        out['meshless'] = {'losses': losses, 'seconds': seconds,
+                           'peak': torch.cuda.max_memory_allocated()}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(FM_SHAPE, MESH_AXES, device=dev)
+    step = make_train_step(model, mesh, opt_cfg=ocfg)
+    plan = step.plan
+    params = plan.shard_params(model.init_params(0, device=dev))
+    losses, seconds = run(step, params, plan.init_opt_state(),
+                          [shard_batch(h, plan) for h in hosts])
+    out['mesh'] = {'losses': losses, 'seconds': seconds,
+                   'peak': torch.cuda.max_memory_allocated()}
+    return out
+
+
+def family_rank(rank: int, cuts, dev: str) -> dict:
+    """Phase 19 on one of two ranks sharing the card: (a) and (b) of each
+    family in turn, their seconds, and the hand-written kernel launches
+    (none: the trainer runs the plain paths)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    out = {'backend': str(torch.distributed.get_backend())}
+    for arch, cfg in cuts:
+        t0 = time.perf_counter()
+        out[arch] = {'parity': mesh_parity(
+            cfg, dev, shapes=(FM_SHAPE,), b=FM_B, s=FM_S, micro=FM_MICRO,
+            in_turn=True, nulls=family_nulls(cfg), keep=dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]['bf16'] = family_bf16(cfg, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]['seconds'] = time.perf_counter() - t0
+    return dict(out, launches=dict(LAUNCHES))
+
+
+def family_mesh_check(card: str) -> dict:
+    """Phase 19: rwkv6, zamba2 and seamless at published widths trained
+    tensor-parallel over (1, 2) by two ranks sharing the card: (a) f32
+    parity of one step with the meshless step on the card
+    (:func:`mesh_parity`): loss within MT_TOL relative, grad_norm and each
+    gradient leaf within MT_TOL (relative, of the leaf's max) or, where it
+    is larger, within FM_NULL times the meshless step's own spread over its
+    nulls (``family_nulls``: the same function run again and summed in
+    other orders); each block's update within FM_UPDATE_TOL of the
+    meshless update's norm (a fixed gate: an unchanged block reads 1);
+    seamless's exact-zero gradient held apart; (b) bf16 steps
+    timed beside the meshless step, peak memory a rank.  Every family is
+    printed before any gate is asserted.  Returns the phase's hand-written
+    kernel launches (every rank's)."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    cuts = [(arch, family_cut(arch, layers)) for arch, layers in FM_FAMILIES]
+    t0 = time.perf_counter()
+    ranks = run_ranks(family_rank, 2, store_dir=store, device_type=kind,
+                      args=(cuts, DEV), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    print(f'  two ranks on the card ({ranks[0]["backend"]}): '
+          f'{time.perf_counter() - t0:.1f} s  [{card}]')
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for (arch, layers), (_, cfg) in zip(FM_FAMILIES, cuts):
+        a = [r[arch]['parity'] for r in ranks]
+        ref, res = a[0]['meshless'], [x[FM_SHAPE] for x in a]
+        loss_rel = abs(res[0]['loss'] - ref['loss']) / abs(ref['loss'])
+        norm_rel = abs(res[0]['grad_norm'] - ref['grad_norm']) \
+            / ref['grad_norm']
+        held = [k for k in res[0]['leaf_grads'] if k != ZERO_GRAD]
+        # each rank holds its blocks to its own meshless step and nulls
+        g_ratio, g_leaf, grads = max(
+            (x['leaf_grads'][k] / max(MT_TOL, FM_NULL
+                                      * p['nulls']['grads'][k]), k,
+             x['leaf_grads'][k]) for p, x in zip(a, res) for k in held)
+        update, u_leaf = max((x['leaf_update'][k], k) for x in res
+                             for k in held)
+        u_null = max(p['nulls']['update'][k] for p in a for k in held)
+        n_gate = max(MT_TOL, FM_NULL * max(p['nulls']['grad_norm']
+                                           for p in a))
+        nulls = ', '.join(
+            f'{n} {max(e for p in a for k, e in p["nulls"]["by_null"][n].items() if k != ZERO_GRAD):.3e}'  # noqa: E501
+            for n in a[0]['nulls']['by_null'])
+        depth = (f'{layers} + {layers} of {get_config_layers(arch)}'
+                 if cfg.family == 'encdec'
+                 else f'{layers} of {get_config_layers(arch)}')
+        print(f'  (a) {arch} at {depth} layers, f32 (TF32 '
+              f'{a[0]["tf32"]}), mesh {FM_SHAPE}, B={FM_B}, S={FM_S}, '
+              f'{FM_MICRO} microbatches, a loss mask: loss '
+              f'{res[0]["loss"]:.7f} vs meshless {ref["loss"]:.7f} (rel '
+              f'{loss_rel:.3e}, gate {MT_TOL:g}), grad_norm '
+              f'{res[0]["grad_norm"]:.6f} vs {ref["grad_norm"]:.6f} (rel '
+              f'{norm_rel:.3e}, gate {n_gate:.3e}); worst gradient leaf '
+              f'{grads:.3e} of its max ({g_leaf}: {g_ratio:.3f} of its '
+              f'gate max({MT_TOL:g}, {FM_NULL:g} x the leaf\'s null)); the '
+              f'meshless step\'s nulls, worst leaf: {nulls}; worst update '
+              f'{update:.3e} of the meshless update\'s norm ({u_leaf}; gate '
+              f'{FM_UPDATE_TOL:g}, an unchanged block reads 1; the nulls\' '
+              f'worst {u_null:.3e}); {len(res[0]["split"])} of '
+              f'{len(res[0]["leaf_grads"])} leaves split  [{card}]')
+        gate(all(x['loss'] == res[0]['loss'] and
+                 x['grad_norm'] == res[0]['grad_norm'] for x in res),
+             (arch, 'ranks differ'))
+        gate(loss_rel <= MT_TOL and norm_rel <= n_gate,
+             (arch, 'loss', loss_rel, norm_rel))
+        gate(g_ratio <= 1.0, (arch, 'grads', g_leaf, g_ratio))
+        gate(update <= FM_UPDATE_TOL, (arch, 'update', u_leaf, update))
+        if ZERO_GRAD in ref['grad_max']:
+            stack = max(v for k, v in ref['grad_max'].items()
+                        if k.startswith('dec_layers/'))
+            zeros = [ref['grad_max'][ZERO_GRAD] / stack] + [
+                x['grad_max'][ZERO_GRAD] / stack for x in res]
+            print(f'  (a) {arch}: {ZERO_GRAD} (softmax ignores it) '
+                  f'meshless and mesh max |g| {zeros[0]:.3e} / '
+                  f'{max(zeros[1:]):.3e} of the decoder stack\'s max |g| '
+                  f'(gate {MT_TOL:g})  [{card}]')
+            gate(max(zeros) <= MT_TOL, (arch, ZERO_GRAD, zeros))
+        b = [r[arch]['bf16'] for r in ranks]
+        m0, m1 = b[0]['meshless'], [r['mesh'] for r in b]
+        ms = lambda xs: [round(x * 1e3, 1) for x in xs]  # noqa: E731
+        print(f'  (b) {arch} bf16, B={FM_B}, S={FM_BF16_S}: meshless '
+              f'losses {[round(x, 4) for x in m0["losses"]]}, step times '
+              f'{ms(m0["seconds"])} ms, peak {m0["peak"] / 1e9:.2f} GB; '
+              f'mesh {FM_SHAPE} losses '
+              f'{[round(x, 4) for x in m1[0]["losses"]]}, step times '
+              f'{ms(m1[0]["seconds"])} ms (host clock, synchronized; two '
+              f'ranks time-slice one card, gloo through host memory: '
+              f'recorded, not a claim), peak rank 0 '
+              f'{m1[0]["peak"] / 1e9:.2f} GB, rank 1 '
+              f'{m1[1]["peak"] / 1e9:.2f} GB; the family '
+              f'{ranks[0][arch]["seconds"]:.1f} s  [{card}]')
+        gate(m1[1]['losses'] == m1[0]['losses'], (arch, 'bf16 ranks differ'))
+        losses = np.array(m1[0]['losses'] + m0['losses'])
+        gate(np.isfinite(losses).all() and np.allclose(
+            m1[0]['losses'], m0['losses'], rtol=RESTART_TOL,
+            atol=RESTART_TOL), (arch, 'bf16 losses', losses))
+    launches = dict(LAUNCHES)
+    for r in ranks:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    assert not failed, failed
+    assert not any(launches.values()), launches
+    return launches
+
+
+def get_config_layers(arch: str) -> int:
+    """The published depth of ``arch`` (an encoder-decoder's, each
+    stack's)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.dec_layers if cfg.family == 'encdec' else cfg.n_layers
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -5036,7 +5375,14 @@ def main() -> int:
     witnessed += failed
     done()
 
-    print(f'[19] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[19] training over a mesh, the other families: '
+          f'{", ".join(f"{a} ({n} layers)" for a, n in FM_FAMILIES)} at '
+          f'published widths, tensor-parallel over {FM_SHAPE}: f32 parity, '
+          f'bf16 steps')
+    by_phase['family_mesh'] = family_mesh_check(card)
+    done()
+
+    print(f'[20] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -2,8 +2,8 @@
 # CI gate of the PyTorch port (src/repro_torch) on the CPU: the Valve patch
 # surface of the port's engine, the node smoke, a tensor-parallel drain
 # over two gloo ranks (tests/test_torch_gate_fanout.py), the in-process
-# HTTP smoke, a short reduced training run, one over four gloo ranks and
-# the trainer's mesh refusals (tests/test_torch_train_mesh.py, the cases
+# HTTP smoke, a short reduced training run, two over four gloo ranks
+# (qwen3-0.6b and zamba2-2.7b) and the trainer's mesh refusals (tests/test_torch_train_mesh.py, the cases
 # that need no reference).  Nothing here imports jax;
 # the CPU parity tests against the reference are tests/test_torch_*.py.
 #
@@ -91,18 +91,21 @@ echo "== training smoke (reduced qwen3-0.6b, 4 steps, CPU) =="
 python -m repro_torch.launch.train --arch qwen3-0.6b --reduced --steps 4 \
     --device cpu
 
-echo "== mesh training smoke (reduced qwen3-0.6b, 4 gloo ranks at (2, 2), CPU) =="
+echo "== mesh training smoke (reduced qwen3-0.6b and zamba2-2.7b, 4 gloo ranks at (2, 2), CPU) =="
 # -c, not a heredoc: spawned ranks re-run a main module that has a path
 python -c "
 import tempfile
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.launch.train import train_rank
-with tempfile.TemporaryDirectory() as d:
-    out = run_ranks(train_rank, 4, store_dir=d, device_type='cpu', args=(
-        (2, 2), 'qwen3-0.6b', dict(steps=4, batch=8, seq=32, device='cpu',
-                                   log_every=100)))
-assert all(o == out[0] for o in out), out
-print('mesh training smoke OK: losses', [round(x, 4) for x in out[0]])
+for arch in ('qwen3-0.6b', 'zamba2-2.7b'):
+    with tempfile.TemporaryDirectory() as d:
+        out = run_ranks(train_rank, 4, store_dir=d, device_type='cpu',
+                        args=((2, 2), arch, dict(steps=4, batch=8, seq=32,
+                                                 device='cpu',
+                                                 log_every=100)))
+    assert all(o == out[0] for o in out), out
+    print(arch, 'mesh training smoke OK: losses',
+          [round(x, 4) for x in out[0]])
 "
 python -m pytest -q -p no:cacheprovider tests/test_torch_train_mesh.py \
     -k refused

@@ -103,11 +103,12 @@ def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu',
 
     tp = TensorParallel(model.cfg, mesh)
 
-    def build(node, key=None):
+    def build(node, path=()):
         if isinstance(node, dict):
-            return nn.ParameterDict({k: build(v, k) for k, v in node.items()})
-        full = _tensor(node, dtype, 'cpu', key)
-        return nn.Parameter(tp.shard(key, full).contiguous().to(device),
+            return nn.ParameterDict({k: build(v, path + (k,))
+                                     for k, v in node.items()})
+        full = _tensor(node, dtype, 'cpu', path[-1])
+        return nn.Parameter(tp.shard(path, full).contiguous().to(device),
                             requires_grad=requires_grad)
     return build(tree)
 

@@ -23,6 +23,8 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
+
 AxisVal = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisVal, ...]
 
@@ -291,33 +293,100 @@ def check_spec(spec: Spec, what: str = '') -> Spec:
     return spec
 
 
+Interval = Tuple[int, int]
+
+
+def _parts(out, dim: int, intervals):
+    """``out``'s ``intervals`` of dimension ``dim``, concatenated in order
+    (a tensor or a numpy array; a view where there is one interval)."""
+    pick = [out[(slice(None),) * dim + (slice(lo, hi),)]
+            for lo, hi in intervals]
+    if len(pick) == 1:
+        return pick[0]
+    if isinstance(out, np.ndarray):
+        return np.concatenate(pick, axis=dim)
+    import torch
+    return torch.cat(pick, dim=dim)
+
+
 @dataclass(frozen=True)
 class Block:
     """One rank's block of a global tensor of ``shape``: [lo, hi) on every
-    dimension.  The trainer's placement under a mesh (heads, ZeRO-1 moment
-    slices) is not always a spec's, so checkpoints read and write blocks."""
+    dimension, or on a dimension of a packed leaf several disjoint [lo, hi)
+    in global order, whose indices the block holds one after the other
+    (zamba2's ``in_proj`` columns are [z | x | B | C | dt]: a rank holds
+    its heads' z, x and dt and a share of B and C).  ``bounds[d]`` is
+    ``(lo, hi)``, or a tuple of such pairs where there are several.  The
+    trainer's placement under a mesh (heads, ZeRO-1 moment slices) is not
+    always a spec's, so checkpoints read and write blocks."""
     shape: Tuple[int, ...]
-    bounds: Tuple[Tuple[int, int], ...]
+    bounds: Tuple[Union[Interval, Tuple[Interval, ...]], ...]
 
     @classmethod
     def whole(cls, shape: Sequence[int]) -> 'Block':
         return cls(tuple(shape), tuple((0, int(n)) for n in shape))
 
+    def intervals(self, dim: int) -> Tuple[Interval, ...]:
+        """The [lo, hi) of dimension ``dim``, in global order."""
+        b = self.bounds[dim]
+        return b if isinstance(b[0], tuple) else (b,)
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(sum(hi - lo for lo, hi in self.intervals(d))
+                     for d in range(len(self.shape)))
+
+    def is_whole(self) -> bool:
+        return all(self.intervals(d) == ((0, n),)
+                   for d, n in enumerate(self.shape))
+
     def take(self, full):
-        """This block of the global ``full`` (a view)."""
-        return full[tuple(slice(lo, hi) for lo, hi in self.bounds)]
+        """This block of the global ``full`` (a view where every dimension
+        has one interval, else a copy)."""
+        out = full
+        for dim in range(len(self.shape)):
+            out = _parts(out, dim, self.intervals(dim))
+        return out
 
     def narrow(self, dim: int, lo: int, hi: int) -> 'Block':
         """This block with [lo, hi) (global bounds) on ``dim``."""
-        return Block(self.shape, self.bounds[:dim] + ((lo, hi),)
+        return self.select(dim, ((lo, hi),))
+
+    def select(self, dim: int, intervals: Sequence[Interval]) -> 'Block':
+        """This block with ``intervals`` (global, disjoint, in order) on
+        ``dim``."""
+        iv = tuple((int(lo), int(hi)) for lo, hi in intervals)
+        if any(a[1] > b[0] for a, b in zip(iv, iv[1:])) or \
+                any(lo >= hi for lo, hi in iv):
+            raise ValueError(f'intervals {iv} are not disjoint and ordered')
+        return Block(self.shape, self.bounds[:dim]
+                     + (iv[0] if len(iv) == 1 else iv,)
                      + self.bounds[dim + 1:])
 
     def cut(self, dim: int, parts: int, index: int) -> 'Block':
         """Block ``index`` of this block split into ``parts`` along
-        ``dim``."""
-        lo, hi = self.bounds[dim]
+        ``dim``, which must hold one interval."""
+        (lo, hi), *rest = self.intervals(dim)
+        if rest:
+            raise ValueError(f'dimension {dim} of {self} holds several '
+                             'intervals: it is not cut')
         a, b = block(hi - lo, parts, index)
         return self.narrow(dim, lo + a, lo + b)
+
+    def pieces(self):
+        """[(a single-interval Block, the slices of this block's local
+        tensor that hold it)]: one piece for each combination of the
+        dimensions' intervals (a block of one interval a dimension is one
+        piece, its whole local tensor)."""
+        out = [((), ())]
+        for dim in range(len(self.shape)):
+            nxt, at = [], 0
+            for lo, hi in self.intervals(dim):
+                nxt += [(b + ((lo, hi),), s + (slice(at, at + hi - lo),))
+                        for b, s in out]
+                at += hi - lo
+            out = nxt
+        return [(Block(self.shape, b), s) for b, s in out]
 
 
 def local_bounds(shape: Sequence[int], spec: Spec, mesh,

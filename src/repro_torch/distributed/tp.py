@@ -41,20 +41,29 @@ schedule for itself, a real clock would let the ranks' schedules diverge
 into collectives that never match.
 
 **Training** (``training/train_step.py``) runs the same forward under
-autograd, and the collectives carry their gradients as Megatron's pair:
+autograd (every family: the placement table is the family's,
+:meth:`TensorParallel.ranges`; rwkv6 splits its wkv heads and ``d_ff``,
+zamba2 its Mamba2 heads with a share of B and C and its shared block's
+heads, encdec its encoder's and decoder's heads and ``d_ff`` as dense), and
+the collectives carry their gradients as Megatron's pair:
 :class:`_ReduceFromModel` (forward: the f32 sum over the ranks, rounded
-once; backward: the identity, since its output is replicated and every
-rank holds the same gradient of it) after a row-parallel product, the
+once; backward: the identity, since its output is replicated and every rank
+holds the same gradient of it) after a row-parallel product, the
 vocab-parallel lookup and the head's partial sums, and
 :class:`_CopyToModel` (forward: the identity; backward: the sum of the
-ranks' gradients) where a replicated activation enters a rank's block of
-a column-parallel product.  ``torch.distributed.nn.functional.all_reduce``
-is not that pair: its backward sums gradients that are already whole, n
-times the gradient.  Where each rank holds one kv-head replicated over
-several ranks, that kv-head's ``wk``/``wv``/``bk``/``bv`` gradient on a
-rank covers its own q-heads only, so those weights pass through
-:class:`_CopyToModel` over the ranks that hold the same kv-head; so do
-qwen3's q/k norms, one vector for every head, over all the ranks
+ranks' gradients) where a replicated activation enters a rank's block of a
+column-parallel product.  ``torch.distributed.nn.functional.all_reduce`` is
+not that pair: its backward sums gradients that are already whole, n times
+the gradient.  Two more pairs: :class:`_SumOverModel` (forward and backward
+both the sum over the ranks) for a norm's statistic that each rank applies
+to its own block (zamba2's gated norm over all of ``d_in``), and
+:meth:`TensorParallel.gather_shares` (forward a gather, backward the sum
+over the ranks, then the rank's block) for a tensor that every rank reads
+for its own block (zamba2's B and C).  Where each rank holds one kv-head
+replicated over several ranks, that kv-head's ``wk``/``wv``/``bk``/``bv``
+gradient on a rank covers its own q-heads only, so those weights pass
+through :class:`_CopyToModel` over the ranks that hold the same kv-head; so
+do qwen3's q/k norms, one vector for every head, over all the ranks
 (:meth:`TensorParallel.attn_weights`).  Serving runs no autograd, and its
 path stays op for op what it was: each of these applies only to a tensor
 that requires grad.
@@ -98,11 +107,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import (BATCH_AXES, batch_coords,
-                                              block, row_block)
+from repro_torch.distributed.sharding import (BATCH_AXES, Block,
+                                              batch_coords, block, row_block)
 from repro_torch.kernels.sampling.ref import combine_bests
 
 MODEL = 'model'
+# the weights of one kv-head block (encdec's cross-attention ones too,
+# with an 'x' in front)
+KV_LEAVES = ('wk', 'wv', 'bk', 'bv')
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -134,6 +146,27 @@ class _CopyToModel(torch.autograd.Function):
         total = grad.to(torch.float32, copy=True)
         torch.distributed.all_reduce(total, group=ctx.group)
         return total.to(grad.dtype), None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Forward: the sum of every rank's f32 ``part`` over ``group``;
+    backward: the sum of every rank's gradient too.  For a statistic that
+    every rank then applies to its own block (zamba2's gated norm over
+    all of ``d_in``, each rank holding some heads): each rank's gradient of
+    the sum covers its own block's use only."""
+
+    @staticmethod
+    def forward(ctx, part, group):
+        ctx.group = group
+        out = part.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.clone()
+        torch.distributed.all_reduce(total, group=ctx.group)
+        return total, None
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -192,8 +225,12 @@ class TensorParallel:
         coords = mesh.coords() if coords is None else coords
         self.n = mesh.shape.get(MODEL, 1)
         self.rank = coords.get(MODEL, 0)
+        # the paged-attention heads (none in rwkv6 and zamba2's backbone;
+        # zamba2's shared block has heads of its own below)
+        attn = cfg.family not in ('ssm', 'hybrid')
         self.q_heads, self.kv_heads = head_blocks(
-            cfg.n_heads, cfg.n_kv_heads, self.n, self.rank)
+            cfg.n_heads, cfg.n_kv_heads, self.n if attn else 1,
+            self.rank if attn else 0)
         self.attn_split = self.q_heads != (0, cfg.n_heads)
         # ranks holding this rank's kv-heads: > 1 where a kv-head is
         # replicated over the ranks whose q-heads read it
@@ -210,6 +247,30 @@ class TensorParallel:
         self.expert_ffn = (0, cfg.d_ff) if self.expert_split else self.ffn
         self.experts_partial = self.expert_split or self.ffn != (0, cfg.d_ff)
         self.shared_ffn = self._split(cfg.d_ff * max(cfg.n_shared_experts, 1))
+        # rwkv6: whole wkv heads (channels [lo, hi) of d_model)
+        self.wkv = self._heads(cfg.d_model // cfg.ssm_head_dim,
+                               cfg.ssm_head_dim) \
+            if cfg.family == 'ssm' else (0, 0)
+        self.wkv_split = self.wkv != (0, cfg.d_model)
+        # zamba2: whole Mamba2 heads (channels [lo, hi) of d_in) and a
+        # share of the state dimension N of B and C, both or neither; the
+        # shared block's own heads (channels of its q/k/v width) and d_ff
+        self.mamba, self.mamba_state = (0, 0), (0, 0)
+        self.shared_heads, self.hybrid_ffn = (0, 0), (0, 0)
+        self.mamba_split = self.shared_split = False
+        if cfg.family == 'hybrid':
+            d_in = cfg.ssm_expand * cfg.d_model
+            n_heads = d_in // cfg.ssm_head_dim
+            self.mamba_split = (n_heads % self.n == 0
+                                and cfg.ssm_state % self.n == 0)
+            self.mamba = (self._heads(n_heads, cfg.ssm_head_dim)
+                          if self.mamba_split else (0, d_in))
+            self.mamba_state = self._split(cfg.ssm_state) \
+                if self.mamba_split else (0, cfg.ssm_state)
+            ah = cfg.hybrid_attn_heads
+            self.shared_heads = self._heads(ah, 2 * cfg.d_model // ah)
+            self.hybrid_ffn = self._split(cfg.hybrid_attn_d_ff)
+            self.shared_split = self.shared_heads != (0, 2 * cfg.d_model)
         # the serving batch's rows over the batch axes
         self.n_batch, self.batch_index = (
             batch_coords(mesh, coords) if max_batch else (1, 0))
@@ -221,6 +282,13 @@ class TensorParallel:
     def _split(self, size: int) -> Tuple[int, int]:
         return block(size, self.n, self.rank) if size % self.n == 0 \
             else (0, size)
+
+    def _heads(self, n_heads: int, width: int) -> Tuple[int, int]:
+        """[lo, hi) of this rank's channels of ``n_heads`` heads of
+        ``width``: whole heads, all of them where ``model`` does not divide
+        them."""
+        lo, hi = self._split(n_heads)
+        return lo * width, hi * width
 
     @property
     def group(self):
@@ -264,44 +332,96 @@ class TensorParallel:
             self.q_heads[0] % (self.cfg.n_heads // self.cfg.n_kv_heads) == 0
 
     # -- placement ---------------------------------------------------------
-    def ranges(self, key: str) -> Dict[int, Tuple[int, int]]:
-        """{dim: [lo, hi)} of this rank's block of the weight ``key`` (a
-        top-level name, or a layer stack's name); {} is replicated."""
+    def ranges(self, path) -> Dict[int, Tuple[Tuple[int, int], ...]]:
+        """{dim: this rank's [lo, hi) intervals, in global order} of the
+        weight at ``path`` (its keys joined by ``/``, or a tuple of them:
+        ``'layers/wq'``, ``'shared/wq'``, ``'embed'``); {} is replicated.
+        The table is the family's (rwkv6's and zamba2's from their model
+        modules): one interval a dimension but for zamba2's packed
+        ``in_proj`` / ``conv_w`` / ``conv_b`` (the module docstring of
+        ``models/zamba2.py``)."""
+        keys = tuple(path.split('/')) if isinstance(path, str) else \
+            tuple(path)
+        fam = self.cfg.family
+        table = (self._ssm_ranges() if fam == 'ssm' else
+                 self._hybrid_ranges(keys[0]) if fam == 'hybrid' else
+                 self._attn_ranges())
+        return {dim: iv if isinstance(iv[0], tuple) else (iv,)
+                for dim, iv in table.get(keys[-1], {}).items()}
+
+    def _attn_ranges(self):
+        """dense, vlm, moe and encdec (whose cross-attention leaves are
+        the self-attention's with an ``x`` in front)."""
         hd = self.cfg.hd
         q = (self.q_heads[0] * hd, self.q_heads[1] * hd)
         kv = (self.kv_heads[0] * hd, self.kv_heads[1] * hd)
         ex, ef, sf = self.experts, self.expert_ffn, self.shared_ffn
         up = {1: ex} if self.expert_split else {3: ef}
+        attn = {'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
+                'wk': {2: kv}, 'wv': {2: kv}, 'bk': {1: kv}, 'bv': {1: kv}}
         return {
-            'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
-            'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
-            'wk': {2: kv}, 'wv': {2: kv}, 'bk': {1: kv}, 'bv': {1: kv},
+            'embed': {0: self.vocab}, 'unembed': {0: self.vocab}, **attn,
+            **({'x' + k: v for k, v in attn.items()}
+               if self.cfg.family == 'encdec' else {}),
             'wg': {2: self.ffn}, 'wu': {2: self.ffn}, 'wd': {1: self.ffn},
             'router': {2: ex}, 'we_gate': up, 'we_up': up,
             'we_down': {1: ex} if self.expert_split else {2: ef},
             'ws_gate': {2: sf}, 'ws_up': {2: sf}, 'ws_down': {1: sf},
-        }.get(key, {})
+        }
 
-    def shard(self, key: str, full):
-        """This rank's block of the global weight ``full`` (a tensor or a
-        numpy array; a view)."""
-        out = full
-        for dim, (lo, hi) in self.ranges(key).items():
-            out = out[(slice(None),) * dim + (slice(lo, hi),)]
-        return out
+    def _ssm_ranges(self):
+        """rwkv6: its table (``models.rwkv6.placement``), the embedding and
+        the head by vocabulary."""
+        from repro_torch.models import rwkv6
+
+        return {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
+                **rwkv6.placement(self.cfg, self.wkv, self.ffn)}
+
+    def _hybrid_ranges(self, group: str):
+        """zamba2: its table for ``group`` (``models.zamba2.placement``),
+        the embedding (the tied head) by vocabulary."""
+        from repro_torch.models import zamba2
+
+        table = zamba2.placement(
+            self.cfg, group, self.mamba if self.mamba_split else None,
+            self.mamba_state, self.shared_heads, self.hybrid_ffn)
+        if group == 'shared':
+            return table
+        return {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
+                **table}
+
+    def block(self, path, shape) -> Block:
+        """This rank's :class:`Block` of the global weight ``path`` of
+        ``shape``."""
+        b = Block.whole(shape)
+        for dim, intervals in self.ranges(path).items():
+            b = b.select(dim, intervals)
+        return b
+
+    def duplicate(self, path) -> bool:
+        """Whether this rank's block of ``path`` is a kv-head block that a
+        lower rank of :attr:`kv_group` holds too (it counts it once)."""
+        name = path.split('/')[-1] if isinstance(path, str) else path[-1]
+        return (self.kv_holders > 1 and not self.kv_first
+                and name.removeprefix('x') in KV_LEAVES)
+
+    def shard(self, path, full):
+        """This rank's block of the global weight ``full`` at ``path`` (a
+        tensor or a numpy array; a view but for a packed leaf)."""
+        return self.block(path, full.shape).take(full)
 
     def shard_params(self, params) -> nn.ParameterDict:
         """The global weights cut to this rank's blocks, on the mesh's
         device (copies where cut or moved; the weights may lie on the
         host)."""
-        def build(node, key):
+        def build(node, path):
             if isinstance(node, (dict, nn.ParameterDict)):
-                return nn.ParameterDict({k: build(v, k)
+                return nn.ParameterDict({k: build(v, path + (k,))
                                          for k, v in node.items()})
-            part = self.shard(key, node.detach())
+            part = self.shard(path, node.detach())
             return nn.Parameter(part.to(self.mesh.device).contiguous(),
                                 requires_grad=False)
-        return build(params, None)
+        return build(params, ())
 
     def init_cache(self, n_pages: int, device, dtype):
         """This rank's block of the global paged pool: its kv-heads."""
@@ -335,6 +455,29 @@ class TensorParallel:
         if not split or self.n == 1 or not _traced(x):
             return x
         return _CopyToModel.apply(x, self.group)
+
+    def norm_sum(self, part: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of each rank's f32 ``part`` of a norm's
+        statistic, which every rank then applies to its own block (reduced
+        in place; under autograd :class:`_SumOverModel`, whose backward
+        sums the ranks' gradients too)."""
+        if _traced(part):
+            return _SumOverModel.apply(part, self.group)
+        torch.distributed.all_reduce(part, group=self.group)
+        return part
+
+    def gather_shares(self, part: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of the last dimension, gathered in rank
+        order, for a computation that each rank then runs over its own
+        block (zamba2's B and C, read by each rank's heads): under autograd
+        the gradient is summed over the ranks and this rank's block kept,
+        a reduce-scatter (:class:`_CopyToModel` after
+        :class:`_GatherFromModel`)."""
+        if _traced(part):
+            return _CopyToModel.apply(
+                _GatherFromModel.apply(part, self.group, self.rank),
+                self.group)
+        return _gather_last(part, self.group)
 
     def attn_weights(self, lp):
         """A layer's attention weights for a training forward over this
@@ -559,7 +702,7 @@ class Leader:
                  for r in self.workers}
         for path, full in leaves:
             for r in self.workers:
-                part = plans[r].shard(path[-1], full.detach())
+                part = plans[r].shard(path, full.detach())
                 # staged through host memory (gloo sends host tensors only),
                 # a block at a time: weights on the host are never copied
                 # whole to the card
@@ -640,10 +783,8 @@ class _Follower:
             shape = shapes
             for k in path:
                 shape = shape[k]
-            shape = list(shape)
-            for dim, (lo, hi) in self.tp.ranges(path[-1]).items():
-                shape[dim] = hi - lo
-            buf = torch.empty(shape, dtype=dtype)
+            buf = torch.empty(self.tp.block(path, shape).local_shape,
+                              dtype=dtype)
             torch.distributed.recv(buf, src=0)
             node = params
             for k in path[:-1]:

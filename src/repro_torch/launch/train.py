@@ -6,7 +6,8 @@ synthetic data pipeline with prefetch, AdamW, atomic checkpoint/restart and
 straggler telemetry, on one device, or from every rank of a mesh
 (``train(..., mesh=...)``: each rank draws the whole weights from the
 seed, keeps its blocks, takes its rows of each global batch and writes
-its blocks to the checkpoints, which restore onto another mesh).  It runs
+its blocks to the checkpoints, which restore onto another mesh; every
+family splits over ``model``, as ``make_train_step`` does).  It runs
 on the GPU; ``--device cpu`` runs it on the CPU.  The CLI trains on one
 device, as the reference's has no mesh flag.  An encoder-decoder config
 (seamless-m4t-medium) is refused up front: its loss needs speech frames,

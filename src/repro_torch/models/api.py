@@ -6,7 +6,8 @@ frontend itself is not ported) and the ``moe`` family (the dense decoder
 with routed experts; no fused sampling and no prefill kernel, as in the
 reference), and runs the ``ssm`` family (rwkv6): prefill + decode over a
 recurrent-state cache.  Every family trains: :meth:`Model.loss_fn` is
-differentiable by autograd through the plain paths.
+differentiable by autograd through the plain paths, on one device or as a
+tensor-parallel rank's share (``tp``).
 
 It also runs the ``hybrid`` family (zamba2: Mamba2 layers and a shared
 attention block, a paged KV pool per application of it) and the
@@ -147,7 +148,9 @@ class Model:
         kernel (ssm), which have no backward: under autograd on tensors
         that require grad they raise.  hybrid and encdec have no kernel
         path.  ``tp``: a tensor-parallel rank's loss over its weight blocks
-        (dense, vlm, and moe with its experts; ``distributed/tp.py``).
+        (every family: heads, ``d_ff`` and vocabulary blocks, moe's
+        experts, rwkv6's wkv heads, zamba2's Mamba2 heads and shared-block
+        heads; ``distributed/tp.py``).
         ``data``: ``batch`` is this rank's block of the rows of a
         data-parallel call (``distributed.tp.DataShare``), and the loss is
         this rank's share of the call's loss: its NLL over every rank's
@@ -155,7 +158,7 @@ class Model:
         whole call), so that the ranks' losses and gradients sum to the
         call's."""
         self._no_kernel(use_kernel)
-        kw = self._tp(tp)
+        kw = {} if tp is None else {'tp': tp}
         fam = self.cfg.family
         if fam not in NO_KERNEL:
             kw['use_kernel'] = use_kernel
@@ -250,8 +253,9 @@ class Model:
             self.cfg, params, cache, batch, **self._tp(tp))
 
     def _tp(self, tp):
-        """The ``tp`` keyword for a family's entry point: none without a
-        mesh; dense, vlm and moe only with one."""
+        """The ``tp`` keyword for a serving entry point: none without a
+        mesh; dense, vlm and moe only with one (every family trains with
+        one: :meth:`loss_fn`)."""
         if tp is None:
             return {}
         self._only('dense', 'vlm', 'moe')

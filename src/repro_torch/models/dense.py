@@ -193,21 +193,22 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
 
 
 def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
-                    use_kernel: bool = False, tp=None):
-    """Causal self-attention over the whole sequence, no cache.  x: (B, S,
-    D); positions: (B, S) = 0..S-1.  ``chunked_attention`` (checkpointed a
-    query chunk under autograd), or the flash-attention kernel with
-    ``use_kernel``, which has no backward and raises under autograd.
-    Under ``tp`` the rank's heads, ``wo`` a row-parallel product."""
+                    use_kernel: bool = False, tp=None, causal: bool = True):
+    """Self-attention over the whole sequence, no cache (causal, or not:
+    encdec's encoder).  x: (B, S, D); positions: (B, S) = 0..S-1.
+    ``chunked_attention`` (checkpointed a query chunk under autograd), or
+    the flash-attention kernel with ``use_kernel``, which has no backward
+    and raises under autograd.  Under ``tp`` the rank's heads, ``wo`` a
+    row-parallel product."""
     b, s, _ = x.shape
     if tp is not None:
         x, lp = tp.copy(x, tp.attn_split), tp.attn_weights(lp)
     q, k, v = qkv_proj(cfg, lp, x, positions)
     if use_kernel:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=causal)
     else:
         out = cm.chunked_attention(q, k, v, q_positions=positions,
-                                   kv_positions=positions, causal=True)
+                                   kv_positions=positions, causal=causal)
     return _out_proj(out.reshape(b, s, -1), lp['wo'], tp)
 
 

@@ -14,6 +14,17 @@ A Python loop over layers replaces ``lax.scan``; the caches are updated in
 place.  The output head ``unembed`` is stored (V, D) row-major, as the
 dense family's.  No kernel runs here, as in the reference: the decoder's
 paged read is the gather oracle.
+
+**Training over ``model``** (``forward_train(tp=)``, a
+``distributed.tp.TensorParallel``): the encoder's and the decoder's
+self-attention and MLPs are split as the dense family's (whole heads,
+their biases, ``d_ff``; ``models/dense.py``), the cross-attention's
+``x*`` leaves by the same heads, and ``embed`` / ``unembed`` by
+vocabulary where ``model`` divides it; ``frontend_proj`` and the norms
+stay replicated.  The encoder's output enters every layer's cross K/V
+through one ``tp.copy``; where a rank's kv-head is replicated over several
+ranks, its cross ``wk``/``wv``/``bk``/``bv`` pass through ``_CopyToModel``
+over those ranks, as the self-attention's do.
 """
 from __future__ import annotations
 
@@ -70,62 +81,66 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
-def encode(cfg: ModelConfig, params, frames):
+def encode(cfg: ModelConfig, params, frames, tp=None):
     """frames: (B, S_enc, D) stub embeddings -> encoder output (B, S_enc,
-    D).  The frames are rounded to bf16 first, as in the reference."""
+    D).  The frames are rounded to bf16 first, as in the reference.
+    ``tp``: a training rank's blocks (module docstring)."""
     b, s, _ = frames.shape
     proj = params['frontend_proj']
     h = frames.to(cm.DEFAULT_DTYPE).to(proj.dtype) @ proj
     positions = _positions(b, s, frames.device)
     for lp in cm.layer_views(params, 'enc_layers'):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
-        q, k, v = dense.qkv_proj(cfg, lp, x, positions)
-        out = cm.chunked_attention(q, k, v, q_positions=positions,
-                                   kv_positions=positions, causal=False)
-        h = h + out.reshape(b, s, -1) @ lp['wo']
-        x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-        h = h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+        h = h + dense.self_attn_train(cfg, lp, x, positions, tp=tp,
+                                      causal=False)
+        h = dense._mlp(cfg, lp, h, tp)
     return cm.rms_norm(h, params['enc_final_norm'], cfg.norm_eps)
 
 
-def cross_kv(cfg: ModelConfig, params, enc_out):
+def cross_kv(cfg: ModelConfig, params, enc_out, tp=None):
     """The cross-attention K/V of every decoder layer: (Ld, B, S_enc, Hkv,
-    Dh) each."""
+    Dh) each (a training rank's kv-heads under ``tp``)."""
     b, s, _ = enc_out.shape
+    if tp is not None:
+        enc_out = tp.copy(enc_out, tp.attn_split)
     ks, vs = [], []
     for lp in cm.layer_views(params, 'dec_layers'):
         xlp = _xlp(lp)
+        if tp is not None:
+            xlp = tp.attn_weights(xlp)
         k, v = enc_out @ xlp['wk'], enc_out @ xlp['wv']
         if cfg.attn_bias and 'bk' in xlp:
             k, v = k + xlp['bk'], v + xlp['bv']
-        ks.append(k.reshape(b, s, cfg.n_kv_heads, cfg.hd))
-        vs.append(v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+        ks.append(k.reshape(b, s, -1, cfg.hd))
+        vs.append(v.reshape(b, s, -1, cfg.hd))
     return torch.stack(ks), torch.stack(vs)
 
 
-def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv):
+def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv, tp=None):
     b, t, _ = x.shape
     xlp = _xlp(lp)
+    if tp is not None:
+        x = tp.copy(x, tp.attn_split)
     q = x @ xlp['wq']
     if cfg.attn_bias and 'bq' in xlp:
         q = q + xlp['bq']
-    q = q.reshape(b, t, cfg.n_heads, cfg.hd)
+    q = q.reshape(b, t, -1, cfg.hd)
     out = cm.chunked_attention(q, xk, xv, q_positions=positions,
                                kv_positions=_positions(b, xk.shape[1],
                                                        x.device),
                                causal=False)
-    return out.reshape(b, t, -1) @ xlp['wo']
+    return dense._out_proj(out.reshape(b, t, -1), xlp['wo'], tp)
 
 
 def dec_layer(cfg: ModelConfig, lp, h, positions, mode, pool_k, pool_v,
-              page_table, xk, xv):
+              page_table, xk, xv, tp=None):
     """One decoder layer.  ``mode``: ``train`` (no cache), ``prefill``
     (positions (B, S); K/V into the pools), ``decode`` (positions (B,);
     the pools read through the page table).  xk/xv: this layer's cross
-    K/V (B, S_enc, Hkv, Dh)."""
+    K/V (B, S_enc, Hkv, Dh).  ``tp`` (``train`` only): a rank's blocks."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
     if mode == 'train':
-        h = h + dense.self_attn_train(cfg, lp, x, positions)
+        h = h + dense.self_attn_train(cfg, lp, x, positions, tp=tp)
     elif mode == 'prefill':
         h = h + dense.self_attn_prefill(cfg, lp, x, positions, pool_k,
                                         pool_v, page_table)
@@ -134,30 +149,32 @@ def dec_layer(cfg: ModelConfig, lp, h, positions, mode, pool_k, pool_v,
                                        page_table)
     x = cm.rms_norm(h, lp['ln_cross'], cfg.norm_eps)
     pos2d = positions if positions.dim() == 2 else positions[:, None]
-    h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv)
-    x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    return h + cm.swiglu(x, lp['wg'], lp['wu'], lp['wd'])
+    h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv, tp)
+    return dense._mlp(cfg, lp, h, tp)
 
 
-def forward_train(cfg: ModelConfig, params, batch):
+def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     """Mean next-token NLL of batch['labels'] (B, S) given
     batch['tokens'] (B, S) and batch['frames'] (B, S_enc, D), masked by
     batch['loss_mask'] if present.  Each decoder layer is checkpointed
     under autograd, as the reference's ``scan_dec``; the encoder is not.
+    ``tp``: a tensor-parallel rank's weight blocks (module docstring).
     -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
     b, s = tokens.shape
-    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames']))
+    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames'], tp),
+                        tp)
     positions = _positions(b, s, tokens.device)
-    h = params['embed'][tokens.long()]
+    h = dense.embed_inputs(cfg, params, tokens, tp=tp)
     for lp, xk, xv in zip(cm.layer_views(params, 'dec_layers'),
                           xks.unbind(0), xvs.unbind(0)):
         h = cm.remat(lambda h, lp, xk, xv: dec_layer(
-            cfg, lp, h, positions, 'train', None, None, None, xk, xv),
+            cfg, lp, h, positions, 'train', None, None, None, xk, xv, tp),
             h, lp, xk, xv)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], params['unembed'], batch['labels'],
-        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps,
+        tp=tp if tp is not None and tp.vocab_split else None)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 

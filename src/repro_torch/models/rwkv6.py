@@ -18,6 +18,21 @@ plain chunked path, as in the reference.
 A Python loop over layers replaces ``lax.scan``.  The output head
 ``unembed`` is stored (V, D) row-major, like the dense family's, and
 scores are ``h @ unembed.T``.
+
+**Training over ``model``** (``forward_train(tp=)``, a
+``distributed.tp.TensorParallel``): a rank holds whole wkv heads -- the
+columns of ``Wr``/``Wk``/``Wv``/``Wg``, the rows of ``Wo``, ``u``, and
+the heads' channels of ``w_base``, ``w_B``'s output and ``ln_x`` -- and a
+``d_ff`` block of ``Wk_cm`` / ``Wv_cm``; the embedding and the head by
+vocabulary.  The WKV recurrence and the group norm are head-local, so
+``Wo`` and ``Wv_cm`` are the only row-parallel products (an f32 sum over
+the ranks, rounded once).  ``Wr_cm``'s sigmoid gates that *reduced*
+product, so ``Wr_cm`` stays replicated (the reference's ``'qkv'`` axis
+would split its columns; the function is the same), as do ``mu``,
+``mu_cm``, ``w_A`` and the norms.  The mixes ``r``, ``k``, ``v`` and
+``g`` read, and ``tanh(x_w A)``, enter the rank's columns through
+``tp.copy``, so every replicated leaf gets the whole gradient, bit-equal
+on every rank.
 """
 from __future__ import annotations
 
@@ -72,6 +87,21 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def placement(cfg: ModelConfig, channels, ffn) -> Dict[str, Dict[int, Any]]:
+    """A tensor-parallel rank's blocks of the layer stack's leaves, {name:
+    {dim: [lo, hi)}}, for a rank holding the whole wkv heads whose
+    channels of ``d_model`` are ``channels`` = [lo, hi) and the block
+    ``ffn`` = [lo, hi) of ``d_ff`` (the module docstring); a leaf it does
+    not name (``mu``, ``mu_cm``, ``w_A``, ``Wr_cm``, the norms) is
+    replicated."""
+    hd = cfg.ssm_head_dim
+    return {'Wr': {2: channels}, 'Wk': {2: channels}, 'Wv': {2: channels},
+            'Wg': {2: channels}, 'Wo': {1: channels},
+            'u': {1: (channels[0] // hd, channels[1] // hd)},
+            'w_base': {1: channels}, 'w_B': {2: channels},
+            'ln_x': {1: channels}, 'Wk_cm': {2: ffn}, 'Wv_cm': {1: ffn}}
+
+
 def cache_template(cfg: ModelConfig, batch_size: int) -> Dict[str, PSpec]:
     """The recurrent state as an inference cache: ``wkv`` (L, B, H, K, V)
     f32 and the token shift states ``shift_tm`` / ``shift_cm`` (L, B, D)
@@ -96,22 +126,30 @@ def _shift(x, last):
     return torch.cat([last[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _identity(x):
+    return x
+
+
 def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
-             use_kernel: bool = False):
-    """-> (output (B, T, D), new shift state x[:, -1], new wkv state)."""
+             use_kernel: bool = False, tp=None):
+    """-> (output (B, T, D), new shift state x[:, -1], new wkv state).
+    ``tp``: a training rank's wkv heads (module docstring)."""
     b, t, d = x.shape
     hd = cfg.ssm_head_dim
-    h = d // hd
+    split = tp is not None and tp.wkv_split
+    copy = tp.copy if split else _identity
     xs = _shift(x, shift_state)
     mu = lp['mu']
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
-    r = (xr @ lp['Wr']).reshape(b, t, h, hd).float()
-    k = (xk @ lp['Wk']).reshape(b, t, h, hd).float()
-    v = (xv @ lp['Wv']).reshape(b, t, h, hd).float()
-    g = xg @ lp['Wg']
+    # -1 heads: a tensor-parallel rank's weights hold its heads only
+    r = (copy(xr) @ lp['Wr']).reshape(b, t, -1, hd).float()
+    k = (copy(xk) @ lp['Wk']).reshape(b, t, -1, hd).float()
+    v = (copy(xv) @ lp['Wv']).reshape(b, t, -1, hd).float()
+    g = copy(xg) @ lp['Wg']
     w_raw = (lp['w_base'].float()
-             + torch.tanh(xw.float() @ lp['w_A'].float()) @ lp['w_B'].float())
-    w = torch.exp(-torch.exp(w_raw)).reshape(b, t, h, hd)  # (0, 1)
+             + copy(torch.tanh(xw.float() @ lp['w_A'].float()))
+             @ lp['w_B'].float())
+    w = torch.exp(-torch.exp(w_raw)).reshape(b, t, -1, hd)  # (0, 1)
     u = lp['u'].float()
     if t == 1:
         y, wkv_state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
@@ -123,54 +161,69 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
         y, wkv_state = wkv6_chunked(r, k, v, w, u, wkv_state)
     # per-head group norm, then the gate
     y = cm.rms_norm(y, torch.ones(hd, dtype=y.dtype, device=y.device), 64e-5)
-    y = y.reshape(b, t, d).to(x.dtype) * lp['ln_x']
+    y = y.reshape(b, t, -1).to(x.dtype) * lp['ln_x']
     y = y * F.silu(g.float()).to(x.dtype)
-    return y @ lp['Wo'], x[:, -1], wkv_state
+    out = y @ lp['Wo'] if not split else tp.row_parallel(y, lp['Wo'], True)
+    return out, x[:, -1], wkv_state
 
 
-def channel_mix(cfg: ModelConfig, lp, x, shift_state):
-    """-> (output (B, T, D), new shift state x[:, -1])."""
+def channel_mix(cfg: ModelConfig, lp, x, shift_state, tp=None):
+    """-> (output (B, T, D), new shift state x[:, -1]).  ``tp``: a
+    training rank's ``d_ff`` block; the gate multiplies the reduced
+    product."""
+    split = tp is not None and tp.ffn != (0, cfg.d_ff)
     xs = _shift(x, shift_state)
     mu = lp['mu_cm']
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
-    k = torch.square(torch.relu(xk @ lp['Wk_cm']))
-    out = torch.sigmoid((xr @ lp['Wr_cm']).float()).to(x.dtype) \
-        * (k @ lp['Wv_cm'])
+    k = torch.square(torch.relu((tp.copy(xk) if split else xk)
+                                @ lp['Wk_cm']))
+    kv = tp.row_parallel(k, lp['Wv_cm'], True) if split \
+        else k @ lp['Wv_cm']
+    out = torch.sigmoid((xr @ lp['Wr_cm']).float()).to(x.dtype) * kv
     return out, x[:, -1]
 
 
-def layer_apply(cfg: ModelConfig, lp, h, state_l, *, use_kernel: bool = False):
+def layer_apply(cfg: ModelConfig, lp, h, state_l, *, use_kernel: bool = False,
+                tp=None):
     """One layer; ``state_l`` = {'wkv', 'shift_tm', 'shift_cm'} of this
     layer.  -> (h, new state of this layer)."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
     tm_out, shift_tm, wkv = time_mix(cfg, lp, x, state_l['shift_tm'],
-                                     state_l['wkv'], use_kernel=use_kernel)
+                                     state_l['wkv'], use_kernel=use_kernel,
+                                     tp=tp)
     h = h + tm_out
     x = cm.rms_norm(h, lp['ln2'], cfg.norm_eps)
-    cm_out, shift_cm = channel_mix(cfg, lp, x, state_l['shift_cm'])
+    cm_out, shift_cm = channel_mix(cfg, lp, x, state_l['shift_cm'], tp)
     return h + cm_out, {'wkv': wkv, 'shift_tm': shift_tm,
                         'shift_cm': shift_cm}
 
 
 def forward_train(cfg: ModelConfig, params, batch, *,
-                  use_kernel: bool = False):
+                  use_kernel: bool = False, tp=None):
     """Mean next-token NLL of batch['labels'] (B, T) given batch['tokens']
     (B, T), masked by batch['loss_mask'] if present, from a zero state;
     each layer checkpointed under autograd, as in the reference.  The
     WKV6 kernel with ``use_kernel`` has no backward and raises under
-    autograd.  -> (loss, {'tokens': count})."""
+    autograd.  ``tp``: a tensor-parallel rank's weight blocks (module
+    docstring).  -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
-    h = params['embed'][tokens.long()]
+    h = (params['embed'][tokens.long()] if tp is None
+         else tp.embed(params['embed'], tokens))
     zero = {k: s[0] for k, s in init_state(cfg, tokens.shape[0],
                                            device=h.device).items()}
+    if tp is not None and tp.wkv_split:
+        hd = cfg.ssm_head_dim
+        zero['wkv'] = zero['wkv'][:, tp.wkv[0] // hd:tp.wkv[1] // hd]
     for lp in cm.layer_views(params):
         h = cm.remat(lambda h, lp: layer_apply(cfg, lp, h, zero,
-                                               use_kernel=use_kernel)[0],
+                                               use_kernel=use_kernel,
+                                               tp=tp)[0],
                      h, lp)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], params['unembed'], batch['labels'],
-        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps,
+        tp=tp if tp is not None and tp.vocab_split else None)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 

@@ -10,7 +10,8 @@ application; each application has its own paged KV pool -- the tensors
 Valve reclaims for this architecture.
 
 - ``forward_train``: every layer checkpointed under autograd, the shared
-  block in ``train`` mode, ``chunked_ce_loss``.
+  block in ``train`` mode, ``chunked_ce_loss``; with ``tp`` a
+  tensor-parallel rank's share (below).
 - ``prefill``: a whole prompt from the Mamba state in the cache, the
   shared block's K/V written into its pools through the page table.
 - ``decode_step``: one token a row; the shared block reads its pools
@@ -23,9 +24,33 @@ the caches are updated in place.  Only the global pool layout is ported
 ROADMAP Queue 1 item 11).
 No kernel runs here, as in the reference: the paged read is the gather
 oracle ``paged_attention_ref`` and the attentions are ``chunked_attention``.
+
+**Training over ``model``** (``forward_train(tp=)``, a
+``distributed.tp.TensorParallel``).  A rank holds whole Mamba2 heads and
+a 1/n share of the state dimension N.  ``in_proj``'s columns are packed
+[z | x | B | C | dt] = [d_in | d_in | N | N | H] and the conv's channels
+[x | B | C], so a rank's block of each is several intervals in global
+order (``sharding.Block``): its heads' z, x and dt columns, its heads' x
+channels, and its share of B's and C's columns and channels.  The
+depthwise conv is channel-wise, so each rank convolves its own channels;
+then B and C are all-gathered over ``model`` (B x T x 2N values a layer),
+since every head's SSD reads all of them; the gather's backward sums the
+ranks' gradients and keeps the rank's share (a reduce-scatter).  The
+gated RMSNorm normalises over all of ``d_in``: each rank's f32 sum of
+squares is summed over ``model`` before the rsqrt, and in the backward
+that statistic's gradient is summed too (``tp.norm_sum``).  ``out_proj``
+is row-parallel.  The shared block is split by its own heads (q/k/v
+columns, ``wo`` rows) and ``hybrid_attn_d_ff``; its one parameter set
+gathers the gradients of every application.  The embedding (the tied
+head) is vocab-parallel.  ``ln``'s output before ``in_proj`` and the
+shared block's normed ``concat(h, e0)`` enter the split products through
+``tp.copy``, so every replicated leaf gets the whole gradient on every
+rank.  Where ``model`` does not divide the Mamba2 heads and N, the Mamba2
+layers stay whole on every rank.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -49,6 +74,36 @@ def _dims(cfg: ModelConfig):
     d_in = cfg.ssm_expand * d
     hd = cfg.ssm_head_dim
     return d, d_in, hd, d_in // hd, cfg.ssm_state
+
+
+def placement(cfg: ModelConfig, group: str, heads, state, shared_heads,
+              ffn) -> Dict[str, Dict[int, Any]]:
+    """A tensor-parallel rank's blocks of the leaves of ``group``
+    (``'layers'`` or ``'shared'``), {name: {dim: [lo, hi) or a tuple of
+    them in global order}}, for a rank holding the Mamba2 heads whose
+    channels of ``d_in`` are ``heads`` = [lo, hi) (None: the Mamba2
+    layers whole) with the share ``state`` = [lo, hi) of the state
+    dimension N, and the shared block's head channels ``shared_heads`` and
+    ``hybrid_attn_d_ff`` block ``ffn`` (the module docstring); a leaf it
+    does not name is replicated."""
+    if group == 'shared':
+        return {'wq': {1: shared_heads}, 'wk': {1: shared_heads},
+                'wv': {1: shared_heads}, 'wo': {0: shared_heads},
+                'wg': {1: ffn}, 'wu': {1: ffn}, 'wd': {0: ffn}}
+    if heads is None:
+        return {}
+    _, d_in, hd, _, n = _dims(cfg)
+    (lo, hi), (slo, shi) = heads, state
+    h = (lo // hd, hi // hd)
+    # conv channels [x | B | C]; in_proj columns [z | x B C | dt]
+    xbc = ((lo, hi), (d_in + slo, d_in + shi),
+           (d_in + n + slo, d_in + n + shi))
+    dt = 2 * d_in + 2 * n
+    cols = (((lo, hi),) + tuple((d_in + a, d_in + b) for a, b in xbc)
+            + ((dt + h[0], dt + h[1]),))
+    return {'in_proj': {2: cols}, 'conv_w': {2: xbc}, 'conv_b': {1: xbc},
+            'A_log': {1: h}, 'dt_bias': {1: h}, 'D': {1: h},
+            'norm': {1: heads}, 'out_proj': {1: heads}}
 
 
 def template(cfg: ModelConfig) -> Dict[str, Any]:
@@ -186,16 +241,42 @@ def _causal_conv(xbc, conv_w, conv_b, conv_state):
     return F.silu((out + conv_b).float()).to(xbc.dtype), new_state
 
 
-def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state):
-    """One Mamba2 layer.  h: (B, T, D); conv_state (B, K-1, C); ssm_state
-    (B, H, P, N) f32.  -> (h, new conv state, new ssm state)."""
+def _gated_norm(cfg: ModelConfig, y, w, tp):
+    """RMSNorm of the gated ``y`` over all of ``d_in``; under ``tp`` (a
+    rank holding some heads' channels) the f32 sum of squares is summed
+    over ``model`` before the rsqrt, and its gradient too
+    (``tp.norm_sum``)."""
+    if tp is None:
+        return cm.rms_norm(y, w, cfg.norm_eps)
+    yf = y.float()
+    total = tp.norm_sum((yf * yf).sum(-1, keepdim=True))
+    var = total / (cfg.ssm_expand * cfg.d_model)
+    return (yf * torch.rsqrt(var + cfg.norm_eps) * w.float()).to(y.dtype)
+
+
+def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
+    """One Mamba2 layer.  h: (B, T, D); conv_state (B, K-1, C) (C: the
+    conv channels of ``lp``); ssm_state (B, H, P, N) f32 (H: the heads of
+    ``lp``).  ``tp``: a training rank's heads and its share of B and C
+    (module docstring).  -> (h, new conv state, new ssm state)."""
     d, d_in, hd, nh, n = _dims(cfg)
     bsz, t, _ = h.shape
+    if tp is not None and not tp.mamba_split:
+        tp = None
+    parts = tp.n if tp is not None else 1
+    d_in, nh, n_own = d_in // parts, nh // parts, n // parts
     x = cm.rms_norm(h, lp['ln'], cfg.norm_eps)
-    z, xbc, dt = torch.split(x @ lp['in_proj'], [d_in, d_in + 2 * n, nh],
+    if tp is not None:
+        x = tp.copy(x)
+    z, xbc, dt = torch.split(x @ lp['in_proj'], [d_in, d_in + 2 * n_own, nh],
                              dim=-1)
     xbc, new_conv = _causal_conv(xbc, lp['conv_w'], lp['conv_b'], conv_state)
-    xs, b, c = torch.split(xbc, [d_in, n, n], dim=-1)
+    xs, bc = torch.split(xbc, [d_in, 2 * n_own], dim=-1)
+    if tp is not None:
+        # every rank's share of B and C, in rank order
+        bc = tp.gather_shares(bc).reshape(bsz, t, parts, 2, n_own)
+        bc = bc.transpose(2, 3).reshape(bsz, t, 2 * n)
+    b, c = torch.split(bc, [n, n], dim=-1)
     xs = xs.reshape(bsz, t, nh, hd).float()
     dt = F.softplus(dt.float() + lp['dt_bias'])                 # (B, T, H)
     a = torch.exp(-torch.exp(lp['A_log'].float()) * dt)         # (0, 1)
@@ -207,8 +288,10 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state):
     else:
         y, new_ssm = ssd_chunked(xdt, b.float(), c.float(), a, ssm_state)
     y = (y + lp['D'][:, None] * xs).reshape(bsz, t, d_in)        # skip
-    y = cm.rms_norm(y * F.silu(z.float()), lp['norm'], cfg.norm_eps)
-    return h + y.to(h.dtype) @ lp['out_proj'], new_conv, new_ssm
+    y = _gated_norm(cfg, y * F.silu(z.float()), lp['norm'], tp).to(h.dtype)
+    out = y @ lp['out_proj'] if tp is None \
+        else tp.row_parallel(y, lp['out_proj'], True)
+    return h + out, new_conv, new_ssm
 
 
 # ---------------------------------------------------------------------------
@@ -216,21 +299,26 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state):
 # ---------------------------------------------------------------------------
 
 def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
-                pool_k=None, pool_v=None, page_table=None):
+                pool_k=None, pool_v=None, page_table=None, tp=None):
     """h, e0: (B, T, D); positions (B, T).  ``mode``: ``train`` (no cache),
     ``prefill`` (K/V into the pools (P, pg, AH, AHD) through the page
     table), ``decode`` (one token, the pools read through the page table),
     ``decode_dense`` (one token, contiguous pools (B, S_max, AH, AHD)).
-    The pools are written in place.  -> h'."""
+    The pools are written in place.  ``tp`` (``train`` only): a rank's
+    heads and ``d_ff`` block of the block.  -> h'."""
     b, t, d = h.shape
-    ah = cfg.hybrid_attn_heads
-    ahd = 2 * d // ah
+    ahd = 2 * d // cfg.hybrid_attn_heads
+    heads = tp is not None and tp.shared_split
+    ffn = tp is not None and tp.hybrid_ffn != (0, cfg.hybrid_attn_d_ff)
     x = cm.rms_norm(torch.cat([h, e0], dim=-1), sp['ln1'], cfg.norm_eps)
-    q = cm.rope((x @ sp['wq']).reshape(b, t, ah, ahd), positions,
+    if heads:
+        x = tp.copy(x)
+    # -1 heads: a tensor-parallel rank's weights hold its heads only
+    q = cm.rope((x @ sp['wq']).reshape(b, t, -1, ahd), positions,
                 cfg.rope_theta)
-    k = cm.rope((x @ sp['wk']).reshape(b, t, ah, ahd), positions,
+    k = cm.rope((x @ sp['wk']).reshape(b, t, -1, ahd), positions,
                 cfg.rope_theta)
-    v = (x @ sp['wv']).reshape(b, t, ah, ahd)
+    v = (x @ sp['wv']).reshape(b, t, -1, ahd)
     if mode in ('train', 'prefill'):
         if mode == 'prefill':
             cm.kv_write_prefill(pool_k, page_table, k)
@@ -254,9 +342,14 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
         cm.kv_write_token(pool_v, page_idx, pos % pg, v[:, 0])
         out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
                                      pos + 1)[:, None]
-    h = h + out.reshape(b, t, ah * ahd) @ sp['wo']
+    out = out.reshape(b, t, -1)
+    h = h + (tp.row_parallel(out, sp['wo'], True) if heads
+             else out @ sp['wo'])
     x = cm.rms_norm(torch.cat([h, e0], dim=-1), sp['ln2'], cfg.norm_eps)
-    return h + cm.swiglu(x, sp['wg'], sp['wu'], sp['wd'])
+    if not ffn:
+        return h + cm.swiglu(x, sp['wg'], sp['wu'], sp['wd'])
+    return h + cm.swiglu(tp.copy(x), sp['wg'], sp['wu'], sp['wd'],
+                         functools.partial(tp.row_parallel, split=True))
 
 
 # ---------------------------------------------------------------------------
@@ -305,36 +398,42 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device).expand(b, s)
 
 
-def train_layer(cfg: ModelConfig, idx: int, lp, sp, h, e0, positions):
+def train_layer(cfg: ModelConfig, idx: int, lp, sp, h, e0, positions,
+                tp=None):
     """Layer ``idx`` of the training forward from a zero Mamba state, the
-    shared block after it where ``(idx + 1) % every == 0``."""
+    shared block after it where ``(idx + 1) % every == 0``.  ``tp``: a
+    rank's blocks (module docstring)."""
     d, d_in, hd, nh, n = _dims(cfg)
     b = h.shape[0]
-    conv0 = torch.zeros(b, cfg.conv_kernel - 1, d_in + 2 * n, dtype=h.dtype,
-                        device=h.device)
-    ssm0 = torch.zeros(b, nh, hd, n, dtype=torch.float32, device=h.device)
-    h = mamba_block(cfg, lp, h, conv0, ssm0)[0]
+    conv0 = torch.zeros(b, cfg.conv_kernel - 1, lp['conv_w'].shape[-1],
+                        dtype=h.dtype, device=h.device)
+    ssm0 = torch.zeros(b, lp['A_log'].shape[-1], hd, n, dtype=torch.float32,
+                       device=h.device)
+    h = mamba_block(cfg, lp, h, conv0, ssm0, tp)[0]
     if (idx + 1) % cfg.hybrid_attn_every == 0:
-        h = shared_attn(cfg, sp, h, e0, positions, 'train')
+        h = shared_attn(cfg, sp, h, e0, positions, 'train', tp=tp)
     return h
 
 
-def forward_train(cfg: ModelConfig, params, batch):
+def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     """Mean next-token NLL of batch['labels'] (B, S) given batch['tokens']
     (B, S), masked by batch['loss_mask'] if present; each layer
-    checkpointed under autograd, as the reference's ``scan_layers``.  ->
-    (loss, {'tokens': count})."""
+    checkpointed under autograd, as the reference's ``scan_layers``.
+    ``tp``: a tensor-parallel rank's weight blocks (module docstring).
+    -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
     b, s = tokens.shape
-    h = e0 = params['embed'][tokens.long()]
+    h = e0 = (params['embed'][tokens.long()] if tp is None
+              else tp.embed(params['embed'], tokens))
     positions = _positions(b, s, tokens.device)
     sp = params['shared']
     for idx, lp in enumerate(cm.layer_views(params)):
         h = cm.remat(lambda h, lp, idx=idx: train_layer(
-            cfg, idx, lp, sp, h, e0, positions), h, lp)
+            cfg, idx, lp, sp, h, e0, positions, tp), h, lp)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], head_of(cfg, params), batch['labels'],
-        mask=batch.get('loss_mask'), eps=cfg.norm_eps)
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps,
+        tp=tp if tp is not None and tp.vocab_split else None)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 

@@ -18,13 +18,13 @@ reference's (D, V) layout, its bounds too, and read back as the port's
 
 Under a mesh every rank writes the blocks it holds (``specs``: a
 :class:`~repro_torch.distributed.sharding.Block` a leaf) to
-``host<rank>.npz``; a block several ranks hold is written once, by the
-lowest of them.  The manifest's shard ids are unique a leaf across the
-files, and rank 0 writes the manifest and commits after every rank has
-written.  Restore assembles the blocks a target asks for
+``host<rank>.npz``, a block of several intervals on a dimension (zamba2's
+packed ``in_proj``) as one shard an interval; a block several ranks hold is
+written once, by the lowest of them.  The manifest's shard ids are unique a
+leaf across the files, and rank 0 writes the manifest and commits after
+every rank has written.  Restore assembles the blocks a target asks for
 (``shardings``) from every file's overlapping shards: onto another mesh
-than the writer's (the elastic reshard after ``plan_recovery``), or
-whole.
+than the writer's (the elastic reshard after ``plan_recovery``), or whole.
 """
 from __future__ import annotations
 
@@ -82,27 +82,31 @@ def save(ckpt_dir: str, step: int, tree, *, mesh=None, specs=None) -> str:
     for key, leaf in tr.leaves_with_paths(tree):
         t = torch.as_tensor(leaf)
         b = blocks.get(key) or Block.whole(t.shape)
-        mine[key] = (t, _disk_bounds(key, b))
+        # a block of several intervals on a dimension: one piece each
+        mine[key] = [(t[idx], _disk_bounds(key, piece))
+                     for piece, idx in b.pieces()]
         leaves[key] = {'shape': [hi for _, hi in
                                  _disk_bounds(key, Block.whole(b.shape))],
                        'dtype': str(t.dtype).removeprefix('torch.')}
     # every rank's bounds: a leaf's shard ids, and which rank writes each
+    held = {k: [b for _, b in pieces] for k, pieces in mine.items()}
     if n > 1:
         every = [None] * n
-        torch.distributed.all_gather_object(
-            every, {k: b for k, (_, b) in mine.items()})
+        torch.distributed.all_gather_object(every, held)
     else:
-        every = [{k: b for k, (_, b) in mine.items()}]
+        every = [held]
     arrays = {}
     for key, entry in leaves.items():
         shards = {}
-        for r, bounds in enumerate(b[key] for b in every):
-            if bounds not in shards.values():
+        for r, pieces in enumerate(b[key] for b in every):
+            for i, bounds in enumerate(pieces):
+                if bounds in shards.values():
+                    continue
                 sid = str(len(shards))
                 shards[sid] = bounds
                 if r == rank:
                     arrays[f'{key}::{sid}'] = to_jax_layout(
-                        mine[key][0], key.rsplit('/', 1)[-1])
+                        mine[key][i][0], key.rsplit('/', 1)[-1])
         entry['shards'] = shards
 
     npz = os.path.join(tmp, f'host{rank}.npz')
@@ -160,6 +164,25 @@ def _assemble(stores, key: str, entry, bounds=None) -> np.ndarray:
     return out
 
 
+def _assemble_block(stores, key: str, entry, block: Optional[Block]):
+    """:func:`_assemble` of a :class:`Block` (the whole leaf for None), in
+    the on-disk layout; a block of several intervals on a dimension (never
+    a transposed head's) piece by piece, each at its slices of the
+    block."""
+    if block is None:
+        return _assemble(stores, key, entry)
+    pieces = block.pieces()
+    if len(pieces) == 1:
+        return _assemble(stores, key, entry, _disk_bounds(key, block))
+    out = None
+    for piece, idx in pieces:
+        part = _assemble(stores, key, entry, _disk_bounds(key, piece))
+        if out is None:
+            out = np.empty(block.local_shape, part.dtype)
+        out[idx] = part
+    return out
+
+
 def restore(ckpt_dir: str, step: int, target_tree, *, shardings=None):
     """Rebuild ``target_tree`` from checkpoint ``step``: new tensors of each
     target leaf's dtype and device (an ``nn.Parameter`` keeps its
@@ -182,9 +205,8 @@ def restore(ckpt_dir: str, step: int, target_tree, *, shardings=None):
                 return (nn.ParameterDict(kids)
                         if isinstance(node, nn.ParameterDict) else kids)
             tgt = torch.as_tensor(node)
-            b = blocks.get(key)
-            a = _assemble(stores, key, manifest['leaves'][key],
-                          _disk_bounds(key, b) if b is not None else None)
+            a = _assemble_block(stores, key, manifest['leaves'][key],
+                                blocks.get(key))
             if key.rsplit('/', 1)[-1] == HEAD:          # (D, V) -> (V, D)
                 a = a.T
             t = torch.from_numpy(np.ascontiguousarray(a)).to(

@@ -142,7 +142,9 @@ def zero1_dim(shape, sharded, n: int) -> Optional[int]:
     """ZeRO-1's rule: the dimension along which ``n`` data ranks cut a
     moment -- the first that the param's placement leaves whole (not
     ``sharded[i]``) and ``n`` divides -- or None.  ``zero1_moment_specs``
-    reads it on specs, ``train_step.TrainPlan`` on a rank's blocks."""
+    reads it on specs, ``train_step.TrainPlan`` on a rank's blocks, where a
+    dimension of several intervals (zamba2's packed leaves) is cut, so a
+    moment is cut along another dimension or not at all."""
     for i, (dim, cut) in enumerate(zip(shape, sharded)):
         if not cut and dim % n == 0 and dim >= n:
             return i

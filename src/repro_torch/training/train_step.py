@@ -9,11 +9,13 @@ mean of the microbatch losses.
 
 **Under a mesh** (``('data', 'model')`` or ``('pod', 'data', 'model')``,
 ``launch/mesh.py``) each rank is a process holding its blocks
-(:class:`TrainPlan`): the weights cut over ``model`` as tensor-parallel
-serving cuts them (``distributed/tp.py``: whole heads, ``d_ff`` and
-vocabulary blocks, moe's experts and their router columns; dense, vlm and
-moe), and with ZeRO-1 each moment cut
-further over the data axes.  The step computes what GSPMD computes for the
+(:class:`TrainPlan`): the weights cut over ``model`` by the family's table
+(``distributed/tp.py``: whole heads, ``d_ff`` and vocabulary blocks,
+moe's experts and their router columns, rwkv6's wkv heads, zamba2's
+Mamba2 heads with a share of B and C -- several intervals of its packed
+leaves, ``sharding.Block`` -- and its shared block's heads), and with
+ZeRO-1 each moment cut further over the data axes, along a dimension
+that holds one interval.  The step computes what GSPMD computes for the
 reference on the global batch:
 
 - microbatch i is rows [i B/M, (i+1) B/M) of the global batch, cut over
@@ -133,28 +135,23 @@ def batch_specs(model: Model, shape, mesh, rules=None):
 # One rank's blocks
 # ---------------------------------------------------------------------------
 
-def check_train_mesh(cfg, mesh) -> None:
-    """What trains under a mesh: every family over the data axes; dense,
-    vlm and moe (its experts over ``model``) also over ``model``."""
+def check_train_mesh(mesh) -> None:
+    """What trains under a mesh: every family over the data axes and over
+    ``model``; no other axis."""
     other = {a: s for a, s in mesh.shape.items()
              if a not in DATA_AXES + (MODEL,) and s > 1}
     if other:
         raise NotImplementedError(
             f'mesh axes {other}: the trainer reduces over {DATA_AXES} and '
             'splits over model only')
-    if mesh.shape.get(MODEL, 1) > 1 and cfg.family not in ('dense', 'vlm',
-                                                          'moe'):
-        raise NotImplementedError(
-            f'training a {cfg.family!r} model with model > 1 is not ported '
-            'yet (ROADMAP Queue 1 item 10b-iii); data-parallel training '
-            '(model = 1) is')
 
 
 class TrainPlan:
     """Rank ``mesh.rank``'s share of the training state on ``mesh``.
 
-    ``param_blocks``: each weight's :class:`Block` (global bounds) under
-    the tensor-parallel plan (``tp``, None where ``model`` is 1);
+    ``param_blocks``: each weight's :class:`Block` (global bounds; a
+    packed leaf's last dimension several intervals) under the
+    tensor-parallel plan (``tp``, None where ``model`` is 1);
     :meth:`moment_block`: with ``zero1``, each moment's block -- its
     param's, cut over the data axes along the dimension
     ``optimizer.zero1_dim`` picks (the rule of ``zero1_moment_specs``, on
@@ -168,7 +165,7 @@ class TrainPlan:
         from repro_torch.distributed.tp import TensorParallel
 
         cfg = model.cfg
-        check_train_mesh(cfg, mesh)
+        check_train_mesh(mesh)
         self.model, self.mesh = model, mesh
         self.device = mesh.device
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
@@ -180,15 +177,12 @@ class TrainPlan:
         shapes = dict(tr.leaves_with_paths(model.param_shapes()))
         self.param_blocks, self.zdims = {}, {}
         for path, shape in shapes.items():
-            b = Block.whole(shape)
-            if self.tp is not None:
-                for dim, (lo, hi) in self.tp.ranges(path.rsplit('/')[-1]
-                                                    ).items():
-                    b = b.narrow(dim, lo, hi)
+            b = (Block.whole(shape) if self.tp is None
+                 else self.tp.block(path, shape))
             self.param_blocks[path] = b
             self.zdims[path] = opt.zero1_dim(
-                b.shape, [(lo, hi) != (0, n) for (lo, hi), n
-                          in zip(b.bounds, b.shape)],
+                b.shape, [b.intervals(d) != ((0, n),)
+                          for d, n in enumerate(b.shape)],
                 self.n_data) if zero1 and self.n_data > 1 else None
         self.data_group = self.model_group = self.kv_group = self.data = None
         if described:               # another rank's blocks: no groups
@@ -206,13 +200,9 @@ class TrainPlan:
     def norm_share(self, path: str) -> str:
         """'replicated' (counted by every rank), 'split' (summed over
         ``model``) or 'duplicate' (another holder counts it)."""
-        b = self.param_blocks[path]
-        if b.bounds == Block.whole(b.shape).bounds:
+        if self.param_blocks[path].is_whole():
             return 'replicated'
-        name = path.rsplit('/')[-1]
-        if name in ('wk', 'wv', 'bk', 'bv') and not self.tp.kv_first:
-            return 'duplicate'
-        return 'split'
+        return 'duplicate' if self.tp.duplicate(path) else 'split'
 
     def moment_slice(self, path: str):
         """(dim, start, length) of this data rank's ZeRO-1 slice of the
@@ -220,8 +210,7 @@ class TrainPlan:
         dim = self.zdims[path]
         if dim is None:
             return None
-        b = self.param_blocks[path]
-        n = (b.bounds[dim][1] - b.bounds[dim][0]) // self.n_data
+        n = self.param_blocks[path].local_shape[dim] // self.n_data
         return dim, self.data_index * n, n
 
     def gather_slices(self, p: torch.Tensor, dim: int) -> None:
@@ -265,8 +254,8 @@ class TrainPlan:
         """AdamW's state over this rank's moment blocks (f32 zeros)."""
         def zeros(path):
             b = self.moment_block(path)
-            return torch.zeros([hi - lo for lo, hi in b.bounds],
-                               dtype=torch.float32, device=self.device)
+            return torch.zeros(b.local_shape, dtype=torch.float32,
+                               device=self.device)
         moments = lambda: tr.unflatten(  # noqa: E731
             self.model.param_shapes(), [zeros(p) for p in self.param_blocks])
         return {'step': torch.zeros((), dtype=torch.int32,

@@ -905,12 +905,15 @@ def test_mesh_over_nccl_decodes_through_the_kernels(cuda, tmp_path, n):
         assert mesh == single
 
 
-def _train_rank(rank, shape, micro):
-    """One rank of a reduced-width f32 training step on the card over
-    ``shape``, and the meshless step from the same weights on the same
-    card: (backend, mesh metrics, meshless metrics, the worst gradient and
-    parameter leaf of this rank's blocks against the meshless ones, of the
-    leaf's max, and whether every block is bit-equal)."""
+def _train_rank(rank, shape, micro, arch='qwen3-0.6b'):
+    """One rank of a reduced-width f32 training step of ``arch`` on the
+    card over ``shape``, and the meshless step from the same weights on
+    the same card: (backend, mesh metrics, meshless metrics, the worst
+    gradient and parameter leaf of this rank's blocks against the meshless
+    ones, of the leaf's max (a parameter drawn as zeros is lr-sized after
+    the step, and is left out), the worst block's update off the meshless
+    one as a share of that update's norm, and whether every block is
+    bit-equal)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
@@ -922,7 +925,7 @@ def _train_rank(rank, shape, micro):
 
     mesh = make_mesh(shape, ('data', 'model'))
     dev = mesh.device
-    model = build_model(reduced(get_config('qwen3-0.6b')))
+    model = build_model(reduced(get_config(arch)))
     drawn = tr.tree_map(lambda x: x.detach().float(),
                         model.init_params(0, device='cpu'))
     host = batch_at(DataConfig(seq_len=64, global_batch=4,
@@ -944,14 +947,29 @@ def _train_rank(rank, shape, micro):
     want = {'grads': dict(tr.leaves_with_paths(grads)),
             'params': dict(tr.leaves_with_paths(params))}
     worst, equal = {}, True
+    zero = {k for k, v in tr.leaves_with_paths(drawn) if not v.any()}
     for what, tree in (('grads', g), ('params', p)):
         worst[what] = 0.0
         for k, v in tr.leaves_with_paths(tree):
+            if what == 'params' and k in zero:
+                continue
             w = plan.param_blocks[k].take(want[what][k].detach())
             equal &= torch.equal(v.detach(), w)
             worst[what] = max(worst[what], float(
                 (v.detach() - w).abs().max()
                 / want[what][k].detach().abs().max()))
+    # each block's update off the meshless one, of that update's norm (an
+    # unchanged block reads 1)
+    worst['update'] = 0.0
+    start = dict(tr.leaves_with_paths(drawn))
+    for k, v in tr.leaves_with_paths(p):
+        b = plan.param_blocks[k]
+        before = b.take(start[k]).to(dev)
+        delta = b.take(want['params'][k].detach()) - before
+        miss = torch.linalg.vector_norm(v.detach() - before - delta)
+        norm = torch.linalg.vector_norm(delta)
+        worst['update'] = max(worst['update'], float(miss / norm) if norm
+                              else (0.0 if miss == 0 else float('inf')))
     metrics = lambda x: {k: float(v) for k, v in x.items()}  # noqa: E731
     return (str(torch.distributed.get_backend()), metrics(m), metrics(m0),
             worst, equal)
@@ -992,4 +1010,30 @@ def test_two_gloo_ranks_train_on_one_card(cuda, tmp_path, shape):
         assert m['loss'] == pytest.approx(m0['loss'], rel=1e-5)
         assert m['grad_norm'] == pytest.approx(m0['grad_norm'], rel=1e-5)
         assert worst['grads'] <= 1e-5 and worst['params'] <= 1e-5, worst
+        assert worst['update'] <= 0.1, worst
+    assert out[0][1] == out[1][1]
+
+
+def test_two_gloo_ranks_train_zamba2_over_model_on_one_card(cuda, tmp_path):
+    """A reduced zamba2 over (1, 2), two ranks sharing the card over gloo,
+    f32, 2 microbatches and a loss mask: loss and grad_norm within 1e-5
+    relative of the meshless step on the card, every gradient and
+    parameter block within 1e-5 of its leaf's max (a parameter drawn as
+    zeros is held by its update alone) and every block's update within
+    0.1 of the meshless update's norm (an unchanged block reads 1).  The
+    packed ``in_proj`` and conv blocks, the B/C gather and the gated
+    norm's sum over ``model`` on CUDA tensors, at a size that runs in seconds;
+    ``chip_smoke.py`` phase 19 covers zamba2 (with rwkv6 and seamless) at
+    published widths."""
+    from repro_torch.launch.ranks import run_ranks
+
+    out = run_ranks(_train_rank, 2, store_dir=tmp_path, device_type='cuda',
+                    backend='gloo', args=((1, 2), 2, 'zamba2-2.7b'),
+                    timeout_s=120)
+    for backend, m, m0, worst, _ in out:
+        assert backend == 'gloo'
+        assert m['loss'] == pytest.approx(m0['loss'], rel=1e-5)
+        assert m['grad_norm'] == pytest.approx(m0['grad_norm'], rel=1e-5)
+        assert worst['grads'] <= 1e-5 and worst['params'] <= 1e-5, worst
+        assert worst['update'] <= 0.1, worst
     assert out[0][1] == out[1][1]

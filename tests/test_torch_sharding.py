@@ -328,3 +328,130 @@ def test_param_and_cache_axes_equal_the_reference(arch):
         assert got == _j_axes(jdense.cache_template(jcfg, 33))
     shapes = model.param_shapes()
     assert shapes['embed'] == (cfg.vocab_size, cfg.d_model)
+
+
+# -- blocks of several intervals (zamba2's packed leaves) -------------------
+def test_block_of_several_intervals_takes_cuts_and_splits_into_pieces():
+    import torch
+
+    full = np.arange(4 * 10).reshape(4, 10)
+    b = sh.Block.whole((4, 10)).select(1, ((0, 2), (5, 7), (9, 10)))
+    b = b.narrow(0, 1, 3)
+    assert b.bounds == ((1, 3), ((0, 2), (5, 7), (9, 10)))
+    assert b.local_shape == (2, 5) and not b.is_whole()
+    want = full[1:3][:, [0, 1, 5, 6, 9]]
+    np.testing.assert_array_equal(b.take(full), want)
+    assert torch.equal(b.take(torch.from_numpy(full)), torch.from_numpy(want))
+    # one interval stays a pair, and takes a view
+    one = b.select(1, ((5, 7),))
+    assert one.bounds[1] == (5, 7) and one.intervals(1) == ((5, 7),)
+    assert np.shares_memory(one.take(full), full)
+    # cut along a dimension of one interval keeps the others
+    assert b.cut(0, 2, 1).bounds == ((2, 3), b.bounds[1])
+    with pytest.raises(ValueError, match='several intervals'):
+        b.cut(1, 5, 0)
+    with pytest.raises(ValueError, match='disjoint'):
+        b.select(1, ((0, 3), (2, 4)))
+    pieces = b.pieces()
+    assert [p.bounds for p, _ in pieces] == [
+        ((1, 3), (0, 2)), ((1, 3), (5, 7)), ((1, 3), (9, 10))]
+    local = b.take(full)
+    for p, idx in pieces:
+        np.testing.assert_array_equal(local[idx], p.take(full))
+    assert sh.Block.whole((4, 10)).is_whole()
+
+
+def test_block_of_several_intervals_round_trips_a_checkpoint(tmp_path):
+    """A leaf written as a block of two intervals (two shards) restores
+    whole, onto another block of several intervals, and through the
+    reference's ``restore``."""
+    import torch
+
+    from repro.training import checkpoint as jckpt
+    from repro_torch.training import checkpoint as ckpt
+
+    full = np.random.default_rng(0).standard_normal((3, 10)).astype(
+        np.float32)
+    wrote = sh.Block.whole((3, 10)).select(1, ((0, 4), (4, 10)))
+    tree = {'w': torch.from_numpy(wrote.take(full))}
+    d = ckpt.save(str(tmp_path), 1, tree, specs={'w': wrote})
+    import json
+    import os
+    with open(os.path.join(d, 'manifest.json')) as f:
+        assert len(json.load(f)['leaves']['w']['shards']) == 2
+    whole, step = ckpt.restore(str(tmp_path), 1,
+                               {'w': torch.zeros(3, 10)})
+    assert step == 1 and torch.equal(whole['w'], torch.from_numpy(full))
+    other = sh.Block.whole((3, 10)).select(1, ((1, 2), (3, 8))).narrow(
+        0, 1, 3)
+    part, _ = ckpt.restore(str(tmp_path), 1, {'w': torch.zeros(2, 6)},
+                           shardings={'w': other})
+    assert torch.equal(part['w'], torch.from_numpy(other.take(full)))
+    ref, _ = jckpt.restore(str(tmp_path), 1, {'w': np.zeros((3, 10),
+                                                            np.float32)})
+    np.testing.assert_array_equal(np.asarray(ref['w']), full)
+
+
+# -- the training families' placement ----------------------------------------
+FAMILY_REPLICATED = {
+    'rwkv6-3b': {'final_norm', 'layers/ln1', 'layers/ln2', 'layers/mu',
+                 'layers/w_A', 'layers/mu_cm', 'layers/Wr_cm'},
+    'zamba2-2.7b': {'final_norm', 'layers/ln', 'shared/ln1', 'shared/ln2'},
+    'seamless-m4t-medium': {
+        'frontend_proj', 'enc_final_norm', 'final_norm', 'enc_layers/ln1',
+        'enc_layers/ln2', 'dec_layers/ln1', 'dec_layers/ln2',
+        'dec_layers/ln_cross'}}
+
+
+def _flat_indices(block) -> list:
+    return block.take(np.arange(int(np.prod(block.shape))).reshape(
+        block.shape)).ravel().tolist()
+
+
+@pytest.mark.parametrize('n', [2, 4])
+@pytest.mark.parametrize('arch', sorted(FAMILY_REPLICATED))
+def test_family_placement_partitions_every_split_leaf(arch, n):
+    """Over ``model`` = n, every leaf of the reduced rwkv6, zamba2 and
+    seamless is replicated (the listed ones) or split into disjoint blocks
+    that cover it; a kv-head block held by several ranks (seamless at
+    n = 4: 2 kv-heads) counts on its first holder (``duplicate``)."""
+    from repro_torch.training import tree as tr
+
+    cfg = reduced(get_config(arch))
+    shapes = dict(tr.leaves_with_paths(build_model(cfg).param_shapes()))
+    mesh = Mesh(np.arange(n), ('model',))
+    tps = [TensorParallel(cfg, mesh, {'model': r}) for r in range(n)]
+    replicated = set()
+    for k, shp in shapes.items():
+        blocks = [tp.block(k, shp) for tp in tps]
+        if all(b.is_whole() for b in blocks):
+            replicated.add(k)
+            continue
+        held = [i for tp, b in zip(tps, blocks) if not tp.duplicate(k)
+                for i in _flat_indices(b)]
+        assert sorted(held) == list(range(int(np.prod(shp)))), k
+    assert replicated == FAMILY_REPLICATED[arch]
+    if arch.startswith('seamless') and n == 4:
+        assert tps[0].kv_holders == 2 and tps[1].duplicate('dec_layers/xwk')
+
+
+def test_family_tables_key_on_the_path():
+    """zamba2's ``in_proj`` / ``conv`` hold a rank's heads and its share of
+    B and C in global order, its 2-D shared block splits by its own heads
+    (width 2 d_model / heads), and seamless's cross-attention leaves split
+    as its self-attention's."""
+    cfg = reduced(get_config('zamba2-2.7b'))      # d_in 128, N 8, 8 heads
+    tp = TensorParallel(cfg, Mesh(np.arange(2), ('model',)), {'model': 1})
+    assert tp.ranges('layers/in_proj') == {2: (
+        (64, 128), (192, 256), (260, 264), (268, 272), (276, 280))}
+    assert tp.ranges('layers/conv_w') == {2: ((64, 128), (132, 136),
+                                              (140, 144))}
+    assert tp.ranges('layers/A_log') == {1: ((4, 8),)}
+    assert tp.ranges('shared/wq') == {1: ((64, 128),)}
+    assert tp.ranges('shared/wd') == {0: ((64, 128),)}
+    cfg = reduced(get_config('seamless-m4t-medium'))
+    tp = TensorParallel(cfg, Mesh(np.arange(2), ('model',)), {'model': 1})
+    for k in ('wq', 'wk', 'wv', 'wo', 'bq', 'bk', 'bv'):
+        assert tp.ranges(f'dec_layers/x{k}') == tp.ranges(f'dec_layers/{k}')
+        assert tp.ranges(f'dec_layers/x{k}')
+    assert tp.ranges('frontend_proj') == {}

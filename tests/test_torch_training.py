@@ -374,11 +374,17 @@ def test_microbatches_split_the_batch():
         loss_and_grads(tmodel, tp, batch, 3)
     with pytest.raises(ValueError, match='require grad'):
         loss_and_grads(tmodel, params_from_jax(_np(_jparams()[1])), batch)
-    # moe trains over model (expert parallelism); rwkv6 does not yet
+    # every family trains over model (rwkv6 by its wkv heads); another
+    # axis is refused
+    from repro_torch.training.train_step import TrainPlan, check_train_mesh
     rwkv = t_build_model(tconfigs.reduced(tconfigs.get_config('rwkv6-3b')))
-    with pytest.raises(NotImplementedError, match='item 10b-iii'):
+    mesh = Mesh(np.arange(2).reshape(1, 2), ('data', 'model'))
+    check_train_mesh(mesh)
+    plan = TrainPlan(rwkv, mesh, coords={'data': 0, 'model': 1})
+    assert plan.param_blocks['layers/Wr'].bounds[2] == (32, 64)
+    with pytest.raises(NotImplementedError, match="mesh axes {'expert'"):
         make_train_step(rwkv, mesh=Mesh(np.arange(2).reshape(1, 2),
-                                        ('data', 'model')))
+                                        ('data', 'expert')))
 
 
 def _manifest(d, step):
