@@ -35,7 +35,8 @@ Phases, each fatal on failure:
    checked with mutants and timed on lines of their own;
 4. full-width qwen3-0.6b, held teacher-forced: every kernel-path decode
    step (one step at the kernel shapes of phase 3, then every step of an
-   engine drain over a prefix-sharing KV pool with short tables) is also
+   engine drain over a prefix-sharing KV pool with short tables, its new
+   tokens **cut to 8 a request**) is also
    scored on the same cache state by the plain path and by the plain
    models of the kernels' own split algorithms; the kernels stay within
    the spread of those two correct implementations, every sampled token
@@ -74,7 +75,8 @@ Phases, each fatal on failure:
     colocated node: tokens bit for bit, zero handoff recompute, the copied
     KV rows bit-equal to their source, both runtimes' invariants;
 12. phase 4's drain again with tables and shared runs long enough that K1,
-    K3 and K2 split over CTAs, gated the same way;
+    K3 and K2 split over CTAs, gated the same way, its new tokens **cut to
+    8 a request** (as in phases 4, 16 and 18);
 13. MoE serving: phi3.5-moe at its published widths (d_model 4096, 32/8
     heads, 16 experts of d_ff 6400, top-2, vocab 32064, bf16), depth cut
     to 16 of 32 layers so that the weights leave room on the card: phase
@@ -123,12 +125,14 @@ Phases, each fatal on failure:
 16. tensor-parallel serving (``EngineConfig.mesh``), qwen3-0.6b at
     published widths, ranks spawned by ``launch.ranks.run_ranks``: (a) a
     mesh of one rank over NCCL, phase 4's drain (its new tokens **cut to
-    8 a request**, as in phase 18) unfused through K1/K2/K3:
+    8 a request**, as in phase 18) at **14 of 28 layers** unfused through
+    K1/K2/K3:
     every token and every live row's scores bit-equal to the meshless
     drain; (b) two ranks sharing the card over gloo (``model`` = 2, 4
     kv-heads each): an f32 drain with the **depth cut to 4 of 28 layers**
     (greedy tokens equal to the meshless drain's, scores within 1e-4 of
-    |max|), then the bf16 drain at full depth with ``decode_kernel=True``,
+    |max|), then the bf16 drain at 14 of 28 layers (as (a) and (c))
+    with ``decode_kernel=True``,
     every decode step held by the Witness rule to the meshless plain path
     on the pool gathered from both ranks, K1/K2/K3 launched on each rank;
     (c) online and offline engines on that mesh under a runtime with a gate
@@ -144,21 +148,24 @@ Phases, each fatal on failure:
     the data shards different token counts, at (data 2, model 1) and (data
     1, model 2) against the meshless step on the card: loss and grad_norm
     within 1e-5 relative, every gradient and parameter leaf within 1e-5 of
-    its max; ZeRO-1 on against off bit-equal; (b) full depth, bf16 weights,
-    f32 moments, (2, 1), global B=4, S=2048, 4 steps with a checkpoint at
-    step 2 from both ranks, then ``plan_recovery``'s shrink to one rank,
+    its max; ZeRO-1 on against off bit-equal; (b) the **depth cut to 7 of
+    28 layers**, bf16 weights, f32 moments, (2, 1), global B=4, S=2048, 4
+    steps with a checkpoint at step 2 from both ranks, 2 steps at (1, 2),
+    then ``plan_recovery``'s shrink to one rank,
     which restores it and runs steps 2-3 within 2e-2 of the unbroken run;
     step times, the gradient reduce's bytes and seconds a step, peak memory
-    a rank; (c) the int8 compressed all-reduce of a (28, 1024, 3072) f32
-    leaf, card ranks bit-equal to CPU gloo ranks, the error falling after
-    the feedback round; 0 hand-written kernel launches;
+    a rank; (c) the int8 compressed all-reduce of a (7, 1024, 3072) f32
+    leaf ((b)'s ``wg`` stack), on the card bit-equal to the same ranks'
+    round on host tensors, the error falling after the feedback round; 0
+    hand-written kernel launches;
 18. data- and expert-parallel serving, ranks sharing the card over gloo:
     (a) qwen3-0.6b at published widths on (data 2, model 1) and (data 2,
     model 2) (2 and 4 ranks, each dispatch's rows over ``data``): phase
     16's f32 drain (8 new tokens a request) with the **depth cut to 4 of
     28 layers** (tokens equal
     to the meshless drain, scores and the gathered pool within 1e-4),
-    then the bf16 drain at full depth with K1/K2/K3 and K4 on (fused
+    then the bf16 drain at **14 of 28 layers** with K1/K2/K3 and K4 on
+    (fused
     sampling: K4 on each rank's vocabulary block, the bests combined over
     ``model``), every step under phase 16's two Witness gates, K1-K4
     launched on every rank, every replica's pool bit-equal; the burst on
@@ -186,9 +193,22 @@ Phases, each fatal on failure:
     spread over its nulls where that is larger (every f32 product summed
     in two halves of its inner dimension, or of its columns, and the
     recurrence at chunk 64), seamless's exact-zero ``xbk`` gradient held
-    apart; (b) two bf16 steps (B=4, S=1024) at (1, 2) beside two meshless
+    apart; (b) two bf16 steps (B=4, **S=512**, cut from 1024) at (1, 2)
+    beside two meshless
     ones, their times and each rank's peak memory; 0 launches;
-20. one JSON line of per-kernel results, then the result line.
+20. the serve step (``training.train_step.make_serve_step``) over the
+    per-request region KV layout and the dry-run's cost report
+    (``launch/dryrun.py``): (a) qwen3-0.6b at published widths, meshless,
+    in f32 and in bf16: a prefill of B=4 prompts of 1024 tokens into a
+    region cache sized for 2048, then 16 greedy decode steps, beside the
+    same calls on the engine's global pool holding the same pages in the
+    same order: every step's scores and tokens bit-equal; (b) ``run_cell``
+    of that prefill and decode with ``measure=True``: the record, the
+    measured ms of a step against the roofline's max(compute, memory) and
+    the measured peak memory against argument + output + temp; (c) two
+    production records of the shape-only count, qwen3-0.6b x decode_32k
+    and x train_4k on the (16, 16) mesh, ``status: ok``; 0 launches;
+21. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -211,6 +231,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -218,8 +239,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / 'src'))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
-BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak, data sheet
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    PEAK_FLOPS_BF16 as BF16_FLOPS_PER_S)
+
 F32_FLOPS_PER_S = 67e12            # f32 outside the tensor cores, data sheet
 ATTN_ATOL = 1e-3                   # bf16 attention outputs, elementwise:
 ATTN_RTOL = 2 ** -7                # |out - ref| <= atol + rtol |ref|
@@ -233,6 +256,8 @@ PREFILL_TOL = 1e-3                 # f32 prefill: scores of |max|, KV pools
 LOSS_RTOL_F32 = 1e-4               # f32 rwkv6 loss, kernel vs plain
 LOSS_RTOL_BF16 = 1e-3              # bf16: or 2x the plain path's null gap
 REPS = 25
+SPIN_CYCLES_PER_S = 2e9            # torch.cuda._sleep's cycles a second,
+                                   # near the H100's 1.98 GHz boost clock
 
 B, HQ, HKV, D, PG, MAXP = 8, 16, 8, 128, 16, 32
 MOE_HQ = 32                        # phi3.5-moe: 32 query heads over HKV
@@ -243,6 +268,8 @@ WKV_B, WKV_T, WKV_H, WKV_K = 4, 2048, 40, 64     # rwkv6-3b WKV6
 WKV_CHUNK = 64
 WKV_T_CHECK = 1000                 # the untimed WKV6 checks' length
 LONG_MAXP = 256                    # K1 at a 4096-token context
+DRAIN_NEW_TOKENS = 8               # phases 4 and 12: new tokens a request,
+                                   # cut from 16 (the time limit)
 PREFILL_B, PREFILL_S = 2, 2048
 RWKV_B, RWKV_T = 4, 2048
 RWKV_DECODE = 16                   # greedy decode steps after the prefill
@@ -259,7 +286,7 @@ TRAIN_LOSS_RTOL = 1e-5             # f32 loss, card vs CPU
 TRAIN_GRAD_TOL = 1e-4              # f32 gradients: of each leaf's max |g|
 MICRO_TOL = 1e-5                   # 2 microbatches vs 1: loss, gradients
 CLI_TRAIN = ('--steps', '4', '--batch', '2', '--seq', '256',
-             '--ckpt-every', '2')
+             '--ckpt-every', '4')      # one checkpoint, step_4 (the time)
 HYBRID_ARCH, ENCDEC_ARCH = 'zamba2-2.7b', 'seamless-m4t-medium'
 ID_B, ID_T = 2, 511                # zamba2 f32: prefill T + 1 step vs T + 1
 SSD_B, SSD_T, SSD_H, SSD_P, SSD_N = 2, 2048, 80, 64, 64   # zamba2's SSD
@@ -325,13 +352,22 @@ class Timer:
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
 
-    def __call__(self, fn, reps: int = REPS) -> float:
+    def __call__(self, fn, reps: int = REPS,
+                 spin_s: Optional[float] = None) -> float:
         for _ in range(3):
             fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()                        # the host's enqueue of one call alone
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # the spin outlasts the enqueue 4x over (at least 2 ms; a slower
+        # clock only lengthens it), or lasts ``spin_s``
+        cycles = int((spin_s or max(4 * enqueue, 2e-3)) * SPIN_CYCLES_PER_S)
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(50_000_000)   # ~25 ms: covers the enqueue
+            torch.cuda._sleep(cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -472,6 +508,16 @@ def kernel_checks(card: str, timer: Timer):
                                                 lengths)),
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             q_sdpa, kg, vg, attn_mask=sdpa_mask, enable_gqa=True)))
+    # the timer against a fixed 25 ms spin (its earlier form), paired in
+    # the order fixed, sized, sized, fixed
+    k1 = functools.partial(pa.paged_decode, q, pool_k, pool_v, pt, lengths)
+    fixed = [timer(k1, spin_s=25e-3)]
+    sized = [timer(k1), timer(k1)]
+    fixed.append(timer(k1, spin_s=25e-3))
+    print(f'  timer, K1: {" / ".join(f"{t:.4f}" for t in sized)} ms with '
+          f'the spin sized to the enqueue, '
+          f'{" / ".join(f"{t:.4f}" for t in fixed)} ms with a fixed 25 ms '
+          f'spin')
 
     paged_edge_checks(q, pool_k, pool_v, pt, lengths)
     long_context_check(card, timer)
@@ -1123,6 +1169,74 @@ def launched(fn) -> dict:
     return {e.key: e.count for e in profiled(fn)}
 
 
+# the mutants built from copies of the kernels' sources (nvcc in the
+# background, started beside the library's build: start_mutant_builds),
+# and the libraries of the builds that have finished
+MUTANT_BUILDS: dict = {}
+MUTANT_LIBS: dict = {}
+
+
+def p_once_source() -> str:
+    """``flash_attention_sm90.cu`` without the second P.V product (P's
+    bf16 residual)."""
+    text = (ROOT / SOURCES['flash_attention'][0]).read_text()
+    residual = re.compile(
+        r'#pragma unroll\n[^\n]*\n[^\n]*wgmma_pv<D>\(o, p_lo[^\n]*\n')
+    assert len(residual.findall(text)) == 1, 'no residual product to remove'
+    return residual.sub('', text)
+
+
+def local_noise_source() -> str:
+    """``sampling.cu`` drawing each block's noise at its local columns."""
+    text = (ROOT / SOURCES['unembed_sample'][0]).read_text()
+    drawn = 'gumbel(seed, row0 + col, col0 + row)'
+    assert text.count(drawn) == 1, 'no global-column draw to mutate'
+    return text.replace(drawn, 'gumbel(seed, row0 + col, row)')
+
+
+MUTANTS = {'p_once': ('flash_attention', p_once_source),
+           'k4_local': ('unembed_sample', local_noise_source)}
+
+
+def start_build(name: str):
+    """nvcc of mutant ``name`` (``MUTANTS``: the kernel whose source it
+    copies, the copy's text) into a directory beside the library, in the
+    background.  -> (the process, the library it writes)."""
+    from repro_torch.kernels import common as kc
+
+    key, source = MUTANTS[name]
+    out_dir = kc.library_path().parent / name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, lib = out_dir / f'{name}.cu', out_dir / f'lib{name}.so'
+    src.write_text(source())
+    proc = subprocess.Popen(
+        [kc._nvcc(), *kc.NVCC_FLAGS, '-I',          # its relative include
+         str((ROOT / SOURCES[key][0]).parent), '-shared', '-o', str(lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, lib
+
+
+def start_mutant_builds() -> None:
+    """Start every mutant's nvcc at once (their libraries are loaded by
+    :func:`p_once_kernel` and :func:`local_noise_kernel`)."""
+    for name in MUTANTS:
+        MUTANT_BUILDS[name] = start_build(name)
+
+
+def mutant_library(name: str) -> Path:
+    """Mutant ``name``'s library, once its nvcc (started here if it was
+    not) has finished."""
+    if name not in MUTANT_LIBS:
+        proc, lib = MUTANT_BUILDS.pop(name, None) or start_build(name)
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f'nvcc of mutant {name}: exit '
+                               f'{proc.returncode}: {err[-2000:]}')
+        MUTANT_LIBS[name] = lib
+    return MUTANT_LIBS[name]
+
+
 def p_once_kernel():
     """K5's bf16 kernel with P rounded to bf16 once, as the JAX package's
     plain attention rounds it: a copy of ``flash_attention_sm90.cu``
@@ -1134,19 +1248,7 @@ def p_once_kernel():
     from repro_torch.kernels import common as kc
     from repro_torch.kernels.flash_attention import ops as fa
 
-    text = (ROOT / SOURCES['flash_attention'][0]).read_text()
-    residual = re.compile(
-        r'#pragma unroll\n[^\n]*\n[^\n]*wgmma_pv<D>\(o, p_lo[^\n]*\n')
-    assert len(residual.findall(text)) == 1, 'no residual product to remove'
-    out_dir = kc.library_path().parent / 'p_once'
-    out_dir.mkdir(exist_ok=True)
-    src, lib = out_dir / 'flash_p_once.cu', out_dir / 'libflash_p_once.so'
-    src.write_text(residual.sub('', text))
-    subprocess.run([kc._nvcc(), *kc.NVCC_FLAGS, '-I',    # its relative include
-                    str((ROOT / SOURCES['flash_attention'][0]).parent),
-                    '-shared', '-o', str(lib), str(src)], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(str(lib)).valve_flash_attention_sm90
+    fn = ctypes.CDLL(str(mutant_library('p_once'))).valve_flash_attention_sm90
     fn.argtypes, fn.restype = list(fa._SM90_ARGS), ctypes.c_int
 
     def run(q, k, v):
@@ -1586,11 +1688,11 @@ def split_plans():
 
 
 def drain_trace(model, params, kernels: bool, n_prompt_pages: int,
-                max_seq: int, witness_cls):
+                max_seq: int, witness_cls, new_tokens: int = 16):
     """One engine drain of the prefix-sharing trace: a prompt of
     ``n_prompt_pages`` pages decodes alone until its prefix is published,
-    then two more requests with the same prompt join it; 16 new tokens
-    each.  The kernel path (``kernels``) runs the decode kernels, prefix
+    then two more requests with the same prompt join it; ``new_tokens``
+    new tokens each.  The kernel path (``kernels``) runs the decode kernels, prefix
     sharing and the fused head where the model has one, under a
     ``witness_cls`` witness; the plain path none of them.  Returns (tokens,
     stats, witness)."""
@@ -1599,7 +1701,7 @@ def drain_trace(model, params, kernels: bool, n_prompt_pages: int,
     eng = trace_engine(witness or model, params, max_seq,
                        decode_kernel=None if kernels else False,
                        fused_sampling=fused, prefix_shared_attention=kernels)
-    return run_trace(eng, n_prompt_pages), eng.stats, witness
+    return run_trace(eng, n_prompt_pages, new_tokens), eng.stats, witness
 
 
 def trace_engine(model, params, max_seq: int, *, device=None, **ecfg):
@@ -1659,7 +1761,7 @@ def engine_check(card: str, long: bool = False):
 
     def drain(kernels: bool, n_prompt_pages: int, max_seq: int):
         return drain_trace(model, params, kernels, n_prompt_pages, max_seq,
-                           Witness)
+                           Witness, DRAIN_NEW_TOKENS)
 
     what, n_prompt_pages, max_seq = (('long engine drain', 10, 256) if long
                                      else ('engine drain', 3, 96))
@@ -3342,6 +3444,8 @@ def hybrid_encdec_check(card: str, trace: bool = False) -> dict:
 
 MESH_ARCH = 'qwen3-0.6b'
 MESH_F32_LAYERS = 4                # the two-rank f32 drain's depth, of 28
+MESH_BF16_LAYERS = 14              # phases 16 and 18 (a): the bf16 drains'
+                                   # depth, of 28, cut for the time limit
 MESH_TOL = 1e-4                    # f32 mesh vs meshless scores, of |max|
 MESH_TIMEOUT_S = 300               # bounds each spawned run of the phase
 MESH_PROMPT_PAGES, MESH_MAX_SEQ = 3, 96    # phase 4's trace
@@ -3815,8 +3919,9 @@ def mesh_check(card: str):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(MESH_ARCH)
-    cut = dataclasses.replace(cfg, n_layers=MESH_F32_LAYERS)
+    full = get_config(MESH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_BF16_LAYERS)
+    cut = dataclasses.replace(full, n_layers=MESH_F32_LAYERS)
     store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     one = run_ranks(mesh_rank_one, 1, store_dir=store, device_type=kind,
                     args=(cfg, DEV), timeout_s=MESH_TIMEOUT_S)[0]
@@ -3832,14 +3937,15 @@ def mesh_check(card: str):
     # rank 1's launches for the bf16 drain's engine alone (from 0 at its open)
     rank1 = worker['launches'][bf16['engine']]
     print(f'  (b) mesh of 2 ({lead["backend"]}, one card): f32 at '
-          f'{MESH_F32_LAYERS} of {cfg.n_layers} layers, {f32["n_scores"]} '
+          f'{MESH_F32_LAYERS} of {full.n_layers} layers, {f32["n_scores"]} '
           f'score blocks: tokens equal to the meshless drain: '
           f'{f32["tokens_equal"]}, max |mesh - meshless| {f32["worst"]:.3e} '
-          f'of |max|; bf16 full depth: {bf16["n_tokens"]} tokens, '
+          f'of |max|; bf16 at {cfg.n_layers} of {full.n_layers} layers: '
+          f'{bf16["n_tokens"]} tokens, '
           f'shared_page_reads_saved {bf16["saved"]}, launches rank 0 '
           f'{bf16["launches"]}, rank 1 {rank1}  [{card}]')
-    print(f'  decode step ({MESH_ARCH}, bf16, K1/K2/K3, unfused, <= 3 '
-          f'rows): meshless {one["ms"]["meshless"]:.2f} ms, mesh of 1 '
+    print(f'  decode step ({MESH_ARCH} at {cfg.n_layers} layers, bf16, '
+          f'K1/K2/K3, unfused, <= 3 rows): meshless {one["ms"]["meshless"]:.2f} ms, mesh of 1 '
           f'{one["ms"]["mesh"]:.2f} ms, mesh of 2 sharing the card '
           f'{bf16["ms"]:.2f} ms (medians)  [{card}]')
     print(f'  (c) burst on the mesh of 2: {burst["gates"]} gates, '
@@ -3875,8 +3981,10 @@ MT_TOL = 1e-5                      # (a) f32: loss, grad_norm relative;
 MT_UPDATE_TOL = 0.25               # (a): each leaf's update (after -
                                    # before) off the meshless one, in lr
 TP_STEPS = 2                       # (b) the bf16 steps at (1, 2)
-DP_B, DP_S, DP_STEPS, DP_CKPT = 4, 2048, 4, 2     # (b) bf16, full depth
-WG_SHAPE = (28, 1024, 3072)        # (c): qwen3-0.6b's wg stack, f32
+DP_B, DP_S, DP_STEPS, DP_CKPT = 4, 2048, 4, 2     # (b) bf16
+DP_LAYERS = 7                      # (b)'s depth, of 28, cut for the time
+                                   # limit (its checkpoints and steps)
+WG_SHAPE = (DP_LAYERS, 1024, 3072)  # (c): (b)'s wg stack, f32
 EXPERT_LEAVES = ('layers/router', 'layers/we_gate', 'layers/we_up',
                  'layers/we_down')
 MESH_TRAIN_TIMEOUT_S = 300         # bounds each spawned run of the phase
@@ -4121,12 +4229,29 @@ class ReduceMeter:
         torch.distributed.all_reduce = self._orig
 
 
+@contextlib.contextmanager
+def depth_cut(layers: int):
+    """``launch.train.train`` on its arch at published widths cut to
+    ``layers`` layers while inside."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_mod
+
+    full = train_mod.get_config
+    train_mod.get_config = lambda arch: dataclasses.replace(
+        full(arch), n_layers=layers)
+    try:
+        yield
+    finally:
+        train_mod.get_config = full
+
+
 def dp_train(shape, ckpt_dir: str, dev: str, restore: bool) -> dict:
-    """Phase 17 (b), on one rank: ``launch.train.train`` on full-width
-    qwen3-0.6b (bf16 weights, f32 moments) over ``shape``, the global batch
-    DP_B x DP_S, a checkpoint every DP_CKPT steps; with ``restore`` the
-    newest checkpoint restored onto this mesh, the steps after it, and no
-    checkpoint written."""
+    """Phase 17 (b), on one rank: ``launch.train.train`` on qwen3-0.6b at
+    published widths cut to DP_LAYERS layers (bf16 weights, f32 moments)
+    over ``shape``, the global batch DP_B x DP_S, a checkpoint every
+    DP_CKPT steps; with ``restore`` the newest checkpoint restored onto
+    this mesh, the steps after it, and no checkpoint written."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
     from repro_torch.training.optimizer import AdamWConfig
@@ -4134,7 +4259,7 @@ def dp_train(shape, ckpt_dir: str, dev: str, restore: bool) -> dict:
     mesh = make_mesh(shape, MESH_AXES, device=dev)
     torch.cuda.reset_peak_memory_stats()
     hist = []
-    with ReduceMeter() as meter:
+    with ReduceMeter() as meter, depth_cut(DP_LAYERS):
         _, _, losses = train(
             TRAIN_ARCH, steps=DP_STEPS, batch=DP_B, seq=DP_S,
             use_reduced=False, ckpt_dir=ckpt_dir,
@@ -4149,9 +4274,10 @@ def dp_train(shape, ckpt_dir: str, dev: str, restore: bool) -> dict:
 
 def tp_train(dev: str) -> dict:
     """Phase 17 (b), the tensor-parallel half, on one rank: TP_STEPS steps
-    of ``launch.train.train`` at (1, 2), bf16 at full depth on (b)'s first
-    global batches (the row-parallel products one bf16 GEMM that writes
-    f32, ``tp._F32Product``, under autograd); no meter, no checkpoint."""
+    of ``launch.train.train`` at (1, 2), bf16 at DP_LAYERS layers on (b)'s
+    first global batches (the row-parallel products one bf16 GEMM that
+    writes f32, ``tp._F32Product``, under autograd); no meter, no
+    checkpoint."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
     from repro_torch.training.optimizer import AdamWConfig
@@ -4159,10 +4285,11 @@ def tp_train(dev: str) -> dict:
     mesh = make_mesh((1, 2), MESH_AXES, device=dev)
     torch.cuda.reset_peak_memory_stats()
     hist = []
-    _, _, losses = train(
-        TRAIN_ARCH, steps=TP_STEPS, batch=DP_B, seq=DP_S, use_reduced=False,
-        mesh=mesh, log_every=TP_STEPS, history=hist,
-        opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
+    with depth_cut(DP_LAYERS):
+        _, _, losses = train(
+            TRAIN_ARCH, steps=TP_STEPS, batch=DP_B, seq=DP_S,
+            use_reduced=False, mesh=mesh, log_every=TP_STEPS, history=hist,
+            opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP))
     return {'losses': losses, 'seconds': [h['seconds'] for h in hist],
             'grad_norms': [h['grad_norm'] for h in hist],
             'peak': torch.cuda.max_memory_allocated()}
@@ -4173,8 +4300,7 @@ def compress_rank(rank: int, dev: str) -> dict:
     ``WG_SHAPE`` f32 gradient (rank r's drawn from seed r) and of zeros with
     the carried residual; digests of what came out, the error against the
     exact mean of both ranks' gradients, before and after the feedback.
-    The CPU's ranks run it alone; the card's inside
-    :func:`mesh_train_rank`."""
+    :func:`mesh_train_rank` runs it on the card and on host tensors."""
     import hashlib
 
     from repro_torch.launch.mesh import make_mesh
@@ -4220,6 +4346,9 @@ def mesh_train_rank(rank: int, cut, ckpt_dir: str, dev: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out['compress'] = compress_rank(rank, dev)
+    # the same round on host tensors over the same gloo group (what CPU
+    # ranks compute), in these processes: no second spawn
+    out['compress_cpu'] = compress_rank(rank, 'cpu')
     return dict(out, launches=dict(LAUNCHES))
 
 
@@ -4236,7 +4365,8 @@ def restart_rank(rank: int, shape, ckpt_dir: str, dev: str) -> dict:
 def mesh_train_check(card: str) -> dict:
     """Phase 17: (a) f32 parity of the mesh step with the meshless step
     on the card, ZeRO-1 on against off; (b) bf16 data-parallel training at
-    full depth, a checkpoint from both ranks, ``plan_recovery``'s shrink to
+    DP_LAYERS layers, a checkpoint from both ranks, ``plan_recovery``'s
+    shrink to
     one rank, the restart; (c) the compressed all-reduce, card against CPU
     ranks.  Returns the phase's hand-written kernel launches (every rank's:
     the trainer runs none)."""
@@ -4327,8 +4457,8 @@ def mesh_train_check(card: str) -> dict:
     calls, nbytes, secs, wait = b[0]['reduce']
     steps = len(losses)
     step_s = [round(x * 1e3, 1) for x in b[0]['seconds']]
-    print(f'  (b) {TRAIN_ARCH} full width ({full.n_layers} layers), bf16 '
-          f'weights, f32 moments, mesh (2, 1) ({b[0]["backend"]}: two ranks '
+    print(f'  (b) {TRAIN_ARCH} at published widths, {DP_LAYERS} of '
+          f'{full.n_layers} layers, bf16 weights, f32 moments, mesh (2, 1) ({b[0]["backend"]}: two ranks '
           f'share the card, the transport goes through host memory), global '
           f'B={DP_B}, S={DP_S}: losses {[round(x, 4) for x in losses]}, '
           f'grad norms {[round(x, 3) for x in b[0]["grad_norms"]]}; step '
@@ -4369,19 +4499,17 @@ def mesh_train_check(card: str) -> dict:
     np.testing.assert_allclose(c['losses'], losses[DP_CKPT:],
                                rtol=RESTART_TOL, atol=RESTART_TOL)
 
-    t0 = time.perf_counter()
-    on_cpu = run_ranks(compress_rank, 2, store_dir=store, device_type='cpu',
-                       args=('cpu',), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    on_cpu = [r['compress_cpu'] for r in ranks]
     n = int(np.prod(WG_SHAPE))
     same = [x['digest'] == y['digest'] for x, y in zip(on_card, on_cpu)]
     print(f'  (c) compressed all-reduce of a {WG_SHAPE} f32 leaf over 2 '
           f'ranks ({on_card[0]["backend"]} on the card, int8 SUM on the '
           f'wire: {n / 1e6:.1f} MB a rank against {4 * n / 1e6:.1f} MB in '
-          f'f32): outputs and residuals bit-equal to CPU gloo ranks\' '
-          f'{same}; error of |mean| {on_card[0]["rel"]:.4f}, after the '
-          f'feedback round {on_card[0]["rel2"]:.4f}; '
-          f'{on_card[0]["seconds"] * 1e3:.1f} ms a round on the card; the '
-          f'CPU ranks {time.perf_counter() - t0:.1f} s  [{card}]')
+          f'f32): outputs and residuals bit-equal to the same round on '
+          f'host tensors {same}; error of |mean| {on_card[0]["rel"]:.4f}, '
+          f'after the feedback round {on_card[0]["rel2"]:.4f}; '
+          f'{on_card[0]["seconds"] * 1e3:.1f} ms a round on the card, '
+          f'{on_cpu[0]["seconds"] * 1e3:.1f} ms on the host  [{card}]')
     assert all(same), (on_card, on_cpu)
     assert all(r['rel'] < 0.15 and r['rel2'] < r['rel'] for r in on_card)
 
@@ -4507,7 +4635,7 @@ def dp_rank(rank: int, shape, cfg, cut, dev: str, card: str) -> dict:
     """Phase 18 (a) on one rank of a (data, model) mesh sharing the card:
     the f32 drain cut to ``cut``'s depth (plain path, unfused), mesh vs
     meshless, the gathered pool against the meshless one; then the bf16
-    drain at full depth, K1/K2/K3 and K4 on, every fused step under
+    drain at ``cfg``'s depth, K1/K2/K3 and K4 on, every fused step under
     :class:`MeshWitness`; every replica's pool bit-equal
     (``gather_cache`` refuses replicas that differ); at (2, 2) the burst.
     Rank 0 leads; the others serve."""
@@ -4680,6 +4808,22 @@ def ep_train_rank(rank: int, cut, dev: str) -> dict:
             'launches': dict(LAUNCHES)}
 
 
+def ep_serve_train_rank(rank: int, cut, cfg, t_cut, dev: str,
+                        card: str) -> dict:
+    """Phase 18 (b), then (d), on one of two ranks sharing the card: one
+    spawn for both (:func:`ep_rank`, :func:`ep_train_rank`), and each
+    part's seconds."""
+    t0 = time.perf_counter()
+    serve = ep_rank(rank, cut, cfg, dev, card)
+    serve_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = ep_train_rank(rank, t_cut, dev)
+    return {'serve': serve, 'serve_s': serve_s, 'train': train,
+            'train_s': time.perf_counter() - t0}
+
+
 def local_noise_kernel():
     """K4 built from a copy of ``sampling.cu`` that draws each block's
     noise at its local columns (the global index still reported): the
@@ -4690,18 +4834,7 @@ def local_noise_kernel():
     from repro_torch.kernels import common as kc
     from repro_torch.kernels.sampling import ops as so
 
-    text = (ROOT / SOURCES['unembed_sample'][0]).read_text()
-    drawn = 'gumbel(seed, row0 + col, col0 + row)'
-    assert text.count(drawn) == 1, 'no global-column draw to mutate'
-    out_dir = kc.library_path().parent / 'k4_local'
-    out_dir.mkdir(exist_ok=True)
-    src, lib = out_dir / 'sampling_local.cu', out_dir / 'libk4_local.so'
-    src.write_text(text.replace(drawn, 'gumbel(seed, row0 + col, row)'))
-    subprocess.run([kc._nvcc(), *kc.NVCC_FLAGS, '-I',
-                    str((ROOT / SOURCES['unembed_sample'][0]).parent),
-                    '-shared', '-o', str(lib), str(src)], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(str(lib)).valve_unembed_sample
+    fn = ctypes.CDLL(str(mutant_library('k4_local'))).valve_unembed_sample
     fn.argtypes, fn.restype = list(so._ARGS), ctypes.c_int
 
     def run(last, head, seed, temperature, col0):
@@ -4815,10 +4948,10 @@ def k4_block_check(card: str) -> list:
 
 def dp_ep_check(card: str):
     """Phase 18: (a) data-parallel serving of qwen3-0.6b at (2, 1) and
-    (2, 2); (b) the MoE engine over (1, 2); (c) K4 on blocks; (d) MoE
-    training over (1, 2).  Returns the phase's main-path launches (the
-    bf16 drains of (a) and (b), every rank) and what the witnesses
-    failed."""
+    (2, 2); (c) K4 on blocks; (b) the MoE engine over (1, 2), then (d) MoE
+    training over (1, 2) in the same two ranks.  Returns the phase's
+    main-path launches (the bf16 drains of (a) and (b), every rank) and
+    what the witnesses failed."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4827,8 +4960,9 @@ def dp_ep_check(card: str):
     gc.collect()
     torch.cuda.empty_cache()
     store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
-    cfg = get_config(MESH_ARCH)
-    cut = dataclasses.replace(cfg, n_layers=MESH_F32_LAYERS)
+    full = get_config(MESH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MESH_BF16_LAYERS)
+    cut = dataclasses.replace(full, n_layers=MESH_F32_LAYERS)
     launches, failed = None, []
 
     def add(counts):
@@ -4847,12 +4981,12 @@ def dp_ep_check(card: str):
         print(f'  (a) {MESH_ARCH} on (data, model) = {shape} '
               f'({lead["backend"]}, {len(ranks)} ranks on one card, '
               f'{time.perf_counter() - t0:.1f} s): f32 at {MESH_F32_LAYERS} '
-              f'of {cfg.n_layers} layers, rows split over data '
+              f'of {full.n_layers} layers, rows split over data '
               f'{f32["split"]}: tokens equal to the meshless drain '
               f'{f32["tokens_equal"]}, max |mesh - meshless| '
               f'{f32["worst"]:.3e} of |max| over {f32["n_scores"]} score '
               f'blocks, gathered pool off the meshless one by '
-              f'{f32["pool"]:.3e}; bf16 full depth, fused: '
+              f'{f32["pool"]:.3e}; bf16 at {cfg.n_layers} layers, fused: '
               f'{bf16["n_tokens"]} tokens, shared_page_reads_saved '
               f'{bf16["saved"]}, replicas bit-equal, decode step '
               f'{bf16["ms"]:.2f} ms (median, ranks time-slicing one card: '
@@ -4878,19 +5012,24 @@ def dp_ep_check(card: str):
             assert burst['events'] > 0 and burst['max_per_device'] <= 1
             assert burst['finished'] == [1, 2], burst
 
+    k4_block_check(card)
+
+    # (b) and (d): two ranks, spawned once
     gc.collect()
     torch.cuda.empty_cache()
     moe = get_config(MOE_ARCH)
     moe_cut = dataclasses.replace(moe, n_layers=EP_F32_LAYERS)
     moe_cfg = dataclasses.replace(moe, n_layers=EP_LAYERS)
-    t0 = time.perf_counter()
-    lead, worker = run_ranks(ep_rank, 2, store_dir=store, device_type=kind,
-                             args=(moe_cut, moe_cfg, DEV, card),
-                             timeout_s=MESH_TIMEOUT_S)
+    t_cut = dataclasses.replace(moe, n_layers=EP_TRAIN_LAYERS)
+    both = run_ranks(ep_serve_train_rank, 2, store_dir=store,
+                     device_type=kind,
+                     args=(moe_cut, moe_cfg, t_cut, DEV, card),
+                     timeout_s=MESH_TIMEOUT_S + MESH_TRAIN_TIMEOUT_S)
+    lead, worker = (r['serve'] for r in both)
     f32, bf16 = lead['f32'], lead['bf16']
     rank1 = worker['launches'][bf16['engine']]
     print(f'  (b) {MOE_ARCH} on (data, model) = {EP_SHAPE} '
-          f'({lead["backend"]}, {time.perf_counter() - t0:.1f} s), 8 '
+          f'({lead["backend"]}, {both[0]["serve_s"]:.1f} s), 8 '
           f'experts a rank: f32 at {EP_F32_LAYERS} of 32 layers: '
           f'{f32["n_tokens"]} tokens equal to the meshless drain '
           f'{f32["tokens_equal"]}, assignments dropped (meshless, mesh) '
@@ -4913,14 +5052,7 @@ def dp_ep_check(card: str):
         add(counts)
     failed += bf16['failed']
 
-    k4_block_check(card)
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    t_cut = dataclasses.replace(moe, n_layers=EP_TRAIN_LAYERS)
-    t0 = time.perf_counter()
-    ranks = run_ranks(ep_train_rank, 2, store_dir=store, device_type=kind,
-                      args=(t_cut, DEV), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    ranks = [r['train'] for r in both]
     ref = ranks[0]['parity']['meshless']
     res = [r['parity'][EP_SHAPE] for r in ranks]
     lead = res[0]
@@ -4930,7 +5062,7 @@ def dp_ep_check(card: str):
     experts = max(r['experts'] for r in res)
     update = max(r['update'] for r in res)
     print(f'  (d) {MOE_ARCH} training at {EP_TRAIN_LAYERS} of 32 layers, '
-          f'f32, {EP_SHAPE} ({time.perf_counter() - t0:.1f} s, 2 ranks on '
+          f'f32, {EP_SHAPE} ({both[0]["train_s"]:.1f} s, 2 ranks on '
           f'one card), B={EP_B}, S={EP_S}, {EP_MICRO} microbatches, a loss '
           f'mask: loss {lead["loss"]:.7f} vs meshless {ref["loss"]:.7f} '
           f'(rel {loss_rel:.3e}), grad_norm {lead["grad_norm"]:.6f} vs '
@@ -4960,7 +5092,8 @@ FM_FAMILIES = (('rwkv6-3b', 2), ('zamba2-2.7b', 12),
                ('seamless-m4t-medium', 2))
 FM_SHAPE = (1, 2)                  # (data, model): 2 gloo ranks
 FM_B, FM_S, FM_MICRO = 4, 512, 2   # (a) f32: global batch, 2 microbatches
-FM_BF16_S, FM_STEPS = 1024, 2      # (b) bf16: B = FM_B; the first warms up
+FM_BF16_S, FM_STEPS = 512, 2       # (b) bf16: B = FM_B (S cut from 1024
+                                   # for the time limit); the first warms up
 ZERO_GRAD = 'dec_layers/xbk'       # seamless: the exact-zero gradient
 FM_NULL = 2                        # (a): a gradient gate may widen to 2x
                                    # the leaf's null
@@ -5209,6 +5342,195 @@ def family_mesh_check(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the serve step over the region KV layout; the dry-run's records
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = 'qwen3-0.6b'
+SERVE_B, SERVE_PROMPT, SERVE_MAX = 4, 1024, 2048   # rows, prompt, cache
+SERVE_DECODE = 16                  # greedy decode steps after the prefill
+# (c), on (16, 16); the decode cell also measured: one rank's blocks on
+# the card (the meshless cell's 485 GB region cache would not fit)
+SERVE_CELLS = ('decode_32k', 'train_4k')
+SERVE_MEASURED = 'decode_32k'
+SERVE_TIMEOUT_S = 300              # bounds each dry-run child process
+
+
+def serve_shapes():
+    """(the prefill's, the decode's) execution shapes of (a) and (b)."""
+    from repro_torch.configs.base import ShapeConfig
+
+    return (ShapeConfig('prefill_1k_b4', SERVE_PROMPT, SERVE_B, 'prefill'),
+            ShapeConfig('decode_2k_b4', SERVE_MAX, SERVE_B, 'decode'))
+
+
+def layouts_identity(model, params, dtype) -> dict:
+    """Phase 20 (a) in one dtype: ``make_serve_step``'s prefill and
+    SERVE_DECODE greedy decode steps over a region cache, and the same
+    calls on a global pool whose pages [b R, (b+1) R) are row b's region
+    slots, in order.  -> the steps' largest score difference, whether the
+    tokens were equal, and whether the pools hold the same bits."""
+    from repro_torch.training.train_step import make_serve_step
+
+    pre, dec = serve_shapes()
+    pg = model.cfg.page_size
+    region = model.init_cache(dec, device=DEV, dtype=dtype)
+    r = region['k'].shape[2]
+    pool = model.init_cache(engine_pages=SERVE_B * r, device=DEV,
+                            dtype=dtype)
+    base = torch.arange(SERVE_B, device=DEV, dtype=torch.int32)[:, None] * r
+    local = torch.arange(1, SERVE_MAX // pg + 1, device=DEV,
+                         dtype=torch.int32).expand(SERVE_B, -1)
+    prompt_pages = SERVE_PROMPT // pg
+    prefill, _ = make_serve_step(model, None, pre)
+    decode, _ = make_serve_step(model, None, dec)
+    tokens = torch.tensor(np.random.default_rng(20).integers(
+        1, model.cfg.vocab_size, (SERVE_B, SERVE_PROMPT)),
+        dtype=torch.int32, device=DEV)
+    worst, same_tokens, steps = 0.0, True, 0
+    with torch.no_grad():
+        a = prefill(params, region, {'tokens': tokens,
+                                     'page_table': local[:, :prompt_pages]})[1]
+        b = model.prefill_fn(params, pool, {
+            'tokens': tokens,
+            'page_table': (base + local)[:, :prompt_pages]})[1]
+        for i in range(SERVE_DECODE + 1):
+            worst = max(worst, float((a - b).abs().max()))
+            tok = a.argmax(-1).to(torch.int32)
+            same_tokens &= bool(torch.equal(tok, b.argmax(-1).to(torch.int32)))
+            steps += 1
+            if i == SERVE_DECODE:
+                break
+            pos = torch.full((SERVE_B,), SERVE_PROMPT + i, dtype=torch.int32,
+                             device=DEV)
+            a = decode(params, region, {'tokens': tok, 'positions': pos,
+                                        'page_table': local})[1]
+            b = model.decode_fn(params, pool, {'tokens': tok, 'positions': pos,
+                                               'page_table': base + local})[1]
+    torch.cuda.synchronize()
+    pools_equal = all(
+        torch.equal(region[k][:, row], pool[k][:, row * r:(row + 1) * r])
+        for k in ('k', 'v') for row in range(SERVE_B))
+    return {'worst': worst, 'tokens_equal': same_tokens, 'steps': steps,
+            'pools_equal': pools_equal, 'slots': r}
+
+
+def dryrun_child(shape: str, measure: bool = False) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun`` for SERVE_ARCH x ``shape`` on
+    the (16, 16) mesh, a child process (its fake process group stays
+    there); with ``measure``, the counted rank's step also run on the
+    card."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / 'src'))
+    return subprocess.Popen(
+        [sys.executable, '-m', 'repro_torch.launch.dryrun', '--arch',
+         SERVE_ARCH, '--shape', shape, '--mesh', 'single',
+         *(['--measure'] if measure else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
+
+
+def serve_step_check(card: str) -> dict:
+    """Phase 20: (a) the region layout against the engine's global layout,
+    bit for bit, in f32 and bf16; (b) ``run_cell`` of (a)'s prefill and
+    decode measured on the card; (c) two production records of the
+    shape-only count, the decode cell's counted rank also measured on the
+    card (after (b), so that neither times the other's work).  Returns the phase's hand-written kernel launches
+    (none: the serve step runs the plain paths, as the reference's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.api import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    children = {s: dryrun_child(s) for s in SERVE_CELLS
+                if s != SERVE_MEASURED}
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    model = build_model(get_config(SERVE_ARCH))
+    params = model.init_params(0, device=DEV)
+    results = {}
+    for name, dtype, p in (('f32', torch.float32, f32_params(params, DEV)),
+                           ('bf16', torch.bfloat16, params)):
+        t0 = time.perf_counter()
+        res = results[name] = layouts_identity(model, p, dtype)
+        del p
+        print(f'  (a) {SERVE_ARCH} {name}, make_serve_step meshless: prefill '
+              f'B={SERVE_B} x {SERVE_PROMPT} tokens into a region cache of '
+              f'{res["slots"]} slots a row (sized for {SERVE_MAX}), '
+              f'{SERVE_DECODE} greedy decode steps, against the global pool '
+              f'holding the same pages in order: {res["steps"]} score '
+              f'blocks, largest |region - global| {res["worst"]:.3e}, tokens '
+              f'equal {res["tokens_equal"]}, pools bit-equal '
+              f'{res["pools_equal"]} ({time.perf_counter() - t0:.1f} s)  '
+              f'[{card}]')
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = {}
+    for shape in serve_shapes():
+        rec = records[shape.kind] = run_cell(SERVE_ARCH, shape, 'none',
+                                             measure=True, device=DEV)
+        print(f'  (b) record: {json.dumps(rec)}')
+        roof = rec['roofline']
+        bound_ms = max(roof['compute_s'], roof['memory_s']) * 1e3
+        ms = rec['measured']['step_ms']
+        hbm = rec['hbm']
+        counted = hbm['argument'] + hbm['output'] + hbm['temp']
+        print(f'  (b) {SERVE_ARCH} {shape.kind} B={SERVE_B}, S='
+              f'{shape.seq_len}, bf16, meshless: {ms:.3f} ms a step (median '
+              f'of {rec["measured"]["reps"]}, CUDA events) against the '
+              f'count\'s max(compute, memory) {bound_ms:.3f} ms ('
+              f'{roof["dominant"]}-bound; {bound_ms / ms:.3f} of it); peak '
+              f'memory {rec["measured"]["peak_bytes"] / 1e9:.3f} GB against '
+              f'argument + output + temp {counted / 1e9:.3f} GB (argument '
+              f'{hbm["argument"] / 1e9:.3f}, output {hbm["output"] / 1e9:.3f}'
+              f', of it aliased {hbm["alias"] / 1e9:.3f}, temp '
+              f'{hbm["temp"] / 1e9:.3f})  [{card}]')
+    launches = dict(LAUNCHES)
+    children[SERVE_MEASURED] = dryrun_child(SERVE_MEASURED, measure=True)
+    prod = {}
+    for shape, child in children.items():
+        out, err = child.communicate(timeout=SERVE_TIMEOUT_S)
+        if child.returncode:
+            raise RuntimeError(f'dryrun {shape}: exit {child.returncode}: '
+                               f'{err[-2000:]}')
+        rec = prod[shape] = json.loads(out.strip().splitlines()[-1])
+        print(f'  (c) {SERVE_ARCH} x {shape} x single (16, 16), shape-only '
+              f'on the host: status {rec["status"]}, rank {rec.get("rank")}, '
+              f'counted in {rec.get("trace_s", 0):.1f} s: flops a device '
+              f'{rec.get("flops_per_device", 0):.4g}, bytes a device '
+              f'{rec.get("bytes_per_device", 0):.4g}, hbm {rec.get("hbm")}, '
+              f'collectives {rec.get("collectives")}, roofline '
+              f'{rec.get("roofline")}, useful flops ratio '
+              f'{rec.get("useful_flops_ratio", 0):.4f}')
+        if 'measured' in rec:
+            m, hbm, roof = rec['measured'], rec['hbm'], rec['roofline']
+            counted = hbm['argument'] + hbm['output'] + hbm['temp']
+            bound_ms = max(roof['compute_s'], roof['memory_s']) * 1e3
+            print(f'  (c) {shape} rank {rec["rank"]} measured on the card '
+                  f'(collectives not run): {m["step_ms"]:.3f} ms a step '
+                  f'(median of {m["reps"]}) against the count\'s max('
+                  f'compute, memory) {bound_ms:.3f} ms; peak memory '
+                  f'{m["peak_bytes"] / 1e9:.3f} GB against argument + output '
+                  f'+ temp {counted / 1e9:.3f} GB  [{card}]')
+    print(f'  hand-written kernel launches in the phase: {launches}')
+    for name, res in results.items():
+        assert res['worst'] == 0.0 and res['tokens_equal'], (name, res)
+        assert res['pools_equal'], (name, res)
+    for rec in records.values():
+        assert rec['status'] == 'ok' and rec['measured']['step_ms'] > 0, rec
+    assert prod[SERVE_MEASURED]['measured']['step_ms'] > 0, prod
+    for shape, rec in prod.items():
+        assert rec['status'] == 'ok', (shape, rec)
+        assert rec['flops_per_device'] * rec['chips'] >= \
+            0.95 * rec['model_flops'] or rec['kind'] == 'decode', rec
+    assert not any(launches.values()), launches
+    return launches
+
+
 def get_config_layers(arch: str) -> int:
     """The published depth of ``arch`` (an encoder-decoder's, each
     stack's)."""
@@ -5260,7 +5582,10 @@ def main() -> int:
           f'CUDA {torch.version.cuda}')
 
     t0 = time.perf_counter()
+    start_mutant_builds()
     kc.kernel_library()
+    for name in MUTANTS:       # no compiler runs beside phase 3's timing
+        mutant_library(name)
     log = kc.library_path().parent / 'build.log'
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if re.search(r'entry function|registers|spill', ln)]
@@ -5355,15 +5680,17 @@ def main() -> int:
     by_phase['hybrid_encdec'] = hybrid_encdec_check(card, args.trace)
     done()
 
-    print(f'[16] mesh: {MESH_ARCH} full width, tensor-parallel over 1 rank '
-          f'(NCCL) and 2 ranks sharing the card (gloo)')
+    print(f'[16] mesh: {MESH_ARCH} at published widths, {MESH_BF16_LAYERS} '
+          f'of 28 layers, tensor-parallel over 1 rank (NCCL) and 2 ranks '
+          f'sharing the card (gloo)')
     by_phase['mesh'], failed = mesh_check(card)
     witnessed += failed
     done()
 
     print(f'[17] training over a mesh: {TRAIN_ARCH}, f32 parity at '
           f'{MT_LAYERS} layers over (2, 1) and (1, 2), bf16 data-parallel at '
-          f'full depth with a shrink to one rank, the compressed all-reduce')
+          f'{DP_LAYERS} layers with a shrink to one rank, the compressed '
+          f'all-reduce')
     by_phase['train_mesh'] = mesh_train_check(card)
     done()
 
@@ -5382,7 +5709,14 @@ def main() -> int:
     by_phase['family_mesh'] = family_mesh_check(card)
     done()
 
-    print(f'[20] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[20] serve step: {SERVE_ARCH} at published widths, '
+          f'make_serve_step over the region KV layout against the global '
+          f'pool (f32, bf16), run_cell measured, two production records of '
+          f'the dry-run')
+    by_phase['serve_step'] = serve_step_check(card)
+    done()
+
+    print(f'[21] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

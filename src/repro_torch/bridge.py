@@ -71,9 +71,10 @@ def tree_to_jax(tree):
 
 
 def cache_from_jax(cache, *, dtype=torch.float32, device='cpu'):
-    """A numpy cache tree (global layout: the {'k', 'v'} pools, encdec's
-    cross K/V beside them, or zamba2's nested {'mamba': {'conv', 'ssm'},
-    'attn': {'k', 'v'}}) -> the same tree of tensors in ``dtype``, but
+    """A numpy cache tree (the {'k', 'v'} pools in the global or the
+    per-request region layout, encdec's cross K/V beside them, or zamba2's
+    nested {'mamba': {'conv', 'ssm'}, 'attn': {'k', 'v'}}) -> the same
+    tree of tensors in ``dtype``, but
     ``ssm``, the Mamba state, which stays f32 whatever the model dtype (as
     :func:`state_from_jax` keeps ``wkv``)."""
     def build(node, key=None):

@@ -566,6 +566,49 @@ class TensorParallel:
         return x if x is None or not self.split_rows else x[self.rows]
 
 
+class StepParallel(TensorParallel):
+    """A serve step's plan (``training/train_step.py::make_serve_step``):
+    the step is given this rank's blocks only -- its rows of the call's
+    ``batch`` rows over the batch axes (:attr:`rows`; every row where they
+    do not divide it), its kv-heads of the region cache, its weight blocks
+    -- and returns its rows' block of the scores over its vocabulary
+    block.  So nothing is gathered over the batch axes or the vocabulary:
+    the K/V a rank writes are its own rows', into its own rows' regions.
+    MoE still routes the whole call (:attr:`data`), as GSPMD does."""
+
+    def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
+                 *, batch: int):
+        super().__init__(cfg, mesh, coords, max_batch=batch)
+
+    def local(self, x):
+        return x
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather_vocab(self, scores):
+        return scores
+
+    def cache_block(self, path, shape) -> Block:
+        """This rank's :class:`Block` of the region cache leaf ``path``
+        (``('k',)``, ``('v',)``) of global ``shape`` (L, B, R, pg, Hkv,
+        Dh): its rows and its kv-heads."""
+        return (Block.whole(shape).narrow(1, self.rows.start, self.rows.stop)
+                .narrow(4, *self.kv_heads))
+
+    def shard_cache(self, cache):
+        """This rank's blocks of a global region cache (copies on the
+        mesh's device)."""
+        return {k: self.cache_block((k,), v.shape).take(v).to(
+            self.mesh.device, copy=True).contiguous()
+                for k, v in cache.items()}
+
+    def shard_batch(self, batch):
+        """This rank's rows of a serve step's batch (tensors, on the mesh's
+        device)."""
+        return {k: v[self.rows].to(self.mesh.device) for k, v in batch.items()}
+
+
 class DataShare:
     """A rank's place among the ``n`` data (batch) ranks of a call whose
     rows are split over them (``Model.loss_fn(data=)``, a serving plan's

@@ -18,7 +18,8 @@ process group is a description only: the sharding rules and the runtime's
 gate count read it, and ``group`` raises.
 
 The reference's TPU v5e constants (peak FLOP/s, HBM and ICI rates) are not
-carried: the port's numbers are the H100's, where a script needs them.
+carried: the port's are the card's, below, which the dry-run's roofline
+(``launch/dryrun.py``) and ``chip_smoke.py``'s bounds read.
 """
 from __future__ import annotations
 
@@ -28,6 +29,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+# One NVIDIA H100 80GB HBM3 (SXM5) at its 700 W power limit, NVIDIA's data
+# sheet: dense bf16 tensor-core peak, HBM rate, NVLink rate a direction.  A
+# card set below 700 W runs slower under load.
+PEAK_FLOPS_BF16 = 989e12           # FLOP/s
+HBM_BW = 3.35e12                   # bytes/s
+NVLINK_BW = 450e9                  # bytes/s a direction (900 GB/s both)
 
 
 class Mesh:
@@ -122,12 +131,24 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
                 device_mesh=dm)
 
 
+def production_layout(multi_pod: bool = False):
+    """(shape, axes) of the reference's production layouts: (data 16, model
+    16), or (pod 2, data 16, model 16)."""
+    if multi_pod:
+        return (2, 16, 16), ('pod', 'data', 'model')
+    return (16, 16), ('data', 'model')
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """The reference's production layouts: (data 16, model 16), or (pod 2,
-    data 16, model 16) -- over as many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ('pod', 'data', 'model') if multi_pod else ('data', 'model')
-    return make_mesh(shape, axes, device=device)
+    """The reference's production layouts over as many live ranks."""
+    return make_mesh(*production_layout(multi_pod), device=device)
+
+
+def describe(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` on ``axes`` as a description only (no process
+    group, no ranks): what the sharding rules, the placement plans and the
+    dry-run's count of a production layout read."""
+    return Mesh(np.arange(int(np.prod(shape))).reshape(tuple(shape)), axes)
 
 
 def chips(mesh: Optional[Mesh]) -> int:

@@ -19,6 +19,15 @@ They have no kernel path, as in the reference (its ``decode_fn`` passes
 ``use_pallas`` to dense, vlm and moe only): ``use_kernel=True`` raises
 for them, and so do ``decode_sample_fn`` and ``prefill_chunk_fn``; the
 engine does not serve them either (``serving/engine.py``).
+
+For the serve step and the dry-run (``training/train_step.py::
+make_serve_step``, ``launch/dryrun.py``) a :class:`Model` describes each
+execution shape of ``configs.SHAPES`` as the reference does: the cache of
+a shape (:meth:`Model.cache_template`, ``cache_shapes``, ``cache_axes``,
+``init_cache``; the paged families' per-request region pools), the step's
+inputs (:meth:`Model.input_specs` / ``input_axes`` for the train, prefill
+and decode kinds) and small concrete inputs drawn as the reference draws
+them (:meth:`Model.make_inputs`).
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, cell_supported
@@ -35,6 +45,12 @@ from repro_torch.models import dense, encdec, moe, rwkv6, zamba2
 _FAMILY = {'dense': dense, 'vlm': dense, 'moe': moe, 'ssm': rwkv6,
            'hybrid': zamba2, 'encdec': encdec}
 NO_KERNEL = ('hybrid', 'encdec')     # families with no kernel path
+
+
+def region_slots(max_pages: int) -> int:
+    """A row's region slots for ``max_pages`` pages: one more for the
+    quarantine slot 0, rounded up to a multiple of 16 (the reference's)."""
+    return -(-(max_pages + 1) // 16) * 16
 
 
 @dataclass(frozen=True)
@@ -86,18 +102,38 @@ class Model:
                 f'family {self.cfg.family!r} has no kernel path here (the '
                 'reference runs none for it)')
 
-    def cache_template(self, *, engine_pages: Optional[int] = None,
+    def cache_template(self, shape: Optional[ShapeConfig] = None, *,
+                       engine_pages: Optional[int] = None,
                        batch_size: Optional[int] = None,
                        max_seq: Optional[int] = None,
                        enc_len: Optional[int] = None):
-        """The cache's PSpec tree: the engine's global paged pool {'k',
-        'v'} of (L, engine_pages, pg, Hkv, Dh) for the paged families, the
-        recurrent state of ``batch_size`` rows for ``ssm``; for ``hybrid``
-        {'mamba': the state of ``batch_size`` rows, 'attn': the shared
-        block's paged pools of ``engine_pages``, or with ``max_seq`` its
-        contiguous long-context KV}; for ``encdec`` the decoder's pool of
-        ``engine_pages`` and the cross K/V of ``batch_size`` rows of
-        ``enc_len`` frames."""
+        """The cache's PSpec tree.
+
+        With an execution ``shape`` (the serve step's, the reference's
+        ``cache_template(shape)``): the paged families' per-request region
+        pools {'k', 'v'} of (L, B, R, pg, Hkv, Dh), B the shape's global
+        batch and R = ceil((seq_len // pg + 1) / 16) * 16 slots a row
+        (slot 0 the quarantine slot; rounded up so that the slots split
+        over a 16-way ``model`` axis); ``ssm`` the recurrent state of B
+        rows; ``hybrid`` the Mamba state and the shared block's region
+        pools, or for ``long_500k`` its contiguous KV of ``seq_len``
+        tokens; ``encdec`` a global pool of R pages beside the cross K/V of
+        B rows of :meth:`enc_len` frames (as the reference).  A shape takes
+        none of the keyword forms below.
+
+        Without a shape (the engine's keyword forms): the global paged pool
+        {'k', 'v'} of (L, engine_pages, pg, Hkv, Dh) for the paged
+        families, the recurrent state of ``batch_size`` rows for ``ssm``;
+        for ``hybrid`` {'mamba': the state of ``batch_size`` rows, 'attn':
+        the shared block's paged pools of ``engine_pages``, or with
+        ``max_seq`` its contiguous long-context KV}; for ``encdec`` the
+        decoder's pool of ``engine_pages`` and the cross K/V of
+        ``batch_size`` rows of ``enc_len`` frames."""
+        if shape is not None:
+            if (engine_pages, batch_size, max_seq, enc_len) != (None,) * 4:
+                raise ValueError('an execution shape sizes the cache itself; '
+                                 'the engine\'s keyword forms take no shape')
+            return self._shape_cache_template(shape)
         cfg, fam = self.cfg, self.cfg.family
         if fam == 'ssm' and engine_pages is not None:
             raise NotImplementedError(
@@ -122,11 +158,33 @@ class Model:
                                          enc_len)
         return dense.cache_template(cfg, engine_pages)
 
-    def cache_axes(self, **kw):
-        """The logical axes of :meth:`cache_template` (same arguments)."""
-        return cm.axes_from_template(self.cache_template(**kw))
+    def _shape_cache_template(self, shape: ShapeConfig):
+        cfg, fam = self.cfg, self.cfg.family
+        b = shape.global_batch
+        region = region_slots(shape.seq_len // cfg.page_size)
+        if fam in ('dense', 'vlm', 'moe'):
+            return dense.cache_template(cfg, region, batch=b)
+        if fam == 'ssm':
+            return rwkv6.cache_template(cfg, b)
+        if fam == 'hybrid':
+            if shape.name == 'long_500k':
+                attn = zamba2.attn_cache_template_dense(cfg, b, shape.seq_len)
+            else:
+                attn = zamba2.attn_cache_template(cfg, region, batch=b)
+            return {'mamba': zamba2.mamba_cache_template(cfg, b),
+                    'attn': attn}
+        return encdec.cache_template(cfg, region, b, self.enc_len(shape))
 
-    def init_cache(self, *, engine_pages: Optional[int] = None,
+    def cache_shapes(self, shape: Optional[ShapeConfig] = None, **kw):
+        """The shapes of :meth:`cache_template` (same arguments)."""
+        return cm.shapes_from_template(self.cache_template(shape, **kw))
+
+    def cache_axes(self, shape: Optional[ShapeConfig] = None, **kw):
+        """The logical axes of :meth:`cache_template` (same arguments)."""
+        return cm.axes_from_template(self.cache_template(shape, **kw))
+
+    def init_cache(self, shape: Optional[ShapeConfig] = None, *,
+                   engine_pages: Optional[int] = None,
                    batch_size: Optional[int] = None,
                    max_seq: Optional[int] = None,
                    enc_len: Optional[int] = None, device, dtype=None):
@@ -134,9 +192,17 @@ class Model:
         (the model's, where it is not bf16) for every leaf but the f32
         recurrent states."""
         return cm.zeros_from_template(
-            self.cache_template(engine_pages=engine_pages,
+            self.cache_template(shape, engine_pages=engine_pages,
                                 batch_size=batch_size, max_seq=max_seq,
                                 enc_len=enc_len), device, dtype)
+
+    def enc_len(self, shape: ShapeConfig) -> int:
+        """The encoder context of an encdec execution shape: the whole
+        sequence for prefill, at most 4096 frames otherwise (the
+        reference's)."""
+        if shape.kind == 'prefill':
+            return shape.seq_len
+        return min(shape.seq_len, 4096)
 
     def loss_fn(self, params, batch, *, use_kernel=False, tp=None,
                 data=None):
@@ -175,45 +241,123 @@ class Model:
     def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
         """Shape and dtype of each tensor of the step's ``batch`` for an
         execution shape (the reference's ``input_specs``, as plain
-        descriptions).  The ``train`` kind; prefill and decode come with
-        ``make_serve_step`` (ROADMAP Queue 1 item 11)."""
+        descriptions): ``train`` tokens and labels (B, S); ``prefill``
+        tokens (B, S) and the page table (B, S // pg) (encdec: frames (B,
+        S, D) and a decoder prefix of S // 8 tokens; ssm: no page table);
+        ``decode`` one token a row, its position and the page table (B, S
+        // pg) (ssm and ``long_500k``: no page table).  vlm adds
+        ``prefix_embeds`` (B, frontend_tokens, D)."""
         ok, why = cell_supported(self.cfg, shape)
         if not ok:
             raise ValueError(f'{self.cfg.name} × {shape.name}: {why}')
-        if shape.kind != 'train':
-            raise NotImplementedError(
-                f'input specs of the {shape.kind!r} kind come with '
-                'make_serve_step (ROADMAP Queue 1 item 11)')
         cfg = self.cfg
         b, s, d = shape.global_batch, shape.seq_len, cfg.d_model
-        specs = {'tokens': InputSpec((b, s), torch.int32),
-                 'labels': InputSpec((b, s), torch.int32)}
-        if cfg.family == 'encdec':
-            specs['frames'] = InputSpec((b, s, d), torch.bfloat16)
-        elif cfg.frontend is not None:
-            specs['prefix_embeds'] = InputSpec((b, cfg.frontend_tokens, d),
-                                               torch.bfloat16)
+        pg = cfg.page_size
+        i32, bf16 = torch.int32, torch.bfloat16
+        if shape.kind == 'train':
+            specs = {'tokens': InputSpec((b, s), i32),
+                     'labels': InputSpec((b, s), i32)}
+            if cfg.family == 'encdec':
+                specs['frames'] = InputSpec((b, s, d), bf16)
+            elif cfg.frontend is not None:
+                specs['prefix_embeds'] = InputSpec(
+                    (b, cfg.frontend_tokens, d), bf16)
+            return specs
+        if shape.kind == 'prefill':
+            if cfg.family == 'encdec':
+                s_dec = s // encdec.DEC_PREFIX_FRACTION
+                return {'frames': InputSpec((b, s, d), bf16),
+                        'tokens': InputSpec((b, s_dec), i32),
+                        'page_table': InputSpec((b, s_dec // pg), i32)}
+            specs = {'tokens': InputSpec((b, s), i32)}
+            if cfg.family != 'ssm':
+                specs['page_table'] = InputSpec((b, s // pg), i32)
+            if cfg.frontend is not None:
+                specs['prefix_embeds'] = InputSpec(
+                    (b, cfg.frontend_tokens, d), bf16)
+            return specs
+        specs = {'tokens': InputSpec((b,), i32),
+                 'positions': InputSpec((b,), i32)}
+        if cfg.family != 'ssm' and shape.name != 'long_500k':
+            specs['page_table'] = InputSpec((b, s // pg), i32)
         return specs
 
     def input_axes(self, shape: ShapeConfig) -> Dict[str, tuple]:
         """The logical axes of each of :meth:`input_specs`' inputs."""
-        known = {'tokens': ('batch', 'seq'), 'labels': ('batch', 'seq'),
+        known = {'labels': ('batch', 'seq'),
                  'frames': ('batch', 'seq', 'embed'),
-                 'prefix_embeds': ('batch', None, 'embed')}
-        return {name: known[name] for name in self.input_specs(shape)}
+                 'prefix_embeds': ('batch', None, 'embed'),
+                 'page_table': ('batch', None), 'positions': ('batch',)}
+        return {name: (('batch', 'seq')[:len(spec.shape)]
+                       if name == 'tokens' else known[name])
+                for name, spec in self.input_specs(shape).items()}
 
-    def prefill_fn(self, params, cache, batch, *, use_kernel=False):
+    def make_inputs(self, kind: str, b: int, s: int,
+                    rng: Optional[np.random.Generator] = None, *, device):
+        """Small concrete inputs of a ``kind`` ('train', 'prefill',
+        'decode') on ``device``, drawn from ``rng`` in the reference's
+        order (the same numbers as its ``make_inputs``): page tables hold
+        region-local ids 1 .. S // pg (slot 0 is the quarantine slot), a
+        decode row's position is S - 1."""
+        cfg = self.cfg
+        rng = rng or np.random.default_rng(0)
+        d = cfg.d_model
+        maxp = s // cfg.page_size
+
+        def tok(shp):
+            return torch.tensor(rng.integers(0, cfg.vocab_size, size=shp),
+                                dtype=torch.int32, device=device)
+
+        def bf16(shp):
+            return torch.tensor(rng.normal(size=shp) * 0.02,
+                                dtype=torch.float32,
+                                device=device).to(torch.bfloat16)
+
+        pt = torch.arange(1, maxp + 1, dtype=torch.int32,
+                          device=device).expand(b, maxp).contiguous()
+        if kind == 'train':
+            batch = {'tokens': tok((b, s)), 'labels': tok((b, s))}
+            if cfg.family == 'encdec':
+                batch['frames'] = bf16((b, s, d))
+            elif cfg.frontend is not None:
+                batch['prefix_embeds'] = bf16(
+                    (b, min(cfg.frontend_tokens, s), d))
+            return batch
+        if kind == 'prefill':
+            if cfg.family == 'encdec':
+                return {'frames': bf16((b, s, d)), 'tokens': tok((b, s)),
+                        'page_table': pt}
+            batch = {'tokens': tok((b, s))}
+            if cfg.family != 'ssm':
+                batch['page_table'] = pt
+            if cfg.frontend is not None:
+                batch['prefix_embeds'] = bf16(
+                    (b, min(cfg.frontend_tokens, s), d))
+            return batch
+        if kind == 'decode':
+            return {'tokens': tok((b,)),
+                    'positions': torch.full((b,), s - 1, dtype=torch.int32,
+                                            device=device),
+                    'page_table': pt}
+        raise ValueError(kind)
+
+    def prefill_fn(self, params, cache, batch, *, use_kernel=False,
+                   tp=None):
         """Whole-prompt prefill: (cache, (B, V) f32 scores of the last
-        token).  Dense: into the global pool, the flash-attention kernel
-        with ``use_kernel``.  ssm: from the recurrent state in ``cache``,
-        the WKV6 kernel with ``use_kernel``.  moe, hybrid, encdec: the
-        plain path only (the reference has no kernel path for them)."""
+        token).  Dense: into the global or the region pool, the
+        flash-attention kernel with ``use_kernel``.  ssm: from the
+        recurrent state in ``cache``, the WKV6 kernel with ``use_kernel``.
+        moe, hybrid, encdec: the plain path only (the reference has no
+        kernel path for them).  ``tp``: a tensor-parallel rank's step
+        (dense, vlm and moe)."""
         fam = self.cfg.family
         self._no_kernel(use_kernel, ('moe',) + NO_KERNEL)
+        tp_kw = self._tp(tp)
         if fam in ('moe',) + NO_KERNEL:
-            return _FAMILY[fam].prefill(self.cfg, params, cache, batch)
+            return _FAMILY[fam].prefill(self.cfg, params, cache, batch,
+                                        **tp_kw)
         return _FAMILY[fam].prefill(self.cfg, params, cache, batch,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, **tp_kw)
 
     def decode_fn(self, params, cache, batch, *, use_kernel=False,
                   long_context=False, tp=None):

@@ -9,8 +9,12 @@ a ``torch.Generator`` under the reference's init law.  The two frameworks
 draw different numbers from the same seed; parity tests feed the
 reference's own weights through ``repro_torch.bridge``.
 
-KV caches use the global paged layout only: per layer a pool
-(P, page_size, Hkv, Dh) whose page 0 is the QUARANTINE page.  Writes update
+KV caches come in two layouts, as in the reference.  The engine's global
+paged pool is per layer (P, page_size, Hkv, Dh), page 0 the QUARANTINE
+page; the per-request region layout of ``make_serve_step`` is per layer
+(B, R, page_size, Hkv, Dh), each row's page ids local to its own R slots,
+slot 0 its quarantine slot.  The KV functions below take either: a 4-D
+pool is the global layout, a 5-D one the region layout.  Writes update
 the pool in place (``index_put_``), where the reference returns a new array.
 """
 from __future__ import annotations
@@ -269,39 +273,72 @@ def paged_gather(pool, page_table):
                                            *pool.shape[2:])
 
 
+def region_gather(pool, page_table):
+    """pool (B, R, pg, Hkv, Dh), page_table (B, maxp) of region-local ids
+    -> (B, maxp*pg, Hkv, Dh): row b reads its own slots only."""
+    b, maxp = page_table.shape
+    rows = torch.arange(b, device=pool.device)[:, None]
+    return pool[rows, page_table.long()].reshape(b, maxp * pool.shape[2],
+                                                 *pool.shape[3:])
+
+
+def kv_gather(pool, page_table):
+    """Dispatch on layout: 4-D = global pool, 5-D = per-request regions."""
+    return (paged_gather if pool.dim() == 4 else region_gather)(pool,
+                                                                page_table)
+
+
 def kv_write_prefill(pool, page_table, kv):
-    """In-place write of a whole prefill's K or V, page by page.
+    """In-place write of a whole prefill's K or V, page by page, into
+    either layout.
 
     kv: (B, S, Hkv, Dh), cast to the pool's dtype; page_table (B, >=
-    ceil(S / page)) physical ids.  As the reference's ``mode='drop'``
-    scatter: an id in [-P, 0) counts from the end of the pool, and an id
-    outside [-P, P) is dropped, not raised on.  The reference needs S % page
-    == 0; here a last partial page is written whole, its slots past S as
-    zeros (a row's length masks them, and decode writes them in turn).
+    ceil(S / page)) page ids (physical, or region-local for a 5-D pool).
+    As the reference's ``mode='drop'`` scatter: an id in [-P, 0) counts from
+    the end of the pool (of the row's region), and an id outside [-P, P) is
+    dropped, not raised on.  The reference needs S % page == 0; here a last
+    partial page is written whole, its slots past S as zeros (a row's
+    length masks them, and decode writes them in turn).
     """
     b, s, hkv, dh = kv.shape
-    n_pages, pg = pool.shape[:2]
+    n_pages, pg = pool.shape[-4], pool.shape[-3]
     if s % pg:
         kv = F.pad(kv, (0, 0, 0, 0, 0, pg - s % pg))
         s = kv.shape[1]
-    idx = page_table[:, :s // pg].reshape(-1).long()
+    idx = page_table[:, :s // pg].long()
     idx = torch.where(idx < 0, idx + n_pages, idx)
     keep = (idx >= 0) & (idx < n_pages)
-    pool[idx[keep]] = kv.reshape(-1, pg, hkv, dh)[keep].to(pool.dtype)
+    chunks = kv.reshape(b, s // pg, pg, hkv, dh).to(pool.dtype)
+    if pool.dim() == 4:
+        pool[idx[keep]] = chunks[keep]
+    else:
+        rows = torch.arange(b, device=pool.device)[:, None].expand_as(idx)
+        pool[rows[keep], idx[keep]] = chunks[keep]
 
 
 def kv_write_tokens(pool, page_ids, offsets, kv):
-    """In-place token-granular write.  page_ids/offsets: (B, C) physical page
-    + in-page offset per token; kv: (B, C, Hkv, Dh), cast to the pool's
-    dtype.  Padding tokens point at the quarantine page: overwriting it is
-    harmless by design."""
-    pool.index_put_((page_ids.reshape(-1).long(), offsets.reshape(-1).long()),
-                    kv.reshape(-1, *kv.shape[2:]).to(pool.dtype))
+    """In-place token-granular write.  page_ids/offsets: (B, C) page (a
+    region-local slot for a 5-D pool) + in-page offset per token; kv: (B,
+    C, Hkv, Dh), cast to the pool's dtype.  Padding tokens point at the
+    quarantine page: overwriting it is harmless by design."""
+    if pool.dim() == 4:
+        pool.index_put_((page_ids.reshape(-1).long(),
+                         offsets.reshape(-1).long()),
+                        kv.reshape(-1, *kv.shape[2:]).to(pool.dtype))
+        return
+    rows = torch.arange(pool.shape[0], device=pool.device)[:, None]
+    pool.index_put_((rows.expand_as(page_ids), page_ids.long(),
+                     offsets.long()), kv.to(pool.dtype))
 
 
 def kv_write_token(pool, page_ids, offsets, kv):
     """In-place single-token write per row.  kv: (B, Hkv, Dh)."""
-    pool.index_put_((page_ids.long(), offsets.long()), kv.to(pool.dtype))
+    if pool.dim() == 4:
+        pool.index_put_((page_ids.long(), offsets.long()), kv.to(pool.dtype))
+        return
+    rows = torch.arange(pool.shape[0], device=pool.device)
+    pool.index_put_((rows, page_ids.long(), offsets.long()),
+                    kv.to(pool.dtype))
 
 
 def paged_attention_ref(q, pool_k, pool_v, page_table, lengths, *,
@@ -309,10 +346,11 @@ def paged_attention_ref(q, pool_k, pool_v, page_table, lengths, *,
     """Decode attention through the page table (gather + dense oracle).
 
     q: (B, Hq, Dh) -- one new token per request; lengths (B,) valid tokens.
+    The pools may be global (P, pg, H, D) or region (B, R, pg, H, D).
     """
     b = q.shape[0]
-    k = paged_gather(pool_k, page_table)       # (B, S_max, Hkv, Dh)
-    v = paged_gather(pool_v, page_table)
+    k = kv_gather(pool_k, page_table)          # (B, S_max, Hkv, Dh)
+    v = kv_gather(pool_v, page_table)
     kv_pos = torch.arange(k.shape[1], device=q.device).expand(b, -1)
     valid = kv_pos < lengths.long()[:, None]
     out = attention(q[:, None], k, v, q_positions=lengths.long()[:, None],

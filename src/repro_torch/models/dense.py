@@ -15,6 +15,10 @@ the serving entry points of the reference's ``models/dense.py``.
   prefix-shared kernels, or the gather oracle -- and the head as f32
   scores (``decode_step``) or the fused unembed+sample kernel.
 
+Every entry point takes the engine's global pool or the serve step's
+per-request region pool (``cache_template(batch=)``, ``models/common.py``);
+the paged-decode kernels read the global pool only.
+
 A Python loop over layers replaces ``lax.scan``; the KV pools are updated
 in place.  The output head is (V, D) row-major (:func:`head_of`).  Each
 entry point takes the layer's MLP block as ``mlp(cfg, lp, h) -> h``
@@ -22,7 +26,9 @@ entry point takes the layer's MLP block as ``mlp(cfg, lp, h) -> h``
 family (``models/moe.py``) runs these loops with its routed experts.
 
 The engine's entry points (``prefill_chunk``, ``decode_step``,
-``decode_step_sample``) also run tensor-parallel: given ``tp``, a
+``decode_step_sample``) and the whole-prompt ``prefill`` (the serve step's,
+``training/train_step.py::make_serve_step``) also run tensor-parallel:
+given ``tp``, a
 :class:`~repro_torch.distributed.tp.TensorParallel`, the weights and the
 pool are this rank's blocks and the collectives sit where the reference
 calls ``constrain`` (the embedding, the ``wo`` and ``wd`` products, the
@@ -44,7 +50,7 @@ uses only as a layout of the residuals.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -116,11 +122,20 @@ def head_of(cfg: ModelConfig, params):
     return params['embed'] if cfg.tie_embeddings else params['unembed']
 
 
-def cache_template(cfg: ModelConfig, n_pages: int) -> Dict[str, PSpec]:
-    """Global paged KV pool: (L, P, pg, Hkv, Dh) for k and v; page 0 is the
-    quarantine page Valve's handles remap to."""
-    shape = (cfg.n_layers, n_pages, cfg.page_size, cfg.n_kv_heads, cfg.hd)
-    axes = ('layers', 'pages', None, 'kv_heads', 'head_dim')
+def cache_template(cfg: ModelConfig, n_pages: int,
+                   batch: Optional[int] = None) -> Dict[str, PSpec]:
+    """Paged KV pool for k and v.  ``batch=None``: the global pool (L, P,
+    pg, Hkv, Dh), the engine's layout, whose page 0 is the quarantine page
+    Valve's handles remap to.  ``batch=B``: the per-request region layout
+    (L, B, R, pg, Hkv, Dh) of ``make_serve_step``, ``n_pages`` = R slots a
+    row, slot 0 each row's quarantine slot."""
+    if batch is None:
+        shape = (cfg.n_layers, n_pages, cfg.page_size, cfg.n_kv_heads, cfg.hd)
+        axes = ('layers', 'pages', None, 'kv_heads', 'head_dim')
+    else:
+        shape = (cfg.n_layers, batch, n_pages, cfg.page_size,
+                 cfg.n_kv_heads, cfg.hd)
+        axes = ('layers', 'batch', 'pages', None, 'kv_heads', 'head_dim')
     return {'k': PSpec(shape, axes, 'zeros'), 'v': PSpec(shape, axes, 'zeros')}
 
 
@@ -169,8 +184,16 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     page read once per batch.  The KV *write* always indexes the row's own
     ``page_table``.  Under ``tp`` with split rows, ``x`` holds this rank's
     rows and ``positions``/``page_table`` every row's (module docstring).
+    The pools may be global or region-paged (``models/common.py``); the
+    kernels read the global layout only, and on a region pool
+    ``use_kernel`` and ``shared`` raise (the reference's kernel path falls
+    back to its plain read there instead).
     """
-    pg = pool_k.shape[1]
+    if pool_k.dim() == 5 and (use_kernel or shared is not None):
+        raise NotImplementedError(
+            'the paged-decode kernels read the global pool layout, not the '
+            'region layout: decode a region cache with use_kernel=False')
+    pg = pool_k.shape[-3]
     local, gather = _row_ops(tp)
     q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None])
     page_idx = page_table.gather(1, (positions // pg)[:, None].long())[:, 0]
@@ -213,20 +236,23 @@ def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
 
 
 def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
-                      page_table, *, use_kernel: bool = False):
+                      page_table, *, use_kernel: bool = False, tp=None):
     """Whole-prompt prefill attention.  x: (B, S, D); positions: (B, S)
-    = 0..S-1; page_table (B, >= S // page).  K/V go into the pools, and
-    attention reads this call's own K/V, not the pool."""
+    = 0..S-1; page_table (B, >= S // page).  K/V go into the pools (either
+    layout), and attention reads this call's own K/V, not the pool.  Under
+    ``tp`` with split rows, ``x`` and ``positions`` hold this rank's rows
+    and ``page_table`` every row's (module docstring)."""
     b, s, _ = x.shape
+    gather = _row_ops(tp)[1]
     q, k, v = qkv_proj(cfg, lp, x, positions)
-    cm.kv_write_prefill(pool_k, page_table, k)
-    cm.kv_write_prefill(pool_v, page_table, v)
+    cm.kv_write_prefill(pool_k, page_table, gather(k))
+    cm.kv_write_prefill(pool_v, page_table, gather(v))
     if use_kernel:
         out = flash_attention(q, k, v, causal=True)
     else:
         out = cm.chunked_attention(q, k, v, q_positions=positions,
                                    kv_positions=positions, causal=True)
-    return out.reshape(b, s, -1) @ lp['wo']
+    return _out_proj(out.reshape(b, s, -1), lp['wo'], tp)
 
 
 def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
@@ -245,8 +271,8 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
     q, k, v = qkv_proj(cfg, lp, x, positions)
     cm.kv_write_tokens(pool_k, page_ids, offsets, gather(k))
     cm.kv_write_tokens(pool_v, page_ids, offsets, gather(v))
-    kg = cm.paged_gather(pool_k, local(page_table))  # (B, maxp*pg, Hkv, Dh)
-    vg = cm.paged_gather(pool_v, local(page_table))
+    kg = cm.kv_gather(pool_k, local(page_table))  # (B, maxp*pg, Hkv, Dh)
+    vg = cm.kv_gather(pool_v, local(page_table))
     b, skv = kg.shape[:2]
     kv_pos = torch.arange(skv, device=x.device).expand(b, -1)
     out = cm.attention(q, kg, vg, q_positions=positions.long(),
@@ -325,23 +351,28 @@ def forward_train(cfg: ModelConfig, params, batch, *,
 
 
 def prefill(cfg: ModelConfig, params, cache, batch, *,
-            use_kernel: bool = False, mlp=_mlp):
+            use_kernel: bool = False, mlp=_mlp, tp=None):
     """Whole-prompt prefill.  batch: tokens (B, S) with S a multiple of
     the page size, page_table (B, >= S // page) [, prefix_embeds (B, p,
-    D)].  Returns (cache with the
-    prompt's K/V written, f32 scores of the last token)."""
-    tokens = batch['tokens']
+    D)]; the cache's pools global or region-paged.  Returns (cache with
+    the prompt's K/V written, f32 scores of the last token).  ``tp``: a
+    rank's step, as ``prefill_chunk``'s."""
+    local = _row_ops(tp)[0]
+    tokens = local(batch['tokens'])
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    h = embed_inputs(cfg, params, tokens, batch.get('prefix_embeds'))
+    h = embed_inputs(cfg, params, tokens, local(batch.get('prefix_embeds')),
+                     tp)
+    if tp is not None:
+        mlp = functools.partial(mlp, tp=tp)
     for i, lp in enumerate(cm.layer_views(params)):
         x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
         h = h + self_attn_prefill(cfg, lp, x, positions, cache['k'][i],
                                   cache['v'][i], batch['page_table'],
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, tp=tp)
         h = mlp(cfg, lp, h)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, head_of(cfg, params))
+    return cache, _scores(cfg, params, last, tp)
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, mlp=_mlp,

@@ -138,8 +138,10 @@ def moe_mlp(cfg: ModelConfig, lp, x, *,
     rows, keep = cap, pos < cap
     if data is not None:
         # ranked after the lower ranks' assignments, against the capacity
-        # of every rank's tokens; an expert holds at most n of this rank's
-        counts = torch.bincount(flat_e, minlength=e)
+        # of every rank's tokens; an expert holds at most n of this rank's.
+        # The counts' size is E whatever the routing (a bincount's depends
+        # on the data, which the dry-run's shape-only count cannot see)
+        counts = F.one_hot(flat_e, e).sum(0)
         cap = capacity(k, n * data.n, e, capacity_factor)
         keep = pos + data.before(counts)[flat_e] < cap
         rows = min(cap, n)
@@ -268,11 +270,12 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     return loss, {'tokens': cnt, 'aux_loss': aux}
 
 
-def prefill(cfg: ModelConfig, params, cache, batch):
+def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """Whole-prompt prefill (see ``dense.prefill``), capacity factor 1.25,
-    attention by the plain path."""
+    attention by the plain path; ``tp``: a rank's step (module
+    docstring)."""
     return dense.prefill(cfg, params, cache, batch, mlp=functools.partial(
-        moe_block, capacity_factor=PREFILL_CAPACITY))
+        moe_block, capacity_factor=PREFILL_CAPACITY), tp=tp)
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache, batch, *, tp=None):

@@ -19,9 +19,9 @@ Valve reclaims for this architecture.
   contiguous KV of ``max_seq`` tokens a row (``decode_dense``).
 
 A Python loop over layers takes the place of ``lax.scan`` + ``lax.cond``;
-the caches are updated in place.  Only the global pool layout is ported
-(the reference's per-request region layout comes with ``make_serve_step``,
-ROADMAP Queue 1 item 11).
+the caches are updated in place.  The shared block's pools take the
+engine's global layout or the per-request region layout of
+``make_serve_step`` (``attn_cache_template(batch=)``).
 No kernel runs here, as in the reference: the paged read is the gather
 oracle ``paged_attention_ref`` and the attentions are ``chunked_attention``.
 
@@ -51,7 +51,7 @@ layers stay whole on every rank.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -301,8 +301,9 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
 def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
                 pool_k=None, pool_v=None, page_table=None, tp=None):
     """h, e0: (B, T, D); positions (B, T).  ``mode``: ``train`` (no cache),
-    ``prefill`` (K/V into the pools (P, pg, AH, AHD) through the page
-    table), ``decode`` (one token, the pools read through the page table),
+    ``prefill`` (K/V into the pools (P, pg, AH, AHD), or (B, R, pg, AH,
+    AHD) region-paged, through the page table), ``decode`` (one token, the
+    pools read through the page table),
     ``decode_dense`` (one token, contiguous pools (B, S_max, AH, AHD)).
     The pools are written in place.  ``tp`` (``train`` only): a rank's
     heads and ``d_ff`` block of the block.  -> h'."""
@@ -336,7 +337,7 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
                            kv_valid=kv_pos <= pos[:, None], causal=False)
     else:                                   # decode
         pos = positions[:, 0]
-        pg = pool_k.shape[1]
+        pg = pool_k.shape[-3]
         page_idx = page_table.gather(1, (pos // pg)[:, None].long())[:, 0]
         cm.kv_write_token(pool_k, page_idx, pos % pg, k[:, 0])
         cm.kv_write_token(pool_v, page_idx, pos % pg, v[:, 0])
@@ -372,13 +373,20 @@ def mamba_cache_template(cfg: ModelConfig, batch_size: int):
     }
 
 
-def attn_cache_template(cfg: ModelConfig, n_pages: int):
-    """The shared block's paged KV, global layout: (n_apps, P, pg, AH,
-    AHD) for k and v; page 0 is the quarantine page."""
+def attn_cache_template(cfg: ModelConfig, n_pages: int,
+                        batch: Optional[int] = None):
+    """The shared block's paged KV for k and v: ``batch=None`` the global
+    layout (n_apps, P, pg, AH, AHD), page 0 the quarantine page (the
+    engine's); ``batch=B`` the per-request region layout (n_apps, B, R,
+    pg, AH, AHD), ``n_pages`` = R slots a row."""
     ah = cfg.hybrid_attn_heads
-    shape = (n_attn_apps(cfg), n_pages, cfg.page_size, ah,
-             2 * cfg.d_model // ah)
-    axes = ('layers', 'pages', None, 'heads', 'head_dim')
+    ahd = 2 * cfg.d_model // ah
+    if batch is None:
+        shape = (n_attn_apps(cfg), n_pages, cfg.page_size, ah, ahd)
+        axes = ('layers', 'pages', None, 'heads', 'head_dim')
+    else:
+        shape = (n_attn_apps(cfg), batch, n_pages, cfg.page_size, ah, ahd)
+        axes = ('layers', 'batch', 'pages', None, 'heads', 'head_dim')
     return {'k': PSpec(shape, axes, 'zeros'), 'v': PSpec(shape, axes, 'zeros')}
 
 

@@ -1,7 +1,10 @@
 """The train step, as the reference's ``make_train_step``: microbatch
 gradient accumulation, remat (inside the model's layer loop), AdamW, and
 under a mesh the data-parallel reduce, ZeRO-1 moments and a
-tensor-parallel forward and backward.
+tensor-parallel forward and backward.  And the serve step, as the
+reference's ``make_serve_step`` (the end of this module): an execution
+shape's prefill or decode, meshless for every family, and a rank's step
+for dense, vlm and moe on a mesh.
 
 Microbatching splits the batch along its leading axis; each microbatch's
 gradients are summed in f32 and divided by the count, and the loss is the
@@ -52,8 +55,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (
-    BATCH_AXES, TRAIN_RULES, Block, Sharding, batch_coords, check_spec,
-    shaped_spec, tree_spec_shaped)
+    BATCH_AXES, LONG_SERVE_RULES, SERVE_RULES, TRAIN_RULES, Block, Sharding,
+    batch_coords, check_spec, shaped_spec, tree_spec_shaped)
 from repro_torch.distributed.tp import DataShare
 from repro_torch.models.api import Model
 from repro_torch.training import optimizer as opt
@@ -371,3 +374,99 @@ def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
     if microbatches > 1:
         gsum = [g / microbatches for g in gsum]
     return data_sum(lsum) / microbatches, tr.unflatten(params, gsum)
+
+
+# ---------------------------------------------------------------------------
+# The serve step
+# ---------------------------------------------------------------------------
+
+# the logical axes whose rules decide where a serving rank's blocks lie
+# ('seq' names no serving tensor: the residuals stay replicated)
+PLACED_AXES = ('batch', 'heads', 'kv_heads', 'head_dim', 'qkv', 'ffn',
+               'vocab', 'expert', 'layers', 'pages', 'kv_seq', 'state',
+               'embed')
+NOT_PORTED = 'ROADMAP item 11b'
+
+
+def placement_expressible(rules) -> bool:
+    """Whether the port's tensor-parallel placement (``distributed/tp.py``:
+    rows over the batch axes, whole heads, ``d_ff``, the vocabulary and the
+    experts over ``model``, the pool's pages whole) is the one ``rules``
+    asks for: ``SERVE_RULES`` and ``TRAIN_RULES`` (whose 'seq' only lays
+    out the residuals) are; the reference's hill-climb variants that move
+    the pool onto ``head_dim`` or its pages, or replicate its heads, are
+    not."""
+    return all(rules.get(a) == SERVE_RULES.get(a) for a in PLACED_AXES)
+
+
+def check_serve_mesh(model: Model, mesh, shape, rules) -> None:
+    """What ``make_serve_step`` serves on a mesh, and the rest raising
+    NotImplementedError (ROADMAP item 11b): dense, vlm and moe over the
+    ``pod``/``data`` batch axes and ``model``, under a placement the port
+    can express; not ``long_500k``, whose KV sequence the reference splits
+    over (pod, data)."""
+    fam = model.cfg.family
+    if fam not in ('dense', 'vlm', 'moe'):
+        raise NotImplementedError(
+            f'a {fam!r} serve step on a mesh is {NOT_PORTED}')
+    if shape.name == 'long_500k':
+        raise NotImplementedError(
+            f'long_500k on a mesh (the KV sequence over (pod, data)) is '
+            f'{NOT_PORTED}')
+    if not placement_expressible(rules):
+        raise NotImplementedError(
+            f'a rule set that moves the KV pool or its heads off the '
+            f'port\'s placement is {NOT_PORTED}')
+    other = [a for a in mesh.axis_names if a not in DATA_AXES + (MODEL,)]
+    if other:
+        raise NotImplementedError(f'mesh axes {other}: a serve step runs '
+                                  f'over {DATA_AXES} and model only')
+
+
+def make_serve_step(model: Model, mesh, shape, *, rules=None):
+    """The prefill or decode step of an execution ``shape``: ``(step,
+    specs)``, as the reference's.  ``step(params, cache, batch) -> (cache,
+    f32 scores)``, the cache (:meth:`Model.cache_template` of ``shape``:
+    the per-request region layout for the paged families) updated in place.
+
+    Meshless: every family's plain prefill or decode (``long_500k`` decodes
+    over hybrid's contiguous KV); ``specs`` is None.  On a mesh (dense,
+    vlm, moe; the rest raise NotImplementedError, ROADMAP item 11b): the
+    rank's step over its blocks (``step.plan``, a
+    ``distributed.tp.StepParallel``: ``shard_params``, ``shard_cache``,
+    ``shard_batch``), returning its rows' scores over its vocabulary
+    block; ``specs`` is the reference's ``dict(params=, cache=, batch=)``
+    of ``Sharding`` s under ``rules`` (``LONG_SERVE_RULES`` for long_500k,
+    else ``SERVE_RULES``)."""
+    if rules is None:
+        rules = LONG_SERVE_RULES if shape.name == 'long_500k' else SERVE_RULES
+    long_ctx = shape.name == 'long_500k'
+    prefill = shape.kind == 'prefill'
+    if mesh is None:
+        def step(params, cache, batch):
+            if prefill:
+                return model.prefill_fn(params, cache, batch)
+            return model.decode_fn(params, cache, batch,
+                                   long_context=long_ctx)
+        return step, None
+
+    from repro_torch.distributed.tp import StepParallel
+
+    check_serve_mesh(model, mesh, shape, rules)
+    plan = StepParallel(model.cfg, mesh, batch=shape.global_batch)
+
+    def mesh_step(params, cache, batch):
+        if prefill:
+            return model.prefill_fn(params, cache, batch, tp=plan)
+        return model.decode_fn(params, cache, batch, tp=plan)
+
+    mesh_step.plan = plan
+    ispecs = model.input_specs(shape)
+    specs = dict(
+        params=tree_spec_shaped(model.param_axes(), model.param_shapes(),
+                                rules, mesh),
+        cache=tree_spec_shaped(model.cache_axes(shape),
+                               model.cache_shapes(shape), rules, mesh),
+        batch={k: Sharding(mesh, shaped_spec(ispecs[k].shape, v, rules, mesh))
+               for k, v in model.input_axes(shape).items()})
+    return mesh_step, specs
