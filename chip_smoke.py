@@ -208,7 +208,26 @@ Phases, each fatal on failure:
     the measured peak memory against argument + output + temp; (c) two
     production records of the shape-only count, qwen3-0.6b x decode_32k
     and x train_4k on the (16, 16) mesh, ``status: ok``; 0 launches;
-21. one JSON line of per-kernel results, then the result line.
+21. the serve step on a mesh for the other families, two ranks sharing
+    the card over gloo: (a) rwkv6-3b (**2 of 32 layers**), zamba2-2.7b
+    (**12 of 54**) and seamless-m4t-medium (**2 + 2 of 12 + 12**) at
+    published widths, ``make_serve_step`` on (data 1, model 2): a prefill
+    of B=4 prompts of 512 tokens (seamless: 512 frames and a 64-token
+    decoder prefix, every row on pages of its own) and 4 decode steps
+    against the meshless step on the card, f32 scores within 1e-4 of
+    |max| with argmax equal, bf16 scores within twice the meshless step's
+    own nulls (every bf16 product in two halves of its sum, or of its
+    columns; the argmax flips of the mesh and of the nulls printed), the
+    steps' times recorded; zamba2 at long_500k on (data 2, model 1), f32, from a
+    seeded random cache of 16384 slots split over ``data``, 4 steps across
+    the blocks' boundary: the same f32 gate, both replicas' scores
+    bit-equal; (b) K6 over each rank's 20 of 40 wkv heads
+    (``prefill_fn(use_kernel=True, tp=)``, B=4, T=2048) against the rank's
+    plain prefill under phase 8's gates; (c) the dry-run's zamba2-2.7b x
+    long_500k and rwkv6-3b x decode_32k on the (16, 16) layout at full
+    depth, rank 0's step measured on the card; K6 the only kernel
+    launched;
+22. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -5498,24 +5517,7 @@ def serve_step_check(card: str) -> dict:
             raise RuntimeError(f'dryrun {shape}: exit {child.returncode}: '
                                f'{err[-2000:]}')
         rec = prod[shape] = json.loads(out.strip().splitlines()[-1])
-        print(f'  (c) {SERVE_ARCH} x {shape} x single (16, 16), shape-only '
-              f'on the host: status {rec["status"]}, rank {rec.get("rank")}, '
-              f'counted in {rec.get("trace_s", 0):.1f} s: flops a device '
-              f'{rec.get("flops_per_device", 0):.4g}, bytes a device '
-              f'{rec.get("bytes_per_device", 0):.4g}, hbm {rec.get("hbm")}, '
-              f'collectives {rec.get("collectives")}, roofline '
-              f'{rec.get("roofline")}, useful flops ratio '
-              f'{rec.get("useful_flops_ratio", 0):.4f}')
-        if 'measured' in rec:
-            m, hbm, roof = rec['measured'], rec['hbm'], rec['roofline']
-            counted = hbm['argument'] + hbm['output'] + hbm['temp']
-            bound_ms = max(roof['compute_s'], roof['memory_s']) * 1e3
-            print(f'  (c) {shape} rank {rec["rank"]} measured on the card '
-                  f'(collectives not run): {m["step_ms"]:.3f} ms a step '
-                  f'(median of {m["reps"]}) against the count\'s max('
-                  f'compute, memory) {bound_ms:.3f} ms; peak memory '
-                  f'{m["peak_bytes"] / 1e9:.3f} GB against argument + output '
-                  f'+ temp {counted / 1e9:.3f} GB  [{card}]')
+        print_production(rec, card)
     print(f'  hand-written kernel launches in the phase: {launches}')
     for name, res in results.items():
         assert res['worst'] == 0.0 and res['tokens_equal'], (name, res)
@@ -5529,6 +5531,525 @@ def serve_step_check(card: str) -> dict:
             0.95 * rec['model_flops'] or rec['kind'] == 'decode', rec
     assert not any(launches.values()), launches
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the serve step on a mesh for rwkv6, zamba2 and seamless;
+# long_500k's sequence-parallel decode; K6 over a rank's heads
+# ---------------------------------------------------------------------------
+
+FS_SHAPE = (1, 2)                  # (a), (b): (data, model), 2 gloo ranks
+FS_B, FS_S, FS_DECODE = 4, 512, 4  # (a): rows, prompt (seamless: frames,
+                                   # its decoder prefix FS_S / 8), steps
+FS_LONG_SHAPE = (2, 1)             # (a) long_500k: the KV sequence over data
+FS_LONG_S = 16384                  # its slots; 2 blocks of 8192
+FS_LONG_POS0 = 8190                # 4 steps across the blocks' boundary
+FS_TOL = 1e-4                      # f32: scores of |max|
+FS_BF16_RATIO = 1.4                # bf16: the median row's error against
+                                   # the f32 step, of the meshless bf16's
+                                   # (correct steps 0.94-1.04, zamba2's
+                                   # planted fault 1.72 on the H100)
+FS_K6_T = 2048                     # (b): the prompt K6 carries
+FS_CELLS = (('zamba2-2.7b', 'long_500k'), ('rwkv6-3b', 'decode_32k'))
+FS_TIMEOUT_S = 300                 # bounds the spawned ranks
+
+
+def serve_batches(cfg, b: int, s: int, steps: int, seed: int):
+    """(prefill batch, decode batches), numpy: every row its own region
+    (the region layout) or, for encdec's one pool, its own pages; fixed
+    decode tokens."""
+    rng = np.random.default_rng(seed)
+    pg = cfg.page_size
+    if cfg.family == 'encdec':
+        s_dec = s // 8
+        per_row = s_dec // pg + 1
+        table = (1 + np.arange(b * per_row, dtype=np.int32)).reshape(
+            b, per_row)
+        pre = {'frames': (rng.normal(size=(b, s, cfg.d_model)) * 0.02)
+               .astype(np.float32),
+               'tokens': rng.integers(1, cfg.vocab_size, (b, s_dec))
+               .astype(np.int32),
+               'page_table': table[:, :-1].copy()}
+        pos0 = s_dec
+    else:
+        table = np.broadcast_to(np.arange(1, s // pg + 2, dtype=np.int32),
+                                (b, s // pg + 1)).copy()
+        pre = {'tokens': rng.integers(1, cfg.vocab_size, (b, s))
+               .astype(np.int32)}
+        if cfg.family != 'ssm':
+            pre['page_table'] = table[:, :-1].copy()
+        pos0 = s
+    out = []
+    for i in range(steps):
+        step = {'tokens': rng.integers(1, cfg.vocab_size, b).astype(np.int32),
+                'positions': np.full((b,), pos0 + i, np.int32)}
+        if cfg.family != 'ssm':
+            step['page_table'] = table
+        out.append(step)
+    return pre, out
+
+
+def on_device(batch, dtype=None):
+    """A numpy batch as tensors on DEV (float leaves in ``dtype``)."""
+    return {k: torch.tensor(v, device=DEV, dtype=dtype if v.dtype.kind == 'f'
+                            else None) for k, v in batch.items()}
+
+
+def timed_calls(calls):
+    """Run ``calls`` ([(step, params, cache, batch)]), each synchronized:
+    -> (each call's scores, each call's seconds)."""
+    scores, secs = [], []
+    with torch.no_grad():
+        for step, params, cache, batch in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores.append(step(params, cache, batch)[1])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    return scores, secs
+
+
+def full_scores(plan, block):
+    """A rank's block of the scores -> every row and column, gathered over
+    ``model`` (vocabulary) and the batch axes (rows), on every rank."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    return TensorParallel.gather_rows(plan, TensorParallel.gather_vocab(
+        plan, block))
+
+
+def score_gaps(mesh_scores, meshless) -> dict:
+    """Each call's max |mesh - meshless| of the meshless |max|, whether its
+    argmax rows are equal, and whether each differing row is a near tie of
+    the meshless scores."""
+    gaps, equal, ties = [], [], []
+    for m, r in zip(mesh_scores, meshless):
+        gaps.append(((m - r).abs().max() / r.abs().max()).item())
+        a, b = m.argmax(-1).tolist(), r.argmax(-1).tolist()
+        equal.append(a == b)
+        ties.append(all(x == y or near_tie(r[i], x, y)
+                        for i, (x, y) in enumerate(zip(a, b))))
+    return {'gaps': gaps, 'equal': equal, 'ties': ties}
+
+
+def row_errors(scores, exact) -> list:
+    """Each row's max |scores - exact| of the row's |max| in ``exact``,
+    over every call's rows in order."""
+    return [e for x, t in zip(scores, exact)
+            for e in ((x.float() - t).abs().amax(-1)
+                      / t.abs().amax(-1)).tolist()]
+
+
+def flips(scores, exact, rtol: float) -> list:
+    """(call, row) of every row whose argmax differs from ``exact``'s and
+    is not a near tie there at ``rtol`` of |max|."""
+    out = []
+    for c, (x, t) in enumerate(zip(scores, exact)):
+        for r, (a, b) in enumerate(zip(x.argmax(-1).tolist(),
+                                       t.argmax(-1).tolist())):
+            if a != b and not near_tie(t[r], a, b, rtol):
+                out.append((c, r))
+    return out
+
+
+class ReduceTap:
+    """Counts the ``reduce_sum`` calls of a serve step's plan a call, and
+    with ``skip`` leaves that one unreduced on this rank -- each rank keeps
+    its own partial, as a row-parallel product whose reduce was left out
+    would: the planted fault that phase 21's bf16 gate must reject."""
+
+    def __init__(self, plan):
+        self.plan, self.orig = plan, plan.reduce_sum
+        self.n, self.skip = 0, None
+        plan.reduce_sum = self
+
+    def __call__(self, part, dtype):
+        i, self.n = self.n, self.n + 1
+        if i == self.skip:
+            return part.to(dtype)
+        return self.orig(part, dtype)
+
+    def close(self):
+        del self.plan.reduce_sum
+
+
+def family_serve(cfg, mesh, dev: str) -> dict:
+    """(a) for one family on a mesh of two ranks sharing the card: a
+    prefill and FS_DECODE decode steps of ``make_serve_step`` over this
+    rank's blocks, in f32 and bf16; rank 0 also runs the meshless step and
+    holds the scores gathered from both ranks to it.  In bf16 each row's
+    error is also taken against the meshless f32 step's scores (the
+    function), for the mesh step, the meshless bf16 step and the mesh step
+    with a planted fault: the last row-parallel product of every call left
+    unreduced on both ranks (:class:`ReduceTap`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import make_serve_step
+    from repro_torch.training.tree import leaves_with_paths
+
+    model = build_model(cfg)
+    shapes = (ShapeConfig('prefill', FS_S, FS_B, 'prefill'),
+              ShapeConfig('decode', FS_S, FS_B, 'decode'))
+    steps = [make_serve_step(model, mesh, s)[0] for s in shapes]
+    whole = [make_serve_step(model, None, s)[0] for s in shapes]
+    plan = steps[0].plan
+    taps = [ReduceTap(s.plan) for s in steps]
+    host_pre, host_steps = serve_batches(cfg, FS_B, FS_S, FS_DECODE, 21)
+    drawn = model.init_params(0, device=dev)
+    out, exact = {'cache': None}, None
+
+    def mesh_calls(blocks, batches, dtype, skips):
+        cache = plan.shard_cache(model.init_cache(shapes[0], device=dev,
+                                                  dtype=dtype))
+        counts = []
+
+        def tapped(i):
+            step, tap = steps[min(i, 1)], taps[min(i, 1)]
+
+            def run(*args):
+                tap.n, tap.skip = 0, skips[i]
+                try:
+                    return step(*args)
+                finally:
+                    counts.append(tap.n)
+                    tap.skip = None
+            return run
+        got, secs = timed_calls(
+            [(tapped(i), blocks, cache, plan.shard_batch(b))
+             for i, b in enumerate(batches)])
+        return [full_scores(plan, g) for g in got], secs, counts, cache
+
+    for name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        params = f32_params(drawn, dev) if dtype == torch.float32 else drawn
+        blocks = plan.shard_params(params)
+        batches = [on_device(host_pre, dtype)] + [on_device(b)
+                                                  for b in host_steps]
+        none = [None] * len(batches)
+        got, secs, counts, cache = mesh_calls(blocks, batches, dtype, none)
+        out['cache'] = {k: tuple(v.shape)
+                        for k, v in leaves_with_paths(cache)}
+        res = {'mesh_s': secs}
+        if mesh.rank == 0:
+            cache = model.init_cache(shapes[0], device=dev, dtype=dtype)
+            want, res['meshless_s'] = timed_calls(
+                [(whole[min(i, 1)], params, cache, b)
+                 for i, b in enumerate(batches)])
+            res.update(score_gaps(got, want))
+            if dtype == torch.float32:
+                exact = want
+            else:
+                res['rows'] = {'mesh': row_errors(got, exact),
+                               'meshless': row_errors(want, exact)}
+                noise = 2 * max(res['rows']['meshless'])
+                res['flips'] = {'mesh': flips(got, exact, noise),
+                                'meshless': flips(want, exact, noise),
+                                'rtol': noise}
+        if dtype == torch.bfloat16:
+            faulty = mesh_calls(blocks, batches, dtype,
+                                [n - 1 for n in counts])[0]
+            res['reduces'] = counts
+            if mesh.rank == 0:
+                res['rows']['fault'] = row_errors(faulty, exact)
+            del faulty
+        out[name] = res
+        del params, blocks, cache, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tap in taps:
+        tap.close()
+    return out
+
+
+def long_serve(cfg, mesh, dev: str) -> dict:
+    """(a) long_500k: zamba2 on (data 2, model 1), f32, from a seeded
+    random cache of FS_LONG_S slots (the KV sequence in two blocks, one a
+    rank), 4 decode steps across the blocks' boundary; every rank's
+    scores, and rank 0's against the meshless step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import make_serve_step
+    from repro_torch.training.tree import leaves_with_paths
+
+    model = build_model(cfg)
+    shape = ShapeConfig('long_500k', FS_LONG_S, 1, 'decode')
+    step, _ = make_serve_step(model, mesh, shape)
+    plan = step.plan
+    params = f32_params(model.init_params(0, device=dev), dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cache = model.init_cache(shape, device=dev, dtype=torch.float32)
+    for _, leaf in leaves_with_paths(cache):
+        leaf.normal_(generator=gen).mul_(0.5)
+    mine = plan.shard_cache(cache)
+    rng = np.random.default_rng(23)
+    batches = [on_device({'tokens': rng.integers(1, cfg.vocab_size, 1)
+                          .astype(np.int32),
+                          'positions': np.full((1,), FS_LONG_POS0 + i,
+                                               np.int32)})
+               for i in range(4)]
+    got, secs = timed_calls([(step, plan.shard_params(params), mine, b)
+                             for b in batches])
+    out = {'seq': plan.seq, 'rows': (plan.rows.start, plan.rows.stop),
+           'mesh_s': secs,
+           'kv_block': tuple(mine['attn']['k'].shape),
+           'scores': [g.cpu().numpy() for g in got]}
+    if mesh.rank == 0:
+        whole, _ = make_serve_step(model, None, shape)
+        want, out['meshless_s'] = timed_calls([(whole, params, cache, b)
+                                               for b in batches])
+        out.update(score_gaps(got, want))
+    return out
+
+
+def k6_rank_check(cfg, mesh, dev: str) -> dict:
+    """(b): rwkv6's ``prefill_fn(use_kernel=True, tp=)`` -- K6 over this
+    rank's wkv heads -- against this rank's plain prefill and the plain
+    prefill at chunk 64 (the null), B=FS_B, T=FS_K6_T, in bf16 and f32;
+    the kernel's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.tp import StepParallel
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.models.api import build_model
+
+    model = build_model(cfg)
+    shape = ShapeConfig('prefill', FS_K6_T, FS_B, 'prefill')
+    plan = StepParallel(cfg, mesh, batch=FS_B, seq_len=FS_K6_T)
+    batch = {'tokens': torch.tensor(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (FS_B, FS_K6_T)), device=dev)}
+    drawn = model.init_params(0, device=dev)
+    out = {'heads': (plan.wkv[1] - plan.wkv[0]) // cfg.ssm_head_dim,
+           'of': cfg.d_model // cfg.ssm_head_dim}
+
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    for name, dtype in (('bf16', torch.bfloat16), ('f32', torch.float32)):
+        params = plan.shard_params(
+            f32_params(drawn, dev) if dtype == torch.float32 else drawn)
+
+        def run(use_kernel):
+            cache = plan.shard_cache(model.init_cache(shape, device=dev,
+                                                      dtype=dtype))
+            with torch.no_grad():
+                cache, scores = model.prefill_fn(params, cache, batch,
+                                                 use_kernel=use_kernel,
+                                                 tp=plan)
+            return scores, cache['wkv']
+
+        before = LAUNCHES['wkv6']
+        kern = run(True)
+        out.setdefault('launches', 0)
+        out['launches'] += LAUNCHES['wkv6'] - before
+        plain = run(False)
+        with plain_wkv_chunk(64):
+            null = run(False)
+        rows = [(((kern[0][r] - plain[0][r]).abs().max()
+                  / plain[0][r].abs().max()).item(),
+                 ((null[0][r] - plain[0][r]).abs().max()
+                  / plain[0][r].abs().max()).item())
+                for r in range(FS_B)]
+        out[name] = {'rows': rows, 'scores': (rel(kern[0], plain[0]),
+                                              rel(null[0], plain[0])),
+                     'states': [(rel(k, p), rel(n, p)) for k, p, n in
+                                zip(kern[1], plain[1], null[1])]}
+        del params, kern, plain, null
+    return out
+
+
+def family_serve_rank(rank: int, cuts, dev: str) -> dict:
+    """Phase 21 on one of two ranks sharing the card: (a) each family's
+    serve step over (1, 2), (b) K6 over this rank's heads, (a) zamba2's
+    long_500k over (2, 1); the hand-written kernel launches of (a)'s
+    steps and (b)'s."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    mesh = make_mesh(FS_SHAPE, MESH_AXES, device=dev)
+    out = {'backend': str(torch.distributed.get_backend())}
+    for arch, cfg in cuts:
+        t0 = time.perf_counter()
+        out[arch] = family_serve(cfg, mesh, dev)
+        out[arch]['seconds'] = time.perf_counter() - t0
+    rwkv = dict(cuts)['rwkv6-3b']
+    out['k6'] = k6_rank_check(rwkv, mesh, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    long_mesh = make_mesh(FS_LONG_SHAPE, MESH_AXES, device=dev)
+    out['long'] = long_serve(dict(cuts)['zamba2-2.7b'], long_mesh, dev)
+    out['long']['seconds'] = time.perf_counter() - t0
+    out['launches'] = dict(LAUNCHES)
+    return out
+
+
+def family_serve_check(card: str) -> dict:
+    """Phase 21: (a) rwkv6, zamba2 and seamless at published widths, depth
+    cut as phase 19, served by ``make_serve_step`` on (1, 2) by two ranks
+    sharing the card: a prefill and FS_DECODE decode steps against the
+    meshless step on the card -- f32 scores within FS_TOL of |max| and
+    argmax equal; bf16 held to the meshless f32 step (the function): the
+    median row's error within FS_BF16_RATIO x the meshless bf16 step's, a
+    planted fault (``family_serve``) beyond that bound, and no argmax off
+    the f32 step's but a near tie at twice the meshless bf16 step's largest
+    row error -- with the steps' times;
+    zamba2 at long_500k on (2, 1), the KV sequence split over data, f32,
+    the same gate and the two replicas bit-equal; (b) K6 over each rank's
+    wkv heads against the rank's plain prefill (phase 8's gates); (c)
+    ``run_cell`` of FS_CELLS on the (16, 16) layout at full depth,
+    measured on the card (rank 0's step, collectives not run).  Returns
+    the phase's launches: K6's from (b), none of K1-K5."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    cuts = [(arch, family_cut(arch, layers)) for arch, layers in FM_FAMILIES]
+    t0 = time.perf_counter()
+    ranks = run_ranks(family_serve_rank, 2, store_dir=store,
+                      device_type=kind, args=(cuts, DEV),
+                      timeout_s=FS_TIMEOUT_S)
+    print(f'  two ranks on the card ({ranks[0]["backend"]}): '
+          f'{time.perf_counter() - t0:.1f} s  [{card}]')
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    ms = lambda xs: [round(x * 1e3, 2) for x in xs]  # noqa: E731
+    for (arch, layers), (_, cfg) in zip(FM_FAMILIES, cuts):
+        r0 = ranks[0][arch]
+        depth = (f'{layers} + {layers} of {get_config_layers(arch)}'
+                 if cfg.family == 'encdec'
+                 else f'{layers} of {get_config_layers(arch)}')
+        for name in ('f32', 'bf16'):
+            res = r0[name]
+            print(f'  (a) {arch} at {depth} layers, {name}, mesh {FS_SHAPE}, '
+                  f'B={FS_B}, S={FS_S}: prefill + {FS_DECODE} decode steps, '
+                  f'|mesh - meshless| of |max| '
+                  f'{[f"{g:.3e}" for g in res["gaps"]]}, argmax equal '
+                  f'{res["equal"]}, else a near tie {res["ties"]}; mesh '
+                  f'step ms {ms(res["mesh_s"])} (rank 1 '
+                  f'{ms(ranks[1][arch][name]["mesh_s"])}), meshless '
+                  f'{ms(res["meshless_s"])} (host clock, synchronized; two '
+                  f'ranks time-slice one card, gloo through host memory: '
+                  f'recorded, not a claim)  [{card}]')
+            if name == 'f32':
+                gate(max(res['gaps']) <= FS_TOL and all(res['equal']),
+                     (arch, name, res['gaps'], res['equal']))
+                continue
+            rows = res['rows']
+            med = {k: statistics.median(v) for k, v in rows.items()}
+            print(f'  (a) {arch} bf16 against the meshless f32 step (the '
+                  f'function), each row\'s |x - f32| of its |max| over the '
+                  f'{len(rows["mesh"])} rows of the 5 calls, median / max: '
+                  + ', '.join(f'{k} {med[k]:.3e} / {max(v):.3e}'
+                              for k, v in rows.items())
+                  + f' (fault: the last of each call\'s {res["reduces"]} '
+                  f'row-parallel reduces left out on both ranks); gate: '
+                  f'mesh median <= {FS_BF16_RATIO:g} x the meshless bf16 '
+                  f'median, the fault above it; argmax off f32 and not a '
+                  f'near tie at {res["flips"]["rtol"]:.3e} (2 x the meshless '
+                  f'bf16 step\'s largest row error): mesh '
+                  f'{res["flips"]["mesh"]}, meshless bf16 '
+                  f'{res["flips"]["meshless"]}  [{card}]')
+            bound = FS_BF16_RATIO * med['meshless']
+            gate(med['mesh'] <= bound, (arch, name, 'rows', med))
+            gate(med['fault'] > bound, (arch, name, 'fault passes', med))
+            gate(not res['flips']['mesh'], (arch, name, res['flips']))
+        print(f'  (a) {arch} cache blocks, rank 0: {r0["cache"]}; rank 1: '
+              f'{ranks[1][arch]["cache"]}; the family '
+              f'{r0["seconds"]:.1f} s')
+    lg = [r['long'] for r in ranks]
+    same = all(np.array_equal(a, b) for a, b in zip(lg[0]['scores'],
+                                                    lg[1]['scores']))
+    layers = dict(FM_FAMILIES)['zamba2-2.7b']
+    print(f'  (a) zamba2-2.7b at {layers} of '
+          f'{get_config_layers("zamba2-2.7b")} layers, long_500k, f32, mesh '
+          f'{FS_LONG_SHAPE}: {FS_LONG_S} slots in blocks {lg[0]["seq"]} and '
+          f'{lg[1]["seq"]} (rank KV block {lg[0]["kv_block"]}), rows '
+          f'{lg[0]["rows"]} on both, 4 steps from position {FS_LONG_POS0}: '
+          f'|mesh - meshless| of |max| '
+          f'{[f"{g:.3e}" for g in lg[0]["gaps"]]}, argmax equal '
+          f'{lg[0]["equal"]}, the replicas bit-equal {same}; mesh step ms '
+          f'{ms(lg[0]["mesh_s"])}, meshless {ms(lg[0]["meshless_s"])} '
+          f'({lg[0]["seconds"]:.1f} s)  [{card}]')
+    gate(max(lg[0]['gaps']) <= FS_TOL and all(lg[0]['equal']) and same,
+         ('long_500k', lg[0]['gaps'], lg[0]['equal'], same))
+    k6_launches = 0
+    for rank, r in enumerate(ranks):
+        k6 = r['k6']
+        k6_launches += k6['launches']
+        f32 = k6['f32']
+        null = max(n for _, n in f32['states'][1:] + [f32['scores']])
+        worst = max(g for g, _ in f32['states'][1:] + [f32['scores']])
+        bf = k6['bf16']['rows']
+        print(f'  (b) rank {rank}: K6 over its {k6["heads"]} of {k6["of"]} wkv heads, '
+              f'B={FS_B}, T={FS_K6_T}, {k6["launches"]} launches; f32 '
+              f'|kernel - plain| of |max|: layer 0 state '
+              f'{f32["states"][0][0]:.3e} (gate {FS_TOL:g}), deeper states '
+              f'and scores {worst:.3e} (gate max({FS_TOL:g}, 2 x the null '
+              f'{null:.3e})); bf16 rows {[f"{g:.3e}" for g, _ in bf]} '
+              f'(nulls {[f"{n:.3e}" for _, n in bf]}, gate max('
+              f'{PREFILL_TOL:g}, 2 x the null))  [{card}]')
+        gate(f32['states'][0][0] <= FS_TOL, (rank, 'k6 layer 0', f32))
+        gate(worst <= max(FS_TOL, 2 * null), (rank, 'k6 f32', f32))
+        gate(all(g <= max(PREFILL_TOL, 2 * n) for g, n in bf),
+             (rank, 'k6 bf16', bf))
+        gate(k6['launches'] == 2 * dict(cuts)['rwkv6-3b'].n_layers,
+             (rank, 'k6 launches', k6['launches']))
+    launches = dict(LAUNCHES)
+    for r in ranks:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    prod = {}
+    for arch, shape in FS_CELLS:
+        rec = prod[arch, shape] = run_cell(arch, shape, 'single',
+                                           measure=True, device=DEV)
+        print_production(rec, card)
+        gate(rec['status'] == 'ok' and rec['measured']['step_ms'] > 0,
+             (arch, shape, rec.get('status')))
+    assert not failed, failed
+    assert launches['wkv6'] == k6_launches, launches
+    assert not any(v for k, v in launches.items() if k != 'wkv6'), launches
+    return launches
+
+
+def print_production(rec: dict, card: str) -> None:
+    """Print a production record of the dry-run's count and, where it has
+    one, its measured step against the count."""
+    print(f'  (c) {rec["arch"]} x {rec["shape"]} x {rec["mesh"]}, shape-only '
+          f'on the host: status {rec["status"]}, rank {rec.get("rank")}, '
+          f'counted in {rec.get("trace_s", 0):.1f} s: flops a device '
+          f'{rec.get("flops_per_device", 0):.4g}, bytes a device '
+          f'{rec.get("bytes_per_device", 0):.4g}, hbm {rec.get("hbm")}, '
+          f'collectives {rec.get("collectives")}, roofline '
+          f'{rec.get("roofline")}, useful flops ratio '
+          f'{rec.get("useful_flops_ratio", 0):.4f}')
+    if 'measured' in rec:
+        m, hbm, roof = rec['measured'], rec['hbm'], rec['roofline']
+        counted = hbm['argument'] + hbm['output'] + hbm['temp']
+        bound_ms = max(roof['compute_s'], roof['memory_s']) * 1e3
+        print(f'  (c) {rec["shape"]} rank {rec["rank"]} measured on the card '
+              f'(collectives not run): {m["step_ms"]:.3f} ms a step '
+              f'(median of {m["reps"]}) against the count\'s max('
+              f'compute, memory) {bound_ms:.3f} ms; peak memory '
+              f'{m["peak_bytes"] / 1e9:.3f} GB against argument + output '
+              f'+ temp {counted / 1e9:.3f} GB (argument, the rank\'s own '
+              f'blocks, {hbm["argument"] / 1e9:.3f} GB; under the '
+              f'reference\'s specs '
+              f'{sum(rec["reference_arguments"].values()) / 1e9:.3f} GB)  '
+              f'[{card}]')
 
 
 def get_config_layers(arch: str) -> int:
@@ -5716,7 +6237,15 @@ def main() -> int:
     by_phase['serve_step'] = serve_step_check(card)
     done()
 
-    print(f'[21] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[21] serve step on a mesh, the other families: '
+          f'{", ".join(f"{a} ({n} layers)" for a, n in FM_FAMILIES)} at '
+          f'published widths over {FS_SHAPE} (f32, bf16), zamba2 long_500k '
+          f'over {FS_LONG_SHAPE}, K6 over a rank\'s heads, '
+          f'{len(FS_CELLS)} production cells measured')
+    by_phase['family_serve'] = family_serve_check(card)
+    done()
+
+    print(f'[22] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

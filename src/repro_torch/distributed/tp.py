@@ -90,6 +90,14 @@ logits are gathered over ``model`` before the softmax, so every rank routes
 alike; a rank runs its experts on its slots and its f32 partial joins one
 :func:`reduce_sum` (``models/moe.py``).
 
+**The serve step** (:class:`StepParallel`, ``make_serve_step``) runs
+every family on a mesh over the training placement, each rank on its own
+rows with its cache blocks following its weight blocks
+(:meth:`StepParallel.cache_block`); under ``LONG_SERVE_RULES`` the rows
+are replicated and zamba2's long-context KV sequence is split over the
+batch axes, each rank's partial softmax state combined in rank order
+(:meth:`StepParallel.seq_attention`).
+
 Transport: the dispatch messages over the default group's host side
 (``broadcast_object_list``), weight shards rank 0 -> worker and the cache
 gather worker -> rank 0 as host tensors (``send`` / ``gather`` on CPU
@@ -107,9 +115,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import (BATCH_AXES, Block,
-                                              batch_coords, block, row_block)
+from repro_torch.distributed.sharding import (BATCH_AXES, SERVE_RULES,
+                                              Block, batch_coords, block,
+                                              row_block)
 from repro_torch.kernels.sampling.ref import combine_bests
+from repro_torch.models.common import attention_partial, combine_partials
 
 MODEL = 'model'
 # the weights of one kv-head block (encdec's cross-attention ones too,
@@ -570,43 +580,130 @@ class StepParallel(TensorParallel):
     """A serve step's plan (``training/train_step.py::make_serve_step``):
     the step is given this rank's blocks only -- its rows of the call's
     ``batch`` rows over the batch axes (:attr:`rows`; every row where they
-    do not divide it), its kv-heads of the region cache, its weight blocks
-    -- and returns its rows' block of the scores over its vocabulary
-    block.  So nothing is gathered over the batch axes or the vocabulary:
-    the K/V a rank writes are its own rows', into its own rows' regions.
-    MoE still routes the whole call (:attr:`data`), as GSPMD does."""
+    do not divide it, or where ``rules`` replicate the batch), its blocks
+    of the cache (:meth:`cache_block`), its weight blocks -- and returns its
+    rows' block of the scores over its vocabulary block.  So nothing is
+    gathered over the vocabulary, and the K/V a rank writes into a
+    per-row cache are its own rows', into its own rows' regions.  MoE
+    still routes the whole call (:attr:`data`), as GSPMD does.
+
+    encdec's decoder pool has no batch dimension (the reference's): it is
+    one pool replicated over the batch axes (:attr:`shared_pool`), so
+    every replica writes every row's K/V: the decoder's new K/V rows, page
+    table and positions are gathered over the batch axes before the write
+    (:meth:`gather_rows`), as the engine's data-parallel plan does.
+
+    ``rules`` (``SERVE_RULES`` by default) say where the rows and a long
+    context's KV sequence lie: ``LONG_SERVE_RULES`` (long_500k) replicate
+    the rows and split the ``kv_seq`` dimension of zamba2's contiguous KV
+    over the batch axes (:attr:`seq`, of ``seq_len`` slots) in rank-order
+    blocks; each rank attends over its own slots and the partial softmax
+    states are combined in rank order (:meth:`seq_attention`)."""
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
-                 *, batch: int):
+                 *, batch: int, seq_len: int = 0, rules=None):
         super().__init__(cfg, mesh, coords, max_batch=batch)
+        rules = SERVE_RULES if rules is None else rules
+        if rules.get('batch') != SERVE_RULES['batch']:
+            self.rows, self.split_rows = slice(0, batch), False
+        self.shared_pool = cfg.family == 'encdec'
+        # zamba2's contiguous long-context KV is the one kv_seq leaf
+        self.seq_split = (rules.get('kv_seq') == SERVE_RULES['batch']
+                          and cfg.family == 'hybrid'
+                          and self.n_batch > 1 and seq_len > 0
+                          and seq_len % self.n_batch == 0)
+        self.seq = (block(seq_len, self.n_batch, self.batch_index)
+                    if self.seq_split else (0, seq_len))
 
     def local(self, x):
-        return x
+        return super().local(x) if self.shared_pool else x
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        return super().gather_rows(x) if self.shared_pool else x
 
     def gather_vocab(self, scores):
         return scores
 
     def cache_block(self, path, shape) -> Block:
-        """This rank's :class:`Block` of the region cache leaf ``path``
-        (``('k',)``, ``('v',)``) of global ``shape`` (L, B, R, pg, Hkv,
-        Dh): its rows and its kv-heads."""
-        return (Block.whole(shape).narrow(1, self.rows.start, self.rows.stop)
-                .narrow(4, *self.kv_heads))
+        """This rank's :class:`Block` of the cache leaf ``path`` (a tuple
+        of keys: ``('k',)``, ``('mamba', 'conv')``) of global ``shape``,
+        following its weight blocks (:meth:`ranges`):
+
+        - dense, vlm, moe: the region pool (L, B, R, pg, Hkv, Dh), its
+          rows and its kv-heads;
+        - ssm: ``wkv`` (L, B, H, K, V) its rows and wkv heads,
+          ``shift_tm`` / ``shift_cm`` (L, B, D) its rows;
+        - hybrid: ``mamba/conv`` (L, B, K-1, C) its rows and its conv
+          channels (its heads' x and its share of B's and C's), ``mamba/
+          ssm`` (L, B, H, P, N) its rows and its heads, N whole; ``attn``
+          its rows and the shared block's heads of the region pool (apps,
+          B, R, pg, AH, AHD), or of the contiguous KV (apps, B, S, AH,
+          AHD) with its block :attr:`seq` of S;
+        - encdec: the pool (Ld, R, pg, Hkv, Dh) its kv-heads (no rows),
+          ``cross_k`` / ``cross_v`` (Ld, B, S_enc, Hkv, Dh) its rows and
+          kv-heads."""
+        keys = tuple(path.split('/')) if isinstance(path, str) else \
+            tuple(path)
+        name, fam = keys[-1], self.cfg.family
+        b = Block.whole(shape)
+        if self.shared_pool and name in ('k', 'v'):
+            return b.narrow(3, *self.kv_heads)
+        b = b.narrow(1, self.rows.start, self.rows.stop)
+        if fam == 'ssm':
+            return (_select(b, 2, self.ranges('layers/u').get(1))
+                    if name == 'wkv' else b)
+        if fam == 'encdec':
+            return b.narrow(3, *self.kv_heads)
+        if fam != 'hybrid':
+            return b.narrow(4, *self.kv_heads)
+        if name == 'conv':
+            return _select(b, 3, self.ranges('layers/conv_w').get(2))
+        if name == 'ssm':
+            return _select(b, 2, self.ranges('layers/A_log').get(1))
+        ahd = 2 * self.cfg.d_model // self.cfg.hybrid_attn_heads
+        heads = (self.shared_heads[0] // ahd, self.shared_heads[1] // ahd)
+        if len(shape) == 5:                  # the contiguous long KV
+            return b.narrow(2, *self.seq).narrow(3, *heads)
+        return b.narrow(4, *heads)
 
     def shard_cache(self, cache):
-        """This rank's blocks of a global region cache (copies on the
-        mesh's device)."""
-        return {k: self.cache_block((k,), v.shape).take(v).to(
-            self.mesh.device, copy=True).contiguous()
-                for k, v in cache.items()}
+        """This rank's blocks of a global cache (copies on the mesh's
+        device), nested as it is."""
+        def build(node, path):
+            if isinstance(node, dict):
+                return {k: build(v, path + (k,)) for k, v in node.items()}
+            return self.cache_block(path, node.shape).take(node).to(
+                self.mesh.device, copy=True).contiguous()
+        return build(cache, ())
 
     def shard_batch(self, batch):
         """This rank's rows of a serve step's batch (tensors, on the mesh's
         device)."""
         return {k: v[self.rows].to(self.mesh.device) for k, v in batch.items()}
+
+    def seq_attention(self, q, k, v, kv_valid):
+        """Attention of one query token a row over a KV sequence split into
+        rank-order blocks over the batch axes (:attr:`seq`): q (B, 1, Hq,
+        Dh); k/v (B, S_local, Hkv, Dh), this rank's slots; ``kv_valid``
+        (B, S_local).  Each rank's partial softmax state (m, l, acc), f32,
+        is all-gathered and the blocks combined in rank order
+        (``models.common.combine_partials``), so every rank returns the
+        same bits.  -> (B, 1, Hq, Dh) in q's dtype."""
+        gathered = []
+        for t in attention_partial(q, k, v, kv_valid):
+            t = t.contiguous()
+            out = t.new_empty((self.n_batch * t.shape[0],)
+                              + tuple(t.shape[1:]))
+            torch.distributed.all_gather_into_tensor(out, t,
+                                                     group=self.batch_group)
+            gathered.append(out.view((self.n_batch,) + tuple(t.shape)))
+        return combine_partials(*gathered).to(q.dtype)
+
+
+def _select(b: Block, dim: int, intervals) -> Block:
+    """``b`` with ``intervals`` on ``dim``, or ``b`` where there are none
+    (a replicated weight: the cache dimension stays whole)."""
+    return b if intervals is None else b.select(dim, intervals)
 
 
 class DataShare:

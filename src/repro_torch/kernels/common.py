@@ -94,6 +94,25 @@ def online_softmax_finalize(acc, l):
     return acc / safe[..., None]
 
 
+def combine_softmax_states(parts):
+    """The combine pass of the split kernels: the non-empty partial states
+    (m, l, acc) of ``parts`` (l > 0) taken to their common max M, then l
+    and acc summed in the order of ``parts``, each term scaled by
+    exp(m - M).  A partial whose scores were all masked (m = NEG_INF, its
+    garbage mass at weight exp(0)) weighs exp(NEG_INF - M) = 0.  Returns
+    the merged state (M, l, acc)."""
+    m0, l0, acc0 = parts[0]
+    mx = torch.full_like(m0, NEG_INF)
+    for m_s, l_s, _ in parts:
+        mx = torch.where(l_s > 0, torch.maximum(mx, m_s), mx)
+    l, acc = torch.zeros_like(l0), torch.zeros_like(acc0)
+    for m_s, l_s, acc_s in parts:
+        w = torch.where(l_s > 0, torch.exp(m_s - mx), 0.0)
+        l = l + l_s * w
+        acc = acc + torch.where((w > 0)[..., None], acc_s * w[..., None], 0.0)
+    return mx, l, acc
+
+
 # ---------------------------------------------------------------------------
 # Counter-based sampling noise.  torch's uint32 lacks the wrapping
 # multiply, so the u32 arithmetic runs in int64 masked to 32 bits; the

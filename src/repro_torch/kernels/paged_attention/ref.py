@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import (NEG_INF, online_softmax_finalize,
+from repro_torch.kernels.common import (NEG_INF, combine_softmax_states,
+                                        online_softmax_finalize,
                                         online_softmax_update)
 
 
@@ -107,23 +108,8 @@ def paged_decode_split_ref(q, pool_k, pool_v, page_table, lengths, *,
         parts.append((torch.where(keep, m_s, init[0]),
                       torch.where(keep, l_s, init[1]),
                       torch.where(keep[..., None], acc_s, init[2])))
-    _, l, acc = _combine(parts, empty)
+    _, l, acc = combine_softmax_states(parts)
     return online_softmax_finalize(acc, l).to(q.dtype)
-
-
-def _combine(parts, empty):
-    """The CUDA combine pass: the non-empty partials (l > 0) taken to their
-    common max M, then l and acc summed in split order, each term scaled by
-    exp(m - M).  Returns the merged state (M, l, acc)."""
-    mx = torch.full_like(empty[0], NEG_INF)
-    for m_s, l_s, _ in parts:
-        mx = torch.where(l_s > 0, torch.maximum(mx, m_s), mx)
-    l, acc = empty[1], empty[2]
-    for m_s, l_s, acc_s in parts:
-        w = torch.where(l_s > 0, torch.exp(m_s - mx), 0.0)
-        l = l + l_s * w
-        acc = acc + torch.where((w > 0)[..., None], acc_s * w[..., None], 0.0)
-    return mx, l, acc
 
 
 def shared_run_ref(q, pool_k, pool_v, pages, mask, *,
@@ -171,4 +157,4 @@ def shared_run_split_ref(q, pool_k, pool_v, pages, mask, *,
              for s0 in range(0, max(n_slots, 1), slots_per_split)]
     if len(parts) == 1:
         return parts[0]
-    return _combine(parts, _empty_state(b, hkv, g, d, q.device))
+    return combine_softmax_states(parts)

@@ -7,12 +7,18 @@ The reference lowers and compiles each cell over 512 virtual devices and
 reads the compiler's memory analysis and HLO.  Here no compiler sees the
 whole program, so:
 
-- ``hbm.argument`` is exact: the bytes of the rank's blocks of the step's
-  arguments under their specs -- params (with the ZeRO-1 optimizer state
-  for train), cache and batch -- which is what the reference's compiled
-  program holds (``argument_size_in_bytes``).  ``output`` is what the step
-  returns (the cache, or params and optimizer state, updated in place and
-  counted as ``alias``, and the scores or the metrics);
+- ``hbm.argument`` is exact: the bytes of the rank's own blocks of the
+  step's arguments that the step reads -- params (with the ZeRO-1
+  optimizer state for train), cache and batch -- by group in
+  ``arguments``.  ``reference_arguments`` are the same under the
+  reference's specs, which is what the reference's compiled program holds
+  (``argument_size_in_bytes``).  The two agree wherever the port's
+  placement is the reference's; where ``model`` does not divide a
+  dimension (rwkv6-3b's 40 wkv heads on 16 ranks) the port keeps it whole
+  and the reference moves ``model`` onto another, and the record says so
+  (``placement``).  ``output`` is what the step returns (the cache, or
+  params and optimizer state, updated in place and counted as ``alias``,
+  and the scores or the metrics);
 - FLOPs, traffic, collectives and ``temp`` come from running one rank's
   step shape-only (``launch/op_analysis.py``): on ``meta`` tensors beside
   a fake process group of the mesh's size
@@ -22,11 +28,11 @@ whole program, so:
 - ``trace_s`` (the count's seconds) replaces ``lower_s`` / ``compile_s``;
   ``raw_cost_analysis`` is dropped (no compiler makes one).
 
-Cells that ``cell_supported`` skips keep their skip status; cells the
-port's mesh cannot serve yet (ssm, hybrid and encdec serving on a mesh,
-long_500k on a mesh, rule variants the port's placement cannot express)
-carry ``not-ported/item-11b``.  ``--mesh none`` counts the meshless step
-on one device (the reference has no such cell).  ``--measure`` also runs
+Cells that ``cell_supported`` skips keep their skip status; cells under
+a rule variant the port's placement cannot express yet (``serve_dh``,
+``serve_seq``, ``serve_kv_dp``) carry ``not-ported/item-11c``.  ``--mesh
+none`` counts the meshless step on one device (the reference has no such
+cell).  ``--measure`` also runs
 the cell for real, on the card (it raises without one; the CPU only with
 ``--device cpu``): the meshless step, or the counted rank's step beside
 the fake process group (its collectives move no data: the rank's compute
@@ -64,7 +70,7 @@ from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
 from repro_torch.training import tree as tr
 
-NOT_PORTED = 'not-ported/item-11b'
+NOT_PORTED = 'not-ported/item-11c'
 MEASURE_REPS = 5
 Layout = Tuple[Tuple[int, ...], Tuple[str, ...]]
 
@@ -265,8 +271,10 @@ def count_step(model, shape: ShapeConfig, layout: Optional[Layout], *,
                rank: int = 0, rules=None, microbatches: int = 1,
                zero1: bool = True):
     """(ModuleCosts, ``used(group, path)``: whether the step read that
-    argument leaf, seconds) of rank ``rank``'s step on a mesh of ``layout``
-    (meshless: None), run shape-only on meta tensors."""
+    argument leaf, ``held``: the bytes of the rank's own argument blocks
+    that it read, by group as :func:`argument_bytes` gives them, seconds)
+    of rank ``rank``'s step on a mesh of ``layout`` (meshless: None), run
+    shape-only on meta tensors."""
     t0 = time.perf_counter()
     with rank_step(model, shape, layout, torch.device('meta'), rank=rank,
                    rules=rules, microbatches=microbatches,
@@ -276,8 +284,17 @@ def count_step(model, shape: ShapeConfig, layout: Optional[Layout], *,
         groups = dict(zip(('params', 'cache', 'batch'), args))
         read = {(g, p): counter.read(t) for g, tree in groups.items()
                 for p, t in _tree_leaves(tree)}
+        held = {g: sum(t.numel() * t.element_size()
+                       for p, t in _tree_leaves(tree)
+                       if shape.kind == 'train' and g == 'cache'
+                       or read[(g, p)])
+                for g, tree in groups.items()}
+    if shape.kind == 'train':        # the second argument is AdamW's state
+        held['opt'], held['cache'] = held['cache'], 0
+    else:
+        held['opt'] = 0
     return (counter.costs, lambda group, path: read.get((group, path), True),
-            time.perf_counter() - t0)
+            held, time.perf_counter() - t0)
 
 
 def _tree_leaves(tree, path=()):
@@ -299,10 +316,11 @@ def _serve_rules(shape: ShapeConfig, rules):
 def refusal(cfg: ModelConfig, shape: ShapeConfig, layout: Optional[Layout],
             rules_variant: str = 'default') -> Optional[Dict[str, str]]:
     """The status of a cell that is not counted, or None: the skip of
-    ``cell_supported``, or ``not-ported/item-11b`` (with its reason) for a
-    step the port's mesh cannot run yet (``make_serve_step``'s refusals;
-    a train cell under a rule set that moves the heads or the pool off the
-    trainer's placement)."""
+    ``cell_supported``, or ``not-ported/item-11c`` (with its reason) for a
+    step the port's mesh cannot run yet (``make_serve_step``'s refusals:
+    the rule variants that move the pool or its heads; a train cell under
+    a rule set that moves the heads or the pool off the trainer's
+    placement)."""
     ok, why = cell_supported(cfg, shape)
     if not ok:
         return {'status': why}
@@ -384,19 +402,21 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
         desc = meshlib.describe(*layout)
         rank, coords = _largest_rank(model, layout)
     try:
-        costs, used, trace_s = count_step(
+        costs, used, held, trace_s = count_step(
             model, shape, layout, rank=rank, rules=rules,
             microbatches=microbatches, zero1=zero1)
     except Exception as e:  # a failure here is a bug in the port's step
         rec.update(status='FAILED', error=f'{type(e).__name__}: {e}')
         return rec
-    args = argument_bytes(model, shape, desc,
-                          rules if shape.kind == 'train' else serve_rules,
-                          coords=coords, zero1=zero1, used=used)
+    reference = argument_bytes(model, shape, desc,
+                               rules if shape.kind == 'train' else serve_rules,
+                               coords=coords, zero1=zero1, used=used)
+    args = {g: held[g] for g in reference}
     rows, vocab = shape.global_batch, cfg.vocab_size
     if layout is not None and shape.kind != 'train':
         from repro_torch.distributed.tp import StepParallel
-        plan = StepParallel(cfg, desc, coords, batch=rows)
+        plan = StepParallel(cfg, desc, coords, batch=rows,
+                            seq_len=shape.seq_len, rules=serve_rules)
         rows = plan.rows.stop - plan.rows.start
         vocab = plan.vocab[1] - plan.vocab[0]
     out, alias = output_bytes(shape, args, rows, vocab)
@@ -412,7 +432,7 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
     rec.update(
         status='ok', chips=chips, rank=rank, trace_s=trace_s,
         flops_per_device=costs.flops, bytes_per_device=costs.traffic_bytes,
-        hbm=hbm, arguments=args,
+        hbm=hbm, arguments=args, reference_arguments=reference,
         collectives={'bytes_by_kind': costs.coll_payload,
                      'wire_bytes': costs.coll_wire,
                      'n_collectives': costs.coll_count},
@@ -424,6 +444,12 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
         model_flops=mflops,
         useful_flops_ratio=(mflops / (costs.flops * chips)
                             if costs.flops else 0.0))
+    if args != reference:
+        rec['placement'] = (
+            'the rank\'s blocks differ from the reference\'s specs '
+            '(``arguments`` the port\'s, ``reference_arguments`` the '
+            'reference\'s): e.g. heads that ``model`` does not divide stay '
+            'whole, or a train rank holds its rows\' whole sequence')
     if measure:
         rec['measured'] = measure_cell(model, shape, layout, device=device,
                                        rank=rank, rules=rules,

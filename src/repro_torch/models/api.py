@@ -7,7 +7,9 @@ with routed experts; no fused sampling and no prefill kernel, as in the
 reference), and runs the ``ssm`` family (rwkv6): prefill + decode over a
 recurrent-state cache.  Every family trains: :meth:`Model.loss_fn` is
 differentiable by autograd through the plain paths, on one device or as a
-tensor-parallel rank's share (``tp``).
+tensor-parallel rank's share (``tp``); and every family's
+:meth:`Model.prefill_fn` / :meth:`Model.decode_fn` run a tensor-parallel
+rank's share too (``tp``: the serve step on a mesh).
 
 It also runs the ``hybrid`` family (zamba2: Mamba2 layers and a shared
 attention block, a paged KV pool per application of it) and the
@@ -348,16 +350,16 @@ class Model:
         flash-attention kernel with ``use_kernel``.  ssm: from the
         recurrent state in ``cache``, the WKV6 kernel with ``use_kernel``.
         moe, hybrid, encdec: the plain path only (the reference has no
-        kernel path for them).  ``tp``: a tensor-parallel rank's step
-        (dense, vlm and moe)."""
+        kernel path for them).  ``tp``: a tensor-parallel rank's step over
+        its weight and cache blocks, every family (``distributed/tp.py``;
+        a serve step's plan returns the rank's rows over its vocabulary
+        block)."""
         fam = self.cfg.family
         self._no_kernel(use_kernel, ('moe',) + NO_KERNEL)
-        tp_kw = self._tp(tp)
         if fam in ('moe',) + NO_KERNEL:
-            return _FAMILY[fam].prefill(self.cfg, params, cache, batch,
-                                        **tp_kw)
+            return _FAMILY[fam].prefill(self.cfg, params, cache, batch, tp=tp)
         return _FAMILY[fam].prefill(self.cfg, params, cache, batch,
-                                    use_kernel=use_kernel, **tp_kw)
+                                    use_kernel=use_kernel, tp=tp)
 
     def decode_fn(self, params, cache, batch, *, use_kernel=False,
                   long_context=False, tp=None):
@@ -366,21 +368,19 @@ class Model:
         recurrence step (no kernel, as in the reference).  hybrid: the
         shared block through the page table, or with ``long_context`` over
         the contiguous KV; encdec: through the page table (neither has a
-        kernel path).  ``tp``: a tensor-parallel rank's step (dense, vlm and
-        moe; ``distributed/tp.py``)."""
+        kernel path).  ``long_context`` is read for hybrid only and ignored
+        for the other families, as the reference's.  ``tp``: a
+        tensor-parallel rank's step, every family (``distributed/tp.py``)."""
         fam = self.cfg.family
         self._no_kernel(use_kernel)
-        tp_kw = self._tp(tp)
-        if long_context and fam != 'hybrid':
-            raise NotImplementedError(
-                f'long-context decode is hybrid only, not {fam!r}')
         if fam == 'hybrid':
             return zamba2.decode_step(self.cfg, params, cache, batch,
-                                      long_context=long_context)
+                                      long_context=long_context, tp=tp)
         if fam in ('ssm', 'encdec'):
-            return _FAMILY[fam].decode_step(self.cfg, params, cache, batch)
+            return _FAMILY[fam].decode_step(self.cfg, params, cache, batch,
+                                            tp=tp)
         return _FAMILY[fam].decode_step(self.cfg, params, cache, batch,
-                                        use_kernel=use_kernel, **tp_kw)
+                                        use_kernel=use_kernel, tp=tp)
 
     def decode_sample_fn(self, params, cache, batch, *, use_kernel=False,
                          temperature=0.0, tp=None):
@@ -394,16 +394,7 @@ class Model:
     def prefill_chunk_fn(self, params, cache, batch, *, tp=None):
         self._only('dense', 'vlm', 'moe')
         return _FAMILY[self.cfg.family].prefill_chunk(
-            self.cfg, params, cache, batch, **self._tp(tp))
-
-    def _tp(self, tp):
-        """The ``tp`` keyword for a serving entry point: none without a
-        mesh; dense, vlm and moe only with one (every family trains with
-        one: :meth:`loss_fn`)."""
-        if tp is None:
-            return {}
-        self._only('dense', 'vlm', 'moe')
-        return {'tp': tp}
+            self.cfg, params, cache, batch, tp=tp)
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,6 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.common import (NEG_INF, combine_softmax_states,
+                                        online_softmax_finalize,
+                                        online_softmax_update)
+
 DEFAULT_DTYPE = torch.bfloat16
 CHUNK = 512        # query rows / tokens per chunk of the chunked functions
 
@@ -179,6 +183,36 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
     out = torch.einsum('bhgqk,bkhd->bqhgd', probs, v.float())
     return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def attention_partial(q, k, v, kv_valid):
+    """:func:`attention` of one block of a split KV sequence, before the
+    softmax is normalised: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh), the
+    block's slots; ``kv_valid`` (B, Skv).  -> the online-softmax state
+    (m, l, acc), f32, of the block's valid slots taken from the empty
+    state (``kernels.common.online_softmax_update``): m and l (B, Hkv, G,
+    Sq), acc (B, Hkv, G, Sq, Dh).  :func:`combine_partials` joins the
+    blocks."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, dh)
+    scores = torch.einsum('bqhgd,bkhd->bhgqk', qg.float(),
+                          k.float()) * dh ** -0.5
+    scores = torch.where(kv_valid[:, None, None, None, :], scores, NEG_INF)
+    m = torch.full(scores.shape[:-1], NEG_INF, device=q.device)
+    zero = torch.zeros_like(m)
+    vh = v.float().permute(0, 2, 1, 3)[:, :, None, None]
+    return online_softmax_update(scores, vh, m, zero, zero[..., None])
+
+
+def combine_partials(m, l, acc):
+    """The blocks' :func:`attention_partial` states stacked on a first
+    dimension (in block order) -> the attention output (B, Sq, Hq, Dh) f32,
+    combined in that order (``kernels.common.combine_softmax_states``)."""
+    _, l, acc = combine_softmax_states(list(zip(m, l, acc)))
+    out = online_softmax_finalize(acc, l)
+    b, hkv, g, sq, dh = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, dh)
 
 
 def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,

@@ -25,6 +25,12 @@ stay replicated.  The encoder's output enters every layer's cross K/V
 through one ``tp.copy``; where a rank's kv-head is replicated over several
 ranks, its cross ``wk``/``wv``/``bk``/``bv`` pass through ``_CopyToModel``
 over those ranks, as the self-attention's do.
+
+**Serving over ``model``** (``prefill`` / ``decode_step(tp=)``, a serve
+step's ``distributed.tp.StepParallel``): the same blocks, the cross K/V
+of the rank's rows and kv-heads; the decoder's pool has no batch
+dimension, so it is replicated over the batch axes and every replica
+writes every row's K/V (:func:`prefill`).
 """
 from __future__ import annotations
 
@@ -84,7 +90,7 @@ def _positions(b: int, s: int, device):
 def encode(cfg: ModelConfig, params, frames, tp=None):
     """frames: (B, S_enc, D) stub embeddings -> encoder output (B, S_enc,
     D).  The frames are rounded to bf16 first, as in the reference.
-    ``tp``: a training rank's blocks (module docstring)."""
+    ``tp``: a tensor-parallel rank's blocks (module docstring)."""
     b, s, _ = frames.shape
     proj = params['frontend_proj']
     h = frames.to(cm.DEFAULT_DTYPE).to(proj.dtype) @ proj
@@ -99,7 +105,7 @@ def encode(cfg: ModelConfig, params, frames, tp=None):
 
 def cross_kv(cfg: ModelConfig, params, enc_out, tp=None):
     """The cross-attention K/V of every decoder layer: (Ld, B, S_enc, Hkv,
-    Dh) each (a training rank's kv-heads under ``tp``)."""
+    Dh) each (a tensor-parallel rank's kv-heads under ``tp``)."""
     b, s, _ = enc_out.shape
     if tp is not None:
         enc_out = tp.copy(enc_out, tp.attn_split)
@@ -137,17 +143,21 @@ def dec_layer(cfg: ModelConfig, lp, h, positions, mode, pool_k, pool_v,
     """One decoder layer.  ``mode``: ``train`` (no cache), ``prefill``
     (positions (B, S); K/V into the pools), ``decode`` (positions (B,);
     the pools read through the page table).  xk/xv: this layer's cross
-    K/V (B, S_enc, Hkv, Dh).  ``tp`` (``train`` only): a rank's blocks."""
+    K/V (B, S_enc, Hkv, Dh).  ``tp``: a rank's blocks; serving, ``h`` and
+    xk/xv hold the rank's rows and ``positions`` / ``page_table`` every
+    row's, for the write into the replicated pool (:func:`prefill`)."""
     x = cm.rms_norm(h, lp['ln1'], cfg.norm_eps)
     if mode == 'train':
         h = h + dense.self_attn_train(cfg, lp, x, positions, tp=tp)
     elif mode == 'prefill':
         h = h + dense.self_attn_prefill(cfg, lp, x, positions, pool_k,
-                                        pool_v, page_table)
+                                        pool_v, page_table, tp=tp)
     else:
         h = h + dense.self_attn_decode(cfg, lp, x, positions, pool_k, pool_v,
-                                       page_table)
+                                       page_table, tp=tp)
     x = cm.rms_norm(h, lp['ln_cross'], cfg.norm_eps)
+    if positions.dim() == 1 and tp is not None:
+        positions = tp.local(positions)
     pos2d = positions if positions.dim() == 2 else positions[:, None]
     h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv, tp)
     return dense._mlp(cfg, lp, h, tp)
@@ -178,37 +188,47 @@ def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 
-def prefill(cfg: ModelConfig, params, cache, batch):
+def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """Encode the frames, compute the cross K/V, prefill the decoder
     prefix.  batch: frames (B, S_enc, D), tokens (B, S), page_table (B, >=
     ceil(S / page)).  The cache's ``cross_k`` / ``cross_v`` (Ld, B, S_enc,
-    Hkv, Dh) take the cross K/V.  -> (cache, (B, V) f32 scores of the last
-    token)."""
+    Hkv, Dh) take the cross K/V.  ``tp``: a serve step's plan
+    (``distributed.tp.StepParallel``): the rank's rows and weight blocks,
+    its kv-heads of the cross K/V and of the decoder's one pool, which has
+    no batch dimension and is replicated over the batch axes, so the new
+    K/V of every row are gathered and written by every replica.  -> (cache,
+    (B, V) f32 scores of the last token; under ``tp`` the rank's rows over
+    its vocabulary block)."""
     tokens = batch['tokens']
     b, s = tokens.shape
-    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames']))
+    xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames'], tp),
+                        tp)
     if cache['cross_k'].shape != xks.shape:
         raise ValueError(f'cross K/V {tuple(xks.shape)} does not fit the '
                          f'cache\'s {tuple(cache["cross_k"].shape)}')
     cache['cross_k'].copy_(xks)
     cache['cross_v'].copy_(xvs)
     positions = _positions(b, s, tokens.device)
-    h = params['embed'][tokens.long()]
+    page_table = dense._row_ops(tp)[1](batch['page_table'])
+    h = dense.embed_inputs(cfg, params, tokens, tp=tp)
     for i, lp in enumerate(cm.layer_views(params, 'dec_layers')):
         h = dec_layer(cfg, lp, h, positions, 'prefill', cache['k'][i],
-                      cache['v'][i], batch['page_table'], xks[i], xvs[i])
+                      cache['v'][i], page_table, xks[i], xvs[i], tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, params['unembed'])
 
 
-def decode_step(cfg: ModelConfig, params, cache, batch):
+def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """tokens (B,), positions (B,), page_table (B, maxp) -> (cache one
-    token on, (B, V) f32 scores)."""
-    h = params['embed'][batch['tokens'].long()][:, None, :]
+    token on, (B, V) f32 scores).  ``tp``: as :func:`prefill`."""
+    every_row = dense._row_ops(tp)[1]
+    positions = every_row(batch['positions'])
+    page_table = every_row(batch['page_table'])
+    h = dense.embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
     for i, lp in enumerate(cm.layer_views(params, 'dec_layers')):
-        h = dec_layer(cfg, lp, h, batch['positions'], 'decode',
-                      cache['k'][i], cache['v'][i], batch['page_table'],
-                      cache['cross_k'][i], cache['cross_v'][i])
+        h = dec_layer(cfg, lp, h, positions, 'decode', cache['k'][i],
+                      cache['v'][i], page_table, cache['cross_k'][i],
+                      cache['cross_v'][i], tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, params['unembed'])
 

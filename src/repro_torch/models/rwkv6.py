@@ -33,6 +33,14 @@ would split its columns; the function is the same), as do ``mu``,
 ``g`` read, and ``tanh(x_w A)``, enter the rank's columns through
 ``tp.copy``, so every replicated leaf gets the whole gradient, bit-equal
 on every rank.
+
+**Serving over ``model``** (``prefill`` / ``decode_step(tp=)``, a serve
+step's ``distributed.tp.StepParallel``): the same blocks, the cache's
+``wkv`` state by the rank's heads and rows, the token shift states by
+its rows (every channel); the scores are the rank's vocabulary block.
+``prefill(use_kernel=True, tp=)`` runs the WKV6 kernel over the rank's
+heads.  Where ``model`` does not divide the wkv heads (rwkv6-3b's 40 on
+16 ranks) every rank keeps them all.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_step
 from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
+from repro_torch.models.dense import embed_inputs
 from repro_torch.models.common import PSpec
 
 LORA_DIM = 32
@@ -133,7 +142,7 @@ def _identity(x):
 def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
              use_kernel: bool = False, tp=None):
     """-> (output (B, T, D), new shift state x[:, -1], new wkv state).
-    ``tp``: a training rank's wkv heads (module docstring)."""
+    ``tp``: a tensor-parallel rank's wkv heads (module docstring)."""
     b, t, d = x.shape
     hd = cfg.ssm_head_dim
     split = tp is not None and tp.wkv_split
@@ -169,7 +178,7 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
 
 def channel_mix(cfg: ModelConfig, lp, x, shift_state, tp=None):
     """-> (output (B, T, D), new shift state x[:, -1]).  ``tp``: a
-    training rank's ``d_ff`` block; the gate multiplies the reduced
+    tensor-parallel rank's ``d_ff`` block; the gate multiplies the reduced
     product."""
     split = tp is not None and tp.ffn != (0, cfg.d_ff)
     xs = _shift(x, shift_state)
@@ -208,8 +217,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     autograd.  ``tp``: a tensor-parallel rank's weight blocks (module
     docstring).  -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
-    h = (params['embed'][tokens.long()] if tp is None
-         else tp.embed(params['embed'], tokens))
+    h = embed_inputs(cfg, params, tokens, tp=tp)
     zero = {k: s[0] for k, s in init_state(cfg, tokens.shape[0],
                                            device=h.device).items()}
     if tp is not None and tp.wkv_split:
@@ -227,32 +235,36 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 
-def _run_layers(cfg: ModelConfig, params, h, cache, use_kernel: bool):
+def _run_layers(cfg: ModelConfig, params, h, cache, use_kernel: bool,
+                tp=None):
     """Every layer from the state in ``cache``, which takes the state
-    after, in place.  -> the last layer's output (B, T, D)."""
+    after, in place (under ``tp`` the rank's blocks of both).  -> the last
+    layer's output (B, T, D)."""
     for i, lp in enumerate(cm.layer_views(params)):
         h, new = layer_apply(cfg, lp, h, {k: s[i] for k, s in cache.items()},
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, tp=tp)
         for k, s in new.items():
             cache[k][i].copy_(s)
     return h
 
 
 def prefill(cfg: ModelConfig, params, cache, batch, *,
-            use_kernel: bool = False):
+            use_kernel: bool = False, tp=None):
     """tokens (B, T) from the state in ``cache`` -> (cache holding the
     state after the prompt, (B, V) f32 scores of the last token).  The
-    WKV6 kernel carries the state with ``use_kernel``."""
-    h = params['embed'][batch['tokens'].long()]
-    h = _run_layers(cfg, params, h, cache, use_kernel)
+    WKV6 kernel carries the state with ``use_kernel``.  ``tp``: a
+    tensor-parallel rank's step over its weight blocks (module docstring)
+    and its wkv heads of the state; the scores are its vocabulary block."""
+    h = embed_inputs(cfg, params, batch['tokens'], tp=tp)
+    h = _run_layers(cfg, params, h, cache, use_kernel, tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, params['unembed'])
 
 
-def decode_step(cfg: ModelConfig, params, cache, batch):
+def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """tokens (B,) -> (cache one token on, (B, V) f32 scores); each layer
-    takes the single-token recurrence step."""
-    h = params['embed'][batch['tokens'].long()][:, None, :]
-    h = _run_layers(cfg, params, h, cache, False)
+    takes the single-token recurrence step.  ``tp``: as :func:`prefill`."""
+    h = embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
+    h = _run_layers(cfg, params, h, cache, False, tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, params['unembed'])

@@ -47,6 +47,13 @@ shared block's normed ``concat(h, e0)`` enter the split products through
 ``tp.copy``, so every replicated leaf gets the whole gradient on every
 rank.  Where ``model`` does not divide the Mamba2 heads and N, the Mamba2
 layers stay whole on every rank.
+
+**Serving over ``model``** (``prefill`` / ``decode_step(tp=)``, a serve
+step's ``distributed.tp.StepParallel``): the same blocks; the cache's
+conv state holds the rank's conv channels, its SSM state the rank's heads
+(N whole), its pools the shared block's heads.  The long context's
+contiguous KV may be split over the batch axes by sequence
+(``LONG_SERVE_RULES``): :func:`_decode_dense`.
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
-from repro_torch.models.dense import head_of
+from repro_torch.models.dense import embed_inputs, head_of
 
 SSD_CHUNK = 128
 
@@ -257,7 +264,7 @@ def _gated_norm(cfg: ModelConfig, y, w, tp):
 def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
     """One Mamba2 layer.  h: (B, T, D); conv_state (B, K-1, C) (C: the
     conv channels of ``lp``); ssm_state (B, H, P, N) f32 (H: the heads of
-    ``lp``).  ``tp``: a training rank's heads and its share of B and C
+    ``lp``).  ``tp``: a tensor-parallel rank's heads and its share of B and C
     (module docstring).  -> (h, new conv state, new ssm state)."""
     d, d_in, hd, nh, n = _dims(cfg)
     bsz, t, _ = h.shape
@@ -305,8 +312,10 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
     AHD) region-paged, through the page table), ``decode`` (one token, the
     pools read through the page table),
     ``decode_dense`` (one token, contiguous pools (B, S_max, AH, AHD)).
-    The pools are written in place.  ``tp`` (``train`` only): a rank's
-    heads and ``d_ff`` block of the block.  -> h'."""
+    The pools are written in place.  ``tp``: a tensor-parallel rank's
+    heads and ``d_ff`` block of the block, in every mode, and the pools'
+    blocks of those heads (of the long context's sequence too:
+    :func:`_decode_dense`).  -> h'."""
     b, t, d = h.shape
     ahd = 2 * d // cfg.hybrid_attn_heads
     heads = tp is not None and tp.shared_split
@@ -327,14 +336,8 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
         out = cm.chunked_attention(q, k, v, q_positions=positions,
                                    kv_positions=positions, causal=True)
     elif mode == 'decode_dense':
-        pos = positions[:, 0].long()
-        rows = torch.arange(b, device=h.device)
-        pool_k[rows, pos] = k[:, 0].to(pool_k.dtype)
-        pool_v[rows, pos] = v[:, 0].to(pool_v.dtype)
-        kv_pos = torch.arange(pool_k.shape[1], device=h.device).expand(b, -1)
-        out = cm.attention(q, pool_k, pool_v, q_positions=pos[:, None],
-                           kv_positions=kv_pos,
-                           kv_valid=kv_pos <= pos[:, None], causal=False)
+        out = _decode_dense(q, k, v, positions[:, 0].long(), pool_k, pool_v,
+                            tp)
     else:                                   # decode
         pos = positions[:, 0]
         pg = pool_k.shape[-3]
@@ -351,6 +354,36 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
         return h + cm.swiglu(x, sp['wg'], sp['wu'], sp['wd'])
     return h + cm.swiglu(tp.copy(x), sp['wg'], sp['wu'], sp['wd'],
                          functools.partial(tp.row_parallel, split=True))
+
+
+def _decode_dense(q, k, v, pos, pool_k, pool_v, tp=None):
+    """One token a row over the contiguous KV: its K/V written at ``pos``
+    (B,), then attention over the slots <= ``pos``.  Under a plan whose
+    ``seq_split`` cuts the sequence over the batch axes, the pools hold the
+    rank's slots ``tp.seq`` = [lo, hi): only the rank whose block holds
+    ``pos`` writes there (the others write the slot's old value back), and
+    the ranks' partial softmax states are combined in rank order
+    (``tp.seq_attention``).  -> (B, 1, AH, AHD)."""
+    b, slots = pool_k.shape[:2]
+    rows = torch.arange(b, device=q.device)
+    split = tp is not None and tp.seq_split
+    lo = tp.seq[0] if split else 0
+    slot = pos - lo
+    if split:
+        inside = ((slot >= 0) & (slot < slots))[:, None, None]
+        slot = slot.clamp(0, slots - 1)
+        for pool, new in ((pool_k, k), (pool_v, v)):
+            pool[rows, slot] = torch.where(inside, new[:, 0].to(pool.dtype),
+                                           pool[rows, slot])
+    else:
+        pool_k[rows, slot] = k[:, 0].to(pool_k.dtype)
+        pool_v[rows, slot] = v[:, 0].to(pool_v.dtype)
+    kv_pos = lo + torch.arange(slots, device=q.device).expand(b, -1)
+    valid = kv_pos <= pos[:, None]
+    if split:
+        return tp.seq_attention(q, pool_k, pool_v, valid)
+    return cm.attention(q, pool_k, pool_v, q_positions=pos[:, None],
+                        kv_positions=kv_pos, kv_valid=valid, causal=False)
 
 
 # ---------------------------------------------------------------------------
@@ -431,8 +464,7 @@ def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     -> (loss, {'tokens': count})."""
     tokens = batch['tokens']
     b, s = tokens.shape
-    h = e0 = (params['embed'][tokens.long()] if tp is None
-              else tp.embed(params['embed'], tokens))
+    h = e0 = embed_inputs(cfg, params, tokens, tp=tp)
     positions = _positions(b, s, tokens.device)
     sp = params['shared']
     for idx, lp in enumerate(cm.layer_views(params)):
@@ -446,48 +478,52 @@ def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
 
 
 def _run_layers(cfg: ModelConfig, params, h, positions, mode, cache,
-                page_table):
+                page_table, tp=None):
     """Every layer from the Mamba state in ``cache['mamba']``, which takes
     the state after, in place; application ``app = idx // every`` of the
     shared block reads and writes ``cache['attn']``'s pool ``app``.  The
-    token embedding ``h`` is the shared block's ``e0``."""
+    token embedding ``h`` is the shared block's ``e0``.  ``tp``: a
+    tensor-parallel rank's weight and cache blocks (module docstring)."""
     e0 = h
     mamba, attn = cache['mamba'], cache['attn']
     sp = params['shared']
     every = cfg.hybrid_attn_every
     for idx, lp in enumerate(cm.layer_views(params)):
         h, conv, ssm = mamba_block(cfg, lp, h, mamba['conv'][idx],
-                                   mamba['ssm'][idx])
+                                   mamba['ssm'][idx], tp)
         mamba['conv'][idx].copy_(conv)
         mamba['ssm'][idx].copy_(ssm)
         if (idx + 1) % every == 0:
             app = idx // every
             h = shared_attn(cfg, sp, h, e0, positions, mode, attn['k'][app],
-                            attn['v'][app], page_table)
+                            attn['v'][app], page_table, tp)
     return h
 
 
-def prefill(cfg: ModelConfig, params, cache, batch):
+def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
     """tokens (B, S), page_table (B, >= ceil(S / page)) -> (cache holding
     the Mamba state after the prompt and its shared-block K/V, (B, V) f32
-    scores of the last token)."""
+    scores of the last token).  ``tp``: a tensor-parallel rank's step over
+    its blocks (module docstring); the scores are its vocabulary block."""
     tokens = batch['tokens']
-    h = params['embed'][tokens.long()]
+    h = embed_inputs(cfg, params, tokens, tp=tp)
     h = _run_layers(cfg, params, h, _positions(*tokens.shape, tokens.device),
-                    'prefill', cache, batch['page_table'])
+                    'prefill', cache, batch['page_table'], tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, head_of(cfg, params))
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *,
-                long_context: bool = False):
+                long_context: bool = False, tp=None):
     """tokens (B,), positions (B,) [, page_table (B, maxp)] -> (cache one
     token on, (B, V) f32 scores).  ``long_context`` reads the contiguous KV
-    of :func:`attn_cache_template_dense` (no page table)."""
+    of :func:`attn_cache_template_dense` (no page table).  ``tp``: as
+    :func:`prefill`, the long context's sequence split as the plan says
+    (:func:`_decode_dense`)."""
     positions = batch['positions']
-    h = params['embed'][batch['tokens'].long()][:, None, :]
+    h = embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
     h = _run_layers(cfg, params, h, positions[:, None],
                     'decode_dense' if long_context else 'decode', cache,
-                    batch.get('page_table'))
+                    batch.get('page_table'), tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
     return cache, unembed_scores(last, head_of(cfg, params))

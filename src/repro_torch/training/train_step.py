@@ -4,7 +4,7 @@ under a mesh the data-parallel reduce, ZeRO-1 moments and a
 tensor-parallel forward and backward.  And the serve step, as the
 reference's ``make_serve_step`` (the end of this module): an execution
 shape's prefill or decode, meshless for every family, and a rank's step
-for dense, vlm and moe on a mesh.
+for every family on a mesh.
 
 Microbatching splits the batch along its leading axis; each microbatch's
 gradients are summed in f32 and divided by the count, and the loss is the
@@ -385,7 +385,7 @@ def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
 PLACED_AXES = ('batch', 'heads', 'kv_heads', 'head_dim', 'qkv', 'ffn',
                'vocab', 'expert', 'layers', 'pages', 'kv_seq', 'state',
                'embed')
-NOT_PORTED = 'ROADMAP item 11b'
+NOT_PORTED = 'ROADMAP item 11c'
 
 
 def placement_expressible(rules) -> bool:
@@ -393,30 +393,25 @@ def placement_expressible(rules) -> bool:
     rows over the batch axes, whole heads, ``d_ff``, the vocabulary and the
     experts over ``model``, the pool's pages whole) is the one ``rules``
     asks for: ``SERVE_RULES`` and ``TRAIN_RULES`` (whose 'seq' only lays
-    out the residuals) are; the reference's hill-climb variants that move
-    the pool onto ``head_dim`` or its pages, or replicate its heads, are
-    not."""
-    return all(rules.get(a) == SERVE_RULES.get(a) for a in PLACED_AXES)
+    out the residuals) are, and so is ``LONG_SERVE_RULES`` (the rows
+    replicated, a long context's KV sequence over the batch axes); the
+    reference's hill-climb variants that move the pool onto ``head_dim``
+    or its pages, or replicate its heads (``serve_dh``, ``serve_seq``,
+    ``serve_kv_dp``), are not."""
+    return any(all(rules.get(a) == r.get(a) for a in PLACED_AXES)
+               for r in (SERVE_RULES, LONG_SERVE_RULES))
 
 
 def check_serve_mesh(model: Model, mesh, shape, rules) -> None:
     """What ``make_serve_step`` serves on a mesh, and the rest raising
-    NotImplementedError (ROADMAP item 11b): dense, vlm and moe over the
-    ``pod``/``data`` batch axes and ``model``, under a placement the port
-    can express; not ``long_500k``, whose KV sequence the reference splits
-    over (pod, data)."""
-    fam = model.cfg.family
-    if fam not in ('dense', 'vlm', 'moe'):
-        raise NotImplementedError(
-            f'a {fam!r} serve step on a mesh is {NOT_PORTED}')
-    if shape.name == 'long_500k':
-        raise NotImplementedError(
-            f'long_500k on a mesh (the KV sequence over (pod, data)) is '
-            f'{NOT_PORTED}')
+    NotImplementedError (ROADMAP item 11c): every family, long_500k too,
+    over the ``pod``/``data`` batch axes and ``model``, under a placement
+    the port can express (:func:`placement_expressible`)."""
     if not placement_expressible(rules):
         raise NotImplementedError(
             f'a rule set that moves the KV pool or its heads off the '
-            f'port\'s placement is {NOT_PORTED}')
+            f'port\'s placement (serve_dh, serve_seq, serve_kv_dp) is '
+            f'{NOT_PORTED}')
     other = [a for a in mesh.axis_names if a not in DATA_AXES + (MODEL,)]
     if other:
         raise NotImplementedError(f'mesh axes {other}: a serve step runs '
@@ -430,12 +425,14 @@ def make_serve_step(model: Model, mesh, shape, *, rules=None):
     the per-request region layout for the paged families) updated in place.
 
     Meshless: every family's plain prefill or decode (``long_500k`` decodes
-    over hybrid's contiguous KV); ``specs`` is None.  On a mesh (dense,
-    vlm, moe; the rest raise NotImplementedError, ROADMAP item 11b): the
-    rank's step over its blocks (``step.plan``, a
-    ``distributed.tp.StepParallel``: ``shard_params``, ``shard_cache``,
-    ``shard_batch``), returning its rows' scores over its vocabulary
-    block; ``specs`` is the reference's ``dict(params=, cache=, batch=)``
+    over hybrid's contiguous KV); ``specs`` is None.  On a mesh, every
+    family (the rule variants that move the pool raise
+    NotImplementedError, ROADMAP item 11c): the rank's step over its blocks
+    (``step.plan``, a ``distributed.tp.StepParallel``: ``shard_params``,
+    ``shard_cache``, ``shard_batch``), returning its rows' scores over its
+    vocabulary block; under ``LONG_SERVE_RULES`` (long_500k) the rows are
+    replicated and zamba2's contiguous KV sequence is split over the batch
+    axes.  ``specs`` is the reference's ``dict(params=, cache=, batch=)``
     of ``Sharding`` s under ``rules`` (``LONG_SERVE_RULES`` for long_500k,
     else ``SERVE_RULES``)."""
     if rules is None:
@@ -453,12 +450,14 @@ def make_serve_step(model: Model, mesh, shape, *, rules=None):
     from repro_torch.distributed.tp import StepParallel
 
     check_serve_mesh(model, mesh, shape, rules)
-    plan = StepParallel(model.cfg, mesh, batch=shape.global_batch)
+    plan = StepParallel(model.cfg, mesh, batch=shape.global_batch,
+                        seq_len=shape.seq_len, rules=rules)
 
     def mesh_step(params, cache, batch):
         if prefill:
             return model.prefill_fn(params, cache, batch, tp=plan)
-        return model.decode_fn(params, cache, batch, tp=plan)
+        return model.decode_fn(params, cache, batch, long_context=long_ctx,
+                               tp=plan)
 
     mesh_step.plan = plan
     ispecs = model.input_specs(shape)

@@ -233,8 +233,17 @@ def test_no_kernel_path_and_no_engine():
                  lambda: model.loss_fn(tparams, {}, use_kernel=True)):
         with pytest.raises(NotImplementedError, match='no kernel path'):
             call()
-    with pytest.raises(NotImplementedError, match='hybrid only'):
-        model.decode_fn(tparams, cache, {}, long_context=True)
+    # long_context is read for hybrid only, and ignored here, as the
+    # reference's decode_fn ignores it
+    batch = {'tokens': torch.zeros(B, dtype=torch.int32),
+             'positions': torch.zeros(B, dtype=torch.int32),
+             'page_table': torch.ones((B, 1), dtype=torch.int32)}
+    with torch.no_grad():
+        scores = [model.decode_fn(tparams, {k: v.clone()
+                                            for k, v in cache.items()},
+                                  batch, long_context=lc)[1]
+                  for lc in (False, True)]
+    assert torch.equal(scores[0], scores[1])
     with pytest.raises(NotImplementedError):
         model.decode_sample_fn(tparams, cache, {})
     with pytest.raises(NotImplementedError):

@@ -16,9 +16,10 @@ per-request region KV layout against the JAX package's.
 - Within the port, the region layout against the engine's global pool
   holding the same pages in the same order: scores, tokens and pools bit
   for bit (both gather the same KV).
-- The refusals: a kernel path on a region pool, and exactly item 11b's
-  set on a mesh (ssm, hybrid and encdec serving; long_500k; the rule
-  variants that move the pool or its heads off the port's placement).
+- The refusals: a kernel path on a region pool, and exactly item 11c's
+  set on a mesh (the rule variants that move the pool or its heads off
+  the port's placement); every family and long_500k are served
+  (``tests/test_torch_serve_step_families.py`` runs them on ranks).
 - The step on gloo ranks at (data 1, model 2) and (2, 2) for qwen3 and
   the MoE at 16 experts: each rank's block of the scores (its rows, its
   vocabulary block), gathered, within 1e-4 of the reference's mesh step on
@@ -52,8 +53,8 @@ N_DECODE = 4
 FAMILIES = {'dense': 'qwen3-0.6b', 'vlm': 'llava-next-mistral-7b',
             'moe': 'phi3.5-moe-42b-a6.6b', 'ssm': 'rwkv6-3b',
             'hybrid': 'zamba2-2.7b', 'encdec': 'seamless-m4t-medium'}
-# item 11b: what make_serve_step refuses on a mesh
-REFUSED_FAMILIES = ('encdec', 'hybrid', 'ssm')
+# item 11c: what make_serve_step refuses on a mesh (no family)
+REFUSED_FAMILIES = ()
 REFUSED_VARIANTS = ('serve_dh', 'serve_kv_dp', 'serve_seq')
 AXES = ('data', 'model')
 MESH_CASES = {'qwen3': ('qwen3-0.6b', {}),
@@ -342,8 +343,9 @@ def test_a_shape_takes_no_engine_keyword(kw):
 
 def test_the_refused_set_of_item_11b():
     """On a (data 2, model 2) mesh (a description: no ranks needed),
-    ``make_serve_step`` refuses exactly: ssm, hybrid and encdec; long_500k;
-    the rule variants serve_dh, serve_kv_dp and serve_seq.  Meshless it
+    ``make_serve_step`` refuses exactly the rule variants serve_dh,
+    serve_kv_dp and serve_seq (ROADMAP item 11c), for every config and
+    serve shape, long_500k included; it serves every family.  Meshless it
     refuses nothing."""
     mesh = describe((2, 2), AXES)
     refused, served = set(), set()
@@ -357,16 +359,18 @@ def test_the_refused_set_of_item_11b():
                 try:
                     make_serve_step(model, mesh, shape, rules=rules)
                 except NotImplementedError as e:
-                    assert 'item 11b' in str(e)
+                    assert 'item 11c' in str(e)
                     refused.add((arch, name, variant))
                 else:
                     served.add((arch, name, variant))
     want = {(arch, name, variant) for arch, name, variant in refused | served
             if all_configs()[arch].family in REFUSED_FAMILIES
-            or name == 'long_500k' or variant in REFUSED_VARIANTS}
+            or variant in REFUSED_VARIANTS}
     assert refused == want
-    assert served and all(all_configs()[a].family in ('dense', 'vlm', 'moe')
-                          for a, _, _ in served)
+    assert {all_configs()[a].family for a, _, _ in served} == \
+        set(FAMILIES)
+    assert {a for a, name, _ in served if name == 'long_500k'} == \
+        {a for a, c in all_configs().items() if c.supports_long_context}
 
 
 def _supported(cfg, shape):
