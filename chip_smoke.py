@@ -227,7 +227,23 @@ Phases, each fatal on failure:
     long_500k and rwkv6-3b x decode_32k on the (16, 16) layout at full
     depth, rank 0's step measured on the card; K6 the only kernel
     launched;
-22. one JSON line of per-kernel results, then the result line.
+22. the serve step under the rule variants ``serve_kv_dp``, ``serve_seq``
+    and ``serve_dh``, two ranks sharing the card over gloo at (data 1,
+    model 2): (a) qwen3-0.6b (**4 of 28 layers**) and phase 21's three
+    families at their depths, published widths, each under each variant
+    (rwkv6's serve_seq plan is the default's: phase 21 runs it), phase
+    21's prefill and 4 decode steps against the meshless step on the card:
+    f32 within 1e-4 of |max| with argmax equal, what the variant
+    replicates over ``model`` (the pool under serve_kv_dp; rwkv6's and
+    zamba2's states under serve_kv_dp and serve_dh) bit-equal on both
+    ranks, bf16 under phase 21's rule (the median row's error against the
+    meshless f32 step within 1.4 x the meshless bf16 step's); each
+    variant's planted fault on qwen3 (the partial scores not summed, one
+    rank's softmax state dropped, one replica skipping the new token's
+    write) failing the f32 gate (b); (c) rank 0 of qwen3-0.6b x decode_32k
+    on the (16, 16) layout under each variant, counted and measured on the
+    card (serve_kv_dp holds the 30.3 GB replicated pool); 0 launches;
+23. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -6061,6 +6077,310 @@ def get_config_layers(arch: str) -> int:
     return cfg.dec_layers if cfg.family == 'encdec' else cfg.n_layers
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the serve step under the rule variants serve_kv_dp, serve_seq
+# and serve_dh
+# ---------------------------------------------------------------------------
+
+VS_VARIANTS = ('serve_kv_dp', 'serve_seq', 'serve_dh')
+VS_FAMILIES = ((MESH_ARCH, MESH_F32_LAYERS),) + FM_FAMILIES
+# rwkv6 holds no pool: its serve_seq plan is the default's, leaf for leaf
+# (tests/test_torch_serve_variants.py), so phase 21 runs it
+VS_SKIP = {('rwkv6-3b', 'serve_seq')}
+# (b) each variant's planted fault, on qwen3 (as the CPU tests plant them)
+VS_FAULTS = {'serve_dh': 'the partial scores not summed over model',
+             'serve_seq': 'the last rank\'s (m, l, acc) dropped from the '
+                          'combine',
+             'serve_kv_dp': 'model rank 1 skipping the new token\'s write'}
+VS_CELL = ('qwen3-0.6b', 'decode_32k')   # (c): rank 0 on (16, 16)
+
+
+def plant_fault(variant: Optional[str], coords) -> callable:
+    """Plant ``variant``'s fault (:data:`VS_FAULTS`) in this rank's serve
+    step; -> a function that takes it out."""
+    from repro_torch.distributed import tp as tplib
+    from repro_torch.models import common as cm
+
+    saved = [(o, n, getattr(o, n)) for o, n in (
+        (tplib.StepParallel, 'score_sum'),
+        (tplib.StepParallel, 'model_combine'), (cm, 'kv_write_token'))]
+    if variant == 'serve_dh':
+        tplib.StepParallel.score_sum = lambda self, scores: scores
+    elif variant == 'serve_seq':
+        def dropped(self, states):
+            m, l, acc = (tplib._gather_stack(t, self.group, self.n)
+                         for t in states)
+            return cm.combine_partials(m[:-1], l[:-1], acc[:-1])
+        tplib.StepParallel.model_combine = dropped
+    elif variant == 'serve_kv_dp' and coords['model'] == 1:
+        cm.kv_write_token = lambda *args, **kw: None
+
+    def restore():
+        for o, n, f in saved:
+            setattr(o, n, f)
+    return restore
+
+
+def replicated_leaves(plan, model, shape) -> list:
+    """The cache leaves whose block is the same on every ``model`` rank of
+    ``plan``'s mesh (what its variant replicates over ``model``)."""
+    from repro_torch.distributed.tp import StepParallel
+    from repro_torch.training.tree import leaves_with_paths
+
+    plans = [StepParallel(plan.cfg, plan.mesh, dict(plan.mesh.coords(),
+                                                    model=r),
+                          batch=shape.global_batch, seq_len=shape.seq_len,
+                          rules=plan.rules)
+             for r in range(plan.n)]
+    return [k for k, s in leaves_with_paths(model.cache_shapes(shape))
+            if len({p.cache_block(tuple(k.split('/')), s) for p in plans})
+            == 1]
+
+
+def replicas_equal(plan, cache, leaves) -> bool:
+    """Whether every ``model`` replica of each of ``leaves`` holds the same
+    bits: the elementwise max and min of its bits over ``model`` agree."""
+    from repro_torch.training.tree import leaves_with_paths
+
+    dist, ok = torch.distributed, True
+    mine = dict(leaves_with_paths(cache))
+    for leaf in leaves:
+        t = mine[leaf]
+        bits = (t.view(torch.int32) if t.element_size() == 4
+                else t.view(torch.int16).to(torch.int32))
+        hi, lo = bits.clone(), bits.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=plan.group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=plan.group)
+        ok = ok and torch.equal(hi, lo)
+    return ok
+
+
+def variant_meshless(cfg, dev: str) -> dict:
+    """The meshless step's scores and seconds in f32 and bf16 (rank 0's
+    reference for every variant of ``cfg``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import make_serve_step
+
+    model = build_model(cfg)
+    shapes = (ShapeConfig('prefill', FS_S, FS_B, 'prefill'),
+              ShapeConfig('decode', FS_S, FS_B, 'decode'))
+    whole = [make_serve_step(model, None, s)[0] for s in shapes]
+    host_pre, host_steps = serve_batches(cfg, FS_B, FS_S, FS_DECODE, 21)
+    drawn = model.init_params(0, device=dev)
+    out = {}
+    for name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        params = f32_params(drawn, dev) if dtype == torch.float32 else drawn
+        batches = [on_device(host_pre, dtype)] + [on_device(b)
+                                                  for b in host_steps]
+        cache = model.init_cache(shapes[0], device=dev, dtype=dtype)
+        out[name], out[name + '_s'] = timed_calls(
+            [(whole[min(i, 1)], params, cache, b)
+             for i, b in enumerate(batches)])
+        del params, cache
+    return out
+
+
+def variant_serve(cfg, mesh, dev: str, variant: str, meshless,
+                  fault: bool = False) -> dict:
+    """(a) for one family under ``variant`` on a mesh of two ranks sharing
+    the card: a prefill and FS_DECODE decode steps of ``make_serve_step``
+    over this rank's blocks, in f32 and bf16 (``fault``: with the
+    variant's planted fault); whether what the variant replicates over
+    ``model`` is bit-equal on both ranks; on rank 0 the gathered scores
+    against the meshless step (``meshless``, :func:`variant_meshless`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import RULE_VARIANTS
+    from repro_torch.models.api import build_model
+    from repro_torch.training.train_step import make_serve_step
+    from repro_torch.training.tree import leaves_with_paths
+
+    model = build_model(cfg)
+    rules = RULE_VARIANTS[variant]
+    shapes = (ShapeConfig('prefill', FS_S, FS_B, 'prefill'),
+              ShapeConfig('decode', FS_S, FS_B, 'decode'))
+    steps = [make_serve_step(model, mesh, s, rules=rules)[0] for s in shapes]
+    plan = steps[0].plan
+    leaves = replicated_leaves(plan, model, shapes[0])
+    host_pre, host_steps = serve_batches(cfg, FS_B, FS_S, FS_DECODE, 21)
+    drawn = model.init_params(0, device=dev)
+    out = {'replicated': leaves}
+    for name, dtype in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        params = f32_params(drawn, dev) if dtype == torch.float32 else drawn
+        blocks = plan.shard_params(params)
+        batches = [on_device(host_pre, dtype)] + [on_device(b)
+                                                  for b in host_steps]
+        cache = plan.shard_cache(model.init_cache(shapes[0], device=dev,
+                                                  dtype=dtype))
+        restore = plant_fault(variant if fault else None, mesh.coords())
+        try:
+            got, secs = timed_calls(
+                [(steps[min(i, 1)], blocks, cache, plan.shard_batch(b))
+                 for i, b in enumerate(batches)])
+        finally:
+            restore()
+        got = [full_scores(plan, g) for g in got]
+        res = {'mesh_s': secs, 'replicas': replicas_equal(plan, cache,
+                                                          leaves),
+               'cache': {k: tuple(v.shape)
+                         for k, v in leaves_with_paths(cache)}}
+        if mesh.rank == 0:
+            res.update(score_gaps(got, meshless[name]))
+            if dtype == torch.bfloat16:
+                exact = meshless['f32']
+                res['rows'] = {'mesh': row_errors(got, exact),
+                               'meshless': row_errors(meshless['bf16'],
+                                                      exact)}
+                noise = 2 * max(res['rows']['meshless'])
+                res['flips'] = {'mesh': flips(got, exact, noise),
+                                'rtol': noise}
+        out[name] = res
+        del params, blocks, cache, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_serve_rank(rank: int, cuts, dev: str) -> dict:
+    """Phase 22 on one of two ranks sharing the card: each family under
+    each variant (but :data:`VS_SKIP`), then qwen3 under each variant's
+    planted fault; the hand-written kernel launches of the steps."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    mesh = make_mesh(FS_SHAPE, MESH_AXES, device=dev)
+    out = {}
+    for arch, cfg in cuts:
+        t0 = time.perf_counter()
+        meshless = variant_meshless(cfg, dev) if rank == 0 else None
+        for variant in VS_VARIANTS:
+            if (arch, variant) not in VS_SKIP:
+                out[arch, variant] = variant_serve(cfg, mesh, dev, variant,
+                                                   meshless)
+        if arch == MESH_ARCH:
+            for variant in VS_VARIANTS:
+                out[arch, variant, 'fault'] = variant_serve(
+                    cfg, mesh, dev, variant, meshless, fault=True)
+        out[arch] = {'seconds': time.perf_counter() - t0,
+                     'meshless_s': meshless and (meshless['f32_s'],
+                                                 meshless['bf16_s'])}
+        del meshless
+        gc.collect()
+        torch.cuda.empty_cache()
+    out['launches'] = dict(LAUNCHES)
+    return out
+
+
+def variant_serve_check(card: str) -> dict:
+    """Phase 22: (a) qwen3-0.6b at MESH_F32_LAYERS of 28 layers and rwkv6,
+    zamba2 and seamless at phase 19's depths, all at published widths,
+    served by ``make_serve_step`` under ``serve_kv_dp``, ``serve_seq`` and
+    ``serve_dh`` on (1, 2) by two ranks sharing the card: a prefill of
+    FS_S tokens and FS_DECODE decode steps of FS_B rows against the
+    meshless step on the card -- f32 within FS_TOL of |max|, argmax equal,
+    and what the variant replicates over ``model`` bit-equal on both
+    ranks; bf16 held to the meshless f32 step as phase 21 holds it (the
+    median row's error within FS_BF16_RATIO x the meshless bf16 step's, no
+    argmax off but a near tie) -- and each variant's planted fault on
+    qwen3 (:data:`VS_FAULTS`), which must fail the f32 gate (and is shown
+    against the bf16 one: (b)); (c) rank 0 of qwen3-0.6b decode_32k on the
+    (16, 16) layout under each variant, counted and measured on the card
+    (``run_cell(..., measure=True)``: collectives not run).  Returns the
+    phase's launches (none: no kernel lies on this path)."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    cuts = [(arch, family_cut(arch, layers)) for arch, layers in VS_FAMILIES]
+    t0 = time.perf_counter()
+    ranks = run_ranks(variant_serve_rank, 2, store_dir=store,
+                      device_type=kind, args=(cuts, DEV),
+                      timeout_s=FS_TIMEOUT_S)
+    print(f'  (a) two ranks on the card: {time.perf_counter() - t0:.1f} s  '
+          f'[{card}]')
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    ms = lambda xs: [round(x * 1e3, 2) for x in xs]  # noqa: E731
+    for arch, layers in VS_FAMILIES:
+        r0 = ranks[0][arch]
+        print(f'  (a) {arch} at {layers} of {get_config_layers(arch)} '
+              f'layers: meshless step ms f32 {ms(r0["meshless_s"][0])}, bf16 '
+              f'{ms(r0["meshless_s"][1])}; the family with its variants '
+              f'{r0["seconds"]:.1f} s')
+        for key in [k for k in ranks[0] if isinstance(k, tuple)
+                    and k[0] == arch]:
+            variant, fault = key[1], len(key) > 2
+            res, res1 = ranks[0][key], ranks[1][key]
+            f32, bf = res['f32'], res['bf16']
+            med = {k: statistics.median(v) for k, v in bf['rows'].items()}
+            bound = FS_BF16_RATIO * med['meshless']
+            f32_ok = max(f32['gaps']) <= FS_TOL and all(f32['equal'])
+            bf_ok = med['mesh'] <= bound and not bf['flips']['mesh']
+            replicas = all(r[key][n]['replicas'] for r in ranks
+                           for n in ('f32', 'bf16'))
+            what = (f'planted fault ({VS_FAULTS[variant]})' if fault
+                    else 'step')
+            print(f'  ({"b" if fault else "a"}) {arch} {variant} {what}: f32 |mesh - meshless| of '
+                  f'|max| {[f"{g:.3e}" for g in f32["gaps"]]}, argmax equal '
+                  f'{f32["equal"]} (gate {FS_TOL:g}: '
+                  f'{"pass" if f32_ok else "FAIL"}); bf16 rows against the '
+                  f'meshless f32 step, median {med["mesh"]:.3e} against '
+                  f'{FS_BF16_RATIO:g} x the meshless bf16 step\'s '
+                  f'{med["meshless"]:.3e} = {bound:.3e}, argmax off and not '
+                  f'a near tie {bf["flips"]["mesh"]} (gate: '
+                  f'{"pass" if bf_ok else "FAIL"}); replicated over model '
+                  f'{res["replicated"]} bit-equal {replicas}; mesh step ms '
+                  f'f32 {ms(f32["mesh_s"])}, bf16 {ms(bf["mesh_s"])} (rank 1 '
+                  f'{ms(res1["bf16"]["mesh_s"])}; host clock, two ranks '
+                  f'time-slice the card)  [{card}]')
+            if fault:
+                gate(not f32_ok, (arch, variant, 'fault passes f32',
+                                  f32['gaps']))
+                continue
+            print(f'  (a) {arch} {variant} cache blocks: rank 0 '
+                  f'{res["f32"]["cache"]}, rank 1 {res1["f32"]["cache"]}')
+            gate(f32_ok, (arch, variant, 'f32', f32['gaps'], f32['equal']))
+            gate(bf_ok, (arch, variant, 'bf16', med, bf['flips']))
+            gate(replicas, (arch, variant, 'replicas'))
+    launches = dict(LAUNCHES)
+    for r in ranks:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    for variant in VS_VARIANTS:
+        t0 = time.perf_counter()
+        rec = run_cell(*VS_CELL, 'single', rules_variant=variant,
+                       measure=True, device=DEV)
+        print(f'  (c) {VS_CELL[0]} x {VS_CELL[1]} under {variant} '
+              f'({time.perf_counter() - t0:.1f} s): arguments '
+              f'{rec.get("arguments")}, the reference\'s '
+              f'{rec.get("reference_arguments")}, collectives counted '
+              f'{rec.get("collectives", {}).get("bytes_by_kind")}')
+        print_production(rec, card)
+        gate(rec['status'] == 'ok' and rec['measured']['step_ms'] > 0
+             and rec['arguments']['cache'] ==
+             rec['reference_arguments']['cache'],
+             (VS_CELL, variant, rec.get('status')))
+    assert not failed, failed
+    assert not any(launches.values()), launches
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -6245,7 +6565,15 @@ def main() -> int:
     by_phase['family_serve'] = family_serve_check(card)
     done()
 
-    print(f'[22] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[22] serve step under the rule variants '
+          f'{", ".join(VS_VARIANTS)}: '
+          f'{", ".join(f"{a} ({n} layers)" for a, n in VS_FAMILIES)} at '
+          f'published widths over {FS_SHAPE} (f32, bf16, planted faults), '
+          f'{VS_CELL[0]} x {VS_CELL[1]} rank 0 measured under each')
+    by_phase['variant_serve'] = variant_serve_check(card)
+    done()
+
+    print(f'[23] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

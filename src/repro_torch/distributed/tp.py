@@ -96,7 +96,13 @@ rows with its cache blocks following its weight blocks
 (:meth:`StepParallel.cache_block`); under ``LONG_SERVE_RULES`` the rows
 are replicated and zamba2's long-context KV sequence is split over the
 batch axes, each rank's partial softmax state combined in rank order
-(:meth:`StepParallel.seq_attention`).
+(:meth:`StepParallel.seq_attention`).  Under the reference's serving
+variants the plan's rules move the pool and attention's heads
+(:attr:`StepParallel.placement`): ``serve_kv_dp`` replicates the pool
+over ``model`` (the new K/V heads gathered, every replica writing them),
+``serve_seq`` splits its pages over ``model`` (the ranks' partial softmax
+states combined in rank order), ``serve_dh`` splits its head_dim (the
+f32 partial scores summed over ``model``, the projections replicated).
 
 Transport: the dispatch messages over the default group's host side
 (``broadcast_object_list``), weight shards rank 0 -> worker and the cache
@@ -119,12 +125,15 @@ from repro_torch.distributed.sharding import (BATCH_AXES, SERVE_RULES,
                                               Block, batch_coords, block,
                                               row_block)
 from repro_torch.kernels.sampling.ref import combine_bests
-from repro_torch.models.common import attention_partial, combine_partials
+from repro_torch.models import common as cm
 
 MODEL = 'model'
 # the weights of one kv-head block (encdec's cross-attention ones too,
 # with an 'x' in front)
 KV_LEAVES = ('wk', 'wv', 'bk', 'bv')
+# where a serve step's rules put attention's heads and pool
+# (:func:`attention_placement`, :class:`StepParallel`)
+HEADS, KV_DP, SEQ, DH = 'heads', 'kv_dp', 'seq', 'dh'
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -228,6 +237,11 @@ class TensorParallel:
     ``max_batch``: a serving plan's dispatch rows, cut over the batch axes
     (:attr:`rows`); a plan without it (the trainer's) computes every row
     of what it is given."""
+
+    # the training placement (:class:`StepParallel` reads others from its
+    # rules): the pool holds this rank's kv-heads, every page
+    placement = HEADS
+    held = None
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
                  *, max_batch: Optional[int] = None):
@@ -575,6 +589,11 @@ class TensorParallel:
         """This rank's rows of a dispatch's per-row tensor (or None)."""
         return x if x is None or not self.split_rows else x[self.rows]
 
+    def pool_kv(self, k: torch.Tensor, kind: str = 'kv') -> torch.Tensor:
+        """The part of new K/V that this rank's pool block takes: here all
+        of ``k``, its own kv-heads (:meth:`StepParallel.pool_kv`)."""
+        return k
+
 
 class StepParallel(TensorParallel):
     """A serve step's plan (``training/train_step.py::make_serve_step``):
@@ -593,27 +612,83 @@ class StepParallel(TensorParallel):
     table and positions are gathered over the batch axes before the write
     (:meth:`gather_rows`), as the engine's data-parallel plan does.
 
-    ``rules`` (``SERVE_RULES`` by default) say where the rows and a long
-    context's KV sequence lie: ``LONG_SERVE_RULES`` (long_500k) replicate
-    the rows and split the ``kv_seq`` dimension of zamba2's contiguous KV
-    over the batch axes (:attr:`seq`, of ``seq_len`` slots) in rank-order
-    blocks; each rank attends over its own slots and the partial softmax
-    states are combined in rank order (:meth:`seq_attention`)."""
+    ``rules`` (``SERVE_RULES`` by default) say where the rows, the
+    attention's heads and pool, and a long context's KV sequence lie
+    (:attr:`placement`, :func:`attention_placement`):
+
+    - ``heads`` (``SERVE_RULES``, ``LONG_SERVE_RULES``): the training
+      placement; ``LONG_SERVE_RULES`` (long_500k) replicate the rows and
+      split the ``kv_seq`` dimension of zamba2's contiguous KV over the
+      batch axes (:attr:`seq`, of ``seq_len`` slots) in rank-order blocks;
+      each rank attends over its own slots and the partial softmax states
+      are combined in rank order (:meth:`seq_attention`);
+    - ``kv_dp`` (``SERVE_KV_DP_RULES``): the weights as ``heads``, the
+      pool (and rwkv6's ``wkv``, zamba2's ``ssm`` state, ``u``,
+      ``A_log``, ``dt_bias``, ``D``) replicated over ``model``: the new
+      K/V heads are gathered over ``model`` and every replica writes them
+      all (:meth:`pool_kv`); a rank attends its q heads over its kv-heads
+      of the pool, with no collective (:meth:`paged_read`);
+    - ``seq`` (``SERVE_SEQ_RULES``): the weights as ``heads``, the pool's
+      pages (a long context's ``kv_seq``) over ``model`` in rank-order
+      blocks (:attr:`held`, :attr:`seq`) with every head: q and the new
+      K/V are gathered into whole heads, the rank holding a page writes
+      it, each rank attends every head over its pages and the f32 states
+      are combined in rank order over ``model`` (:meth:`model_combine`);
+      the rank takes its heads into the row-parallel ``wo``;
+    - ``dh`` (``SERVE_DH_CONTRACT_RULES``): attention's projections (and
+      rwkv6's time mix, zamba2's Mamba layers) replicated, the pool (and
+      encdec's cross K/V) on ``head_dim`` (:attr:`head_dim`): a rank
+      writes its head_dim block of K/V, its f32 partial scores are summed
+      over ``model`` before the softmax, and P V over its block is
+      gathered into whole heads (:meth:`dh_attention`); ``wo`` is
+      replicated.  q_norm/k_norm and rwkv6's ``u``, which the reference
+      cuts on head_dim, stay whole (RoPE pairs channel i with i + Dh/2)."""
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
                  *, batch: int, seq_len: int = 0, rules=None):
         super().__init__(cfg, mesh, coords, max_batch=batch)
-        rules = SERVE_RULES if rules is None else rules
+        self.rules = rules = SERVE_RULES if rules is None else rules
+        self.placement = attention_placement(rules)
         if rules.get('batch') != SERVE_RULES['batch']:
             self.rows, self.split_rows = slice(0, batch), False
         self.shared_pool = cfg.family == 'encdec'
-        # zamba2's contiguous long-context KV is the one kv_seq leaf
-        self.seq_split = (rules.get('kv_seq') == SERVE_RULES['batch']
-                          and cfg.family == 'hybrid'
-                          and self.n_batch > 1 and seq_len > 0
-                          and seq_len % self.n_batch == 0)
-        self.seq = (block(seq_len, self.n_batch, self.batch_index)
-                    if self.seq_split else (0, seq_len))
+        hybrid = cfg.family == 'hybrid'
+        ahd = 2 * cfg.d_model // cfg.hybrid_attn_heads if hybrid else 0
+        if self.placement == DH:
+            # replicated projections: every head (and every wkv head,
+            # every Mamba2 head) on every rank
+            self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
+            self.attn_split, self.kv_holders = False, 1
+            if cfg.family == 'ssm':
+                self.wkv, self.wkv_split = (0, cfg.d_model), False
+            if hybrid:
+                d_in = cfg.ssm_expand * cfg.d_model
+                self.mamba, self.mamba_state = (0, d_in), (0, cfg.ssm_state)
+                self.mamba_split = False
+                self.shared_heads = (0, 2 * cfg.d_model)
+                self.shared_split = False
+        # the head_dim block of the attention (zamba2's shared block's)
+        dh = ahd if hybrid else cfg.hd
+        self.dh_split = self.placement == DH and self.n > 1 and dh % self.n == 0
+        self.head_dim = block(dh, self.n, self.rank) if self.dh_split \
+            else (0, dh)
+        # seq: a rank's block of the region slots (encdec's pool pages)
+        pages = region_pages(cfg, seq_len)
+        self.page_split = (self.placement == SEQ and self.n > 1
+                           and pages % self.n == 0)
+        self.held = (block(pages, self.n, self.rank)[0], pages) \
+            if self.page_split else None
+        # a long context's contiguous KV (zamba2's): split over the batch
+        # axes (LONG_SERVE_RULES) or over model (serve_seq)
+        over = rules.get('kv_seq')
+        self.seq_over = (MODEL if over == MODEL else
+                         'batch' if over == SERVE_RULES['batch'] else None)
+        parts = self.n if self.seq_over == MODEL else self.n_batch
+        index = self.rank if self.seq_over == MODEL else self.batch_index
+        self.seq_split = (self.seq_over is not None and hybrid and parts > 1
+                          and seq_len > 0 and seq_len % parts == 0)
+        self.seq = (block(seq_len, parts, index) if self.seq_split
+                    else (0, seq_len))
 
     def local(self, x):
         return super().local(x) if self.shared_pool else x
@@ -624,47 +699,78 @@ class StepParallel(TensorParallel):
     def gather_vocab(self, scores):
         return scores
 
+    # -- placement ---------------------------------------------------------
+    def ranges(self, path):
+        out = super().ranges(path)
+        name = (path.split('/') if isinstance(path, str) else path)[-1]
+        # kv_dp replicates the leaves on the 'heads' axis: the recurrences
+        # run every head on every rank
+        if self.placement == KV_DP and name in ('u', 'A_log', 'dt_bias',
+                                                'D'):
+            return {}
+        return out
+
     def cache_block(self, path, shape) -> Block:
         """This rank's :class:`Block` of the cache leaf ``path`` (a tuple
         of keys: ``('k',)``, ``('mamba', 'conv')``) of global ``shape``,
-        following its weight blocks (:meth:`ranges`):
+        following its weight blocks (:meth:`ranges`) and the placement:
 
         - dense, vlm, moe: the region pool (L, B, R, pg, Hkv, Dh), its
-          rows and its kv-heads;
-        - ssm: ``wkv`` (L, B, H, K, V) its rows and wkv heads,
-          ``shift_tm`` / ``shift_cm`` (L, B, D) its rows;
+          rows and its kv-heads (``kv_dp``: every head; ``seq``: its block
+          of R, every head; ``dh``: its block of Dh, every head);
+        - ssm: ``wkv`` (L, B, H, K, V) its rows and wkv heads (``kv_dp``,
+          ``dh``: every head), ``shift_tm`` / ``shift_cm`` (L, B, D) its
+          rows;
         - hybrid: ``mamba/conv`` (L, B, K-1, C) its rows and its conv
           channels (its heads' x and its share of B's and C's), ``mamba/
           ssm`` (L, B, H, P, N) its rows and its heads, N whole; ``attn``
           its rows and the shared block's heads of the region pool (apps,
           B, R, pg, AH, AHD), or of the contiguous KV (apps, B, S, AH,
-          AHD) with its block :attr:`seq` of S;
-        - encdec: the pool (Ld, R, pg, Hkv, Dh) its kv-heads (no rows),
-          ``cross_k`` / ``cross_v`` (Ld, B, S_enc, Hkv, Dh) its rows and
-          kv-heads."""
+          AHD) with its block :attr:`seq` of S, as the pool above;
+        - encdec: the pool (Ld, R, pg, Hkv, Dh) as the pool above with no
+          rows, ``cross_k`` / ``cross_v`` (Ld, B, S_enc, Hkv, Dh) its rows
+          and kv-heads (``kv_dp``: every head; ``dh``: its block of
+          Dh)."""
         keys = tuple(path.split('/')) if isinstance(path, str) else \
             tuple(path)
         name, fam = keys[-1], self.cfg.family
         b = Block.whole(shape)
         if self.shared_pool and name in ('k', 'v'):
-            return b.narrow(3, *self.kv_heads)
+            return self._pool_block(b, 1, self.kv_heads)
         b = b.narrow(1, self.rows.start, self.rows.stop)
         if fam == 'ssm':
             return (_select(b, 2, self.ranges('layers/u').get(1))
                     if name == 'wkv' else b)
         if fam == 'encdec':
-            return b.narrow(3, *self.kv_heads)
+            return self._pool_block(b, None, self.kv_heads)
         if fam != 'hybrid':
-            return b.narrow(4, *self.kv_heads)
+            return self._pool_block(b, 2, self.kv_heads)
         if name == 'conv':
             return _select(b, 3, self.ranges('layers/conv_w').get(2))
         if name == 'ssm':
             return _select(b, 2, self.ranges('layers/A_log').get(1))
-        ahd = 2 * self.cfg.d_model // self.cfg.hybrid_attn_heads
-        heads = (self.shared_heads[0] // ahd, self.shared_heads[1] // ahd)
+        heads = self.own('shared')
         if len(shape) == 5:                  # the contiguous long KV
-            return b.narrow(2, *self.seq).narrow(3, *heads)
-        return b.narrow(4, *heads)
+            b = b.narrow(2, *self.seq)
+            return b if self.placement == SEQ else \
+                self._pool_block(b, None, heads)
+        return self._pool_block(b, 2, heads)
+
+    def _pool_block(self, b: Block, pages: Optional[int], heads) -> Block:
+        """A K/V leaf's block whose last two dimensions are (heads, head
+        dim) and whose dimension ``pages`` holds the pages (None: a leaf
+        with no pages, encdec's cross K/V)."""
+        nd = len(b.shape)
+        if self.placement == DH:
+            return b.narrow(nd - 1, *self.head_dim)
+        if self.placement == KV_DP:
+            return b
+        if self.placement == SEQ and pages is not None:
+            if self.held is None:
+                return b
+            lo = self.held[0]
+            return b.narrow(pages, lo, lo + self.held[1] // self.n)
+        return b.narrow(nd - 2, *heads)
 
     def shard_cache(self, cache):
         """This rank's blocks of a global cache (copies on the mesh's
@@ -681,23 +787,164 @@ class StepParallel(TensorParallel):
         device)."""
         return {k: v[self.rows].to(self.mesh.device) for k, v in batch.items()}
 
+    # -- the heads of attention --------------------------------------------
+    def head_blocks_of(self, kind: str):
+        """Every ``model`` rank's [lo, hi) of the heads of ``kind``, in
+        rank order: ``'q'`` and ``'kv'`` the paged attention's (dense, vlm,
+        moe, encdec's self and cross), ``'shared'`` zamba2's shared
+        block's (whose q and kv heads are one)."""
+        cfg, n = self.cfg, self.n
+        if kind == 'shared':
+            ah = cfg.hybrid_attn_heads
+            return [block(ah, n, r) if self.shared_split else (0, ah)
+                    for r in range(n)]
+        if not self.attn_split:
+            return [(0, cfg.n_heads if kind == 'q' else cfg.n_kv_heads)] * n
+        return [head_blocks(cfg.n_heads, cfg.n_kv_heads, n, r)[kind == 'kv']
+                for r in range(n)]
+
+    def own(self, kind: str) -> Tuple[int, int]:
+        """This rank's [lo, hi) of the heads of ``kind``."""
+        return self.head_blocks_of(kind)[self.rank]
+
+    def gather_heads(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """x (..., h, D), this rank's heads of ``kind`` -> (..., H, D),
+        every head, each from the first rank that holds it (a kv-head
+        replicated over several ranks is read once); ``x`` itself where
+        every rank holds every head."""
+        blocks = self.head_blocks_of(kind)
+        if all(b == blocks[0] for b in blocks):
+            return x
+        parts = _gather_stack(x, self.group, self.n)
+        pick, seen = [], 0
+        for r, (lo, hi) in enumerate(blocks):
+            if lo >= seen:
+                pick.append(parts[r])
+                seen = hi
+        return torch.cat(pick, dim=-2)
+
+    def pool_kv(self, k: torch.Tensor, kind: str = 'kv', *,
+                paged: bool = True) -> torch.Tensor:
+        """The part of the new K/V (..., h, D) of this rank's heads of
+        ``kind`` that its cache block takes: every head (``kv_dp``;
+        ``seq`` where the leaf is paged), its head_dim block (``dh``), or
+        ``k`` (``heads``; ``seq``'s cross K/V, by kv-heads)."""
+        if self.placement == KV_DP or self.placement == SEQ and paged:
+            return self.gather_heads(k, kind)
+        if self.placement == DH:
+            return k[..., self.head_dim[0]:self.head_dim[1]]
+        return k
+
+    # -- the variants' attention -------------------------------------------
+    def paged_read(self, q, pool_k, pool_v, page_table, q_positions, kv_len,
+                   kinds: Tuple[str, str] = ('q', 'kv')) -> torch.Tensor:
+        """Attention of q (B, Sq, h, Dh), this rank's q heads (``dh``:
+        every head), over the K/V its pool block holds through the page
+        table (region-local ids, or physical ids of encdec's global
+        pool), causal to ``q_positions`` (B, Sq) and below ``kv_len`` (B,)
+        -> (B, Sq, h, Dh) in q's dtype, the same heads.  ``kinds``: the q
+        and kv heads' kinds (:meth:`head_blocks_of`)."""
+        if self.placement == SEQ:
+            states = cm.paged_partial(self.gather_heads(q, kinds[0]), pool_k,
+                                      pool_v, page_table, q_positions, kv_len,
+                                      self.held)
+            out = (self.model_combine(states) if self.page_split else
+                   cm.combine_partials(*(t[None] for t in states)))
+            lo, hi = self.own(kinds[0])
+            return out[:, :, lo:hi].to(q.dtype)
+        if self.placement == KV_DP:
+            lo, hi = self.own(kinds[1])
+            pool_k, pool_v = pool_k[..., lo:hi, :], pool_v[..., lo:hi, :]
+        k = cm.kv_gather(pool_k, page_table)
+        v = cm.kv_gather(pool_v, page_table)
+        if self.placement == DH:
+            return self.dh_attention(q, k, v, cm.kv_mask(k.shape[1],
+                                                         q_positions, kv_len))
+        kv_pos = torch.arange(k.shape[1], device=q.device).expand(
+            k.shape[0], -1)
+        return cm.attention(q, k, v, q_positions=q_positions,
+                            kv_positions=kv_pos,
+                            kv_valid=kv_pos < kv_len.long()[:, None])
+
+    def score_sum(self, scores: torch.Tensor) -> torch.Tensor:
+        """The f32 partial scores of every rank's head_dim block, summed
+        over ``model`` (in place): the same bits on every rank."""
+        torch.distributed.all_reduce(scores, group=self.group)
+        return scores
+
+    def dh_attention(self, q, k, v, mask) -> torch.Tensor:
+        """q (B, Sq, H, Dh), every head; k/v (B, S, Hkv, Dh/n) this rank's
+        head_dim block; ``mask`` (B, Sq, S) -> (B, Sq, H, Dh) in q's dtype,
+        the same on every rank: the f32 partial scores summed over
+        ``model`` (:meth:`score_sum`), the softmax, P V over the block
+        gathered in rank order (``models.common.attention_dh_block``)."""
+        lo, hi = self.head_dim
+        if not self.dh_split:
+            return cm.attention_dh_block(q, k, v, mask, q.shape[-1],
+                                         lambda s: s).to(q.dtype)
+        out = cm.attention_dh_block(q[..., lo:hi], k, v, mask, q.shape[-1],
+                                    self.score_sum)
+        return _gather_last(out, self.group).to(q.dtype)
+
+    def model_combine(self, states) -> torch.Tensor:
+        """Every ``model`` rank's partial softmax state (m, l, acc) (over
+        its pages, ``models.common.paged_partial``, or its block of a long
+        KV sequence), gathered and combined in rank order -> the attention
+        output (B, Sq, H, Dh) f32, the same bits on every rank."""
+        return _combine_over(states, self.group, self.n)
+
     def seq_attention(self, q, k, v, kv_valid):
         """Attention of one query token a row over a KV sequence split into
-        rank-order blocks over the batch axes (:attr:`seq`): q (B, 1, Hq,
-        Dh); k/v (B, S_local, Hkv, Dh), this rank's slots; ``kv_valid``
-        (B, S_local).  Each rank's partial softmax state (m, l, acc), f32,
-        is all-gathered and the blocks combined in rank order
-        (``models.common.combine_partials``), so every rank returns the
-        same bits.  -> (B, 1, Hq, Dh) in q's dtype."""
-        gathered = []
-        for t in attention_partial(q, k, v, kv_valid):
-            t = t.contiguous()
-            out = t.new_empty((self.n_batch * t.shape[0],)
-                              + tuple(t.shape[1:]))
-            torch.distributed.all_gather_into_tensor(out, t,
-                                                     group=self.batch_group)
-            gathered.append(out.view((self.n_batch,) + tuple(t.shape)))
-        return combine_partials(*gathered).to(q.dtype)
+        rank-order blocks (:attr:`seq`) over the batch axes or, under
+        ``seq``, over ``model``: q (B, 1, Hq, Dh); k/v (B, S_local, Hkv,
+        Dh), this rank's slots; ``kv_valid`` (B, S_local).  Each rank's
+        partial softmax state (m, l, acc), f32, is all-gathered and the
+        blocks combined in rank order (``models.common.combine_partials``),
+        so every rank returns the same bits.  -> (B, 1, Hq, Dh) in q's
+        dtype."""
+        states = cm.attention_partial(q, k, v, kv_valid)
+        if self.seq_over == MODEL:
+            return self.model_combine(states).to(q.dtype)
+        return _combine_over(states, self.batch_group,
+                             self.n_batch).to(q.dtype)
+
+
+def attention_placement(rules) -> str:
+    """Where ``rules`` put attention's heads and its pool: ``'dh'`` (the
+    pool and q on ``head_dim``), ``'seq'`` (the pool's pages over
+    ``model``), ``'kv_dp'`` (the pool's heads replicated, the projections
+    split), else ``'heads'``."""
+    if rules.get('head_dim') == MODEL:
+        return DH
+    if rules.get('pages') == MODEL:
+        return SEQ
+    if rules.get('kv_heads') is None and rules.get('qkv') == MODEL:
+        return KV_DP
+    return HEADS
+
+
+def region_pages(cfg, seq_len: int) -> int:
+    """The page dimension of a serve step's pool at ``seq_len`` (a row's
+    region slots; encdec's one pool has as many pages)."""
+    from repro_torch.models.api import region_slots
+
+    return region_slots(seq_len // cfg.page_size) if seq_len else 0
+
+
+def _gather_stack(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, stacked on a new first dimension in
+    rank order."""
+    t = t.contiguous()
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, t, group=group)
+    return out.view((n,) + tuple(t.shape))
+
+
+def _combine_over(states, group, n: int) -> torch.Tensor:
+    """Every rank's partial softmax state (m, l, acc) of ``group``,
+    gathered and combined in rank order (``models.common.
+    combine_partials``)."""
+    return cm.combine_partials(*(_gather_stack(t, group, n) for t in states))
 
 
 def _select(b: Block, dim: int, intervals) -> Block:

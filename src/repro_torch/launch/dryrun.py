@@ -15,7 +15,8 @@ whole program, so:
   (``argument_size_in_bytes``).  The two agree wherever the port's
   placement is the reference's; where ``model`` does not divide a
   dimension (rwkv6-3b's 40 wkv heads on 16 ranks) the port keeps it whole
-  and the reference moves ``model`` onto another, and the record says so
+  and the reference moves ``model`` onto another, and the record names
+  each leaf whose bytes differ, by group, with both counts
   (``placement``).  ``output`` is what the step returns (the cache, or
   params and optimizer state, updated in place and counted as ``alias``,
   and the scores or the metrics);
@@ -28,9 +29,11 @@ whole program, so:
 - ``trace_s`` (the count's seconds) replaces ``lower_s`` / ``compile_s``;
   ``raw_cost_analysis`` is dropped (no compiler makes one).
 
-Cells that ``cell_supported`` skips keep their skip status; cells under
-a rule variant the port's placement cannot express yet (``serve_dh``,
-``serve_seq``, ``serve_kv_dp``) carry ``not-ported/item-11c``.  ``--mesh
+Cells that ``cell_supported`` skips keep their skip status; serve cells
+count under every rule variant (``--rules serve_kv_dp | serve_seq |
+serve_dh``: ``training/train_step.py::make_serve_step``), and the train
+cells of those three variants, whose placement the trainer does not take,
+carry ``not-ported/item-11e``.  ``--mesh
 none`` counts the meshless step on one device (the reference has no such
 cell).  ``--measure`` also runs
 the cell for real, on the card (it raises without one; the CPU only with
@@ -42,6 +45,7 @@ memory (``torch.cuda.max_memory_allocated``) to the record.
 Usage::
 
     python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k --mesh single
+    python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k --mesh single --rules serve_kv_dp
     python -m repro_torch.launch.dryrun --sweep --out results/dryrun_torch.jsonl
 """
 from __future__ import annotations
@@ -70,7 +74,7 @@ from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
 from repro_torch.training import tree as tr
 
-NOT_PORTED = 'not-ported/item-11c'
+NOT_PORTED = 'not-ported/item-11e'
 MEASURE_REPS = 5
 Layout = Tuple[Tuple[int, ...], Tuple[str, ...]]
 
@@ -113,22 +117,30 @@ def _spec_at(specs, path):
     return specs.spec
 
 
-def _tree_bytes(tmpl, specs, mesh, coords, used, group) -> int:
-    return sum(_block_bytes(leaf.shape, leaf.dtype,
-                            _spec_at(specs, p) if specs else None, mesh,
-                            coords)
-               for p, leaf in _template_leaves(tmpl) if used(group, p))
+def _tree_bytes(tmpl, specs, mesh, coords, used, group, leaves) -> int:
+    total = 0
+    for p, leaf in _template_leaves(tmpl):
+        if used(group, p):
+            n = _block_bytes(leaf.shape, leaf.dtype,
+                             _spec_at(specs, p) if specs else None, mesh,
+                             coords)
+            leaves[(group, p)] = n
+            total += n
+    return total
 
 
 def argument_bytes(model, shape: ShapeConfig, mesh, rules, *,
                    coords=None, zero1: bool = True,
-                   used=lambda group, path: True) -> Dict[str, int]:
+                   used=lambda group, path: True,
+                   leaves: Optional[Dict] = None) -> Dict[str, int]:
     """{'params', 'opt', 'cache', 'batch'}: the bytes of rank ``coords``'s
     blocks of a step's arguments under the reference's specs (meshless:
     the whole arguments), counting only the leaves ``used(group, path)``
-    says the step reads (``group`` 'params', 'cache' or 'batch').  ``opt``
+    says the step reads (``group`` 'params', 'cache' or 'batch'); each
+    such leaf's bytes go into ``leaves`` by (group, path).  ``opt``
     (train): the step counter and the f32 moments, with ZeRO-1 each
     moment's block cut over the data axes."""
+    leaves = {} if leaves is None else leaves
     tmpl = model.template()
     ispecs = model.input_specs(shape)
     if shape.kind == 'train':
@@ -144,7 +156,7 @@ def argument_bytes(model, shape: ShapeConfig, mesh, rules, *,
                          coords)
             for p, leaf in _template_leaves(tmpl))
         out = {'params': _tree_bytes(tmpl, pspec, mesh, coords, used,
-                                     'params'),
+                                     'params', leaves),
                'opt': 4 + moments, 'cache': 0}
     else:
         _, specs = ts.make_serve_step(model, mesh, shape, rules=rules) \
@@ -152,14 +164,16 @@ def argument_bytes(model, shape: ShapeConfig, mesh, rules, *,
         pspec = specs['params'] if specs else None
         bspec = specs['batch'] if specs else None
         out = {'params': _tree_bytes(tmpl, pspec, mesh, coords, used,
-                                     'params'), 'opt': 0,
+                                     'params', leaves), 'opt': 0,
                'cache': _tree_bytes(model.cache_template(shape),
                                     specs['cache'] if specs else None, mesh,
-                                    coords, used, 'cache')}
-    out['batch'] = sum(_block_bytes(s.shape, s.dtype,
-                                    bspec[k].spec if bspec else None, mesh,
-                                    coords)
-                       for k, s in ispecs.items() if used('batch', (k,)))
+                                    coords, used, 'cache', leaves)}
+    for k, s in ispecs.items():
+        if used('batch', (k,)):
+            leaves[('batch', (k,))] = _block_bytes(
+                s.shape, s.dtype, bspec[k].spec if bspec else None, mesh,
+                coords)
+    out['batch'] = sum(n for (g, _), n in leaves.items() if g == 'batch')
     return out
 
 
@@ -272,9 +286,10 @@ def count_step(model, shape: ShapeConfig, layout: Optional[Layout], *,
                zero1: bool = True):
     """(ModuleCosts, ``used(group, path)``: whether the step read that
     argument leaf, ``held``: the bytes of the rank's own argument blocks
-    that it read, by group as :func:`argument_bytes` gives them, seconds)
-    of rank ``rank``'s step on a mesh of ``layout`` (meshless: None), run
-    shape-only on meta tensors."""
+    that it read, by group as :func:`argument_bytes` gives them, the same
+    by (group, path) of each leaf read, seconds) of rank ``rank``'s step on
+    a mesh of ``layout`` (meshless: None), run shape-only on meta
+    tensors."""
     t0 = time.perf_counter()
     with rank_step(model, shape, layout, torch.device('meta'), rank=rank,
                    rules=rules, microbatches=microbatches,
@@ -284,17 +299,18 @@ def count_step(model, shape: ShapeConfig, layout: Optional[Layout], *,
         groups = dict(zip(('params', 'cache', 'batch'), args))
         read = {(g, p): counter.read(t) for g, tree in groups.items()
                 for p, t in _tree_leaves(tree)}
-        held = {g: sum(t.numel() * t.element_size()
-                       for p, t in _tree_leaves(tree)
-                       if shape.kind == 'train' and g == 'cache'
-                       or read[(g, p)])
-                for g, tree in groups.items()}
+        leaves = {(g, p): t.numel() * t.element_size()
+                  for g, tree in groups.items()
+                  for p, t in _tree_leaves(tree)
+                  if shape.kind == 'train' and g == 'cache' or read[(g, p)]}
+        held = {g: sum(n for (h, _), n in leaves.items() if h == g)
+                for g in groups}
     if shape.kind == 'train':        # the second argument is AdamW's state
         held['opt'], held['cache'] = held['cache'], 0
     else:
         held['opt'] = 0
     return (counter.costs, lambda group, path: read.get((group, path), True),
-            held, time.perf_counter() - t0)
+            held, leaves, time.perf_counter() - t0)
 
 
 def _tree_leaves(tree, path=()):
@@ -316,11 +332,10 @@ def _serve_rules(shape: ShapeConfig, rules):
 def refusal(cfg: ModelConfig, shape: ShapeConfig, layout: Optional[Layout],
             rules_variant: str = 'default') -> Optional[Dict[str, str]]:
     """The status of a cell that is not counted, or None: the skip of
-    ``cell_supported``, or ``not-ported/item-11c`` (with its reason) for a
-    step the port's mesh cannot run yet (``make_serve_step``'s refusals:
-    the rule variants that move the pool or its heads; a train cell under
-    a rule set that moves the heads or the pool off the trainer's
-    placement)."""
+    ``cell_supported``, or ``not-ported/item-11e`` (with its reason) for a
+    step the port's mesh cannot run yet (a train cell under a serve rule
+    variant, whose placement the trainer does not take:
+    ``train_step.check_train_rules``; ``make_serve_step``'s refusals)."""
     ok, why = cell_supported(cfg, shape)
     if not ok:
         return {'status': why}
@@ -329,10 +344,7 @@ def refusal(cfg: ModelConfig, shape: ShapeConfig, layout: Optional[Layout],
     rules = shd.RULE_VARIANTS.get(rules_variant)
     try:
         if shape.kind == 'train':
-            if not ts.placement_expressible(rules or shd.TRAIN_RULES):
-                raise NotImplementedError(
-                    f'the rule variant {rules_variant!r} is '
-                    f'{ts.NOT_PORTED}')
+            ts.check_train_rules(rules or shd.TRAIN_RULES)
         else:
             ts.check_serve_mesh(build_model(cfg), meshlib.describe(*layout),
                                 shape, _serve_rules(shape, rules))
@@ -341,18 +353,28 @@ def refusal(cfg: ModelConfig, shape: ShapeConfig, layout: Optional[Layout],
     return None
 
 
-def _largest_rank(model, layout: Layout) -> Tuple[int, Dict[str, int]]:
+def _plan(cfg, shape: ShapeConfig, desc, coords, serve_rules):
+    """Rank ``coords``'s placement: a serve step's plan under
+    ``serve_rules``, or the trainer's."""
+    from repro_torch.distributed.tp import StepParallel, TensorParallel
+
+    if shape.kind == 'train':
+        return TensorParallel(cfg, desc, coords)
+    return StepParallel(cfg, desc, coords, batch=shape.global_batch,
+                        seq_len=shape.seq_len, rules=serve_rules)
+
+
+def _largest_rank(model, layout: Layout, shape: ShapeConfig,
+                  serve_rules) -> Tuple[int, Dict[str, int]]:
     """The rank whose weight blocks are largest under the port's placement
     (the lowest of equals), and its coordinates; the batch axes' blocks
     are even, so one rank of each ``model`` coordinate is looked at."""
-    from repro_torch.distributed.tp import TensorParallel
-
     desc = meshlib.describe(*layout)
     shapes = tr.leaves_with_paths(model.param_shapes())
     best = None
     for r in range(desc.shape.get('model', 1)):
         coords = desc.coords(r)
-        plan = TensorParallel(model.cfg, desc, coords)
+        plan = _plan(model.cfg, shape, desc, coords, serve_rules)
         n = sum(int(np.prod(plan.block(p, s).local_shape)) for p, s in shapes)
         if best is None or n > best[0]:
             best = (n, r, coords)
@@ -400,23 +422,23 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
     rank, coords, desc = 0, None, None
     if layout is not None:
         desc = meshlib.describe(*layout)
-        rank, coords = _largest_rank(model, layout)
+        rank, coords = _largest_rank(model, layout, shape, serve_rules)
     try:
-        costs, used, held, trace_s = count_step(
+        costs, used, held, held_leaves, trace_s = count_step(
             model, shape, layout, rank=rank, rules=rules,
             microbatches=microbatches, zero1=zero1)
     except Exception as e:  # a failure here is a bug in the port's step
         rec.update(status='FAILED', error=f'{type(e).__name__}: {e}')
         return rec
+    ref_leaves: Dict = {}
     reference = argument_bytes(model, shape, desc,
                                rules if shape.kind == 'train' else serve_rules,
-                               coords=coords, zero1=zero1, used=used)
+                               coords=coords, zero1=zero1, used=used,
+                               leaves=ref_leaves)
     args = {g: held[g] for g in reference}
     rows, vocab = shape.global_batch, cfg.vocab_size
     if layout is not None and shape.kind != 'train':
-        from repro_torch.distributed.tp import StepParallel
-        plan = StepParallel(cfg, desc, coords, batch=rows,
-                            seq_len=shape.seq_len, rules=serve_rules)
+        plan = _plan(cfg, shape, desc, coords, serve_rules)
         rows = plan.rows.stop - plan.rows.start
         vocab = plan.vocab[1] - plan.vocab[0]
     out, alias = output_bytes(shape, args, rows, vocab)
@@ -445,17 +467,30 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
         useful_flops_ratio=(mflops / (costs.flops * chips)
                             if costs.flops else 0.0))
     if args != reference:
-        rec['placement'] = (
-            'the rank\'s blocks differ from the reference\'s specs '
-            '(``arguments`` the port\'s, ``reference_arguments`` the '
-            'reference\'s): e.g. heads that ``model`` does not divide stay '
-            'whole, or a train rank holds its rows\' whole sequence')
+        rec['placement'] = placement_diff(args, reference, held_leaves,
+                                          ref_leaves)
     if measure:
         rec['measured'] = measure_cell(model, shape, layout, device=device,
                                        rank=rank, rules=rules,
                                        microbatches=microbatches, zero1=zero1,
                                        need_bytes=hbm['peak'])
     return rec
+
+
+def placement_diff(args, reference, leaves, ref_leaves) -> Dict[str, Any]:
+    """Where the rank's blocks differ from the reference's specs: {group:
+    {leaf path: {'port': bytes, 'reference': bytes}}} of every leaf whose
+    bytes differ (``opt``, the optimizer state's total: {'port',
+    'reference'})."""
+    out: Dict[str, Any] = {}
+    for (group, path), n in sorted(leaves.items()):
+        want = ref_leaves.get((group, path))
+        if want is not None and want != n:
+            out.setdefault(group, {})['/'.join(path)] = {'port': n,
+                                                         'reference': want}
+    if args.get('opt') != reference.get('opt'):
+        out['opt'] = {'port': args['opt'], 'reference': reference['opt']}
+    return out
 
 
 def check_fits(need_bytes: int, total_bytes: int, where: str) -> None:

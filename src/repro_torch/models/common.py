@@ -188,17 +188,19 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
 def attention_partial(q, k, v, kv_valid):
     """:func:`attention` of one block of a split KV sequence, before the
     softmax is normalised: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh), the
-    block's slots; ``kv_valid`` (B, Skv).  -> the online-softmax state
-    (m, l, acc), f32, of the block's valid slots taken from the empty
-    state (``kernels.common.online_softmax_update``): m and l (B, Hkv, G,
-    Sq), acc (B, Hkv, G, Sq, Dh).  :func:`combine_partials` joins the
-    blocks."""
+    block's slots; ``kv_valid`` (B, Skv), or (B, Sq, Skv) a query's own.
+    -> the online-softmax state (m, l, acc), f32, of the block's valid
+    slots taken from the empty state (``kernels.common.
+    online_softmax_update``): m and l (B, Hkv, G, Sq), acc (B, Hkv, G, Sq,
+    Dh).  :func:`combine_partials` joins the blocks."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
     scores = torch.einsum('bqhgd,bkhd->bhgqk', qg.float(),
                           k.float()) * dh ** -0.5
-    scores = torch.where(kv_valid[:, None, None, None, :], scores, NEG_INF)
+    valid = (kv_valid[:, None, None, None, :] if kv_valid.dim() == 2
+             else kv_valid[:, None, None])
+    scores = torch.where(valid, scores, NEG_INF)
     m = torch.full(scores.shape[:-1], NEG_INF, device=q.device)
     zero = torch.zeros_like(m)
     vh = v.float().permute(0, 2, 1, 3)[:, :, None, None]
@@ -213,6 +215,75 @@ def combine_partials(m, l, acc):
     out = online_softmax_finalize(acc, l)
     b, hkv, g, sq, dh = out.shape
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hkv * g, dh)
+
+
+def kv_mask(slots: int, q_positions, kv_len):
+    """(B, Sq, slots): KV position s is read by query row (b, i) where s <
+    ``kv_len[b]`` and s <= ``q_positions[b, i]`` (a paged read's mask:
+    :func:`paged_attention_ref` for one query a row)."""
+    kv_pos = torch.arange(slots, device=q_positions.device)
+    return ((kv_pos < kv_len.long()[:, None])[:, None, :]
+            & (q_positions.long()[:, :, None] >= kv_pos))
+
+
+def attention_dh_block(q, k, v, mask, head_dim: int, score_sum):
+    """Attention over one block of head_dim: q (B, Sq, Hq, d) and k/v (B,
+    S, Hkv, d) the block's channels of every head; ``mask`` (B, Sq, S).
+    The block's f32 partial scores go through ``score_sum`` (the sum over
+    the ranks holding the other blocks) before the scale of the whole
+    ``head_dim`` and the softmax (as :func:`attention`); -> P V over the
+    block, (B, Sq, Hq, d) f32."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    scores = score_sum(torch.einsum('bqhgd,bkhd->bhgqk', qg.float(),
+                                    k.float())) * head_dim ** -0.5
+    probs = torch.softmax(torch.where(mask[:, None, None], scores, -1e30),
+                          dim=-1)
+    out = torch.einsum('bhgqk,bkhd->bqhgd', probs, v.float())
+    return out.reshape(b, sq, hq, d)
+
+
+def held_positions(page_table, held, slots: int, page_size: int, kv_len):
+    """(B, slots): the index in each row's page table of each of the pages
+    [lo, lo + slots) of a pool's page dimension of ``held`` = (lo, n)
+    pages, -1 where the row's table names it at no entry below its
+    ``kv_len``.  Ids in [-n, 0) count from the end, as in the writes; a
+    table naming one page twice below its length reads it at the later
+    entry."""
+    lo, n = held
+    b, maxp = page_table.shape
+    ids = page_table.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    j = torch.arange(maxp, device=ids.device).expand(b, -1)
+    used = ((j * page_size < kv_len.long()[:, None])
+            & (ids >= lo) & (ids < lo + slots))
+    at = torch.where(used, ids - lo, slots)       # column ``slots``: unused
+    inv = torch.full((b, slots + 1), -1, dtype=torch.long, device=ids.device)
+    return inv.scatter_reduce(1, at, j, 'amax')[:, :slots]
+
+
+def paged_partial(q, pool_k, pool_v, page_table, q_positions, kv_len, held):
+    """:func:`attention_partial` of q (B, Sq, Hq, Dh) over the K/V of a
+    rank's block of a pool's pages -- region (B, R_local, pg, Hkv, Dh), or
+    global (P_local, pg, Hkv, Dh) -- read in place, each slot at the
+    position its page has in the row's table (:func:`held_positions`;
+    ``held`` = (lo, n): the block's first page of n), causal to
+    ``q_positions`` (B, Sq) and below ``kv_len`` (B,).  -> (m, l, acc),
+    f32."""
+    b = q.shape[0]
+    slots, pg = pool_k.shape[-4], pool_k.shape[-3]
+    inv = held_positions(page_table, held, slots, pg, kv_len)
+    kv_pos = (inv[:, :, None] * pg
+              + torch.arange(pg, device=q.device)).reshape(b, slots * pg)
+    read = (inv >= 0)[:, :, None].expand(b, slots, pg).reshape(b, -1)
+    mask = ((read & (kv_pos < kv_len.long()[:, None]))[:, None, :]
+            & (q_positions.long()[:, :, None] >= kv_pos[:, None, :]))
+    shape = (-1, slots * pg) + tuple(pool_k.shape[-2:])
+    k, v = pool_k.reshape(shape), pool_v.reshape(shape)
+    if pool_k.dim() == 4:                     # one pool for every row
+        k, v = k.expand(b, -1, -1, -1), v.expand(b, -1, -1, -1)
+    return attention_partial(q, k, v, mask)
 
 
 def chunked_attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
@@ -322,7 +393,7 @@ def kv_gather(pool, page_table):
                                                                 page_table)
 
 
-def kv_write_prefill(pool, page_table, kv):
+def kv_write_prefill(pool, page_table, kv, held=None):
     """In-place write of a whole prefill's K or V, page by page, into
     either layout.
 
@@ -332,16 +403,23 @@ def kv_write_prefill(pool, page_table, kv):
     the end of the pool (of the row's region), and an id outside [-P, P) is
     dropped, not raised on.  The reference needs S % page == 0; here a last
     partial page is written whole, its slots past S as zeros (a row's
-    length masks them, and decode writes them in turn).
+    length masks them, and decode writes them in turn).  ``held`` = (lo,
+    P): the pool is a rank's block [lo, lo + its pages) of P pages, and only
+    the ids in it are written (the other ranks hold the rest).
     """
     b, s, hkv, dh = kv.shape
-    n_pages, pg = pool.shape[-4], pool.shape[-3]
+    pg = pool.shape[-3]
+    lo, n_pages = (0, pool.shape[-4]) if held is None else held
     if s % pg:
         kv = F.pad(kv, (0, 0, 0, 0, 0, pg - s % pg))
         s = kv.shape[1]
     idx = page_table[:, :s // pg].long()
     idx = torch.where(idx < 0, idx + n_pages, idx)
-    keep = (idx >= 0) & (idx < n_pages)
+    if held is None:
+        keep = (idx >= 0) & (idx < n_pages)
+    else:
+        keep = (idx >= lo) & (idx < lo + pool.shape[-4])
+        idx = idx - lo
     chunks = kv.reshape(b, s // pg, pg, hkv, dh).to(pool.dtype)
     if pool.dim() == 4:
         pool[idx[keep]] = chunks[keep]
@@ -350,11 +428,24 @@ def kv_write_prefill(pool, page_table, kv):
         pool[rows[keep], idx[keep]] = chunks[keep]
 
 
-def kv_write_tokens(pool, page_ids, offsets, kv):
+def kv_write_tokens(pool, page_ids, offsets, kv, held=None):
     """In-place token-granular write.  page_ids/offsets: (B, C) page (a
     region-local slot for a 5-D pool) + in-page offset per token; kv: (B,
     C, Hkv, Dh), cast to the pool's dtype.  Padding tokens point at the
-    quarantine page: overwriting it is harmless by design."""
+    quarantine page: overwriting it is harmless by design.  ``held``: as
+    :func:`kv_write_prefill`'s, the tokens of other ranks' pages are not
+    written."""
+    if held is not None:
+        lo, n = held
+        ids = page_ids.long()
+        ids = torch.where(ids < 0, ids + n, ids) - lo
+        keep = (ids >= 0) & (ids < pool.shape[-4])
+        rows = torch.arange(kv.shape[0], device=pool.device)[:, None] \
+            .expand_as(ids)
+        index = ((ids[keep], offsets.long()[keep]) if pool.dim() == 4 else
+                 (rows[keep], ids[keep], offsets.long()[keep]))
+        pool.index_put_(index, kv[keep].to(pool.dtype))
+        return
     if pool.dim() == 4:
         pool.index_put_((page_ids.reshape(-1).long(),
                          offsets.reshape(-1).long()),
@@ -365,8 +456,13 @@ def kv_write_tokens(pool, page_ids, offsets, kv):
                      offsets.long()), kv.to(pool.dtype))
 
 
-def kv_write_token(pool, page_ids, offsets, kv):
-    """In-place single-token write per row.  kv: (B, Hkv, Dh)."""
+def kv_write_token(pool, page_ids, offsets, kv, held=None):
+    """In-place single-token write per row.  kv: (B, Hkv, Dh).  ``held``:
+    as :func:`kv_write_tokens`'s."""
+    if held is not None:
+        kv_write_tokens(pool, page_ids[:, None], offsets[:, None],
+                        kv[:, None], held)
+        return
     if pool.dim() == 4:
         pool.index_put_((page_ids.long(), offsets.long()), kv.to(pool.dtype))
         return

@@ -37,7 +37,12 @@ axes (``tp.split_rows``), a rank computes its rows (``tp.local``), gathers
 each layer's new K/V rows over the batch axes and writes every row's into
 its replica of the pool, and gathers the scores and the sampled tokens, so
 every rank returns the whole batch's.  Without ``tp`` they are the
-single-device code, with no collective and no extra copy.
+single-device code, with no collective and no extra copy.  A serve step's
+plan under a rule variant (``serve_kv_dp``, ``serve_seq``, ``serve_dh``:
+``tp.placement``, ``distributed/tp.py``) holds another block of the pool:
+the new K/V go through ``tp.pool_kv`` (every head, or a head_dim block)
+into the pages ``tp.held`` names, and the paged read through
+``tp.paged_read``; ``prefill`` attends the call's own K/V as ever.
 
 The training forward (``forward_train``) takes ``tp`` too: the rank's
 q/kv heads, its ``d_ff`` block and a vocab-parallel embedding and head,
@@ -167,6 +172,23 @@ def _row_ops(tp):
     return tp.local, tp.gather_rows
 
 
+def _store(tp):
+    """(new K/V (B, ..., h, Dh) of this rank's heads -> what its pool block
+    takes, every row's (``tp.pool_kv``, then ``tp.gather_rows``); the
+    pool's page block ``tp.held``) under ``tp``; the identity and None
+    without it."""
+    if tp is None:
+        return (lambda t: t), None
+    return (lambda t: tp.gather_rows(tp.pool_kv(t))), tp.held
+
+
+def placed(tp) -> bool:
+    """Whether ``tp`` is a serve step's plan under a rule variant
+    (``serve_kv_dp``, ``serve_seq``, ``serve_dh``: ``distributed.tp.
+    StepParallel``), whose paged reads go through ``tp.paged_read``."""
+    return tp is not None and tp.placement != 'heads'
+
+
 def _out_proj(x, wo, tp):
     """Attention's output projection; under ``tp`` the rank's heads'
     partial product, summed over the ranks."""
@@ -194,14 +216,18 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
             'the paged-decode kernels read the global pool layout, not the '
             'region layout: decode a region cache with use_kernel=False')
     pg = pool_k.shape[-3]
-    local, gather = _row_ops(tp)
+    local = _row_ops(tp)[0]
+    store, held = _store(tp)
     q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None])
     page_idx = page_table.gather(1, (positions // pg)[:, None].long())[:, 0]
     offs = positions % pg
-    cm.kv_write_token(pool_k, page_idx, offs, gather(k[:, 0]))
-    cm.kv_write_token(pool_v, page_idx, offs, gather(v[:, 0]))
+    cm.kv_write_token(pool_k, page_idx, offs, store(k[:, 0]), held)
+    cm.kv_write_token(pool_v, page_idx, offs, store(v[:, 0]), held)
     lengths = local(positions) + 1
-    if shared is not None:
+    if placed(tp):
+        out = tp.paged_read(q, pool_k, pool_v, local(page_table),
+                            local(positions)[:, None], lengths)[:, 0]
+    elif shared is not None:
         out = paged_attention_prefix_shared(
             q[:, 0], pool_k, pool_v, shared['pages'], shared['pos'],
             local(shared['mask']), local(shared['tail_pt']),
@@ -243,10 +269,10 @@ def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     ``tp`` with split rows, ``x`` and ``positions`` hold this rank's rows
     and ``page_table`` every row's (module docstring)."""
     b, s, _ = x.shape
-    gather = _row_ops(tp)[1]
+    store, held = _store(tp)
     q, k, v = qkv_proj(cfg, lp, x, positions)
-    cm.kv_write_prefill(pool_k, page_table, gather(k))
-    cm.kv_write_prefill(pool_v, page_table, gather(v))
+    cm.kv_write_prefill(pool_k, page_table, store(k), held)
+    cm.kv_write_prefill(pool_v, page_table, store(v), held)
     if use_kernel:
         out = flash_attention(q, k, v, causal=True)
     else:
@@ -266,11 +292,17 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
     ``tp`` with split rows, ``x`` holds this rank's rows and the rest every
     row's (module docstring).
     """
-    local, gather = _row_ops(tp)
+    local = _row_ops(tp)[0]
+    store, held = _store(tp)
     positions = local(positions)
     q, k, v = qkv_proj(cfg, lp, x, positions)
-    cm.kv_write_tokens(pool_k, page_ids, offsets, gather(k))
-    cm.kv_write_tokens(pool_v, page_ids, offsets, gather(v))
+    cm.kv_write_tokens(pool_k, page_ids, offsets, store(k), held)
+    cm.kv_write_tokens(pool_v, page_ids, offsets, store(v), held)
+    if placed(tp):
+        out = tp.paged_read(q, pool_k, pool_v, local(page_table), positions,
+                            local(kv_len))
+        return _out_proj(out.reshape(x.shape[0], x.shape[1], -1), lp['wo'],
+                         tp)
     kg = cm.kv_gather(pool_k, local(page_table))  # (B, maxp*pg, Hkv, Dh)
     vg = cm.kv_gather(pool_v, local(page_table))
     b, skv = kg.shape[:2]

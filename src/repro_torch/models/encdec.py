@@ -30,7 +30,11 @@ over those ranks, as the self-attention's do.
 step's ``distributed.tp.StepParallel``): the same blocks, the cross K/V
 of the rank's rows and kv-heads; the decoder's pool has no batch
 dimension, so it is replicated over the batch axes and every replica
-writes every row's K/V (:func:`prefill`).
+writes every row's K/V (:func:`prefill`).  Under the rule variants the
+pool and the cross K/V take the plan's blocks (every head under
+``serve_kv_dp``, a head_dim block under ``serve_dh``; ``serve_seq`` splits
+the pool's pages and keeps the cross K/V by kv-heads), and a decode step's
+cross-attention reads them so (``serve_dh``: ``tp.dh_attention``).
 """
 from __future__ import annotations
 
@@ -122,7 +126,11 @@ def cross_kv(cfg: ModelConfig, params, enc_out, tp=None):
     return torch.stack(ks), torch.stack(vs)
 
 
-def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv, tp=None):
+def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv, tp=None,
+                cached: bool = False):
+    """Cross-attention of x (B, T, D) over xk/xv, this call's cross K/V
+    (the rank's kv-heads, or every head) or, ``cached``, the cache's block
+    (under a rule variant: every head, or a head_dim block)."""
     b, t, _ = x.shape
     xlp = _xlp(lp)
     if tp is not None:
@@ -131,6 +139,14 @@ def _cross_attn(cfg: ModelConfig, lp, x, positions, xk, xv, tp=None):
     if cfg.attn_bias and 'bq' in xlp:
         q = q + xlp['bq']
     q = q.reshape(b, t, -1, cfg.hd)
+    if cached and tp is not None and tp.placement == 'dh':
+        every = torch.ones((b, t, xk.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = tp.dh_attention(q, xk, xv, every)
+        return dense._out_proj(out.reshape(b, t, -1), xlp['wo'], tp)
+    if cached and tp is not None and tp.placement == 'kv_dp':
+        lo, hi = tp.own('kv')
+        xk, xv = xk[..., lo:hi, :], xv[..., lo:hi, :]
     out = cm.chunked_attention(q, xk, xv, q_positions=positions,
                                kv_positions=_positions(b, xk.shape[1],
                                                        x.device),
@@ -159,7 +175,7 @@ def dec_layer(cfg: ModelConfig, lp, h, positions, mode, pool_k, pool_v,
     if positions.dim() == 1 and tp is not None:
         positions = tp.local(positions)
     pos2d = positions if positions.dim() == 2 else positions[:, None]
-    h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv, tp)
+    h = h + _cross_attn(cfg, lp, x, pos2d, xk, xv, tp, mode == 'decode')
     return dense._mlp(cfg, lp, h, tp)
 
 
@@ -203,11 +219,16 @@ def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
     b, s = tokens.shape
     xks, xvs = cross_kv(cfg, params, encode(cfg, params, batch['frames'], tp),
                         tp)
-    if cache['cross_k'].shape != xks.shape:
-        raise ValueError(f'cross K/V {tuple(xks.shape)} does not fit the '
+    # the cache's block: the rank's kv-heads, or under a rule variant every
+    # head or a head_dim block
+    held_k, held_v = ((xks, xvs) if tp is None else
+                      (tp.pool_kv(xks, paged=False),
+                       tp.pool_kv(xvs, paged=False)))
+    if cache['cross_k'].shape != held_k.shape:
+        raise ValueError(f'cross K/V {tuple(held_k.shape)} does not fit the '
                          f'cache\'s {tuple(cache["cross_k"].shape)}')
-    cache['cross_k'].copy_(xks)
-    cache['cross_v'].copy_(xvs)
+    cache['cross_k'].copy_(held_k)
+    cache['cross_v'].copy_(held_v)
     positions = _positions(b, s, tokens.device)
     page_table = dense._row_ops(tp)[1](batch['page_table'])
     h = dense.embed_inputs(cfg, params, tokens, tp=tp)

@@ -40,7 +40,11 @@ step's ``distributed.tp.StepParallel``): the same blocks, the cache's
 its rows (every channel); the scores are the rank's vocabulary block.
 ``prefill(use_kernel=True, tp=)`` runs the WKV6 kernel over the rank's
 heads.  Where ``model`` does not divide the wkv heads (rwkv6-3b's 40 on
-16 ranks) every rank keeps them all.
+16 ranks) every rank keeps them all.  Under ``serve_dh`` the time mix is
+replicated (every weight and head on every rank); under ``serve_kv_dp``
+the rank's r/k/v/w columns are gathered over ``model`` and every rank runs
+every head (``u`` and the ``wkv`` state replicated), then takes its
+channels into the gate and the row-parallel ``Wo``.
 """
 from __future__ import annotations
 
@@ -147,18 +151,21 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
     hd = cfg.ssm_head_dim
     split = tp is not None and tp.wkv_split
     copy = tp.copy if split else _identity
+    # serve_kv_dp: the wkv state replicated, every head run on every rank
+    every = split and tp.placement == 'kv_dp'
+    whole = tp.gather_shares if every else _identity
     xs = _shift(x, shift_state)
     mu = lp['mu']
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
     # -1 heads: a tensor-parallel rank's weights hold its heads only
-    r = (copy(xr) @ lp['Wr']).reshape(b, t, -1, hd).float()
-    k = (copy(xk) @ lp['Wk']).reshape(b, t, -1, hd).float()
-    v = (copy(xv) @ lp['Wv']).reshape(b, t, -1, hd).float()
+    r = whole(copy(xr) @ lp['Wr']).reshape(b, t, -1, hd).float()
+    k = whole(copy(xk) @ lp['Wk']).reshape(b, t, -1, hd).float()
+    v = whole(copy(xv) @ lp['Wv']).reshape(b, t, -1, hd).float()
     g = copy(xg) @ lp['Wg']
     w_raw = (lp['w_base'].float()
              + copy(torch.tanh(xw.float() @ lp['w_A'].float()))
              @ lp['w_B'].float())
-    w = torch.exp(-torch.exp(w_raw)).reshape(b, t, -1, hd)  # (0, 1)
+    w = torch.exp(-torch.exp(whole(w_raw))).reshape(b, t, -1, hd)  # (0, 1)
     u = lp['u'].float()
     if t == 1:
         y, wkv_state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
@@ -170,7 +177,10 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
         y, wkv_state = wkv6_chunked(r, k, v, w, u, wkv_state)
     # per-head group norm, then the gate
     y = cm.rms_norm(y, torch.ones(hd, dtype=y.dtype, device=y.device), 64e-5)
-    y = y.reshape(b, t, -1).to(x.dtype) * lp['ln_x']
+    y = y.reshape(b, t, -1)
+    if every:
+        y = y[..., tp.wkv[0]:tp.wkv[1]]
+    y = y.to(x.dtype) * lp['ln_x']
     y = y * F.silu(g.float()).to(x.dtype)
     out = y @ lp['Wo'] if not split else tp.row_parallel(y, lp['Wo'], True)
     return out, x[:, -1], wkv_state

@@ -53,7 +53,14 @@ step's ``distributed.tp.StepParallel``): the same blocks; the cache's
 conv state holds the rank's conv channels, its SSM state the rank's heads
 (N whole), its pools the shared block's heads.  The long context's
 contiguous KV may be split over the batch axes by sequence
-(``LONG_SERVE_RULES``): :func:`_decode_dense`.
+(``LONG_SERVE_RULES``): :func:`_decode_dense`.  Under the rule variants
+(``tp.placement``): ``serve_dh`` runs the Mamba2 layers whole on every
+rank (their weights and states replicated) and the shared block's
+attention by head_dim; ``serve_kv_dp`` gathers the conv's x, B, C and dt
+over ``model`` and runs every head's SSD on every rank (the ``ssm`` state
+replicated), then the rank's d_in block into the gated norm and
+``out_proj``, and replicates the shared block's pools; ``serve_seq``
+splits the pools' pages (the long context's sequence) over ``model``.
 """
 from __future__ import annotations
 
@@ -67,7 +74,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
-from repro_torch.models.dense import embed_inputs, head_of
+from repro_torch.models.dense import embed_inputs, head_of, placed
 
 SSD_CHUNK = 128
 
@@ -264,25 +271,32 @@ def _gated_norm(cfg: ModelConfig, y, w, tp):
 def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
     """One Mamba2 layer.  h: (B, T, D); conv_state (B, K-1, C) (C: the
     conv channels of ``lp``); ssm_state (B, H, P, N) f32 (H: the heads of
-    ``lp``).  ``tp``: a tensor-parallel rank's heads and its share of B and C
-    (module docstring).  -> (h, new conv state, new ssm state)."""
+    ``lp``, or every head where the state is replicated).  ``tp``: a
+    tensor-parallel rank's heads and its share of B and C (module
+    docstring).  -> (h, new conv state, new ssm state)."""
     d, d_in, hd, nh, n = _dims(cfg)
     bsz, t, _ = h.shape
     if tp is not None and not tp.mamba_split:
         tp = None
     parts = tp.n if tp is not None else 1
-    d_in, nh, n_own = d_in // parts, nh // parts, n // parts
+    # serve_kv_dp: the SSM state replicated, every head run on every rank
+    every = tp is not None and tp.placement == 'kv_dp'
+    d_own, nh_own, n_own = d_in // parts, nh // parts, n // parts
     x = cm.rms_norm(h, lp['ln'], cfg.norm_eps)
     if tp is not None:
         x = tp.copy(x)
-    z, xbc, dt = torch.split(x @ lp['in_proj'], [d_in, d_in + 2 * n_own, nh],
-                             dim=-1)
+    z, xbc, dt = torch.split(x @ lp['in_proj'],
+                             [d_own, d_own + 2 * n_own, nh_own], dim=-1)
     xbc, new_conv = _causal_conv(xbc, lp['conv_w'], lp['conv_b'], conv_state)
-    xs, bc = torch.split(xbc, [d_in, 2 * n_own], dim=-1)
+    xs, bc = torch.split(xbc, [d_own, 2 * n_own], dim=-1)
     if tp is not None:
         # every rank's share of B and C, in rank order
         bc = tp.gather_shares(bc).reshape(bsz, t, parts, 2, n_own)
         bc = bc.transpose(2, 3).reshape(bsz, t, 2 * n)
+    if every:
+        xs, dt = tp.gather_shares(xs), tp.gather_shares(dt)
+    else:
+        d_in, nh = d_own, nh_own
     b, c = torch.split(bc, [n, n], dim=-1)
     xs = xs.reshape(bsz, t, nh, hd).float()
     dt = F.softplus(dt.float() + lp['dt_bias'])                 # (B, T, H)
@@ -295,6 +309,8 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
     else:
         y, new_ssm = ssd_chunked(xdt, b.float(), c.float(), a, ssm_state)
     y = (y + lp['D'][:, None] * xs).reshape(bsz, t, d_in)        # skip
+    if every:
+        y = y[..., tp.mamba[0]:tp.mamba[1]]
     y = _gated_norm(cfg, y * F.silu(z.float()), lp['norm'], tp).to(h.dtype)
     out = y @ lp['out_proj'] if tp is None \
         else tp.row_parallel(y, lp['out_proj'], True)
@@ -314,8 +330,8 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
     ``decode_dense`` (one token, contiguous pools (B, S_max, AH, AHD)).
     The pools are written in place.  ``tp``: a tensor-parallel rank's
     heads and ``d_ff`` block of the block, in every mode, and the pools'
-    blocks of those heads (of the long context's sequence too:
-    :func:`_decode_dense`).  -> h'."""
+    blocks as its placement holds them (of the long context's sequence
+    too: :func:`_decode_dense`).  -> h'."""
     b, t, d = h.shape
     ahd = 2 * d // cfg.hybrid_attn_heads
     heads = tp is not None and tp.shared_split
@@ -329,10 +345,12 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
     k = cm.rope((x @ sp['wk']).reshape(b, t, -1, ahd), positions,
                 cfg.rope_theta)
     v = (x @ sp['wv']).reshape(b, t, -1, ahd)
+    store, held = ((lambda t: t), None) if tp is None else \
+        ((lambda t: tp.pool_kv(t, 'shared')), tp.held)
     if mode in ('train', 'prefill'):
         if mode == 'prefill':
-            cm.kv_write_prefill(pool_k, page_table, k)
-            cm.kv_write_prefill(pool_v, page_table, v)
+            cm.kv_write_prefill(pool_k, page_table, store(k), held)
+            cm.kv_write_prefill(pool_v, page_table, store(v), held)
         out = cm.chunked_attention(q, k, v, q_positions=positions,
                                    kv_positions=positions, causal=True)
     elif mode == 'decode_dense':
@@ -342,10 +360,14 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
         pos = positions[:, 0]
         pg = pool_k.shape[-3]
         page_idx = page_table.gather(1, (pos // pg)[:, None].long())[:, 0]
-        cm.kv_write_token(pool_k, page_idx, pos % pg, k[:, 0])
-        cm.kv_write_token(pool_v, page_idx, pos % pg, v[:, 0])
-        out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
-                                     pos + 1)[:, None]
+        cm.kv_write_token(pool_k, page_idx, pos % pg, store(k[:, 0]), held)
+        cm.kv_write_token(pool_v, page_idx, pos % pg, store(v[:, 0]), held)
+        if placed(tp):
+            out = tp.paged_read(q, pool_k, pool_v, page_table, positions,
+                                pos + 1, ('shared', 'shared'))
+        else:
+            out = cm.paged_attention_ref(q[:, 0], pool_k, pool_v, page_table,
+                                         pos + 1)[:, None]
     out = out.reshape(b, t, -1)
     h = h + (tp.row_parallel(out, sp['wo'], True) if heads
              else out @ sp['wo'])
@@ -359,13 +381,23 @@ def shared_attn(cfg: ModelConfig, sp, h, e0, positions, mode,
 def _decode_dense(q, k, v, pos, pool_k, pool_v, tp=None):
     """One token a row over the contiguous KV: its K/V written at ``pos``
     (B,), then attention over the slots <= ``pos``.  Under a plan whose
-    ``seq_split`` cuts the sequence over the batch axes, the pools hold the
-    rank's slots ``tp.seq`` = [lo, hi): only the rank whose block holds
-    ``pos`` writes there (the others write the slot's old value back), and
-    the ranks' partial softmax states are combined in rank order
-    (``tp.seq_attention``).  -> (B, 1, AH, AHD)."""
+    ``seq_split`` cuts the sequence (over the batch axes, or under
+    ``serve_seq`` over ``model``), the pools hold the rank's slots
+    ``tp.seq`` = [lo, hi): only the rank whose block holds ``pos`` writes
+    there (the others write the slot's old value back), and the ranks'
+    partial softmax states are combined in rank order
+    (``tp.seq_attention``); under ``serve_seq`` q and the new K/V are
+    gathered into every head first and the rank keeps its heads of the
+    output.  ``serve_kv_dp``: every head written, the rank's heads read;
+    ``serve_dh``: the rank's head_dim block written and read
+    (``tp.dh_attention``).  -> (B, 1, AH or the rank's heads, AHD)."""
     b, slots = pool_k.shape[:2]
     rows = torch.arange(b, device=q.device)
+    placement = 'heads' if tp is None else tp.placement
+    if placement == 'seq':
+        q = tp.gather_heads(q, 'shared')
+    if tp is not None:
+        k, v = tp.pool_kv(k, 'shared'), tp.pool_kv(v, 'shared')
     split = tp is not None and tp.seq_split
     lo = tp.seq[0] if split else 0
     slot = pos - lo
@@ -380,10 +412,21 @@ def _decode_dense(q, k, v, pos, pool_k, pool_v, tp=None):
         pool_v[rows, slot] = v[:, 0].to(pool_v.dtype)
     kv_pos = lo + torch.arange(slots, device=q.device).expand(b, -1)
     valid = kv_pos <= pos[:, None]
+    if placement == 'dh':
+        return tp.dh_attention(q, pool_k, pool_v, valid[:, None, :])
+    if placement == 'kv_dp':
+        own = tp.own('shared')
+        pool_k = pool_k[..., own[0]:own[1], :]
+        pool_v = pool_v[..., own[0]:own[1], :]
     if split:
-        return tp.seq_attention(q, pool_k, pool_v, valid)
-    return cm.attention(q, pool_k, pool_v, q_positions=pos[:, None],
-                        kv_positions=kv_pos, kv_valid=valid, causal=False)
+        out = tp.seq_attention(q, pool_k, pool_v, valid)
+    else:
+        out = cm.attention(q, pool_k, pool_v, q_positions=pos[:, None],
+                           kv_positions=kv_pos, kv_valid=valid, causal=False)
+    if placement == 'seq':
+        own = tp.own('shared')
+        out = out[:, :, own[0]:own[1]]
+    return out
 
 
 # ---------------------------------------------------------------------------

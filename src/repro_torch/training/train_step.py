@@ -55,7 +55,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (
-    BATCH_AXES, LONG_SERVE_RULES, SERVE_RULES, TRAIN_RULES, Block, Sharding,
+    BATCH_AXES, LONG_SERVE_RULES, SERVE_DH_CONTRACT_RULES, SERVE_KV_DP_RULES,
+    SERVE_RULES, SERVE_SEQ_RULES, TRAIN_RULES, Block, Sharding,
     batch_coords, check_spec, shaped_spec, tree_spec_shaped)
 from repro_torch.distributed.tp import DataShare
 from repro_torch.models.api import Model
@@ -380,38 +381,60 @@ def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
 # The serve step
 # ---------------------------------------------------------------------------
 
-# the logical axes whose rules decide where a serving rank's blocks lie
-# ('seq' names no serving tensor: the residuals stay replicated)
+# the logical axes whose rules decide where a rank's blocks lie ('seq'
+# names no serving tensor, and the trainer's residuals stay replicated)
 PLACED_AXES = ('batch', 'heads', 'kv_heads', 'head_dim', 'qkv', 'ffn',
                'vocab', 'expert', 'layers', 'pages', 'kv_seq', 'state',
                'embed')
-NOT_PORTED = 'ROADMAP item 11c'
+# the trainer under a serve rule variant's placement
+TRAIN_NOT_PORTED = 'ROADMAP item 11e'
 
 
-def placement_expressible(rules) -> bool:
-    """Whether the port's tensor-parallel placement (``distributed/tp.py``:
-    rows over the batch axes, whole heads, ``d_ff``, the vocabulary and the
-    experts over ``model``, the pool's pages whole) is the one ``rules``
-    asks for: ``SERVE_RULES`` and ``TRAIN_RULES`` (whose 'seq' only lays
-    out the residuals) are, and so is ``LONG_SERVE_RULES`` (the rows
-    replicated, a long context's KV sequence over the batch axes); the
-    reference's hill-climb variants that move the pool onto ``head_dim``
-    or its pages, or replicate its heads (``serve_dh``, ``serve_seq``,
-    ``serve_kv_dp``), are not."""
+def _places_as(rules, *known) -> bool:
     return any(all(rules.get(a) == r.get(a) for a in PLACED_AXES)
-               for r in (SERVE_RULES, LONG_SERVE_RULES))
+               for r in known)
+
+
+def serve_placement_expressible(rules) -> bool:
+    """Whether the serve step's plan (``distributed.tp.StepParallel``)
+    places what ``rules`` ask for: ``SERVE_RULES`` and ``TRAIN_RULES``
+    (whose 'seq' only lays out the residuals), ``LONG_SERVE_RULES`` (the
+    rows replicated, a long context's KV sequence over the batch axes) and
+    the reference's three serving variants ``serve_kv_dp``, ``serve_seq``
+    and ``serve_dh`` (``tp.attention_placement``)."""
+    return _places_as(rules, SERVE_RULES, LONG_SERVE_RULES,
+                      SERVE_KV_DP_RULES, SERVE_SEQ_RULES,
+                      SERVE_DH_CONTRACT_RULES)
+
+
+def train_placement_expressible(rules) -> bool:
+    """Whether the trainer's placement (whole heads, ``d_ff``, the
+    vocabulary and the experts over ``model``, the rows over the data
+    axes) is the one ``rules`` ask for: ``TRAIN_RULES`` and
+    ``TRAIN_NO_SP_RULES`` are; a serve variant's, which replicates the
+    heads or moves the pool, is not (ROADMAP item 11e)."""
+    return _places_as(rules, SERVE_RULES, LONG_SERVE_RULES)
+
+
+def check_train_rules(rules) -> None:
+    """Raise NotImplementedError (ROADMAP item 11e) for a rule set whose
+    placement the trainer does not take (:func:`train_placement_
+    expressible`)."""
+    if not train_placement_expressible(rules):
+        raise NotImplementedError(
+            'the trainer under a serve rule variant\'s placement (serve_dh, '
+            f'serve_seq, serve_kv_dp) is {TRAIN_NOT_PORTED}')
 
 
 def check_serve_mesh(model: Model, mesh, shape, rules) -> None:
     """What ``make_serve_step`` serves on a mesh, and the rest raising
-    NotImplementedError (ROADMAP item 11c): every family, long_500k too,
-    over the ``pod``/``data`` batch axes and ``model``, under a placement
-    the port can express (:func:`placement_expressible`)."""
-    if not placement_expressible(rules):
+    NotImplementedError: every family, long_500k too, over the
+    ``pod``/``data`` batch axes and ``model``, under a placement the plan
+    takes (:func:`serve_placement_expressible`)."""
+    if not serve_placement_expressible(rules):
         raise NotImplementedError(
-            f'a rule set that moves the KV pool or its heads off the '
-            f'port\'s placement (serve_dh, serve_seq, serve_kv_dp) is '
-            f'{NOT_PORTED}')
+            'a serve rule set whose placement is none of SERVE_RULES, '
+            'LONG_SERVE_RULES, serve_kv_dp, serve_seq and serve_dh')
     other = [a for a in mesh.axis_names if a not in DATA_AXES + (MODEL,)]
     if other:
         raise NotImplementedError(f'mesh axes {other}: a serve step runs '
@@ -426,13 +449,13 @@ def make_serve_step(model: Model, mesh, shape, *, rules=None):
 
     Meshless: every family's plain prefill or decode (``long_500k`` decodes
     over hybrid's contiguous KV); ``specs`` is None.  On a mesh, every
-    family (the rule variants that move the pool raise
-    NotImplementedError, ROADMAP item 11c): the rank's step over its blocks
-    (``step.plan``, a ``distributed.tp.StepParallel``: ``shard_params``,
-    ``shard_cache``, ``shard_batch``), returning its rows' scores over its
-    vocabulary block; under ``LONG_SERVE_RULES`` (long_500k) the rows are
-    replicated and zamba2's contiguous KV sequence is split over the batch
-    axes.  ``specs`` is the reference's ``dict(params=, cache=, batch=)``
+    family: the rank's step over its blocks (``step.plan``, a
+    ``distributed.tp.StepParallel``: ``shard_params``, ``shard_cache``,
+    ``shard_batch``), returning its rows' scores over its vocabulary
+    block; under ``LONG_SERVE_RULES`` (long_500k) the rows are replicated
+    and zamba2's contiguous KV sequence is split over the batch axes; under
+    the variants ``RULE_VARIANTS['serve_kv_dp' | 'serve_seq' | 'serve_dh']``
+    the pool and attention's heads lie as the plan's ``placement`` says.  ``specs`` is the reference's ``dict(params=, cache=, batch=)``
     of ``Sharding`` s under ``rules`` (``LONG_SERVE_RULES`` for long_500k,
     else ``SERVE_RULES``)."""
     if rules is None:

@@ -46,12 +46,12 @@
   ``ok`` (no family is refused on a mesh), and for every ``ok`` train or
   prefill cell ``flops_per_device x chips >= 0.95 model_flops``.  The
   sweep's default cells hold no ``not-ported`` cell; under the rule
-  variants exactly ``serve_dh``, ``serve_seq`` and ``serve_kv_dp`` are
-  ``not-ported/item-11c``; and the CLI prints a record with the
-  reference's keys.  ``hbm.argument`` counts the rank's own blocks
-  (``arguments``); where they differ from the reference's specs
+  variants exactly the train cells of ``serve_dh``, ``serve_seq`` and
+  ``serve_kv_dp`` are ``not-ported/item-11e``; and the CLI prints a record
+  with the reference's keys.  ``hbm.argument`` counts the rank's own
+  blocks (``arguments``); where they differ from the reference's specs
   (``reference_arguments``, which the per-cell parity compares) the record
-  says so (``placement``).
+  names the leaves that differ, with both byte counts (``placement``).
 """
 import dataclasses
 import functools
@@ -87,7 +87,8 @@ FLOP_TOL = {'prefill': 0.10, 'decode': 0.10, 'train': 0.15}
 HYBRID_TOL = 0.004             # the block at every layer, on both sides
 MESH = ((2, 2), ('data', 'model'))
 # serving on a mesh: not ported for these families (none: every family
-# serves on a mesh; ROADMAP item 11c holds the rule variants)
+# serves on a mesh, under every rule variant); the trainer under these
+# variants' placement (ROADMAP item 11e)
 NOT_PORTED_FAMILIES = set()
 NOT_PORTED_VARIANTS = {'serve_dh', 'serve_seq', 'serve_kv_dp'}
 RECORD_KEYS = {'arch', 'shape', 'mesh', 'kind', 'microbatches',
@@ -416,7 +417,18 @@ def test_argument_bytes_are_the_rank_s_own_blocks():
     assert rec['arguments']['cache'] == nbytes(model.cache_template(shp),
                                                plan.cache_block)
     reference = sum(rec['reference_arguments'].values())
-    assert rec['hbm']['argument'] > 6 * reference and 'placement' in rec
+    assert rec['hbm']['argument'] > 6 * reference
+    # the record names the leaves whose blocks differ, with both counts:
+    # the wkv state (40 heads whole against a 16th of a state dimension)
+    # and the weights cut by those heads
+    diff = rec['placement']
+    wkv = diff['cache']['wkv']
+    assert wkv['port'] == 16 * wkv['reference']
+    assert set(diff) == {'params', 'cache'}
+    assert {'layers/Wr', 'layers/Wo', 'layers/u'} <= set(diff['params'])
+    for group, leaves in diff.items():
+        assert sum(d['port'] - d['reference'] for d in leaves.values()) == \
+            rec['arguments'][group] - rec['reference_arguments'][group]
     with pytest.raises(MemoryError):
         dryrun.check_fits(rec['hbm']['peak'], 2 * reference, 'a small card')
 
@@ -430,16 +442,17 @@ def test_multi_pod_cell():
 def test_not_ported_cells_are_the_listed_set():
     """Over the sweep's cells (the default rules), no cell is
     ``not-ported``: every family serves on a mesh, long_500k too.  Under
-    the rule variants, ``not-ported/item-11c`` is exactly the serve cells
+    the rule variants, ``not-ported/item-11e`` is exactly the train cells
     of ``serve_dh``, ``serve_seq`` and ``serve_kv_dp``, each naming item
-    11c."""
+    11e: every serve cell counts under every variant."""
     got, skipped, variants = set(), set(), set()
     for arch, shape, mk in dryrun.all_cells():
         cfg, shp = get_config(arch), SHAPES[shape]
         for variant in J_RULE_VARIANTS:
             status = dryrun.refusal(cfg, shp, dryrun.layout_of(mk), variant)
             if status is not None and status['status'] == dryrun.NOT_PORTED:
-                assert 'item 11c' in status['reason'], status
+                assert 'item 11e' in status['reason'], status
+                assert shp.kind == 'train', (arch, shape, variant)
                 variants.add(variant)
         status = dryrun.refusal(cfg, shp, dryrun.layout_of(mk))
         if status is None:
@@ -459,16 +472,55 @@ def test_not_ported_cells_are_the_listed_set():
 
 @pytest.mark.parametrize('variant', sorted(J_RULE_VARIANTS))
 def test_rule_variants_the_port_refuses(variant):
-    """The rule variants whose placement the port cannot express are
-    refused on a mesh for both kinds; the rest count."""
+    """A serve rule variant's train cell is refused on a mesh (the trainer
+    does not take its placement: item 11e); its prefill and decode cells
+    count, and so does every kind of the other variants."""
     refused = NOT_PORTED_VARIANTS
     cfg = reduced(get_config('qwen3-0.6b'))
     for kind in KINDS:
         status = dryrun.refusal(cfg, ShapeConfig('c', 64, 4, kind), MESH,
                                 variant)
-        assert (status is not None) == (variant in refused), (kind, status)
+        assert (status is not None) == (variant in refused
+                                        and kind == 'train'), (kind, status)
         if status is not None:
             assert status['status'] == dryrun.NOT_PORTED
+            assert 'item 11e' in status['reason']
+
+
+VARIANT_CACHE_GB = {    # the reference's cache bytes a rank, decode_32k
+    'qwen3-0.6b': {'serve_kv_dp': 30.300, 'serve_seq': 1.894,
+                   'serve_dh': 1.894},
+    'zamba2-2.7b': {'serve_kv_dp': 49.263, 'serve_seq': 3.080,
+                    'serve_dh': 3.623},
+    'seamless-m4t-medium': {'serve_kv_dp': 3.234, 'serve_seq': 0.202,
+                            'serve_dh': 0.202}}
+
+
+@pytest.mark.parametrize('variant', sorted(NOT_PORTED_VARIANTS))
+@pytest.mark.parametrize('arch', list(VARIANT_CACHE_GB))
+def test_rule_variant_cells(arch, variant, capsys):
+    """``--rules serve_*`` on (16, 16): an ``ok`` record whose rank holds
+    the reference's cache blocks; params differ only in the leaves that
+    ``placement`` names (q/k norms whole under serve_dh, the replicated
+    kv-head and seamless's vocabulary as by default).  serve_dh moves no
+    K/V block: its all-gathers are P V's head_dim blocks, B_r x H x Dh
+    a layer; serve_kv_dp holds the pool whole."""
+    dryrun.main(['--arch', arch, '--shape', 'decode_32k', '--mesh',
+                 'single', '--rules', variant])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    _production_check(rec, get_config(arch).family)
+    args, ref = rec['arguments'], rec['reference_arguments']
+    assert args['cache'] == ref['cache']
+    assert round(ref['cache'] / 1e9, 3) == VARIANT_CACHE_GB[arch][variant]
+    assert 'cache' not in rec.get('placement', {})
+    kinds = rec['collectives']['bytes_by_kind']
+    if variant == 'serve_dh' and arch == 'qwen3-0.6b':
+        cfg = get_config(arch)
+        rows = SHAPES['decode_32k'].global_batch // 16
+        out = rows * cfg.n_heads * cfg.hd * 4 * cfg.n_layers
+        assert kinds['all-gather'] == out, kinds
+        assert set(rec['placement']['params']) == {'layers/q_norm',
+                                                    'layers/k_norm'}
 
 
 def test_cli_prints_a_record(capsys):

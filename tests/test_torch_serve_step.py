@@ -16,10 +16,10 @@ per-request region KV layout against the JAX package's.
 - Within the port, the region layout against the engine's global pool
   holding the same pages in the same order: scores, tokens and pools bit
   for bit (both gather the same KV).
-- The refusals: a kernel path on a region pool, and exactly item 11c's
-  set on a mesh (the rule variants that move the pool or its heads off
-  the port's placement); every family and long_500k are served
-  (``tests/test_torch_serve_step_families.py`` runs them on ranks).
+- The refusals: a kernel path on a region pool; on a mesh nothing: every
+  family, long_500k and every rule variant are served
+  (``tests/test_torch_serve_step_families.py`` and
+  ``tests/test_torch_serve_variants.py`` run them on ranks).
 - The step on gloo ranks at (data 1, model 2) and (2, 2) for qwen3 and
   the MoE at 16 experts: each rank's block of the scores (its rows, its
   vocabulary block), gathered, within 1e-4 of the reference's mesh step on
@@ -53,9 +53,10 @@ N_DECODE = 4
 FAMILIES = {'dense': 'qwen3-0.6b', 'vlm': 'llava-next-mistral-7b',
             'moe': 'phi3.5-moe-42b-a6.6b', 'ssm': 'rwkv6-3b',
             'hybrid': 'zamba2-2.7b', 'encdec': 'seamless-m4t-medium'}
-# item 11c: what make_serve_step refuses on a mesh (no family)
+# what make_serve_step refuses on a mesh: nothing (the variants' trainer
+# is ROADMAP item 11e, the dry-run's train cells)
 REFUSED_FAMILIES = ()
-REFUSED_VARIANTS = ('serve_dh', 'serve_kv_dp', 'serve_seq')
+REFUSED_VARIANTS = ()
 AXES = ('data', 'model')
 MESH_CASES = {'qwen3': ('qwen3-0.6b', {}),
               'moe16': ('phi3.5-moe-42b-a6.6b', dict(n_experts=16))}
@@ -343,10 +344,10 @@ def test_a_shape_takes_no_engine_keyword(kw):
 
 def test_the_refused_set_of_item_11b():
     """On a (data 2, model 2) mesh (a description: no ranks needed),
-    ``make_serve_step`` refuses exactly the rule variants serve_dh,
-    serve_kv_dp and serve_seq (ROADMAP item 11c), for every config and
-    serve shape, long_500k included; it serves every family.  Meshless it
-    refuses nothing."""
+    ``make_serve_step`` refuses nothing: every config and serve shape,
+    long_500k included, under every rule variant (default, serve_dh,
+    serve_kv_dp, serve_seq, train_no_sp); it serves every family.
+    Meshless it refuses nothing."""
     mesh = describe((2, 2), AXES)
     refused, served = set(), set()
     for arch, cfg in sorted(all_configs().items()):
@@ -358,17 +359,17 @@ def test_the_refused_set_of_item_11b():
             for variant, rules in RULE_VARIANTS.items():
                 try:
                     make_serve_step(model, mesh, shape, rules=rules)
-                except NotImplementedError as e:
-                    assert 'item 11c' in str(e)
+                except NotImplementedError:
                     refused.add((arch, name, variant))
                 else:
                     served.add((arch, name, variant))
     want = {(arch, name, variant) for arch, name, variant in refused | served
             if all_configs()[arch].family in REFUSED_FAMILIES
             or variant in REFUSED_VARIANTS}
-    assert refused == want
+    assert refused == want == set()
     assert {all_configs()[a].family for a, _, _ in served} == \
         set(FAMILIES)
+    assert {v for _, _, v in served} == set(RULE_VARIANTS)
     assert {a for a, name, _ in served if name == 'long_500k'} == \
         {a for a, c in all_configs().items() if c.supports_long_context}
 
