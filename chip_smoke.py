@@ -6381,6 +6381,294 @@ def variant_serve_check(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the trainer under the rule variants serve_dh, serve_kv_dp and
+# serve_seq
+# ---------------------------------------------------------------------------
+
+# (arch, depth, variants): qwen3-0.6b at MT_LAYERS of 28 under each of the
+# three, phase 19's families at its depths under serve_dh and serve_kv_dp
+VT_RUNS = ((MESH_ARCH, MT_LAYERS, ('serve_dh', 'serve_kv_dp', 'serve_seq')),
+           ) + tuple((arch, layers, ('serve_dh', 'serve_kv_dp'))
+                     for arch, layers in FM_FAMILIES)
+VT_TIMEOUT_S = 420                 # bounds the phase's spawned ranks
+# one planted fault a variant, on one arch; each must fail its f32 gate
+VT_FAULTS = {
+    'serve_dh': (MESH_ARCH, 'the q/k norms\' head_dim gather with a '
+                            'backward that sums over model (twice the '
+                            'gradient: every rank runs attention whole)'),
+    'serve_kv_dp': ('rwkv6-3b', 'u\'s gradient not summed over model (each '
+                                'rank\'s heads only)'),
+    'serve_seq': (MESH_ARCH, 'the _CopyToModel sums of the split products\' '
+                             'inputs left out'),
+}
+
+
+def plant_train_fault(variant: str) -> callable:
+    """Plant ``variant``'s fault (:data:`VT_FAULTS`) in this rank's
+    trainer; -> a function that takes it out."""
+    from repro_torch.distributed import tp as tplib
+
+    cls = tplib.TensorParallel
+    name = {'serve_dh': 'whole', 'serve_kv_dp': 'head_share',
+            'serve_seq': 'copy'}[variant]
+    saved = getattr(cls, name)
+    if variant == 'serve_dh':
+        cls.whole = lambda self, part: self.gather_shares(part)
+    elif variant == 'serve_kv_dp':
+        cls.head_share = lambda self, w: w
+    else:
+        cls.copy = lambda self, x, split=True: x
+
+    def restore():
+        setattr(cls, name, saved)
+    return restore
+
+
+def whole_digests(tree, plan) -> dict:
+    """{path: sha256 of the bytes} of every leaf that this rank holds whole
+    (replicated over ``model``)."""
+    import hashlib
+
+    from repro_torch.training import tree as tr
+
+    return {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, v in tr.leaves_with_paths(tree)
+            if plan.param_blocks[k].is_whole()}
+
+
+def variant_train(cfg, dev: str, variants, faults) -> dict:
+    """Phase 23 for one config, on one of two ranks sharing the card: f32
+    weights drawn on the card, the meshless step and its nulls
+    (``family_nulls``) on each rank in turn, then one step at
+    :data:`FM_SHAPE` under each of ``variants`` (``make_train_step(rules=
+    )``) and under each of ``faults``' planted fault, each held leaf by
+    leaf to the meshless step (:func:`leaf_errors`, :func:`update_shares`);
+    the digests of what the rank holds whole; then FM_STEPS bf16 steps
+    under each variant, timed, and the peak memory of each run."""
+    from repro_torch.distributed.sharding import RULE_VARIANTS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as tr
+    from repro_torch.training.train_step import (
+        loss_and_grads, make_train_step, mesh_loss_and_grads, shard_batch)
+
+    model = build_model(cfg)
+    drawn = tr.tree_map(lambda x: x.detach().float(),
+                        model.init_params(0, device=dev))
+    host = masked_batch(cfg, FM_B, FM_S)
+    for r in range(torch.distributed.get_world_size()):
+        if r == torch.distributed.get_rank():
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            params = f32_params(drawn, dev)
+            _, grads = loss_and_grads(model, params, batch, FM_MICRO)
+            step = make_train_step(model, microbatches=FM_MICRO)
+            _, _, m0 = step(params, opt.init_opt_state(params), batch)
+            grads = dict(tr.leaves_with_paths(grads))
+            after = {k: v.detach() for k, v in tr.leaves_with_paths(params)}
+            del params, step
+            spread = null_spread(model, drawn, batch, FM_MICRO, dev, grads,
+                                 after, m0, family_nulls(cfg))
+            del batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    before = dict(tr.leaves_with_paths(drawn))
+    delta = {k: v - before[k] for k, v in after.items()}
+    del after
+    out = {'tf32': torch.backends.cuda.matmul.allow_tf32, 'nulls': spread,
+           'meshless': {'loss': float(m0['loss']),
+                        'grad_norm': float(m0['grad_norm']),
+                        'grad_max': {k: float(v.abs().max())
+                                     for k, v in grads.items()}}}
+    mesh = make_mesh(FM_SHAPE, MESH_AXES, device=dev)
+    for variant, fault in ([(v, False) for v in variants]
+                           + [(v, True) for v in faults]):
+        restore = plant_train_fault(variant) if fault else (lambda: None)
+        try:
+            step = make_train_step(model, mesh, microbatches=FM_MICRO,
+                                   rules=RULE_VARIANTS[variant])
+            plan = step.plan
+            p = plan.shard_params(drawn)
+            rows = shard_batch(host, plan, FM_MICRO)
+            _, g = mesh_loss_and_grads(model, plan, p, rows, FM_MICRO)
+            p, _, m = step(p, plan.init_opt_state(), rows)
+        finally:
+            restore()
+        blocks = lambda tree: {k: (v.detach(), plan.param_blocks[k])  # noqa
+                               for k, v in tr.leaves_with_paths(tree)}
+        res = {'loss': float(m['loss']), 'grad_norm': float(m['grad_norm']),
+               'leaf_grads': leaf_errors(blocks(g), grads),
+               'leaf_update': update_shares(blocks(p), before, delta),
+               'grad_max': {k: float(v.abs().max())
+                            for k, v in tr.leaves_with_paths(g)},
+               'whole': [k for k, b in plan.param_blocks.items()
+                         if b.is_whole()]}
+        if not fault:
+            res['digests'] = (whole_digests(g, plan), whole_digests(p, plan))
+        out[variant, fault] = res
+        del p, g, step, plan, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    del grads, delta, drawn
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    for variant in variants:
+        torch.cuda.reset_peak_memory_stats()
+        step = make_train_step(model, mesh, opt_cfg=ocfg,
+                               rules=RULE_VARIANTS[variant])
+        plan = step.plan
+        params = plan.shard_params(model.init_params(0, device=dev))
+        state = plan.init_opt_state()
+        losses, seconds = [], []
+        for s in range(FM_STEPS):
+            rows = shard_batch(masked_batch(cfg, FM_B, FM_BF16_S, s), plan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, rows)
+            losses.append(float(m['loss']))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out[variant, 'bf16'] = {'losses': losses, 'seconds': seconds,
+                                'peak': torch.cuda.max_memory_allocated()}
+        del params, state, step, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_train_rank(rank: int, runs, dev: str) -> dict:
+    """Phase 23 on one of two ranks sharing the card: each config of
+    ``runs`` ((arch, config, variants, faults)) in turn, its seconds, and
+    the hand-written kernel launches (none: the trainer runs the plain
+    paths)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    out = {'backend': str(torch.distributed.get_backend())}
+    for arch, cfg, variants, faults in runs:
+        t0 = time.perf_counter()
+        out[arch] = variant_train(cfg, dev, variants, faults)
+        out[arch]['seconds'] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(out, launches=dict(LAUNCHES))
+
+
+def variant_train_check(card: str) -> dict:
+    """Phase 23: qwen3-0.6b at MT_LAYERS of 28 layers and rwkv6, zamba2 and
+    seamless at phase 19's depths, all at published widths, trained by
+    ``make_train_step(rules=)`` on (1, 2) by two ranks sharing the card:
+    qwen3 under ``serve_dh``, ``serve_kv_dp`` and ``serve_seq``, the rest
+    under the first two.  Phase 19's f32 gates against the meshless step
+    on the card (loss within MT_TOL relative, grad_norm and each gradient
+    leaf within MT_TOL or FM_NULL x the meshless step's own spread over
+    ``family_nulls``, each block's update within FM_UPDATE_TOL of the
+    meshless update's norm); every leaf a rank holds whole bit-equal on
+    both ranks, gradient and parameter; each variant's planted fault
+    (:data:`VT_FAULTS`) past the gradient gate.  bf16 steps timed, peak
+    memory a rank: recorded, not gated.  Every config is printed before
+    any gate is asserted.  Returns the phase's launches (every rank's)."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.ranks import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
+    runs = [(arch, family_cut(arch, layers), variants,
+             tuple(v for v, (a, _) in VT_FAULTS.items() if a == arch))
+            for arch, layers, variants in VT_RUNS]
+    t0 = time.perf_counter()
+    ranks = run_ranks(variant_train_rank, 2, store_dir=store,
+                      device_type=kind, args=(runs, DEV),
+                      timeout_s=VT_TIMEOUT_S)
+    print(f'  two ranks on the card ({ranks[0]["backend"]}): '
+          f'{time.perf_counter() - t0:.1f} s  [{card}]')
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for (arch, layers, _), (_, cfg, variants, faults) in zip(VT_RUNS, runs):
+        a = [r[arch] for r in ranks]
+        ref = a[0]['meshless']
+        held = [k for k in ref['grad_max'] if k != ZERO_GRAD]
+        n_gate = max(MT_TOL, FM_NULL * max(p['nulls']['grad_norm']
+                                           for p in a))
+        depth = (f'{layers} + {layers} of {get_config_layers(arch)}'
+                 if cfg.family == 'encdec'
+                 else f'{layers} of {get_config_layers(arch)}')
+
+        def ratios(res):
+            """(worst leaf's error over its gate, leaf, error)."""
+            return max((x['leaf_grads'][k] / max(
+                MT_TOL, FM_NULL * p['nulls']['grads'][k]), k,
+                x['leaf_grads'][k]) for p, x in zip(a, res) for k in held)
+
+        for variant in variants:
+            res = [x[variant, False] for x in a]
+            loss_rel = abs(res[0]['loss'] - ref['loss']) / abs(ref['loss'])
+            norm_rel = abs(res[0]['grad_norm'] - ref['grad_norm']) \
+                / ref['grad_norm']
+            g_ratio, g_leaf, grads = ratios(res)
+            update, u_leaf = max((x['leaf_update'][k], k) for x in res
+                                 for k in held)
+            digests = [x['digests'] for x in res]
+            replicas = all(d == digests[0] for d in digests[1:])
+            b = [x[variant, 'bf16'] for x in a]
+            ms = lambda xs: [round(x * 1e3, 1) for x in xs]  # noqa: E731
+            print(f'  {arch} at {depth} layers under {variant}, f32, mesh '
+                  f'{FM_SHAPE}, B={FM_B}, S={FM_S}, {FM_MICRO} microbatches: '
+                  f'loss {res[0]["loss"]:.7f} vs meshless {ref["loss"]:.7f} '
+                  f'(rel {loss_rel:.3e}, gate {MT_TOL:g}), grad_norm rel '
+                  f'{norm_rel:.3e} (gate {n_gate:.3e}); worst gradient leaf '
+                  f'{grads:.3e} of its max ({g_leaf}: {g_ratio:.3f} of its '
+                  f'gate); worst update {update:.3e} ({u_leaf}; gate '
+                  f'{FM_UPDATE_TOL:g}); {len(res[0]["whole"])} of '
+                  f'{len(res[0]["leaf_grads"])} leaves whole, bit-equal on '
+                  f'both ranks: {replicas}; bf16 B={FM_B}, S={FM_BF16_S} '
+                  f'losses {[round(x, 4) for x in b[0]["losses"]]}, step '
+                  f'times {ms(b[0]["seconds"])} ms (host clock, '
+                  f'synchronized; two ranks time-slice one card: recorded, '
+                  f'not a claim), peak rank 0 {b[0]["peak"] / 1e9:.2f} GB, '
+                  f'rank 1 {b[1]["peak"] / 1e9:.2f} GB  [{card}]')
+            gate(all(x['loss'] == res[0]['loss'] and
+                     x['grad_norm'] == res[0]['grad_norm'] for x in res),
+                 (arch, variant, 'ranks differ'))
+            gate(loss_rel <= MT_TOL and norm_rel <= n_gate,
+                 (arch, variant, 'loss', loss_rel, norm_rel))
+            gate(g_ratio <= 1.0, (arch, variant, 'grads', g_leaf, g_ratio))
+            gate(update <= FM_UPDATE_TOL,
+                 (arch, variant, 'update', u_leaf, update))
+            gate(replicas, (arch, variant, 'replicas'))
+            if ZERO_GRAD in ref['grad_max']:
+                stack = max(v for k, v in ref['grad_max'].items()
+                            if k.startswith('dec_layers/'))
+                zero = max(x['grad_max'][ZERO_GRAD] for x in res) / stack
+                gate(zero <= MT_TOL, (arch, variant, ZERO_GRAD, zero))
+        for variant in faults:
+            g_ratio, g_leaf, grads = ratios([x[variant, True] for x in a])
+            print(f'  planted fault on {arch} under {variant} '
+                  f'({VT_FAULTS[variant][1]}): worst gradient leaf '
+                  f'{grads:.3e} of its max ({g_leaf}: {g_ratio:.3g} of its '
+                  f'gate; must be past it)  [{card}]')
+            gate(g_ratio > 1.0, (arch, variant, 'fault passed', g_ratio))
+        print(f'  {arch}: {a[0]["seconds"]:.1f} s')
+    launches = dict(LAUNCHES)
+    for r in ranks:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    assert not failed, failed
+    assert not any(launches.values()), launches
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -6573,7 +6861,15 @@ def main() -> int:
     by_phase['variant_serve'] = variant_serve_check(card)
     done()
 
-    print(f'[23] total {time.perf_counter() - t_start:.1f} s')
+    runs = '; '.join(f'{a} ({n} layers: ' + ', '.join(v) + ')'
+                     for a, n, v in VT_RUNS)
+    print(f'[23] training under the rule variants: {runs} at published '
+          f'widths over {FM_SHAPE} (f32 parity, planted faults, bf16 '
+          f'steps)')
+    by_phase['variant_train'] = variant_train_check(card)
+    done()
+
+    print(f'[24] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -96,11 +96,11 @@ def state_from_jax(state, *, dtype=torch.float32, device='cpu'):
 def shard_params(tree, model, mesh, *, dtype=torch.float32, device='cpu',
                  requires_grad: bool = False, plan=None):
     """The reference's weights (numpy leaves, its layout) cut to the blocks
-    rank ``mesh.rank`` holds under the tensor-parallel plan
-    (``distributed.tp.TensorParallel``; the trainer places its weights the
-    same way), or under ``plan`` (a serve step's ``StepParallel``, which
-    places them by its rule variant), as an ``nn.ParameterDict`` whose
-    leaves require grad with ``requires_grad`` (training)."""
+    rank ``mesh.rank`` holds under the default tensor-parallel plan
+    (``distributed.tp.TensorParallel``), or under ``plan`` (a serve step's
+    ``StepParallel``, or a ``TrainPlan``'s ``tp``: each places them by its
+    rules), as an ``nn.ParameterDict`` whose leaves require grad with
+    ``requires_grad`` (training)."""
     from repro_torch.distributed.tp import TensorParallel
 
     tp = TensorParallel(model.cfg, mesh) if plan is None else plan

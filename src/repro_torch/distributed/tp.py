@@ -90,6 +90,22 @@ logits are gathered over ``model`` before the softmax, so every rank routes
 alike; a rank runs its experts on its slots and its f32 partial joins one
 :func:`reduce_sum` (``models/moe.py``).
 
+**The rule variants.**  ``TensorParallel(rules=)`` places the weights
+as the reference's specs under ``rules`` place them
+(:func:`attention_placement`; ``TRAIN_RULES`` by default), for the
+trainer and the serve step alike: ``serve_dh`` replicates attention's
+projections (rwkv6's time mix, zamba2's Mamba2 layers and shared
+attention), which every rank then runs whole, and cuts the q/k norms on
+head_dim (:attr:`norms_cut`); ``serve_kv_dp`` replicates rwkv6's ``u``
+and zamba2's ``A_log`` / ``dt_bias`` / ``D`` (``HEAD_LEAVES``), which
+every rank reads for every head; rwkv6's ``u`` is cut on K wherever
+every rank holds every wkv head but under ``serve_kv_dp``
+(:attr:`u_dim`).  A leaf cut on head_dim is gathered whole before use
+(:meth:`whole`; under autograd the backward keeps the rank's block of the
+gradient, which every rank computes whole); a replicated leaf a rank
+reads for its own heads only passes through :class:`_CopyToModel`
+(:meth:`head_share`), so its gradient is summed over ``model``.
+
 **The serve step** (:class:`StepParallel`, ``make_serve_step``) runs
 every family on a mesh over the training placement, each rank on its own
 rows with its cache blocks following its weight blocks
@@ -122,12 +138,15 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (BATCH_AXES, SERVE_RULES,
-                                              Block, batch_coords, block,
-                                              row_block)
+                                              TRAIN_RULES, Block,
+                                              batch_coords, block, row_block)
 from repro_torch.kernels.sampling.ref import combine_bests
 from repro_torch.models import common as cm
 
 MODEL = 'model'
+# the leaves on the recurrences' 'heads' axis (rwkv6's u, zamba2's A_log,
+# dt_bias, D), which serve_kv_dp replicates
+HEAD_LEAVES = ('u', 'A_log', 'dt_bias', 'D')
 # the weights of one kv-head block (encdec's cross-attention ones too,
 # with an 'x' in front)
 KV_LEAVES = ('wk', 'wv', 'bk', 'bv')
@@ -236,16 +255,19 @@ class TensorParallel:
     to the mesh's own rank's; another rank's plan needs no process group.
     ``max_batch``: a serving plan's dispatch rows, cut over the batch axes
     (:attr:`rows`); a plan without it (the trainer's) computes every row
-    of what it is given."""
+    of what it is given.  ``rules`` (``TRAIN_RULES`` by default): where
+    the weights lie (:attr:`placement`; the module docstring's rule
+    variants)."""
 
-    # the training placement (:class:`StepParallel` reads others from its
-    # rules): the pool holds this rank's kv-heads, every page
-    placement = HEADS
+    # the pool's pages (a serve step's plan under ``serve_seq`` holds a
+    # block of them: :class:`StepParallel`)
     held = None
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
-                 *, max_batch: Optional[int] = None):
+                 *, max_batch: Optional[int] = None, rules=None):
         self.cfg, self.mesh = cfg, mesh
+        self.rules = TRAIN_RULES if rules is None else rules
+        self.placement = attention_placement(self.rules)
         coords = mesh.coords() if coords is None else coords
         self.n = mesh.shape.get(MODEL, 1)
         self.rank = coords.get(MODEL, 0)
@@ -295,6 +317,37 @@ class TensorParallel:
             self.shared_heads = self._heads(ah, 2 * cfg.d_model // ah)
             self.hybrid_ffn = self._split(cfg.hybrid_attn_d_ff)
             self.shared_split = self.shared_heads != (0, 2 * cfg.d_model)
+        if self.placement == DH:
+            # replicated projections: every head (and every wkv head, every
+            # Mamba2 head) on every rank, the computation replicated
+            self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
+            self.attn_split, self.kv_holders = False, 1
+            if cfg.family == 'ssm':
+                self.wkv, self.wkv_split = (0, cfg.d_model), False
+            if cfg.family == 'hybrid':
+                d_in = cfg.ssm_expand * cfg.d_model
+                self.mamba, self.mamba_state = (0, d_in), (0, cfg.ssm_state)
+                self.mamba_split = False
+                self.shared_heads = (0, 2 * cfg.d_model)
+                self.shared_split = False
+        # the head_dim block of attention (zamba2's shared block's) under
+        # serve_dh; the q/k norms take it too
+        dh = 2 * cfg.d_model // cfg.hybrid_attn_heads \
+            if cfg.family == 'hybrid' else cfg.hd
+        self.dh_split = (self.placement == DH and self.n > 1
+                         and dh % self.n == 0)
+        self.head_dim = block(dh, self.n, self.rank) if self.dh_split \
+            else (0, dh)
+        self.norms_cut = self.dh_split and cfg.qk_norm
+        # rwkv6's ``u`` (L, H, K): on K where every rank holds every wkv
+        # head and the rules place 'heads' or 'head_dim' on model (serve_dh;
+        # 'heads' where model does not divide them moves onto K), whole
+        # under serve_kv_dp
+        k = cfg.ssm_head_dim
+        self.u_dim = (block(k, self.n, self.rank)
+                      if cfg.family == 'ssm' and self.n > 1
+                      and not self.wkv_split and k % self.n == 0
+                      and self.placement != KV_DP else None)
         # the serving batch's rows over the batch axes
         self.n_batch, self.batch_index = (
             batch_coords(mesh, coords) if max_batch else (1, 0))
@@ -367,6 +420,11 @@ class TensorParallel:
         keys = tuple(path.split('/')) if isinstance(path, str) else \
             tuple(path)
         fam = self.cfg.family
+        if self.placement == KV_DP and keys[-1] in HEAD_LEAVES and \
+                fam in ('ssm', 'hybrid'):
+            # kv_dp replicates the leaves on the 'heads' axis: the
+            # recurrences run every head on every rank
+            return {}
         table = (self._ssm_ranges() if fam == 'ssm' else
                  self._hybrid_ranges(keys[0]) if fam == 'hybrid' else
                  self._attn_ranges())
@@ -383,6 +441,9 @@ class TensorParallel:
         up = {1: ex} if self.expert_split else {3: ef}
         attn = {'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
                 'wk': {2: kv}, 'wv': {2: kv}, 'bk': {1: kv}, 'bv': {1: kv}}
+        if self.norms_cut:
+            attn.update(dict.fromkeys(('q_norm', 'k_norm'),
+                                      {1: self.head_dim}))
         return {
             'embed': {0: self.vocab}, 'unembed': {0: self.vocab}, **attn,
             **({'x' + k: v for k, v in attn.items()}
@@ -398,8 +459,11 @@ class TensorParallel:
         the head by vocabulary."""
         from repro_torch.models import rwkv6
 
-        return {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
-                **rwkv6.placement(self.cfg, self.wkv, self.ffn)}
+        table = {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
+                 **rwkv6.placement(self.cfg, self.wkv, self.ffn)}
+        if self.u_dim is not None:
+            table['u'] = {2: self.u_dim}
+        return table
 
     def _hybrid_ranges(self, group: str):
         """zamba2: its table for ``group`` (``models.zamba2.placement``),
@@ -503,13 +567,37 @@ class TensorParallel:
                 self.group)
         return _gather_last(part, self.group)
 
+    def whole(self, part: torch.Tensor) -> torch.Tensor:
+        """A leaf cut on its last dimension over ``model`` (``serve_dh``'s
+        q/k norms, rwkv6's ``u`` on K: :attr:`norms_cut`, :attr:`u_dim`),
+        every rank's block gathered in rank order, for a computation every
+        rank runs whole: under autograd the backward keeps this rank's
+        block of the gradient, which every rank holds whole
+        (:class:`_GatherFromModel`; no sum)."""
+        if _traced(part):
+            return _GatherFromModel.apply(part, self.group, self.rank)
+        return _gather_last(part, self.group)
+
+    def head_share(self, w: torch.Tensor) -> torch.Tensor:
+        """A leaf replicated over ``model`` that this rank's computation
+        reads for its own heads only (``serve_kv_dp``'s rwkv6 ``u`` and
+        zamba2 ``A_log`` / ``dt_bias`` / ``D``, every head run, the
+        rank's kept): under autograd its gradient is summed over ``model``
+        (:class:`_CopyToModel`); otherwise ``w``."""
+        return self.copy(w)
+
     def attn_weights(self, lp):
-        """A layer's attention weights for a training forward over this
-        rank's heads, each passed through :class:`_CopyToModel` where its
-        gradient here covers only part of what uses it: the q/k norms (one
-        vector for every head) over the ``model`` ranks, and where this
-        rank's kv-heads are replicated, ``wk``/``wv``/``bk``/``bv`` over
-        :attr:`kv_group` (their holders' q-heads together read them)."""
+        """A layer's attention weights for a forward over this rank's
+        heads: under ``serve_dh`` the q/k norms' head_dim blocks gathered
+        whole (:meth:`whole`); under autograd each weight passed through
+        :class:`_CopyToModel` where its gradient here covers only part of
+        what uses it: the q/k norms (one vector for every head) over the
+        ``model`` ranks, and where this rank's kv-heads are replicated,
+        ``wk``/``wv``/``bk``/``bv`` over :attr:`kv_group` (their holders'
+        q-heads together read them)."""
+        if self.norms_cut and 'q_norm' in lp:
+            lp = dict(lp, q_norm=self.whole(lp['q_norm']),
+                      k_norm=self.whole(lp['k_norm']))
         if not self.attn_split or not _traced(lp['wq']):
             return lp
         groups = {'q_norm': self.group, 'k_norm': self.group}
@@ -641,37 +729,22 @@ class StepParallel(TensorParallel):
       writes its head_dim block of K/V, its f32 partial scores are summed
       over ``model`` before the softmax, and P V over its block is
       gathered into whole heads (:meth:`dh_attention`); ``wo`` is
-      replicated.  q_norm/k_norm and rwkv6's ``u``, which the reference
-      cuts on head_dim, stay whole (RoPE pairs channel i with i + Dh/2)."""
+      replicated.  The q/k norms and rwkv6's ``u`` are the reference's
+      head_dim blocks, gathered whole before use (RoPE pairs channel i
+      with i + Dh/2, and the norms reduce over all of Dh).
+
+    The weights' placement is :class:`TensorParallel`'s under the same
+    rules (the trainer's plan reads it too); this class adds the rows,
+    the pool and the long context."""
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
                  *, batch: int, seq_len: int = 0, rules=None):
-        super().__init__(cfg, mesh, coords, max_batch=batch)
-        self.rules = rules = SERVE_RULES if rules is None else rules
-        self.placement = attention_placement(rules)
+        rules = SERVE_RULES if rules is None else rules
+        super().__init__(cfg, mesh, coords, max_batch=batch, rules=rules)
         if rules.get('batch') != SERVE_RULES['batch']:
             self.rows, self.split_rows = slice(0, batch), False
         self.shared_pool = cfg.family == 'encdec'
         hybrid = cfg.family == 'hybrid'
-        ahd = 2 * cfg.d_model // cfg.hybrid_attn_heads if hybrid else 0
-        if self.placement == DH:
-            # replicated projections: every head (and every wkv head,
-            # every Mamba2 head) on every rank
-            self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
-            self.attn_split, self.kv_holders = False, 1
-            if cfg.family == 'ssm':
-                self.wkv, self.wkv_split = (0, cfg.d_model), False
-            if hybrid:
-                d_in = cfg.ssm_expand * cfg.d_model
-                self.mamba, self.mamba_state = (0, d_in), (0, cfg.ssm_state)
-                self.mamba_split = False
-                self.shared_heads = (0, 2 * cfg.d_model)
-                self.shared_split = False
-        # the head_dim block of the attention (zamba2's shared block's)
-        dh = ahd if hybrid else cfg.hd
-        self.dh_split = self.placement == DH and self.n > 1 and dh % self.n == 0
-        self.head_dim = block(dh, self.n, self.rank) if self.dh_split \
-            else (0, dh)
         # seq: a rank's block of the region slots (encdec's pool pages)
         pages = region_pages(cfg, seq_len)
         self.page_split = (self.placement == SEQ and self.n > 1
@@ -700,16 +773,6 @@ class StepParallel(TensorParallel):
         return scores
 
     # -- placement ---------------------------------------------------------
-    def ranges(self, path):
-        out = super().ranges(path)
-        name = (path.split('/') if isinstance(path, str) else path)[-1]
-        # kv_dp replicates the leaves on the 'heads' axis: the recurrences
-        # run every head on every rank
-        if self.placement == KV_DP and name in ('u', 'A_log', 'dt_bias',
-                                                'D'):
-            return {}
-        return out
-
     def cache_block(self, path, shape) -> Block:
         """This rank's :class:`Block` of the cache leaf ``path`` (a tuple
         of keys: ``('k',)``, ``('mamba', 'conv')``) of global ``shape``,

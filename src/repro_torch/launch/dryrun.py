@@ -29,13 +29,11 @@ whole program, so:
 - ``trace_s`` (the count's seconds) replaces ``lower_s`` / ``compile_s``;
   ``raw_cost_analysis`` is dropped (no compiler makes one).
 
-Cells that ``cell_supported`` skips keep their skip status; serve cells
-count under every rule variant (``--rules serve_kv_dp | serve_seq |
-serve_dh``: ``training/train_step.py::make_serve_step``), and the train
-cells of those three variants, whose placement the trainer does not take,
-carry ``not-ported/item-11e``.  ``--mesh
-none`` counts the meshless step on one device (the reference has no such
-cell).  ``--measure`` also runs
+Cells that ``cell_supported`` skips keep their skip status; every other
+cell counts under every rule variant (``--rules serve_kv_dp | serve_seq |
+serve_dh | train_no_sp``: ``training/train_step.py``'s ``make_serve_step``
+and ``make_train_step(rules=)``).  ``--mesh none`` counts the meshless
+step on one device (the reference has no such cell).  ``--measure`` also runs
 the cell for real, on the card (it raises without one; the CPU only with
 ``--device cpu``): the meshless step, or the counted rank's step beside
 the fake process group (its collectives move no data: the rank's compute
@@ -74,7 +72,6 @@ from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
 from repro_torch.training import tree as tr
 
-NOT_PORTED = 'not-ported/item-11e'
 MEASURE_REPS = 5
 Layout = Tuple[Tuple[int, ...], Tuple[str, ...]]
 
@@ -264,7 +261,7 @@ def rank_step(model, shape: ShapeConfig, layout: Optional[Layout], device,
                                 device_mesh=dm)
         if shape.kind == 'train':
             step = ts.make_train_step(model, mesh, microbatches=microbatches,
-                                      zero1=zero1)
+                                      zero1=zero1, rules=rules)
         else:
             step, _ = ts.make_serve_step(model, mesh, shape, rules=rules)
         yield step, _rank_inputs(model, shape, step, device)
@@ -332,40 +329,37 @@ def _serve_rules(shape: ShapeConfig, rules):
 def refusal(cfg: ModelConfig, shape: ShapeConfig, layout: Optional[Layout],
             rules_variant: str = 'default') -> Optional[Dict[str, str]]:
     """The status of a cell that is not counted, or None: the skip of
-    ``cell_supported``, or ``not-ported/item-11e`` (with its reason) for a
-    step the port's mesh cannot run yet (a train cell under a serve rule
-    variant, whose placement the trainer does not take:
-    ``train_step.check_train_rules``; ``make_serve_step``'s refusals)."""
+    ``cell_supported``.  Every other cell counts, on a mesh under every
+    rule variant: a rule set the port's plans cannot place raises
+    (``train_step.check_train_rules``, ``check_serve_mesh``)."""
     ok, why = cell_supported(cfg, shape)
     if not ok:
         return {'status': why}
     if layout is None:
         return None
     rules = shd.RULE_VARIANTS.get(rules_variant)
-    try:
-        if shape.kind == 'train':
-            ts.check_train_rules(rules or shd.TRAIN_RULES)
-        else:
-            ts.check_serve_mesh(build_model(cfg), meshlib.describe(*layout),
-                                shape, _serve_rules(shape, rules))
-    except NotImplementedError as e:
-        return {'status': NOT_PORTED, 'reason': str(e)}
+    if shape.kind == 'train':
+        ts.check_train_rules(rules or shd.TRAIN_RULES)
+    else:
+        ts.check_serve_mesh(build_model(cfg), meshlib.describe(*layout),
+                            shape, _serve_rules(shape, rules))
     return None
 
 
-def _plan(cfg, shape: ShapeConfig, desc, coords, serve_rules):
-    """Rank ``coords``'s placement: a serve step's plan under
-    ``serve_rules``, or the trainer's."""
+def _plan(cfg, shape: ShapeConfig, desc, coords, rules):
+    """Rank ``coords``'s placement under ``rules``: a serve step's plan,
+    or the trainer's (``TRAIN_RULES`` where None)."""
     from repro_torch.distributed.tp import StepParallel, TensorParallel
 
     if shape.kind == 'train':
-        return TensorParallel(cfg, desc, coords)
+        return TensorParallel(cfg, desc, coords, rules=rules)
     return StepParallel(cfg, desc, coords, batch=shape.global_batch,
-                        seq_len=shape.seq_len, rules=serve_rules)
+                        seq_len=shape.seq_len, rules=_serve_rules(shape,
+                                                                  rules))
 
 
 def _largest_rank(model, layout: Layout, shape: ShapeConfig,
-                  serve_rules) -> Tuple[int, Dict[str, int]]:
+                  rules) -> Tuple[int, Dict[str, int]]:
     """The rank whose weight blocks are largest under the port's placement
     (the lowest of equals), and its coordinates; the batch axes' blocks
     are even, so one rank of each ``model`` coordinate is looked at."""
@@ -374,7 +368,7 @@ def _largest_rank(model, layout: Layout, shape: ShapeConfig,
     best = None
     for r in range(desc.shape.get('model', 1)):
         coords = desc.coords(r)
-        plan = _plan(model.cfg, shape, desc, coords, serve_rules)
+        plan = _plan(model.cfg, shape, desc, coords, rules)
         n = sum(int(np.prod(plan.block(p, s).local_shape)) for p, s in shapes)
         if best is None or n > best[0]:
             best = (n, r, coords)
@@ -422,7 +416,7 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
     rank, coords, desc = 0, None, None
     if layout is not None:
         desc = meshlib.describe(*layout)
-        rank, coords = _largest_rank(model, layout, shape, serve_rules)
+        rank, coords = _largest_rank(model, layout, shape, rules)
     try:
         costs, used, held, held_leaves, trace_s = count_step(
             model, shape, layout, rank=rank, rules=rules,
@@ -438,7 +432,7 @@ def cell_record(cfg: ModelConfig, shape: ShapeConfig,
     args = {g: held[g] for g in reference}
     rows, vocab = shape.global_batch, cfg.vocab_size
     if layout is not None and shape.kind != 'train':
-        plan = _plan(cfg, shape, desc, coords, serve_rules)
+        plan = _plan(cfg, shape, desc, coords, rules)
         rows = plan.rows.stop - plan.rows.start
         vocab = plan.vocab[1] - plan.vocab[0]
     out, alias = output_bytes(shape, args, rows, vocab)

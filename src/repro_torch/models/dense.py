@@ -50,7 +50,11 @@ under autograd (the collectives' backward: ``distributed/tp.py``).  The
 residual stream stays replicated over ``model``: no sequence
 parallelism, the reference's ``TRAIN_NO_SP_RULES`` variant.  It computes
 the same function as ``TRAIN_RULES``, whose ``'seq': 'model'`` GSPMD
-uses only as a layout of the residuals.
+uses only as a layout of the residuals.  Under a rule variant's plan
+(``make_train_step(rules=)``) the weights lie as its rules say:
+``serve_dh`` runs attention whole on every rank (its projections
+replicated), the q/k norms' head_dim blocks gathered whole
+(``tp.attn_weights``, for serving too).
 """
 from __future__ import annotations
 
@@ -182,6 +186,12 @@ def _store(tp):
     return (lambda t: tp.gather_rows(tp.pool_kv(t))), tp.held
 
 
+def _weights(lp, tp):
+    """A serving layer's attention weights under ``tp``
+    (``tp.attn_weights``: ``serve_dh``'s q/k norms gathered whole)."""
+    return lp if tp is None else tp.attn_weights(lp)
+
+
 def placed(tp) -> bool:
     """Whether ``tp`` is a serve step's plan under a rule variant
     (``serve_kv_dp``, ``serve_seq``, ``serve_dh``: ``distributed.tp.
@@ -218,6 +228,7 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     pg = pool_k.shape[-3]
     local = _row_ops(tp)[0]
     store, held = _store(tp)
+    lp = _weights(lp, tp)
     q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None])
     page_idx = page_table.gather(1, (positions // pg)[:, None].long())[:, 0]
     offs = positions % pg
@@ -270,7 +281,7 @@ def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     and ``page_table`` every row's (module docstring)."""
     b, s, _ = x.shape
     store, held = _store(tp)
-    q, k, v = qkv_proj(cfg, lp, x, positions)
+    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions)
     cm.kv_write_prefill(pool_k, page_table, store(k), held)
     cm.kv_write_prefill(pool_v, page_table, store(v), held)
     if use_kernel:
@@ -295,7 +306,7 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
     local = _row_ops(tp)[0]
     store, held = _store(tp)
     positions = local(positions)
-    q, k, v = qkv_proj(cfg, lp, x, positions)
+    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions)
     cm.kv_write_tokens(pool_k, page_ids, offsets, store(k), held)
     cm.kv_write_tokens(pool_v, page_ids, offsets, store(v), held)
     if placed(tp):

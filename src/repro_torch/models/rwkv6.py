@@ -40,11 +40,18 @@ step's ``distributed.tp.StepParallel``): the same blocks, the cache's
 its rows (every channel); the scores are the rank's vocabulary block.
 ``prefill(use_kernel=True, tp=)`` runs the WKV6 kernel over the rank's
 heads.  Where ``model`` does not divide the wkv heads (rwkv6-3b's 40 on
-16 ranks) every rank keeps them all.  Under ``serve_dh`` the time mix is
-replicated (every weight and head on every rank); under ``serve_kv_dp``
-the rank's r/k/v/w columns are gathered over ``model`` and every rank runs
-every head (``u`` and the ``wkv`` state replicated), then takes its
-channels into the gate and the row-parallel ``Wo``.
+16 ranks) every rank keeps them all, and ``u`` is cut on K as the
+reference's specs move ``model`` there, gathered whole before use.  Under
+``serve_dh`` the time mix is replicated (every weight and head on every
+rank, ``u`` cut on K and gathered); under ``serve_kv_dp`` the rank's
+r/k/v/w columns are gathered over ``model`` and every rank runs every head
+(``u`` and the ``wkv`` state replicated), then takes its channels into
+the gate and the row-parallel ``Wo``.  The trainer places its weights by
+the same rules (``distributed.tp.TensorParallel(rules=)``): under
+``serve_dh`` every rank runs the whole time mix and ``u``'s gather keeps
+the rank's block of the gradient; under ``serve_kv_dp`` every rank runs
+every head from a zero state of every head, and ``u``, read for the
+rank's heads, has its gradient summed over ``model``.
 """
 from __future__ import annotations
 
@@ -166,7 +173,12 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
              + copy(torch.tanh(xw.float() @ lp['w_A'].float()))
              @ lp['w_B'].float())
     w = torch.exp(-torch.exp(whole(w_raw))).reshape(b, t, -1, hd)  # (0, 1)
-    u = lp['u'].float()
+    u = lp['u']
+    if every:                       # replicated, read for the rank's heads
+        u = tp.head_share(u)
+    elif tp is not None and tp.u_dim is not None:    # cut on K
+        u = tp.whole(u)
+    u = u.float()
     if t == 1:
         y, wkv_state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
                                  wkv_state)
@@ -230,7 +242,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     h = embed_inputs(cfg, params, tokens, tp=tp)
     zero = {k: s[0] for k, s in init_state(cfg, tokens.shape[0],
                                            device=h.device).items()}
-    if tp is not None and tp.wkv_split:
+    if tp is not None and tp.wkv_split and tp.placement != 'kv_dp':
         hd = cfg.ssm_head_dim
         zero['wkv'] = zero['wkv'][:, tp.wkv[0] // hd:tp.wkv[1] // hd]
     for lp in cm.layer_views(params):

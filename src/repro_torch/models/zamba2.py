@@ -61,6 +61,12 @@ over ``model`` and runs every head's SSD on every rank (the ``ssm`` state
 replicated), then the rank's d_in block into the gated norm and
 ``out_proj``, and replicates the shared block's pools; ``serve_seq``
 splits the pools' pages (the long context's sequence) over ``model``.
+The trainer places its weights by the same rules
+(``distributed.tp.TensorParallel(rules=)``): under ``serve_dh`` every
+rank runs the Mamba2 layers and the shared attention whole; under
+``serve_kv_dp`` every rank runs every head's SSD from a zero state of
+every head, and ``A_log`` / ``dt_bias`` / ``D``, read for the rank's
+heads, have their gradients summed over ``model`` (``tp.head_share``).
 """
 from __future__ import annotations
 
@@ -299,8 +305,10 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
         d_in, nh = d_own, nh_own
     b, c = torch.split(bc, [n, n], dim=-1)
     xs = xs.reshape(bsz, t, nh, hd).float()
-    dt = F.softplus(dt.float() + lp['dt_bias'])                 # (B, T, H)
-    a = torch.exp(-torch.exp(lp['A_log'].float()) * dt)         # (0, 1)
+    # serve_kv_dp: the heads' leaves replicated, read for the rank's heads
+    heads_leaf = tp.head_share if every else (lambda w: w)
+    dt = F.softplus(dt.float() + heads_leaf(lp['dt_bias']))     # (B, T, H)
+    a = torch.exp(-torch.exp(heads_leaf(lp['A_log']).float()) * dt)  # (0, 1)
     xdt = xs * dt[..., None]
     if t == 1:
         y, new_ssm = ssd_step(xdt[:, 0], b[:, 0].float(), c[:, 0].float(),
@@ -308,7 +316,7 @@ def mamba_block(cfg: ModelConfig, lp, h, conv_state, ssm_state, tp=None):
         y = y[:, None]
     else:
         y, new_ssm = ssd_chunked(xdt, b.float(), c.float(), a, ssm_state)
-    y = (y + lp['D'][:, None] * xs).reshape(bsz, t, d_in)        # skip
+    y = (y + heads_leaf(lp['D'])[:, None] * xs).reshape(bsz, t, d_in)  # skip
     if every:
         y = y[..., tp.mamba[0]:tp.mamba[1]]
     y = _gated_norm(cfg, y * F.silu(z.float()), lp['norm'], tp).to(h.dtype)

@@ -41,10 +41,21 @@ reference on the global batch:
 ``loss``, ``lr`` and ``grad_norm`` are then the same on every rank.  The
 int8 compressed all-reduce (``training/compression.py``) is a function of
 its own, which the step does not call, as in the reference.
-``param_specs`` and ``batch_specs`` are the reference's ``TRAIN_RULES``
-specs; the port's placement follows its blocks instead (no sequence
-parallelism: the residuals stay replicated over ``model``, the
-reference's ``TRAIN_NO_SP_RULES``, the same function).
+
+``rules`` (``TRAIN_RULES`` by default) is any rule set of
+``sharding.RULE_VARIANTS``; the plan places the weights as the reference's
+``param_specs(model, mesh, rules)`` do (``distributed.tp.TensorParallel(
+rules=)``): ``serve_dh`` replicates attention's projections (rwkv6's time
+mix, zamba2's Mamba2 layers and shared attention), which every rank then
+runs whole, and cuts the q/k norms (rwkv6's ``u``) on head_dim, gathered
+before use; ``serve_kv_dp`` replicates rwkv6's ``u`` and zamba2's
+``A_log`` / ``dt_bias`` / ``D``; ``serve_seq`` and ``train_no_sp`` place
+the weights as ``TRAIN_RULES`` do.  ``param_specs`` and ``batch_specs``
+are the reference's specs under the rules; the port's placement follows
+its blocks instead where it departs (no sequence parallelism: the
+residuals stay replicated over ``model``, the reference's
+``TRAIN_NO_SP_RULES``, the same function; rwkv6's decay, group norm and
+``Wr_cm``, zamba2's packed leaves: ``distributed/tp.py``).
 """
 from __future__ import annotations
 
@@ -155,7 +166,7 @@ class TrainPlan:
 
     ``param_blocks``: each weight's :class:`Block` (global bounds; a
     packed leaf's last dimension several intervals) under the
-    tensor-parallel plan (``tp``, None where ``model`` is 1);
+    tensor-parallel plan of ``rules`` (``tp``, None where ``model`` is 1);
     :meth:`moment_block`: with ``zero1``, each moment's block -- its
     param's, cut over the data axes along the dimension
     ``optimizer.zero1_dim`` picks (the rule of ``zero1_moment_specs``, on
@@ -165,11 +176,12 @@ class TrainPlan:
     rank's blocks only, and makes no group."""
 
     def __init__(self, model: Model, mesh, *, zero1: bool = True,
-                 coords: Optional[dict] = None):
+                 coords: Optional[dict] = None, rules=None):
         from repro_torch.distributed.tp import TensorParallel
 
         cfg = model.cfg
         check_train_mesh(mesh)
+        check_train_rules(TRAIN_RULES if rules is None else rules)
         self.model, self.mesh = model, mesh
         self.device = mesh.device
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
@@ -177,7 +189,8 @@ class TrainPlan:
         coords = mesh.coords() if coords is None else coords
         self.n_data, self.data_index = batch_coords(mesh, coords)
         n_model = mesh.shape.get(MODEL, 1)
-        self.tp = TensorParallel(cfg, mesh, coords) if n_model > 1 else None
+        self.tp = (TensorParallel(cfg, mesh, coords, rules=rules)
+                   if n_model > 1 else None)
         shapes = dict(tr.leaves_with_paths(model.param_shapes()))
         self.param_blocks, self.zdims = {}, {}
         for path, shape in shapes.items():
@@ -317,17 +330,18 @@ def shard_batch(batch, plan: TrainPlan, microbatches: int = 1):
 
 def make_train_step(model: Model, mesh=None, *,
                     opt_cfg: Optional[opt.AdamWConfig] = None,
-                    microbatches: int = 1, zero1: bool = True):
+                    microbatches: int = 1, zero1: bool = True, rules=None):
     """``step(params, opt_state, batch) -> (params, opt_state, {'lr',
     'grad_norm', 'loss'})``, updating params and moments in place.
 
     Meshless: batch holds tensors on the params' device, split along the
     leading axis into ``microbatches``.  Under ``mesh``: params and
-    opt_state are this rank's blocks (``step.plan``, a :class:`TrainPlan`:
-    ``shard_params``, ``init_opt_state``) and batch its rows of the global
-    batch (:func:`shard_batch`); every rank of the mesh calls the step.
-    The reference's ``rules`` argument has no counterpart: the placement
-    is the plan's."""
+    opt_state are this rank's blocks (``step.plan``, a :class:`TrainPlan`
+    placed by ``rules``, ``TRAIN_RULES`` where None: ``shard_params``,
+    ``init_opt_state``) and batch its rows of the global batch
+    (:func:`shard_batch`); every rank of the mesh calls the step.  A rule
+    set that places the weights as none of ``RULE_VARIANTS`` raises
+    (:func:`check_train_rules`); meshless, ``rules`` places nothing."""
     ocfg = opt_cfg or opt.AdamWConfig()
     if mesh is None:
         def step(params, opt_state, batch):
@@ -337,7 +351,7 @@ def make_train_step(model: Model, mesh=None, *,
             return params, opt_state, dict(metrics, loss=loss)
         return step
 
-    plan = TrainPlan(model, mesh, zero1=zero1)
+    plan = TrainPlan(model, mesh, zero1=zero1, rules=rules)
 
     def mesh_step(params, opt_state, batch):
         loss, grads = mesh_loss_and_grads(model, plan, params, batch,
@@ -386,8 +400,6 @@ def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
 PLACED_AXES = ('batch', 'heads', 'kv_heads', 'head_dim', 'qkv', 'ffn',
                'vocab', 'expert', 'layers', 'pages', 'kv_seq', 'state',
                'embed')
-# the trainer under a serve rule variant's placement
-TRAIN_NOT_PORTED = 'ROADMAP item 11e'
 
 
 def _places_as(rules, *known) -> bool:
@@ -408,22 +420,22 @@ def serve_placement_expressible(rules) -> bool:
 
 
 def train_placement_expressible(rules) -> bool:
-    """Whether the trainer's placement (whole heads, ``d_ff``, the
-    vocabulary and the experts over ``model``, the rows over the data
-    axes) is the one ``rules`` ask for: ``TRAIN_RULES`` and
-    ``TRAIN_NO_SP_RULES`` are; a serve variant's, which replicates the
-    heads or moves the pool, is not (ROADMAP item 11e)."""
-    return _places_as(rules, SERVE_RULES, LONG_SERVE_RULES)
+    """Whether the trainer's plan places what ``rules`` ask for: the rows
+    over the data axes and the weights as a rule set of ``RULE_VARIANTS``
+    does (``TRAIN_RULES`` and ``TRAIN_NO_SP_RULES``, whose 'seq' only lays
+    out the residuals; the three serving variants, whose 'pages' and
+    'kv_seq' name no training tensor)."""
+    return _places_as(rules, TRAIN_RULES, SERVE_KV_DP_RULES,
+                      SERVE_SEQ_RULES, SERVE_DH_CONTRACT_RULES)
 
 
 def check_train_rules(rules) -> None:
-    """Raise NotImplementedError (ROADMAP item 11e) for a rule set whose
-    placement the trainer does not take (:func:`train_placement_
-    expressible`)."""
+    """Raise NotImplementedError for a rule set whose placement the
+    trainer does not take (:func:`train_placement_expressible`)."""
     if not train_placement_expressible(rules):
         raise NotImplementedError(
-            'the trainer under a serve rule variant\'s placement (serve_dh, '
-            f'serve_seq, serve_kv_dp) is {TRAIN_NOT_PORTED}')
+            'a train rule set whose placement is none of RULE_VARIANTS\' '
+            '(default, train_no_sp, serve_seq, serve_kv_dp, serve_dh)')
 
 
 def check_serve_mesh(model: Model, mesh, shape, rules) -> None:

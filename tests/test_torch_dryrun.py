@@ -11,7 +11,9 @@
   decode, train}: meshless, and on a (data 2, model 2) mesh (the
   reference's over 4 of the conftest's virtual devices, an Auto-axis
   ``Mesh``) for every family's train cell and the serve cells of dense,
-  moe, ssm, hybrid and encdec.  The argument bytes under the reference's
+  moe, ssm, hybrid and encdec, and the train cells of dense, ssm and
+  hybrid under ``serve_dh`` and ``serve_kv_dp`` (the reference's
+  ``make_train_step(rules=)``).  The argument bytes under the reference's
   specs (meshless: ``hbm.argument``) equal the compiled program's
   ``argument_size_in_bytes`` exactly.  ``flops_per_device`` is within 10 %
   of ``hlo_analysis.analyze(...).flops`` for prefill and decode and 15 %
@@ -45,10 +47,9 @@
   and train_4k cell on the (16, 16) mesh and one (2, 16, 16) cell:
   ``ok`` (no family is refused on a mesh), and for every ``ok`` train or
   prefill cell ``flops_per_device x chips >= 0.95 model_flops``.  The
-  sweep's default cells hold no ``not-ported`` cell; under the rule
-  variants exactly the train cells of ``serve_dh``, ``serve_seq`` and
-  ``serve_kv_dp`` are ``not-ported/item-11e``; and the CLI prints a record
-  with the reference's keys.  ``hbm.argument`` counts the rank's own
+  sweep's cells, under every rule variant, are counted or skipped by
+  ``cell_supported`` alone; and the CLI prints a record with the
+  reference's keys.  ``hbm.argument`` counts the rank's own
   blocks (``arguments``); where they differ from the reference's specs
   (``reference_arguments``, which the per-cell parity compares) the record
   names the leaves that differ, with both byte counts (``placement``).
@@ -74,10 +75,12 @@ from repro.launch import hlo_analysis as ha
 from repro.launch.dryrun import opt_state_sds
 from repro.models.api import build_model as j_build_model
 from repro.training import train_step as jts
-from repro_torch.configs import SHAPES, get_config, reduced
+from repro_torch.configs import SHAPES, cell_supported, get_config, reduced
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch import op_analysis as oa
+from repro_torch.models import common as cm
+from repro_torch.training import train_step as ts
 
 FAMILIES = {'dense': 'qwen3-0.6b', 'vlm': 'llava-next-mistral-7b',
             'moe': 'phi3.5-moe-42b-a6.6b', 'ssm': 'rwkv6-3b',
@@ -86,11 +89,8 @@ KINDS = ('prefill', 'decode', 'train')
 FLOP_TOL = {'prefill': 0.10, 'decode': 0.10, 'train': 0.15}
 HYBRID_TOL = 0.004             # the block at every layer, on both sides
 MESH = ((2, 2), ('data', 'model'))
-# serving on a mesh: not ported for these families (none: every family
-# serves on a mesh, under every rule variant); the trainer under these
-# variants' placement (ROADMAP item 11e)
-NOT_PORTED_FAMILIES = set()
-NOT_PORTED_VARIANTS = {'serve_dh', 'serve_seq', 'serve_kv_dp'}
+# the reference's serving rule variants, under which every kind counts
+VARIANTS = ('serve_dh', 'serve_kv_dp', 'serve_seq')
 RECORD_KEYS = {'arch', 'shape', 'mesh', 'kind', 'microbatches',
                'rules_variant', 'status', 'chips', 'flops_per_device',
                'bytes_per_device', 'hbm', 'collectives', 'roofline',
@@ -130,15 +130,16 @@ def _reference(family, kind, mesh: bool):
 
 @functools.lru_cache(maxsize=None)
 def _references(mesh: bool):
-    cells = MESH_CELLS if mesh else [(f, k) for f in FAMILIES for k in KINDS]
+    cells = (MESH_CELLS + VARIANT_TRAIN_CELLS if mesh else
+             [(f, k) for f in FAMILIES for k in KINDS])
     pool = ThreadPoolExecutor(COMPILE_THREADS)
-    futures = {(f, k): pool.submit(_compile_reference, f, k, mesh)
-               for f, k in cells}
+    futures = {c: pool.submit(_compile_reference, *c[:2], mesh, *c[2:])
+               for c in cells}
     pool.shutdown(wait=False)
     return futures
 
 
-def _compile_reference(family, kind, mesh: bool):
+def _compile_reference(family, kind, mesh: bool, variant='default'):
     jcfg, _, shape, _ = _cell(family, kind, mesh)
     model = j_build_model(jcfg)
     jmesh = None
@@ -146,7 +147,8 @@ def _compile_reference(family, kind, mesh: bool):
         from jax.sharding import Mesh
         jmesh = Mesh(np.asarray(jax.devices()[:4]).reshape(MESH[0]), MESH[1])
     if kind == 'train':
-        step, _ = jts.make_train_step(model, jmesh)
+        step, _ = jts.make_train_step(model, jmesh,
+                                      rules=J_RULE_VARIANTS[variant])
         if jmesh is not None:
             step = step(shape)
         args = (model.param_shapes(), opt_state_sds(model.param_shapes()),
@@ -331,6 +333,9 @@ def test_meshless_cell_matches_the_reference(family, kind):
 MESH_CELLS = [(f, 'train') for f in FAMILIES] + [
     (f, k) for f in ('dense', 'moe', 'ssm', 'hybrid', 'encdec')
     for k in ('prefill', 'decode')]
+# the trainer under two serving variants' placement
+VARIANT_TRAIN_CELLS = [(f, 'train', v) for f in ('dense', 'ssm', 'hybrid')
+                       for v in ('serve_dh', 'serve_kv_dp')]
 
 
 @pytest.mark.parametrize('family,kind', MESH_CELLS)
@@ -345,6 +350,29 @@ def test_mesh_cell_matches_the_reference(family, kind):
     assert ('placement' in rec) == (kind == 'train' or family == 'ssm')
     assert rec['chips'] == 4 and rec['collectives']['n_collectives'] > 0
     _check_flops(family, kind, True, rec)
+
+
+@pytest.mark.parametrize('family,kind,variant', VARIANT_TRAIN_CELLS)
+def test_variant_train_cell_matches_the_reference(family, kind, variant):
+    """A train cell under ``serve_dh`` or ``serve_kv_dp`` on (2, 2): its
+    argument bytes under the reference's specs of those rules equal the
+    reference's compiled ``make_train_step(rules=)``'s, and the rank's own
+    blocks hold those specs' bytes (the rules split no sequence) but for
+    rwkv6's default departures under serve_kv_dp (its decay and group norm
+    split by heads, ``Wr_cm`` replicated; zamba2's packed leaves hold as
+    many bytes as the specs' blocks; serve_dh has no departure)."""
+    _, tcfg, _, shape = _cell(family, kind, True)
+    rec = dryrun.cell_record(tcfg, shape, MESH, rules_variant=variant)
+    assert rec['status'] == 'ok', rec
+    if len(jax.devices()) < 4:
+        pytest.skip(f'need 4 virtual devices, have {len(jax.devices())}')
+    assert sum(rec['reference_arguments'].values()) == \
+        _references(True)[family, kind, variant].result()[0]
+    _check_arguments(rec)
+    assert ('placement' in rec) == (variant == 'serve_kv_dp'
+                                    and family == 'ssm'), rec.get(
+                                        'placement')
+    assert rec['chips'] == 4 and rec['collectives']['n_collectives'] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +391,6 @@ def _check_arguments(rec):
 
 def _production_check(rec, family):
     assert set(rec) >= {'arch', 'shape', 'mesh', 'status'}, rec
-    if rec['kind'] != 'train' and family in NOT_PORTED_FAMILIES:
-        assert rec['status'] == dryrun.NOT_PORTED, rec
-        return
     assert rec['status'] == 'ok', rec
     assert set(rec) >= RECORD_KEYS and set(rec['hbm']) == HBM_KEYS, rec
     hbm = rec['hbm']
@@ -420,12 +445,14 @@ def test_argument_bytes_are_the_rank_s_own_blocks():
     assert rec['hbm']['argument'] > 6 * reference
     # the record names the leaves whose blocks differ, with both counts:
     # the wkv state (40 heads whole against a 16th of a state dimension)
-    # and the weights cut by those heads
+    # and the weights cut by those heads; ``u`` is cut on K as the
+    # reference's specs cut it
     diff = rec['placement']
     wkv = diff['cache']['wkv']
     assert wkv['port'] == 16 * wkv['reference']
     assert set(diff) == {'params', 'cache'}
-    assert {'layers/Wr', 'layers/Wo', 'layers/u'} <= set(diff['params'])
+    assert {'layers/Wr', 'layers/Wo'} <= set(diff['params'])
+    assert 'layers/u' not in diff['params']
     for group, leaves in diff.items():
         assert sum(d['port'] - d['reference'] for d in leaves.values()) == \
             rec['arguments'][group] - rec['reference_arguments'][group]
@@ -440,51 +467,36 @@ def test_multi_pod_cell():
 
 
 def test_not_ported_cells_are_the_listed_set():
-    """Over the sweep's cells (the default rules), no cell is
-    ``not-ported``: every family serves on a mesh, long_500k too.  Under
-    the rule variants, ``not-ported/item-11e`` is exactly the train cells
-    of ``serve_dh``, ``serve_seq`` and ``serve_kv_dp``, each naming item
-    11e: every serve cell counts under every variant."""
-    got, skipped, variants = set(), set(), set()
+    """Over the sweep's cells, under the default rules and under every
+    rule variant, no cell is refused but by ``cell_supported``'s skip:
+    every family serves and trains on a mesh, long_500k too, under every
+    placement of ``RULE_VARIANTS``."""
     for arch, shape, mk in dryrun.all_cells():
         cfg, shp = get_config(arch), SHAPES[shape]
+        ok, why = cell_supported(cfg, shp)
+        want = None if ok else {'status': why}
         for variant in J_RULE_VARIANTS:
-            status = dryrun.refusal(cfg, shp, dryrun.layout_of(mk), variant)
-            if status is not None and status['status'] == dryrun.NOT_PORTED:
-                assert 'item 11e' in status['reason'], status
-                assert shp.kind == 'train', (arch, shape, variant)
-                variants.add(variant)
-        status = dryrun.refusal(cfg, shp, dryrun.layout_of(mk))
-        if status is None:
-            continue
-        if status['status'] == dryrun.NOT_PORTED:
-            got.add((arch, shape, mk))
-        else:
-            skipped.add((arch, shape))
-    want = {(arch, shape, mk) for arch, shape, mk in dryrun.all_cells()
-            if (arch, shape) not in skipped and SHAPES[shape].kind != 'train'
-            and get_config(arch).family in NOT_PORTED_FAMILIES}
-    assert got == want == set()
-    assert variants == NOT_PORTED_VARIANTS
+            assert dryrun.refusal(cfg, shp, dryrun.layout_of(mk),
+                                  variant) == want, (arch, shape, variant)
+        assert dryrun.refusal(cfg, shp, dryrun.layout_of(mk)) == want
     assert dryrun.ARCHS == tuple(J_ARCHS)
     assert set(SHAPES) == set(J_SHAPES)
 
 
 @pytest.mark.parametrize('variant', sorted(J_RULE_VARIANTS))
 def test_rule_variants_the_port_refuses(variant):
-    """A serve rule variant's train cell is refused on a mesh (the trainer
-    does not take its placement: item 11e); its prefill and decode cells
-    count, and so does every kind of the other variants."""
-    refused = NOT_PORTED_VARIANTS
+    """None: every kind counts on a mesh under every rule variant (the
+    trainer and the serve step place the weights by each), and a rule set
+    whose placement is none of them raises."""
     cfg = reduced(get_config('qwen3-0.6b'))
     for kind in KINDS:
-        status = dryrun.refusal(cfg, ShapeConfig('c', 64, 4, kind), MESH,
-                                variant)
-        assert (status is not None) == (variant in refused
-                                        and kind == 'train'), (kind, status)
-        if status is not None:
-            assert status['status'] == dryrun.NOT_PORTED
-            assert 'item 11e' in status['reason']
+        shape = ShapeConfig('c', 64, 4, kind)
+        assert dryrun.refusal(cfg, shape, MESH, variant) is None, kind
+    odd = dict(J_RULE_VARIANTS[variant] or {}, embed='model')
+    with pytest.raises(NotImplementedError):
+        ts.check_train_rules(odd)
+    with pytest.raises(NotImplementedError):
+        ts.check_serve_mesh(None, None, None, odd)
 
 
 VARIANT_CACHE_GB = {    # the reference's cache bytes a rank, decode_32k
@@ -496,15 +508,17 @@ VARIANT_CACHE_GB = {    # the reference's cache bytes a rank, decode_32k
                             'serve_dh': 0.202}}
 
 
-@pytest.mark.parametrize('variant', sorted(NOT_PORTED_VARIANTS))
+@pytest.mark.parametrize('variant', VARIANTS)
 @pytest.mark.parametrize('arch', list(VARIANT_CACHE_GB))
 def test_rule_variant_cells(arch, variant, capsys):
     """``--rules serve_*`` on (16, 16): an ``ok`` record whose rank holds
     the reference's cache blocks; params differ only in the leaves that
-    ``placement`` names (q/k norms whole under serve_dh, the replicated
-    kv-head and seamless's vocabulary as by default).  serve_dh moves no
+    ``placement`` names (the replicated kv-head and seamless's vocabulary
+    as by default; under serve_dh the q/k norms are the reference's
+    head_dim blocks, so qwen3's params do not differ).  serve_dh moves no
     K/V block: its all-gathers are P V's head_dim blocks, B_r x H x Dh
-    a layer; serve_kv_dp holds the pool whole."""
+    a layer, and the q/k norms' blocks gathered whole, 2 x Dh a layer;
+    serve_kv_dp holds the pool whole."""
     dryrun.main(['--arch', arch, '--shape', 'decode_32k', '--mesh',
                  'single', '--rules', variant])
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -518,9 +532,9 @@ def test_rule_variant_cells(arch, variant, capsys):
         cfg = get_config(arch)
         rows = SHAPES['decode_32k'].global_batch // 16
         out = rows * cfg.n_heads * cfg.hd * 4 * cfg.n_layers
-        assert kinds['all-gather'] == out, kinds
-        assert set(rec['placement']['params']) == {'layers/q_norm',
-                                                    'layers/k_norm'}
+        norms = 2 * cfg.hd * cm.DEFAULT_DTYPE.itemsize * cfg.n_layers
+        assert kinds['all-gather'] == out + norms, kinds
+        assert 'params' not in rec.get('placement', {}), rec['placement']
 
 
 def test_cli_prints_a_record(capsys):
@@ -532,7 +546,7 @@ def test_cli_prints_a_record(capsys):
 
 def test_sweep_writes_a_line_a_cell(tmp_path, monkeypatch):
     """``--sweep`` writes one JSON line a cell (here the not-counted cells
-    of a one-architecture sweep, each a skip or not-ported status) and on
+    of a one-architecture sweep, each a skip status) and on
     a rerun skips the cells already written."""
     monkeypatch.setattr(dryrun, 'ARCHS', ('rwkv6-3b',))
     monkeypatch.setattr(dryrun, 'run_cell', lambda arch, shape, mk: dict(

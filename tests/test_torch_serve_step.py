@@ -53,8 +53,7 @@ N_DECODE = 4
 FAMILIES = {'dense': 'qwen3-0.6b', 'vlm': 'llava-next-mistral-7b',
             'moe': 'phi3.5-moe-42b-a6.6b', 'ssm': 'rwkv6-3b',
             'hybrid': 'zamba2-2.7b', 'encdec': 'seamless-m4t-medium'}
-# what make_serve_step refuses on a mesh: nothing (the variants' trainer
-# is ROADMAP item 11e, the dry-run's train cells)
+# what make_serve_step refuses on a mesh: nothing
 REFUSED_FAMILIES = ()
 REFUSED_VARIANTS = ()
 AXES = ('data', 'model')
