@@ -243,7 +243,24 @@ Phases, each fatal on failure:
     write) failing the f32 gate (b); (c) rank 0 of qwen3-0.6b x decode_32k
     on the (16, 16) layout under each variant, counted and measured on the
     card (serve_kv_dp holds the 30.3 GB replicated pool); 0 launches;
-23. one JSON line of per-kernel results, then the result line.
+23. training under the rule variants (``make_train_step(rules=)``), two
+    ranks sharing the card at (data 1, model 2): qwen3-0.6b (**2 of 28
+    layers**) under ``serve_dh``, ``serve_kv_dp`` and ``serve_seq``, phase
+    19's families at its depths under the first two; phase 19's f32 gates
+    against the meshless step, every leaf a rank holds whole bit-equal on
+    both ranks, one planted fault a variant past the gradient gate; two
+    bf16 steps timed; 0 launches;
+24. the reference's head_dim placement where ``model`` does not divide the
+    attention heads: qwen3-14b (**2 of 40 layers**) at published widths on
+    (data 1, model 16), 16 gloo ranks sharing the card, each holding 4 of
+    the 64 RoPE pairs of every head in the projections, ``wo`` and the
+    pool: the serve step's prefill of B=4 x 64 and 4 decode steps against
+    the meshless step, f32 within 1e-4 of |max| with argmax equal, a
+    planted fault (one rank's partial scores not summed) past that gate,
+    bf16 under phase 21's rule; each rank's cache bytes the dry-run's
+    count of the reference's block; one f32 training step (B=2, S=64)
+    under phase 19's gates; 0 launches;
+25. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -3941,6 +3958,51 @@ def need_launches(counts: dict, what: str) -> None:
     assert all(counts[k] > 0 for k in DECODE_KERNELS[:3]), (what, counts)
 
 
+# Phases 16-23 run their one- and two-rank functions on ranks started once
+# (launch.ranks.RankPool): ranks started for a phase of their own cost it
+# 10-30 s on the H100 machine (each process imports torch, opens a CUDA
+# context and makes its first calls), 27 s of phase 21's 38.8 s.  Phase
+# 24's sixteen ranks start while phase 23 runs; phase 18's four start for
+# it alone.
+POOLED = (1, 2)
+_POOLS: dict = {}
+
+
+def start_ranks(n: int, timeout_s: float) -> None:
+    """Start ``n`` pooled ranks sharing the card (gloo; one rank: NCCL) now,
+    unless they run: their start overlaps whatever runs before their first
+    use.  ``timeout_s`` bounds their group's collectives."""
+    from repro_torch.launch.ranks import RankPool
+
+    if n not in _POOLS:
+        _POOLS[n] = RankPool(n, store_dir=ROOT / 'build' / 'mesh_store',
+                             device_type=torch.device(DEV).type,
+                             timeout_s=timeout_s)
+
+
+def on_ranks(fn, n: int, args, timeout_s: float) -> list:
+    """``[fn(0, *args), ..., fn(n - 1, *args)]`` on ``n`` ranks sharing the
+    card, within ``timeout_s``: pooled ranks (:data:`POOLED` sizes start at
+    their first use), else ranks started for this call."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if n in POOLED:
+        # the group's collectives wait as long as the longest phase may
+        start_ranks(n, MESH_TIMEOUT_S + MESH_TRAIN_TIMEOUT_S)
+    if n not in _POOLS:
+        return run_ranks(fn, n, store_dir=ROOT / 'build' / 'mesh_store',
+                         device_type=torch.device(DEV).type, args=args,
+                         timeout_s=timeout_s)
+    return _POOLS[n].run(fn, args, timeout_s=timeout_s)
+
+
+def close_pools(sizes=None) -> None:
+    """End the pooled ranks of ``sizes`` (all where None): each exits."""
+    for n in list(_POOLS) if sizes is None else sizes:
+        if n in _POOLS:
+            _POOLS.pop(n).close()
+
+
 def mesh_check(card: str):
     """Phase 16: (a) one rank over NCCL, bit-equal to the meshless drain;
     (b) two ranks sharing the card, f32 within :data:`MESH_TOL` with equal
@@ -3950,24 +4012,21 @@ def mesh_check(card: str):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
     full = get_config(MESH_ARCH)
     cfg = dataclasses.replace(full, n_layers=MESH_BF16_LAYERS)
     cut = dataclasses.replace(full, n_layers=MESH_F32_LAYERS)
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
-    one = run_ranks(mesh_rank_one, 1, store_dir=store, device_type=kind,
-                    args=(cfg, DEV), timeout_s=MESH_TIMEOUT_S)[0]
+    kind = torch.device(DEV).type
+    one = on_ranks(mesh_rank_one, 1, (cfg, DEV), MESH_TIMEOUT_S)[0]
     print(f'  (a) mesh of 1 ({one["backend"]}): {one["n_tokens"]} tokens, '
           f'{one["n_scores"]} score blocks, tokens equal to the meshless '
           f'drain: {one["tokens_equal"]}, scores bit-equal: '
           f'{one["scores_equal"]}; shared_page_reads_saved {one["saved"]}, '
           f'launches {one["launches"]}  [{card}]')
-    lead, worker = run_ranks(mesh_rank_two, 2, store_dir=store,
-                             device_type=kind, args=(cfg, cut, DEV, card),
-                             timeout_s=MESH_TIMEOUT_S)
+    lead, worker = on_ranks(mesh_rank_two, 2, (cfg, cut, DEV, card),
+                            MESH_TIMEOUT_S)
     f32, bf16, burst = lead['f32'], lead['bf16'], lead['burst']
     # rank 1's launches for the bf16 drain's engine alone (from 0 at its open)
     rank1 = worker['launches'][bf16['engine']]
@@ -4411,7 +4470,6 @@ def mesh_train_check(card: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.common import LAUNCHES
-    from repro_torch.launch.ranks import run_ranks
     from repro_torch.training.fault_tolerance import (
         HeartbeatConfig, HeartbeatMonitor, plan_recovery)
 
@@ -4419,7 +4477,6 @@ def mesh_train_check(card: str) -> dict:
     torch.cuda.empty_cache()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     full = get_config(TRAIN_ARCH)
     cut = dataclasses.replace(full, n_layers=MT_LAYERS)
 
@@ -4427,9 +4484,8 @@ def mesh_train_check(card: str) -> dict:
     scratch = Path(tempfile.mkdtemp(prefix='mesh_train_', dir=ROOT / 'build'))
     try:
         t0 = time.perf_counter()
-        ranks = run_ranks(mesh_train_rank, 2, store_dir=store,
-                          device_type=kind, args=(cut, str(scratch), DEV),
-                          timeout_s=MESH_TRAIN_TIMEOUT_S)
+        ranks = on_ranks(mesh_train_rank, 2, (cut, str(scratch), DEV),
+                         MESH_TRAIN_TIMEOUT_S)
         wall = time.perf_counter() - t0
         mon = HeartbeatMonitor(['h0', 'h1'], HeartbeatConfig(
             interval_s=1.0, miss_threshold=2))
@@ -4442,9 +4498,8 @@ def mesh_train_check(card: str) -> dict:
                              now=10.0)
         assert plan is not None and plan.new_shape == (1, 1), plan
         t1 = time.perf_counter()
-        c = run_ranks(restart_rank, 1, store_dir=store, device_type=kind,
-                      args=(plan.new_shape, str(scratch), DEV),
-                      timeout_s=MESH_TRAIN_TIMEOUT_S)[0]
+        c = on_ranks(restart_rank, 1, (plan.new_shape, str(scratch), DEV),
+                     MESH_TRAIN_TIMEOUT_S)[0]
         restart_s = time.perf_counter() - t1
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
@@ -4990,11 +5045,9 @@ def dp_ep_check(card: str):
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     full = get_config(MESH_ARCH)
     cfg = dataclasses.replace(full, n_layers=MESH_BF16_LAYERS)
     cut = dataclasses.replace(full, n_layers=MESH_F32_LAYERS)
@@ -5007,10 +5060,8 @@ def dp_ep_check(card: str):
 
     for shape in DP_SHAPES:
         t0 = time.perf_counter()
-        ranks = run_ranks(dp_rank, int(np.prod(shape)), store_dir=store,
-                          device_type=kind,
-                          args=(shape, cfg, cut, DEV, card),
-                          timeout_s=MESH_TIMEOUT_S)
+        ranks = on_ranks(dp_rank, int(np.prod(shape)),
+                         (shape, cfg, cut, DEV, card), MESH_TIMEOUT_S)
         lead, f32, bf16 = ranks[0], ranks[0]['f32'], ranks[0]['bf16']
         others = [r['launches'][bf16['engine']] for r in ranks[1:]]
         print(f'  (a) {MESH_ARCH} on (data, model) = {shape} '
@@ -5056,10 +5107,9 @@ def dp_ep_check(card: str):
     moe_cut = dataclasses.replace(moe, n_layers=EP_F32_LAYERS)
     moe_cfg = dataclasses.replace(moe, n_layers=EP_LAYERS)
     t_cut = dataclasses.replace(moe, n_layers=EP_TRAIN_LAYERS)
-    both = run_ranks(ep_serve_train_rank, 2, store_dir=store,
-                     device_type=kind,
-                     args=(moe_cut, moe_cfg, t_cut, DEV, card),
-                     timeout_s=MESH_TIMEOUT_S + MESH_TRAIN_TIMEOUT_S)
+    both = on_ranks(ep_serve_train_rank, 2,
+                    (moe_cut, moe_cfg, t_cut, DEV, card),
+                    MESH_TIMEOUT_S + MESH_TRAIN_TIMEOUT_S)
     lead, worker = (r['serve'] for r in both)
     f32, bf16 = lead['f32'], lead['bf16']
     rank1 = worker['launches'][bf16['engine']]
@@ -5274,17 +5324,14 @@ def family_mesh_check(card: str) -> dict:
     printed before any gate is asserted.  Returns the phase's hand-written
     kernel launches (every rank's)."""
     from repro_torch.kernels.common import LAUNCHES
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     cuts = [(arch, family_cut(arch, layers)) for arch, layers in FM_FAMILIES]
     t0 = time.perf_counter()
-    ranks = run_ranks(family_rank, 2, store_dir=store, device_type=kind,
-                      args=(cuts, DEV), timeout_s=MESH_TRAIN_TIMEOUT_S)
+    ranks = on_ranks(family_rank, 2, (cuts, DEV), MESH_TRAIN_TIMEOUT_S)
     print(f'  two ranks on the card ({ranks[0]["backend"]}): '
           f'{time.perf_counter() - t0:.1f} s  [{card}]')
     failed = []
@@ -5917,18 +5964,14 @@ def family_serve_check(card: str) -> dict:
     the phase's launches: K6's from (b), none of K1-K5."""
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.launch.dryrun import run_cell
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     cuts = [(arch, family_cut(arch, layers)) for arch, layers in FM_FAMILIES]
     t0 = time.perf_counter()
-    ranks = run_ranks(family_serve_rank, 2, store_dir=store,
-                      device_type=kind, args=(cuts, DEV),
-                      timeout_s=FS_TIMEOUT_S)
+    ranks = on_ranks(family_serve_rank, 2, (cuts, DEV), FS_TIMEOUT_S)
     print(f'  two ranks on the card ({ranks[0]["backend"]}): '
           f'{time.perf_counter() - t0:.1f} s  [{card}]')
     failed = []
@@ -6291,18 +6334,14 @@ def variant_serve_check(card: str) -> dict:
     phase's launches (none: no kernel lies on this path)."""
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.launch.dryrun import run_cell
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     cuts = [(arch, family_cut(arch, layers)) for arch, layers in VS_FAMILIES]
     t0 = time.perf_counter()
-    ranks = run_ranks(variant_serve_rank, 2, store_dir=store,
-                      device_type=kind, args=(cuts, DEV),
-                      timeout_s=FS_TIMEOUT_S)
+    ranks = on_ranks(variant_serve_rank, 2, (cuts, DEV), FS_TIMEOUT_S)
     print(f'  (a) two ranks on the card: {time.perf_counter() - t0:.1f} s  '
           f'[{card}]')
     failed = []
@@ -6571,20 +6610,16 @@ def variant_train_check(card: str) -> dict:
     memory a rank: recorded, not gated.  Every config is printed before
     any gate is asserted.  Returns the phase's launches (every rank's)."""
     from repro_torch.kernels.common import LAUNCHES
-    from repro_torch.launch.ranks import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    store, kind = ROOT / 'build' / 'mesh_store', torch.device(DEV).type
     runs = [(arch, family_cut(arch, layers), variants,
              tuple(v for v, (a, _) in VT_FAULTS.items() if a == arch))
             for arch, layers, variants in VT_RUNS]
     t0 = time.perf_counter()
-    ranks = run_ranks(variant_train_rank, 2, store_dir=store,
-                      device_type=kind, args=(runs, DEV),
-                      timeout_s=VT_TIMEOUT_S)
+    ranks = on_ranks(variant_train_rank, 2, (runs, DEV), VT_TIMEOUT_S)
     print(f'  two ranks on the card ({ranks[0]["backend"]}): '
           f'{time.perf_counter() - t0:.1f} s  [{card}]')
     failed = []
@@ -6658,6 +6693,388 @@ def variant_train_check(card: str) -> dict:
                   f'gate; must be past it)  [{card}]')
             gate(g_ratio > 1.0, (arch, variant, 'fault passed', g_ratio))
         print(f'  {arch}: {a[0]["seconds"]:.1f} s')
+    launches = dict(LAUNCHES)
+    for r in ranks:
+        for k, v in r['launches'].items():
+            launches[k] += v
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    assert not failed, failed
+    assert not any(launches.values()), launches
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the reference's head_dim placement where model does not divide
+# the attention heads
+# ---------------------------------------------------------------------------
+
+HD_ARCH, HD_LAYERS = 'qwen3-14b', 2    # published widths, 2 of 40 layers
+HD_SHAPE = (1, 16)                 # (data, model): 16 gloo ranks sharing the
+                                   # card; 16 divides neither the 40 q-heads
+                                   # nor the 8 kv-heads
+HD_B, HD_S, HD_DECODE = 4, 64, 4   # serve: rows, prompt, decode steps
+HD_TRAIN_B, HD_TRAIN_S = 2, 64     # train: one f32 step
+HD_DRAW = 4                        # ranks drawing the full weights at once
+HD_TIMEOUT_S = 420                 # bounds the phase's spawned ranks
+HD_FAULT = 'model rank 1\'s partial scores not summed over model'
+
+
+def plant_head_dim_fault(rank: int) -> callable:
+    """:data:`HD_FAULT` in this rank's serve step: rank 1 takes part in
+    the all-reduce of the partial scores (the ranks' collectives still
+    match) and goes on with its own; -> a function that takes it out."""
+    from repro_torch.distributed.tp import StepParallel
+
+    saved = StepParallel.score_sum
+    if rank == 1:
+        def unsummed(self, scores):
+            saved(self, scores.clone())
+            return scores
+        StepParallel.score_sum = unsummed
+
+    def restore():
+        StepParallel.score_sum = saved
+    return restore
+
+
+def scatter_from_lead(parts, like: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``parts`` (host tensors, one a rank in rank order; None on
+    the other ranks) -> this rank's, shaped and placed like ``like``."""
+    buf = torch.empty(like.shape, dtype=like.dtype)
+    torch.distributed.scatter(
+        buf, None if parts is None else [p.contiguous() for p in parts],
+        src=0)
+    return buf.to(like.device)
+
+
+def head_dim_rank(rank: int, cfg, dev: str) -> dict:
+    """Phase 24 on one of the HD_SHAPE ranks sharing the card: the full
+    weights drawn on the card HD_DRAW ranks at a time, each rank's blocks
+    cut (rank 0 draws them again for the meshless references); the serve
+    step (``make_serve_step``, the default rules) in f32, under the
+    planted fault (the prefill and one decode step) and in bf16, every
+    rank's scores gathered; one training step in f32, rank 0's meshless
+    blocks of each gradient and update leaf scattered to the ranks, each
+    comparing its own on the card.  Rank 0 returns the score gates'
+    numbers; every rank its errors, times, peak memory, cache bytes
+    (against the dry-run's count of the reference's block) and kernel
+    launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import SERVE_RULES
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree as tr
+    from repro_torch.training.train_step import (
+        TrainPlan, loss_and_grads, make_serve_step, make_train_step,
+        mesh_loss_and_grads, shard_batch)
+
+    entered = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    dist, lead = torch.distributed, rank == 0
+    # each part's seconds on this rank (host clock, synchronized)
+    spent, mark = {}, [time.perf_counter()]
+
+    def lap(what):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        spent[what] = spent.get(what, 0.0) + now - mark[0]
+        mark[0] = now
+
+    mesh = make_mesh(HD_SHAPE, MESH_AXES, device=dev)
+    model = build_model(cfg)
+    shapes = (ShapeConfig('prefill', HD_S, HD_B, 'prefill'),
+              ShapeConfig('decode', HD_S, HD_B, 'decode'))
+    steps = [make_serve_step(model, mesh, s)[0] for s in shapes]
+    plan = steps[0].plan
+    tplan = make_train_step(model, mesh).plan
+    out = {'pair_cut': (plan.pair_cut, tplan.tp.pair_cut)}
+    lap('plans')
+    t0 = time.perf_counter()
+    shapes_of = model.param_shapes()
+    for turn in range(-(-mesh.size // HD_DRAW)):
+        if rank // HD_DRAW == turn:
+            # the blocks staged on the host until the whole weights are
+            # freed: blocks allocated beside the draw would pin its
+            # segments in this rank's allocator, 16 ranks over
+            drawn = dict(tr.leaves_with_paths(model.init_params(0,
+                                                                device=dev)))
+            cut = [(plan.shard(k, drawn[k].detach()).cpu(),
+                    tplan.param_blocks[k].take(drawn[k].detach()).cpu())
+                   for k, _ in tr.leaves_with_paths(shapes_of)]
+            del drawn
+            torch.cuda.empty_cache()
+            served = tr.unflatten(shapes_of, [c[0].to(dev) for c in cut])
+            trained = f32_params(tr.unflatten(shapes_of,
+                                              [c[1] for c in cut]), dev)
+            del cut
+        dist.barrier()
+    out['draw_s'] = time.perf_counter() - t0
+    # rank 0's whole weights for the meshless references
+    drawn = model.init_params(0, device=dev) if lead else None
+    lap('draw')
+
+    # -- the serve step ----------------------------------------------------
+    host_pre, host_steps = serve_batches(cfg, HD_B, HD_S, HD_DECODE, 24)
+    dtypes = {'f32': torch.float32, 'bf16': torch.bfloat16}
+
+    def batches(dtype):
+        return [on_device(host_pre, dtype)] + [on_device(b)
+                                               for b in host_steps]
+
+    meshless = {}
+    if lead:
+        whole = [make_serve_step(model, None, s)[0] for s in shapes]
+        for name, dtype in dtypes.items():
+            params = f32_params(drawn, dev) if name == 'f32' else drawn
+            cache = model.init_cache(shapes[0], device=dev, dtype=dtype)
+            meshless[name], meshless[name + '_s'] = timed_calls(
+                [(whole[min(i, 1)], params, cache, b)
+                 for i, b in enumerate(batches(dtype))])
+            del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap('meshless serve')
+    dist.barrier()
+    lap('wait')
+    reference_cache = dryrun.argument_bytes(
+        model, shapes[0], describe(HD_SHAPE, MESH_AXES), SERVE_RULES,
+        coords=mesh.coords())['cache']
+    lap('count')
+    for name, fault in (('f32', False), ('fault', True), ('bf16', False)):
+        dtype = dtypes['bf16' if name == 'bf16' else 'f32']
+        blocks = served if dtype == torch.bfloat16 else f32_params(served,
+                                                                   dev)
+        cache = plan.shard_cache(model.init_cache(shapes[0], device=dev,
+                                                  dtype=dtype))
+        restore = plant_head_dim_fault(rank) if fault else (lambda: None)
+        torch.cuda.reset_peak_memory_stats()
+        # the fault shows from the first decode step: prefill + 1 step
+        calls = batches(dtype)[:2 if fault else None]
+        try:
+            got, secs = timed_calls(
+                [(steps[min(i, 1)], blocks, cache, plan.shard_batch(b))
+                 for i, b in enumerate(calls)])
+        finally:
+            restore()
+        res = {'mesh_s': secs, 'peak': torch.cuda.max_memory_allocated(),
+               'cache_bytes': sum(t.numel() * t.element_size()
+                                  for t in cache.values()),
+               'cache_shape': tuple(cache['k'].shape)}
+        got = [full_scores(plan, g) for g in got]
+        if lead:
+            res.update(score_gaps(got, meshless['f32']))
+            if name == 'bf16':
+                exact = meshless['f32']
+                res['rows'] = {'mesh': row_errors(got, exact),
+                               'meshless': row_errors(meshless['bf16'],
+                                                      exact)}
+                noise = 2 * max(res['rows']['meshless'])
+                res['flips'] = {'mesh': flips(got, exact, noise),
+                                'rtol': noise}
+        out[name] = res
+        del blocks, cache, got
+        lap(f'{name} serve')
+    out['reference_cache'] = reference_cache
+    out['meshless_s'] = (meshless.get('f32_s'), meshless.get('bf16_s'))
+    del served, meshless
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one training step -------------------------------------------------
+    host = masked_batch(cfg, HD_TRAIN_B, HD_TRAIN_S)
+    ocfg = opt.AdamWConfig()
+    want = {}
+    if lead:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        params = f32_params(drawn, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, params, batch)
+        params, state, m = opt.adamw_update(ocfg, params, grads,
+                                            opt.init_opt_state(params))
+        torch.cuda.synchronize()
+        want['s'] = time.perf_counter() - t0
+        want['loss'], want['grad_norm'] = float(loss), float(m['grad_norm'])
+        want['grads'] = {k: g.cpu() for k, g in tr.leaves_with_paths(grads)}
+        want['delta'] = {k: (p.detach() - drawn_leaf.float()).cpu()
+                         for (k, p), (_, drawn_leaf) in zip(
+                             tr.leaves_with_paths(params),
+                             tr.leaves_with_paths(drawn))}
+        del batch, params, state, grads, m, drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+    lap('meshless train')
+    dist.barrier()
+    lap('wait')
+    rows = shard_batch(host, tplan)
+    before = {k: v.detach().clone() for k, v in tr.leaves_with_paths(trained)}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = mesh_loss_and_grads(model, tplan, trained, rows)
+    lap('train forward, backward')
+    grad_blocks = dict(tr.leaves_with_paths(grads))
+    trained, _, m = opt.adamw_update(ocfg, trained, grads,
+                                     tplan.init_opt_state(), plan=tplan)
+    torch.cuda.synchronize()
+    lap('train update')
+    out['train'] = {'s': time.perf_counter() - t0, 'loss': float(loss),
+                    'grad_norm': float(m['grad_norm']),
+                    'peak': torch.cuda.max_memory_allocated()}
+    t0 = time.perf_counter()
+    plans = ([TrainPlan(model, mesh, coords=mesh.coords(r))
+              for r in range(mesh.size)] if lead else None)
+    errors = {'grads': {}, 'update': {}}
+    for k, p in tr.leaves_with_paths(trained):
+        for what, local in (('grads', grad_blocks[k].detach()),
+                            ('update', p.detach() - before[k])):
+            full = want['grads' if what == 'grads' else 'delta'][k] \
+                if lead else None
+            mine = scatter_from_lead(
+                [b.param_blocks[k].take(full) for b in plans]
+                if lead else None, local)
+            if what == 'grads':
+                top = mine.abs().max()
+                # the leaf's max: the largest of its blocks' maxima
+                dist.all_reduce(top, op=dist.ReduceOp.MAX)
+                err = float((local - mine).abs().max() / top)
+                errors[what][k] = math.inf if math.isnan(err) else err
+            else:
+                miss = torch.linalg.vector_norm(local - mine)
+                norm = torch.linalg.vector_norm(mine)
+                errors[what][k] = float(miss / norm) if norm > 0 else (
+                    0.0 if miss == 0 else math.inf)
+    out['compare_s'] = time.perf_counter() - t0
+    lap('compare')
+    out['train']['errors'] = errors
+    if lead:
+        out['train'].update(meshless_s=want['s'],
+                            meshless_loss=want['loss'],
+                            meshless_grad_norm=want['grad_norm'])
+    out['launches'] = dict(LAUNCHES)
+    out['spent'], out['entered'], out['left'] = spent, entered, time.time()
+    return out
+
+
+def head_dim_check(card: str) -> dict:
+    """Phase 24: qwen3-14b at published widths (d 5120, 40 q-heads, 8
+    kv-heads, head_dim 128), HD_LAYERS of 40 layers, on (data 1, model 16)
+    by 16 gloo ranks sharing the card: the reference's head_dim placement
+    (``tp.TensorParallel``, ``pair_cut``: every rank 4 of the 64 RoPE
+    pairs of every head in ``wq``/``wk``/``wv``/``wo`` and the pool).
+    (a) f32: the serve step's prefill of HD_B x HD_S and HD_DECODE decode
+    steps against the meshless step on the card, within FS_TOL of |max|
+    with argmax equal; :data:`HD_FAULT` past that gate; (b) bf16 under
+    phase 21's rule (the median row's error against the meshless f32 step
+    within FS_BF16_RATIO x the meshless bf16 step's, no argmax off but a
+    near tie), each rank's call times and peak memory recorded; (c) each
+    rank's cache bytes equal to the dry-run's count of its block under the
+    reference's specs (``dryrun.argument_bytes``); (d) one f32 training
+    step against the meshless step on the card: loss within MT_TOL
+    relative, every gradient leaf within MT_TOL of its max, every block's
+    update within FM_UPDATE_TOL of the meshless update's norm; 0 kernel
+    launches.  Returns the phase's launches (every rank's)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    cfg = family_cut(HD_ARCH, HD_LAYERS)
+    t0, started = time.perf_counter(), time.time()
+    ranks = on_ranks(head_dim_rank, int(np.prod(HD_SHAPE)), (cfg, DEV),
+                     HD_TIMEOUT_S)
+    r0, ended = ranks[0], time.time()
+    print(f'  {len(ranks)} ranks on the card: {time.perf_counter() - t0:.1f}'
+          f' s (weights drawn and cut {r0["draw_s"]:.1f} s, the meshless '
+          f'training blocks scattered and compared {r0["compare_s"]:.1f} s)'
+          f'  [{card}]')
+    print(f'  where the time went (host clock): the ranks (started during '
+          f'phase 23) entered the phase '
+          f'{min(r["entered"] for r in ranks) - started:.1f}-'
+          f'{max(r["entered"] for r in ranks) - started:.1f} s after its '
+          f'call, their results were back '
+          f'{ended - max(r["left"] for r in ranks):.1f} s after the last '
+          f'left it; rank 0 '
+          + ', '.join(f'{k} {v:.1f}' for k, v in r0['spent'].items())
+          + ' s; the slowest rank '
+          + ', '.join(f'{k} {max(r["spent"][k] for r in ranks):.1f}'
+                      for k in r0['spent']) + ' s')
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    gate(all(r['pair_cut'] == (True, True) for r in ranks), 'pair_cut')
+    ms = lambda xs: [round(x * 1e3, 2) for x in xs]  # noqa: E731
+    f32, fault, bf = r0['f32'], r0['fault'], r0['bf16']
+    f32_ok = max(f32['gaps']) <= FS_TOL and all(f32['equal'])
+    fault_ok = max(fault['gaps']) <= FS_TOL and all(fault['equal'])
+    med = {k: statistics.median(v) for k, v in bf['rows'].items()}
+    bound = FS_BF16_RATIO * med['meshless']
+    bf_ok = med['mesh'] <= bound and not bf['flips']['mesh']
+    print(f'  (a) {HD_ARCH} at {HD_LAYERS} of {get_config_layers(HD_ARCH)} '
+          f'layers, prefill B={HD_B} '
+          f'S={HD_S} + {HD_DECODE} decode steps, f32: |mesh - meshless| of '
+          f'|max| {[f"{g:.3e}" for g in f32["gaps"]]}, argmax equal '
+          f'{f32["equal"]} (gate {FS_TOL:g}: {"pass" if f32_ok else "FAIL"});'
+          f' planted fault ({HD_FAULT}): {[f"{g:.3e}" for g in fault["gaps"]]}'
+          f' (must fail: {"fails" if not fault_ok else "PASSES"})  [{card}]')
+    print(f'  (b) bf16 rows against the meshless f32 step, median '
+          f'{med["mesh"]:.3e} against {FS_BF16_RATIO:g} x the meshless bf16 '
+          f'step\'s {med["meshless"]:.3e} = {bound:.3e}, argmax off and not '
+          f'a near tie {bf["flips"]["mesh"]} (gate: '
+          f'{"pass" if bf_ok else "FAIL"}); meshless step ms f32 '
+          f'{ms(r0["meshless_s"][0])}, bf16 {ms(r0["meshless_s"][1])}  '
+          f'[{card}]')
+    calls = [r['bf16']['mesh_s'] for r in ranks]
+    peaks = [r['bf16']['peak'] / 1e9 for r in ranks]
+    print(f'  (b) bf16 mesh step ms (prefill, then decode; host clock, '
+          f'{len(ranks)} ranks time-slice one card): rank 0 '
+          f'{ms(calls[0])}, slowest prefill {max(c[0] for c in calls) * 1e3:.2f}'
+          f', slowest decode {max(max(c[1:]) for c in calls) * 1e3:.2f}; '
+          f'peak memory a rank {min(peaks):.3f}-{max(peaks):.3f} GB (f32 '
+          f'{max(r["f32"]["peak"] for r in ranks) / 1e9:.3f} GB)  [{card}]')
+    caches = {(r['bf16']['cache_bytes'], r['reference_cache'],
+               r['bf16']['cache_shape']) for r in ranks}
+    cache_ok = all(c[0] == c[1] for c in caches)
+    print(f'  (c) cache bytes a rank (bf16, pool block shape) against the '
+          f'dry-run\'s reference count: {sorted(caches)} '
+          f'({"equal" if cache_ok else "DIFFER"})')
+    t = r0['train']
+    loss_rel = abs(t['loss'] - t['meshless_loss']) / abs(t['meshless_loss'])
+    norm_rel = abs(t['grad_norm'] - t['meshless_grad_norm']) \
+        / t['meshless_grad_norm']
+    (g_err, g_leaf, g_rank), (u_err, u_leaf, u_rank) = (
+        max((e, k, r) for r, x in enumerate(ranks)
+            for k, e in x['train']['errors'][what].items())
+        for what in ('grads', 'update'))
+    same = all(r['train']['loss'] == t['loss'] for r in ranks)
+    print(f'  (d) one f32 training step B={HD_TRAIN_B} S={HD_TRAIN_S}: loss '
+          f'{t["loss"]:.7f} vs meshless {t["meshless_loss"]:.7f} (rel '
+          f'{loss_rel:.3e}, gate {MT_TOL:g}), grad_norm rel {norm_rel:.3e}; '
+          f'worst gradient leaf {g_err:.3e} of its max ({g_leaf}, rank '
+          f'{g_rank}; gate {MT_TOL:g}), worst block update {u_err:.3e} '
+          f'({u_leaf}, rank {u_rank}; gate {FM_UPDATE_TOL:g}) over '
+          f'{len(t["errors"]["grads"])} leaves x {len(ranks)} ranks; loss '
+          f'equal on every '
+          f'rank {same}; step {t["s"] * 1e3:.1f} ms (meshless '
+          f'{t["meshless_s"] * 1e3:.1f} ms), peak rank 0 {t["peak"] / 1e9:.3f}'
+          f' GB  [{card}]')
+    gate(f32_ok, ('f32', f32['gaps'], f32['equal']))
+    gate(not fault_ok, ('fault passes f32', fault['gaps']))
+    gate(bf_ok, ('bf16', med, bf['flips']))
+    gate(cache_ok, ('cache bytes', sorted(caches)))
+    gate(same and loss_rel <= MT_TOL and norm_rel <= MT_TOL,
+         ('train loss', loss_rel, norm_rel))
+    gate(g_err <= MT_TOL, ('train grads', g_leaf, g_err))
+    gate(u_err <= FM_UPDATE_TOL, ('train update', u_leaf, u_err))
     launches = dict(LAUNCHES)
     for r in ranks:
         for k, v in r['launches'].items():
@@ -6861,15 +7278,26 @@ def main() -> int:
     by_phase['variant_serve'] = variant_serve_check(card)
     done()
 
+    start_ranks(int(np.prod(HD_SHAPE)), HD_TIMEOUT_S)     # phase 24's
     runs = '; '.join(f'{a} ({n} layers: ' + ', '.join(v) + ')'
                      for a, n, v in VT_RUNS)
     print(f'[23] training under the rule variants: {runs} at published '
           f'widths over {FM_SHAPE} (f32 parity, planted faults, bf16 '
           f'steps)')
     by_phase['variant_train'] = variant_train_check(card)
+    close_pools(POOLED)
     done()
 
-    print(f'[24] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[24] the reference\'s head_dim placement where model does not '
+          f'divide the heads: {HD_ARCH} ({HD_LAYERS} layers) at published '
+          f'widths over {HD_SHAPE} ({int(np.prod(HD_SHAPE))} ranks sharing '
+          f'the card): serve step f32 and bf16, a planted fault, cache '
+          f'bytes, one f32 training step')
+    by_phase['head_dim'] = head_dim_check(card)
+    close_pools()
+    done()
+
+    print(f'[25] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]
@@ -6891,4 +7319,7 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        close_pools()

@@ -15,20 +15,23 @@ collectives itself, over the ``model`` axis's process group:
   embedding): each rank's block of scores is gathered before sampling;
 - the norms are replicated.
 
-**Never split head_dim.**  RoPE pairs dimensions d and d + Dh/2 and qwen3's
-q/k norms reduce over Dh, so blocks are whole heads, and the placement is
-planned over heads (:func:`head_blocks`), not by ``shaped_spec`` over the
-flattened (Hkv*Dh) width, which would cut a head in half where the mesh
-does not divide the heads.  Where it divides the kv-heads, rank r holds
-kv-heads [r Hkv/n, (r+1) Hkv/n) and their q-heads -- so the GQA groups stay
-on one rank and the pool shard holds 1/n of the kv-heads.  Where it does
-not, but divides the q-heads and each rank's q-heads read one kv-head
-(G % (H/n) == 0), each rank holds that one kv-head: its projection
-columns and its pool, replicated over the G n / H ranks that read it (the
-reference's ``shaped_spec`` moves the axis to head_dim instead; the
-function computed is the same).  Otherwise attention is replicated.  Where
-the mesh does not divide ``d_ff`` or the vocabulary, that part is
-replicated.  Every reduction is an all-reduce of f32 partial sums
+**Heads, or RoPE pairs of every head.**  Where the mesh divides the
+kv-heads, rank r holds kv-heads [r Hkv/n, (r+1) Hkv/n) and their q-heads
+(:func:`head_blocks`) -- so the GQA groups stay on one rank and the pool
+shard holds 1/n of the kv-heads.  Where it does not, the reference's
+``shaped_spec`` cuts the flattened (H*Dh) width and moves the pool's axis
+onto head_dim; RoPE pairs channels d and d + Dh/2 and qwen3's q/k norms
+reduce over Dh, so a plan holds a block of RoPE pairs of every head
+instead, as many bytes as the reference's block (:attr:`TensorParallel.pair_cut`: the
+norms sum their squares over ``model``, decode sums the f32 partial
+scores, prefill and training gather q/k/v into whole heads).  The
+engine's plan (``whole_heads=True``) keeps whole heads, because K1 reads
+them: where the mesh
+divides the q-heads and each rank's q-heads read one kv-head (G % (H/n)
+== 0), each rank holds that one kv-head, its projection columns and its
+pool replicated over the G n / H ranks that read it; otherwise attention
+is replicated.  Where the mesh does not divide ``d_ff`` or the
+vocabulary, that part is replicated.  Every reduction is an all-reduce of f32 partial sums
 (:func:`reduce_sum`), rounded once to the activations' dtype: every rank
 receives the one reduced buffer, so the replicated activations hold the
 same bits on every rank.
@@ -224,6 +227,23 @@ class _GatherFromModel(torch.autograd.Function):
         return grad[..., lo:lo + ctx.width], None, None
 
 
+class _SplitToModel(torch.autograd.Function):
+    """Forward: this rank's block of the last dimension of a tensor every
+    rank holds whole (``n`` blocks in rank order); backward: every rank's
+    block of the gradient gathered (each rank's computation after the
+    split reads its own block only, so its gradient covers that block)."""
+
+    @staticmethod
+    def forward(ctx, whole, group, rank, n):
+        ctx.group = group
+        width = whole.shape[-1] // n
+        return whole[..., rank * width:(rank + 1) * width]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_last(grad, ctx.group), None, None, None
+
+
 def _gather_last(part: torch.Tensor, group) -> torch.Tensor:
     n = torch.distributed.get_world_size(group)
     rows = part.movedim(-1, 0).contiguous()
@@ -257,14 +277,18 @@ class TensorParallel:
     (:attr:`rows`); a plan without it (the trainer's) computes every row
     of what it is given.  ``rules`` (``TRAIN_RULES`` by default): where
     the weights lie (:attr:`placement`; the module docstring's rule
-    variants)."""
+    variants).  Where ``model`` does not divide the kv-heads, attention
+    is placed as the reference's ``shaped_spec`` places it (a block of
+    RoPE pairs of every head, :attr:`pair_cut`), unless ``whole_heads``
+    (the engine's plan: K1 reads whole heads)."""
 
     # the pool's pages (a serve step's plan under ``serve_seq`` holds a
     # block of them: :class:`StepParallel`)
     held = None
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
-                 *, max_batch: Optional[int] = None, rules=None):
+                 *, max_batch: Optional[int] = None, rules=None,
+                 whole_heads: bool = False):
         self.cfg, self.mesh = cfg, mesh
         self.rules = TRAIN_RULES if rules is None else rules
         self.placement = attention_placement(self.rules)
@@ -339,6 +363,22 @@ class TensorParallel:
         self.head_dim = block(dh, self.n, self.rank) if self.dh_split \
             else (0, dh)
         self.norms_cut = self.dh_split and cfg.qk_norm
+        # where model does not divide the kv-heads, the reference's
+        # shaped_spec cuts the flattened q/k/v width (``wo``'s rows) and
+        # moves the pool's model axis onto head_dim: rank r holds RoPE
+        # pairs [lo, hi) of every head -- channels [lo, hi) and [Dh/2 + lo,
+        # Dh/2 + hi) -- in the projections, ``wo`` and the pool, so RoPE
+        # stays on the rank; the q/k norms sum their squares over model
+        half = cfg.hd // 2
+        self.pair_cut = (not whole_heads and cfg.family in ('dense', 'vlm', 'moe')
+                         and self.placement != DH and self.n > 1
+                         and cfg.n_kv_heads % self.n != 0
+                         and half % self.n == 0)
+        self.pairs = block(half, self.n, self.rank) if self.pair_cut \
+            else (0, half)
+        if self.pair_cut:
+            self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
+            self.attn_split, self.kv_holders = True, 1
         # rwkv6's ``u`` (L, H, K): on K where every rank holds every wkv
         # head and the rules place 'heads' or 'head_dim' on model (serve_dh;
         # 'heads' where model does not divide them moves onto K), whole
@@ -435,8 +475,12 @@ class TensorParallel:
         """dense, vlm, moe and encdec (whose cross-attention leaves are
         the self-attention's with an ``x`` in front)."""
         hd = self.cfg.hd
-        q = (self.q_heads[0] * hd, self.q_heads[1] * hd)
-        kv = (self.kv_heads[0] * hd, self.kv_heads[1] * hd)
+        if self.pair_cut:
+            q = self._pair_columns(self.cfg.n_heads)
+            kv = self._pair_columns(self.cfg.n_kv_heads)
+        else:
+            q = (self.q_heads[0] * hd, self.q_heads[1] * hd)
+            kv = (self.kv_heads[0] * hd, self.kv_heads[1] * hd)
         ex, ef, sf = self.experts, self.expert_ffn, self.shared_ffn
         up = {1: ex} if self.expert_split else {3: ef}
         attn = {'wq': {2: q}, 'bq': {1: q}, 'wo': {1: q},
@@ -453,6 +497,19 @@ class TensorParallel:
             'we_down': {1: ex} if self.expert_split else {2: ef},
             'ws_gate': {2: sf}, 'ws_up': {2: sf}, 'ws_down': {1: sf},
         }
+
+    def pair_channels(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """This rank's channels of a head's head_dim under :attr:`pair_cut`:
+        its RoPE pairs [lo, hi) and [Dh/2 + lo, Dh/2 + hi)."""
+        (lo, hi), half = self.pairs, self.cfg.hd // 2
+        return (lo, hi), (half + lo, half + hi)
+
+    def _pair_columns(self, heads: int):
+        """This rank's columns of a flattened (heads x Dh) width under
+        :attr:`pair_cut`: its channels of every head, in global order."""
+        hd = self.cfg.hd
+        return tuple((h * hd + lo, h * hd + hi) for h in range(heads)
+                     for lo, hi in self.pair_channels())
 
     def _ssm_ranges(self):
         """rwkv6: its table (``models.rwkv6.placement``), the embedding and
@@ -500,15 +557,16 @@ class TensorParallel:
 
     def shard_params(self, params) -> nn.ParameterDict:
         """The global weights cut to this rank's blocks, on the mesh's
-        device (copies where cut or moved; the weights may lie on the
-        host)."""
+        device (copies where cut or moved, so no block keeps the global
+        weight's storage alive; the weights may lie on the host)."""
         def build(node, path):
             if isinstance(node, (dict, nn.ParameterDict)):
                 return nn.ParameterDict({k: build(v, path + (k,))
                                          for k, v in node.items()})
             part = self.shard(path, node.detach())
-            return nn.Parameter(part.to(self.mesh.device).contiguous(),
-                                requires_grad=False)
+            return nn.Parameter(part.to(
+                self.mesh.device, memory_format=torch.contiguous_format,
+                copy=part.shape != node.shape), requires_grad=False)
         return build(params, ())
 
     def init_cache(self, n_pages: int, device, dtype):
@@ -577,6 +635,40 @@ class TensorParallel:
         if _traced(part):
             return _GatherFromModel.apply(part, self.group, self.rank)
         return _gather_last(part, self.group)
+
+    def whole_pairs(self, part: torch.Tensor) -> torch.Tensor:
+        """(..., 2w) this rank's RoPE pairs of every head (:attr:`pair_cut`)
+        -> (..., Dh), every rank's gathered in channel order, for a
+        computation every rank runs on whole heads: under autograd the
+        backward keeps this rank's block of the gradient (:meth:`whole`;
+        the computation's output enters ``wo`` through :meth:`own_pairs`,
+        whose backward gathers its gradient whole)."""
+        return self.whole(part.unflatten(-1, (2, -1))).flatten(-2)
+
+    def own_pairs(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., Dh) whole heads, the same on every rank -> (..., 2w) this
+        rank's RoPE pairs of each (:attr:`pair_cut`): under autograd the
+        backward gathers every rank's block of the gradient
+        (:class:`_SplitToModel`), so the computation before it, run whole
+        on every rank, gets the whole gradient."""
+        pairs = x.unflatten(-1, (2, -1))
+        if _traced(x):
+            pairs = _SplitToModel.apply(pairs, self.group, self.rank, self.n)
+        else:
+            pairs = pairs[..., self.pairs[0]:self.pairs[1]]
+        return pairs.flatten(-2)
+
+    def pair_norm(self, x: torch.Tensor, w: torch.Tensor, eps: float):
+        """``models.common.rms_norm`` of each head over all of Dh, x (...,
+        2w) this rank's RoPE pairs of it (:attr:`pair_cut`) and ``w`` (Dh,)
+        whole: the f32 sum of squares summed over ``model``
+        (:meth:`norm_sum`), then this rank's channels scaled."""
+        xf = x.float()
+        total = self.norm_sum((xf * xf).sum(-1, keepdim=True))
+        lo, hi = self.pairs
+        g = w.unflatten(-1, (2, -1))[..., lo:hi].flatten(-2)
+        return (xf * torch.rsqrt(total / self.cfg.hd + eps)
+                * g.float()).to(x.dtype)
 
     def head_share(self, w: torch.Tensor) -> torch.Tensor:
         """A leaf replicated over ``model`` that this rank's computation
@@ -833,6 +925,8 @@ class StepParallel(TensorParallel):
                 return b
             lo = self.held[0]
             return b.narrow(pages, lo, lo + self.held[1] // self.n)
+        if self.pair_cut:
+            return b.select(nd - 1, self.pair_channels())
         return b.narrow(nd - 2, *heads)
 
     def shard_cache(self, cache):
@@ -861,7 +955,7 @@ class StepParallel(TensorParallel):
             ah = cfg.hybrid_attn_heads
             return [block(ah, n, r) if self.shared_split else (0, ah)
                     for r in range(n)]
-        if not self.attn_split:
+        if not self.attn_split or self.pair_cut:
             return [(0, cfg.n_heads if kind == 'q' else cfg.n_kv_heads)] * n
         return [head_blocks(cfg.n_heads, cfg.n_kv_heads, n, r)[kind == 'kv']
                 for r in range(n)]
@@ -874,7 +968,11 @@ class StepParallel(TensorParallel):
         """x (..., h, D), this rank's heads of ``kind`` -> (..., H, D),
         every head, each from the first rank that holds it (a kv-head
         replicated over several ranks is read once); ``x`` itself where
-        every rank holds every head."""
+        every rank holds every head.  Under :attr:`pair_cut` x holds this
+        rank's RoPE pairs of every head, gathered whole
+        (:meth:`whole_pairs`)."""
+        if self.pair_cut and kind != 'shared':
+            return self.whole_pairs(x)
         blocks = self.head_blocks_of(kind)
         if all(b == blocks[0] for b in blocks):
             return x
@@ -886,12 +984,22 @@ class StepParallel(TensorParallel):
                 seen = hi
         return torch.cat(pick, dim=-2)
 
+    def own_part(self, out: torch.Tensor, kind: str) -> torch.Tensor:
+        """This rank's part of ``out`` (..., H, Dh), every head of
+        ``kind``: its heads, or under :attr:`pair_cut` its RoPE pairs of
+        every head (:meth:`own_pairs`)."""
+        if self.pair_cut and kind != 'shared':
+            return self.own_pairs(out)
+        lo, hi = self.own(kind)
+        return out[..., lo:hi, :]
+
     def pool_kv(self, k: torch.Tensor, kind: str = 'kv', *,
                 paged: bool = True) -> torch.Tensor:
         """The part of the new K/V (..., h, D) of this rank's heads of
         ``kind`` that its cache block takes: every head (``kv_dp``;
         ``seq`` where the leaf is paged), its head_dim block (``dh``), or
-        ``k`` (``heads``; ``seq``'s cross K/V, by kv-heads)."""
+        ``k`` (``heads``; ``seq``'s cross K/V, by kv-heads; under
+        :attr:`pair_cut` its RoPE pairs of every head)."""
         if self.placement == KV_DP or self.placement == SEQ and paged:
             return self.gather_heads(k, kind)
         if self.placement == DH:
@@ -913,14 +1021,18 @@ class StepParallel(TensorParallel):
                                       self.held)
             out = (self.model_combine(states) if self.page_split else
                    cm.combine_partials(*(t[None] for t in states)))
-            lo, hi = self.own(kinds[0])
-            return out[:, :, lo:hi].to(q.dtype)
-        if self.placement == KV_DP:
+            return self.own_part(out, kinds[0]).to(q.dtype)
+        if self.placement == KV_DP and self.pair_cut:
+            # every rank holds every head whole; it reads its RoPE pairs
+            # of each (1/n of the pool) and sums the partial scores: the
+            # whole heads attended on every rank read n times the bytes
+            pool_k, pool_v = self.own_pairs(pool_k), self.own_pairs(pool_v)
+        elif self.placement == KV_DP:
             lo, hi = self.own(kinds[1])
             pool_k, pool_v = pool_k[..., lo:hi, :], pool_v[..., lo:hi, :]
         k = cm.kv_gather(pool_k, page_table)
         v = cm.kv_gather(pool_v, page_table)
-        if self.placement == DH:
+        if self.placement == DH or self.pair_cut:
             return self.dh_attention(q, k, v, cm.kv_mask(k.shape[1],
                                                          q_positions, kv_len))
         kv_pos = torch.arange(k.shape[1], device=q.device).expand(
@@ -940,7 +1052,13 @@ class StepParallel(TensorParallel):
         head_dim block; ``mask`` (B, Sq, S) -> (B, Sq, H, Dh) in q's dtype,
         the same on every rank: the f32 partial scores summed over
         ``model`` (:meth:`score_sum`), the softmax, P V over the block
-        gathered in rank order (``models.common.attention_dh_block``)."""
+        gathered in rank order (``models.common.attention_dh_block``).
+        Under :attr:`pair_cut` q and k/v are this rank's RoPE pairs of
+        every head, and so is the output (B, Sq, H, Dh/n), P V over them,
+        which enters ``wo`` as the rank's rows: nothing is gathered."""
+        if self.pair_cut:
+            return cm.attention_dh_block(q, k, v, mask, self.cfg.hd,
+                                         self.score_sum).to(q.dtype)
         lo, hi = self.head_dim
         if not self.dh_split:
             return cm.attention_dh_block(q, k, v, mask, q.shape[-1],
@@ -1148,7 +1266,8 @@ class Leader:
         leaves = list(_leaves(params))
         _send_op(('open', self.id, model.cfg, n_pages, max_batch,
                   cache_dtype, [(path, t.dtype) for path, t in leaves]))
-        plans = {r: TensorParallel(model.cfg, mesh, mesh.coords(r))
+        plans = {r: TensorParallel(model.cfg, mesh, mesh.coords(r),
+                                   whole_heads=True)
                  for r in self.workers}
         for path, full in leaves:
             for r in self.workers:
@@ -1196,7 +1315,8 @@ def _gather_cache(cache, cfg, mesh):
         full = torch.empty(shape, dtype=local.dtype)
         first: Dict[Tuple[int, int], int] = {}
         for r, part in zip(ranks, parts):
-            lo, hi = TensorParallel(cfg, mesh, mesh.coords(r)).kv_heads
+            lo, hi = TensorParallel(cfg, mesh, mesh.coords(r),
+                                    whole_heads=True).kv_heads
             if (lo, hi) in first:
                 if not torch.equal(full[:, :, :, lo:hi], part):
                     raise AssertionError(
@@ -1226,7 +1346,8 @@ class _Follower:
         from repro_torch.models.api import build_model
 
         self.model = build_model(cfg)
-        self.tp = TensorParallel(cfg, mesh, max_batch=max_batch)
+        self.tp = TensorParallel(cfg, mesh, max_batch=max_batch,
+                                 whole_heads=True)
         shapes = self.model.param_shapes()
         params: Dict = {}
         for path, dtype in leaves:

@@ -137,11 +137,16 @@ def rms_norm(x, w, eps: float = 1e-5):
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
-def rope(x, positions, theta: float):
-    """Rotate-half RoPE.  x: (..., S, H, Dh); positions: (..., S)."""
+def rope(x, positions, theta: float, pairs=None):
+    """Rotate-half RoPE.  x: (..., S, H, Dh); positions: (..., S).
+    ``pairs`` = (lo, half): x holds RoPE pairs [lo, lo + its last
+    dimension / 2) of a head_dim of 2 half -- channels lo.. and half +
+    lo.. -- each pair rotated at its own frequency (a tensor-parallel
+    rank's block of every head)."""
     half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    lo, full = (0, half) if pairs is None else pairs
+    freqs = theta ** (-torch.arange(lo, lo + half, dtype=torch.float32,
+                                    device=x.device) / full)
     angles = positions.float()[..., None, None] * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()

@@ -44,6 +44,13 @@ the new K/V go through ``tp.pool_kv`` (every head, or a head_dim block)
 into the pages ``tp.held`` names, and the paged read through
 ``tp.paged_read``; ``prefill`` attends the call's own K/V as ever.
 
+Where ``model`` does not divide the kv-heads, the serve step's and the
+trainer's plans (``tp.pair_cut``) hold a block of RoPE pairs of every
+head: ``qkv_proj`` norms and rotates the rank's channels, decode reads
+them through ``tp.paged_read`` (the partial scores summed), and prefill
+and training gather q/k/v into whole heads (``tp.whole_pairs``) and take
+the rank's pairs of the output into ``wo`` (``tp.own_pairs``).
+
 The training forward (``forward_train``) takes ``tp`` too: the rank's
 q/kv heads, its ``d_ff`` block and a vocab-parallel embedding and head,
 under autograd (the collectives' backward: ``distributed/tp.py``).  The
@@ -152,20 +159,47 @@ def cache_template(cfg: ModelConfig, n_pages: int,
 # Layer pieces
 # ---------------------------------------------------------------------------
 
-def qkv_proj(cfg: ModelConfig, lp, x, positions):
+def qkv_proj(cfg: ModelConfig, lp, x, positions, tp=None):
+    """q, k, v (B, S, h, Dh) after the norms and RoPE; under ``tp``'s
+    pair cut (``tp.pair_cut``) every head's RoPE pairs of the rank (B, S,
+    H, Dh/n), normed over all of Dh (``tp.pair_norm``)."""
     b, s, _ = x.shape
     q, k, v = x @ lp['wq'], x @ lp['wk'], x @ lp['wv']
     if cfg.attn_bias and 'bq' in lp:
         q, k, v = q + lp['bq'], k + lp['bk'], v + lp['bv']
+    cut = _cut(tp)
     # -1 heads: a tensor-parallel rank's weights hold its heads only
-    q = q.reshape(b, s, -1, cfg.hd)
-    k = k.reshape(b, s, -1, cfg.hd)
-    v = v.reshape(b, s, -1, cfg.hd)
+    width = 2 * (tp.pairs[1] - tp.pairs[0]) if cut else cfg.hd
+    q = q.reshape(b, s, -1, width)
+    k = k.reshape(b, s, -1, width)
+    v = v.reshape(b, s, -1, width)
     if cfg.qk_norm and 'q_norm' in lp:
-        q = cm.rms_norm(q, lp['q_norm'], cfg.norm_eps)
-        k = cm.rms_norm(k, lp['k_norm'], cfg.norm_eps)
-    return (cm.rope(q, positions, cfg.rope_theta),
-            cm.rope(k, positions, cfg.rope_theta), v)
+        norm = tp.pair_norm if cut else cm.rms_norm
+        q = norm(q, lp['q_norm'], cfg.norm_eps)
+        k = norm(k, lp['k_norm'], cfg.norm_eps)
+    pairs = (tp.pairs[0], cfg.hd // 2) if cut else None
+    return (cm.rope(q, positions, cfg.rope_theta, pairs),
+            cm.rope(k, positions, cfg.rope_theta, pairs), v)
+
+
+def _cut(tp) -> bool:
+    """Whether ``tp`` holds a block of RoPE pairs of every head
+    (``tp.pair_cut``: the reference's placement where ``model`` does not
+    divide the kv-heads)."""
+    return tp is not None and tp.pair_cut
+
+
+def _whole(tp, *ts):
+    """Under the pair cut, each of ``ts`` (B, S, h, Dh/n) gathered over
+    ``model`` into whole heads (``tp.whole_pairs``); else ``ts``."""
+    return tuple(tp.whole_pairs(t) for t in ts) if _cut(tp) else ts
+
+
+def _own(tp, out):
+    """Under the pair cut, this rank's RoPE pairs (``tp.own_pairs``) of
+    attention's output over whole heads, its rows of ``wo``; else
+    ``out``."""
+    return tp.own_pairs(out) if _cut(tp) else out
 
 
 def _row_ops(tp):
@@ -195,8 +229,9 @@ def _weights(lp, tp):
 def placed(tp) -> bool:
     """Whether ``tp`` is a serve step's plan under a rule variant
     (``serve_kv_dp``, ``serve_seq``, ``serve_dh``: ``distributed.tp.
-    StepParallel``), whose paged reads go through ``tp.paged_read``."""
-    return tp is not None and tp.placement != 'heads'
+    StepParallel``) or under the pair cut, whose paged reads go through
+    ``tp.paged_read``."""
+    return tp is not None and (tp.placement != 'heads' or tp.pair_cut)
 
 
 def _out_proj(x, wo, tp):
@@ -229,7 +264,7 @@ def self_attn_decode(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     local = _row_ops(tp)[0]
     store, held = _store(tp)
     lp = _weights(lp, tp)
-    q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None])
+    q, k, v = qkv_proj(cfg, lp, x, local(positions)[:, None], tp)
     page_idx = page_table.gather(1, (positions // pg)[:, None].long())[:, 0]
     offs = positions % pg
     cm.kv_write_token(pool_k, page_idx, offs, store(k[:, 0]), held)
@@ -263,13 +298,13 @@ def self_attn_train(cfg: ModelConfig, lp, x, positions, *,
     b, s, _ = x.shape
     if tp is not None:
         x, lp = tp.copy(x, tp.attn_split), tp.attn_weights(lp)
-    q, k, v = qkv_proj(cfg, lp, x, positions)
+    q, k, v = _whole(tp, *qkv_proj(cfg, lp, x, positions, tp))
     if use_kernel:
         out = flash_attention(q, k, v, causal=causal)
     else:
         out = cm.chunked_attention(q, k, v, q_positions=positions,
                                    kv_positions=positions, causal=causal)
-    return _out_proj(out.reshape(b, s, -1), lp['wo'], tp)
+    return _out_proj(_own(tp, out).reshape(b, s, -1), lp['wo'], tp)
 
 
 def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
@@ -281,15 +316,16 @@ def self_attn_prefill(cfg: ModelConfig, lp, x, positions, pool_k, pool_v,
     and ``page_table`` every row's (module docstring)."""
     b, s, _ = x.shape
     store, held = _store(tp)
-    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions)
+    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions, tp)
     cm.kv_write_prefill(pool_k, page_table, store(k), held)
     cm.kv_write_prefill(pool_v, page_table, store(v), held)
+    qw, kw, vw = _whole(tp, q, k, v)
     if use_kernel:
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(qw, kw, vw, causal=True)
     else:
-        out = cm.chunked_attention(q, k, v, q_positions=positions,
+        out = cm.chunked_attention(qw, kw, vw, q_positions=positions,
                                    kv_positions=positions, causal=True)
-    return _out_proj(out.reshape(b, s, -1), lp['wo'], tp)
+    return _out_proj(_own(tp, out).reshape(b, s, -1), lp['wo'], tp)
 
 
 def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
@@ -306,7 +342,7 @@ def self_attn_prefill_chunk(cfg: ModelConfig, lp, x, positions, pool_k,
     local = _row_ops(tp)[0]
     store, held = _store(tp)
     positions = local(positions)
-    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions)
+    q, k, v = qkv_proj(cfg, _weights(lp, tp), x, positions, tp)
     cm.kv_write_tokens(pool_k, page_ids, offsets, store(k), held)
     cm.kv_write_tokens(pool_v, page_ids, offsets, store(v), held)
     if placed(tp):

@@ -233,7 +233,8 @@ class Engine:
 
         check_mesh(self.mcfg, self.mesh)
         self._tp = TensorParallel(self.mcfg, self.mesh,
-                                  max_batch=self.cfg.max_batch)
+                                  max_batch=self.cfg.max_batch,
+                                  whole_heads=True)
         if self.mesh.rank != 0:
             raise ValueError('a mesh engine runs on rank 0; the other ranks '
                              'run distributed.tp.serve_rank')

@@ -13,7 +13,9 @@ mean of the microbatch losses.
 **Under a mesh** (``('data', 'model')`` or ``('pod', 'data', 'model')``,
 ``launch/mesh.py``) each rank is a process holding its blocks
 (:class:`TrainPlan`): the weights cut over ``model`` by the family's table
-(``distributed/tp.py``: whole heads, ``d_ff`` and vocabulary blocks,
+(``distributed/tp.py``: whole heads -- or, where ``model`` does not
+divide the kv-heads, the reference's head_dim placement, a block of RoPE
+pairs of every head --, ``d_ff`` and vocabulary blocks,
 moe's experts and their router columns, rwkv6's wkv heads, zamba2's
 Mamba2 heads with a share of B and C -- several intervals of its packed
 leaves, ``sharding.Block`` -- and its shared block's heads), and with

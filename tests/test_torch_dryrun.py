@@ -53,6 +53,10 @@
   blocks (``arguments``); where they differ from the reference's specs
   (``reference_arguments``, which the per-cell parity compares) the record
   names the leaves that differ, with both byte counts (``placement``).
+  Where ``model`` = 16 does not divide the attention heads (seven
+  architectures), a serve cell's rank holds the reference's blocks leaf
+  for leaf under the default rules, ``serve_seq`` and ``serve_kv_dp``,
+  and a train cell departs only in its rows' whole sequence (``batch``).
 """
 import dataclasses
 import functools
@@ -513,9 +517,10 @@ VARIANT_CACHE_GB = {    # the reference's cache bytes a rank, decode_32k
 def test_rule_variant_cells(arch, variant, capsys):
     """``--rules serve_*`` on (16, 16): an ``ok`` record whose rank holds
     the reference's cache blocks; params differ only in the leaves that
-    ``placement`` names (the replicated kv-head and seamless's vocabulary
-    as by default; under serve_dh the q/k norms are the reference's
-    head_dim blocks, so qwen3's params do not differ).  serve_dh moves no
+    ``placement`` names (seamless's vocabulary as by default; qwen3's 8
+    kv-heads, which 16 does not divide, are the reference's blocks of the
+    flattened q/k/v width, and under serve_dh the q/k norms are the
+    reference's head_dim blocks, so qwen3's params do not differ).  serve_dh moves no
     K/V block: its all-gathers are P V's head_dim blocks, B_r x H x Dh
     a layer, and the q/k norms' blocks gathered whole, 2 x Dh a layer;
     serve_kv_dp holds the pool whole."""
@@ -534,7 +539,42 @@ def test_rule_variant_cells(arch, variant, capsys):
         out = rows * cfg.n_heads * cfg.hd * 4 * cfg.n_layers
         norms = 2 * cfg.hd * cm.DEFAULT_DTYPE.itemsize * cfg.n_layers
         assert kinds['all-gather'] == out + norms, kinds
+    if arch == 'qwen3-0.6b':
         assert 'params' not in rec.get('placement', {}), rec['placement']
+
+
+# the architectures whose heads ``model`` = 16 does not divide (40 q-heads,
+# or 8 kv-heads): the port holds the reference's head_dim placement
+HEAD_DIM_ARCHS = ('qwen3-14b', 'llama4-scout-17b-a16e', 'command-r-35b',
+                  'phi3.5-moe-42b-a6.6b', 'llava-next-mistral-7b',
+                  'qwen3-0.6b', 'internlm2-1.8b')
+HEAD_DIM_GB = {    # a rank's arguments under the reference's specs
+    ('qwen3-14b', 'decode_32k'): 4.552,
+    ('llama4-scout-17b-a16e', 'decode_32k'): 16.719}
+
+
+@pytest.mark.parametrize('shape', ['decode_32k', 'prefill_32k', 'train_4k'])
+@pytest.mark.parametrize('arch', HEAD_DIM_ARCHS)
+def test_head_dim_placement_cells(arch, shape):
+    """On (16, 16), where ``model`` does not divide the attention heads:
+    a serve cell's rank holds the reference's blocks leaf for leaf (no
+    ``placement``), under the default rules and, for decode_32k, under
+    ``serve_seq`` and ``serve_kv_dp`` too; a train cell's ``placement``
+    names only ``batch`` (the trainer's rows hold their whole sequence,
+    where ``TRAIN_RULES`` split it over ``model``)."""
+    variants = ('default',) + (('serve_seq', 'serve_kv_dp')
+                               if shape == 'decode_32k' else ())
+    for variant in variants:
+        rec = dryrun.run_cell(arch, shape, 'single', rules_variant=variant)
+        _production_check(rec, get_config(arch).family)
+        if shape == 'train_4k':
+            assert set(rec['placement']) == {'batch'}, rec['placement']
+            continue
+        assert 'placement' not in rec, rec['placement']
+        assert rec['arguments'] == rec['reference_arguments']
+        gb = HEAD_DIM_GB.get((arch, shape))
+        if gb is not None and variant != 'serve_kv_dp':
+            assert round(rec['hbm']['argument'] / 1e9, 3) == gb
 
 
 def test_cli_prints_a_record(capsys):

@@ -109,7 +109,8 @@ def _mesh_rank(rank, shape, axes, npz, cfg_kw):
     and with every kernel path on the prefix trace) and returns its tokens,
     its pool block's shape, the gathered pool (every replica bit-equal:
     ``gather_cache`` checks) and whether its weight blocks are the
-    reference's weights cut by ``bridge.shard_params``; the others serve
+    reference's weights cut by ``bridge.shard_params`` under the engine's
+    plan (whole heads); the others serve
     and return their pool blocks' shapes."""
     mesh = make_mesh(shape, axes, device='cpu')
     if rank != 0:
@@ -118,7 +119,8 @@ def _mesh_rank(rank, shape, axes, npz, cfg_kw):
         model = build_model(_cfg(**cfg_kw))
         tree = _unflat(dict(np.load(npz)))
         toks, eng = drain(model, params_from_jax(tree), mesh)
-        cut = shard_params(tree, model, mesh)
+        cut = shard_params(tree, model, mesh, plan=TensorParallel(
+            model.cfg, mesh, whole_heads=True))
         committed = all(torch.equal(eng.params['layers'][k], w)
                         for k, w in cut['layers'].items()) and \
             torch.equal(eng.params['embed'], cut['embed'])
@@ -243,7 +245,7 @@ def test_head_blocks_keep_gqa_groups_on_one_rank():
         group = heads // kv
         held = set()
         for r in range(n):
-            tp = TensorParallel(cfg, mesh, {'model': r})
+            tp = TensorParallel(cfg, mesh, {'model': r}, whole_heads=True)
             (qlo, qhi), (klo, khi) = tp.q_heads, tp.kv_heads
             assert (qhi - qlo) * n == heads
             needed = {h // group for h in range(qlo, qhi)}
