@@ -173,8 +173,9 @@ Phases, each fatal on failure:
     model 2), 8 experts a rank, K1/K2/K3 at G=4 on each rank's 4
     kv-heads: f32 at **2 of 32 layers** (tokens equal to the meshless
     drain, drops in the calls), bf16 at phase 13's **16 of 32 layers**,
-    its weights built on the host and shipped a block at a time (rank 0's
-    peak below the whole set), every decode step under the MoE Witness
+    each rank's blocks of its weights drawn on the card a leaf at a time
+    (no card holds the whole set; rank 0's peak below it), every decode
+    step under the MoE Witness
     over the mesh's own plain path and nulls (probe dispatches on every
     rank), the routing flips printed; (c) K4 over 2 and 4 blocks of the
     151936 x 1024 head, T = 0 and 0.8, ties planted across a block edge:
@@ -260,7 +261,17 @@ Phases, each fatal on failure:
     bf16 under phase 21's rule; each rank's cache bytes the dry-run's
     count of the reference's block; one f32 training step (B=2, S=64)
     under phase 19's gates; 0 launches;
-25. one JSON line of per-kernel results, then the result line.
+25. the reference's placement where ``model`` does not divide rwkv6's wkv
+    heads or the vocabulary, on phase 24's 16 ranks at published widths:
+    rwkv6-3b (**2 of 32 layers**; each rank 4 of the 64 value channels of
+    every head, the ``wkv`` state (L, B, 40, 64, 4)) and
+    seamless-m4t-medium (**2 + 2 of 12 + 12 layers**; the embedding and
+    the head cut on d_model), each under phase 24's gates with its own
+    planted fault (rank 1's group-norm squares, rank 1's head partial, not
+    summed over ``model``); rwkv6's prefill through K6 on every rank's
+    value block against the plain chunked path on that block; K6 timed
+    alone at (4, 64, 40, 64, 4); K6 the only kernel launched;
+26. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -4189,6 +4200,13 @@ def null_spread(model, drawn, batch, micro: int, dev: str, grads, after,
     return out
 
 
+# phase 19's null spreads of the meshless f32 steps of rwkv6, zamba2 and
+# seamless (per-leaf numbers, :func:`null_spread`), kept on each of the two
+# pooled ranks for phase 23, which holds its variants to the same steps:
+# {(config, batch, sequence, microbatches): spread}
+NULL_SPREADS: dict = {}
+
+
 def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
                 s: int = MT_S, micro: int = MT_MICRO,
                 in_turn: bool = False, nulls=None, keep: str = 'cpu') -> dict:
@@ -4208,7 +4226,8 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
     context}): the meshless step's spread over them (:func:`null_spread`)
     in ``out['nulls']``.  ``keep``: where the drawn weights and the
     meshless results stay (the host, or the card where they fit: no
-    copies back and forth)."""
+    copies back and forth); the spread over ``nulls`` also stays in
+    :data:`NULL_SPREADS` for phase 23."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
     from repro_torch.training import optimizer as opt
@@ -4241,6 +4260,8 @@ def mesh_parity(cfg, dev: str, shapes=((2, 1), (1, 2)), b: int = MT_B,
             torch.cuda.empty_cache()
         if in_turn:
             torch.distributed.barrier()
+    if nulls:
+        NULL_SPREADS[cfg, b, s, micro] = spread
     before = dict(tr.leaves_with_paths(drawn))
     lr = float(m0['lr'])
     delta = {k: v - before[k] for k, v in after.items()}
@@ -4794,38 +4815,35 @@ def dp_rank(rank: int, shape, cfg, cut, dev: str, card: str) -> dict:
         stop_ranks(mesh)
 
 
-def host_params(model) -> dict:
-    """``model``'s seed-0 weights drawn on the card, then moved to the
-    host a leaf at a time (a nested dict of CPU tensors)."""
-    drawn = model.init_params(0, device=DEV)
-
-    def move(node):
-        return {k: move(v) if isinstance(v, (dict, torch.nn.ParameterDict))
-                else v.detach().cpu() for k, v in node.items()}
-    moved = move(drawn)
-    del drawn
-    gc.collect()
-    torch.cuda.empty_cache()
-    return moved
-
-
 def ep_rank(rank: int, cut, cfg, dev: str, card: str) -> dict:
     """Phase 18 (b) on one of two ranks sharing the card, experts over
     ``model``: the f32 MoE drain cut to ``cut``'s depth, mesh vs meshless;
-    then the bf16 drain at ``cfg``'s depth, its weights built on the host
-    and shipped a block at a time (rank 0's card never holds the whole
-    set), K1/K2/K3 at G=4 on each rank's 4 kv-heads, every decode step
-    under :class:`MeshMoEWitness`.  Rank 0 leads; rank 1 serves, running
-    the witness's probes."""
-    from repro_torch.distributed.tp import serve_rank, stop_ranks
+    then the bf16 drain at ``cfg``'s depth, each rank's blocks of its
+    weights drawn on the card a leaf at a time (``Model.init_blocks``;
+    the engine, handed rank 0's blocks, ships nothing: no card ever holds
+    the whole set), K1/K2/K3 at G=4 on each rank's 4 kv-heads, every
+    decode step under
+    :class:`MeshMoEWitness`.  Rank 0 leads; rank 1 serves, running the
+    witness's probes."""
+    from repro_torch.distributed.tp import (TensorParallel, serve_rank,
+                                            stop_ranks)
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
+    from repro_torch.training import tree as tr
+
+    def own_blocks(c, plan):
+        # a leaf drawn whole at a time (up to 25 GB of f32); the draw's
+        # segments go back to the card before the other rank needs them
+        blocks = build_model(c).init_blocks(0, plan, device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return blocks
 
     mesh = make_mesh(EP_SHAPE, MESH_AXES, device=dev)
     if rank != 0:
         probe_follower()
-        out = serve_rank(mesh)
+        out = serve_rank(mesh, blocks=own_blocks)
         return dict(out, peak=torch.cuda.max_memory_allocated())
     try:
         out = {'backend': str(torch.distributed.get_backend())}
@@ -4848,10 +4866,10 @@ def ep_rank(rank: int, cut, cfg, dev: str, card: str) -> dict:
 
         model = build_model(cfg)
         t0 = time.perf_counter()
-        params = host_params(model)
-        whole = sum(w.numel() * w.element_size()
-                    for node in (params, params['layers'])
-                    for w in node.values() if torch.is_tensor(w))
+        params = own_blocks(cfg, TensorParallel(cfg, mesh,
+                                                whole_heads=True))
+        whole = sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
+                    for _, leaf in tr.leaves_with_paths(model.template()))
         drawn_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         for k in LAUNCHES:
@@ -5119,9 +5137,10 @@ def dp_ep_check(card: str):
           f'{f32["n_tokens"]} tokens equal to the meshless drain '
           f'{f32["tokens_equal"]}, assignments dropped (meshless, mesh) '
           f'{f32["drops"]}; bf16 at {EP_LAYERS} of 32 layers: weights '
-          f'{bf16["whole"] / 1e9:.2f} GB built on the host in '
-          f'{bf16["drawn_s"]:.1f} s, shipped in {bf16["open_s"]:.1f} s, '
-          f'rank 0 holds {bf16["block"] / 1e9:.2f} GB of them, peak '
+          f'{bf16["whole"] / 1e9:.2f} GB, each rank\'s blocks drawn on the '
+          f'card a leaf at a time (rank 0 {bf16["drawn_s"]:.1f} s, rank 1 '
+          f'at the engine\'s open), engine opened in {bf16["open_s"]:.1f} '
+          f's, rank 0 holds {bf16["block"] / 1e9:.2f} GB of them, peak '
           f'{bf16["peak"] / 1e9:.2f} GB (rank 1 {worker["peak"] / 1e9:.2f} '
           f'GB); {bf16["n_tokens"]} tokens, shared_page_reads_saved '
           f'{bf16["saved"]}; routing: {bf16["route"][0]} of '
@@ -5625,14 +5644,16 @@ def serve_batches(cfg, b: int, s: int, steps: int, seed: int):
     pg = cfg.page_size
     if cfg.family == 'encdec':
         s_dec = s // 8
-        per_row = s_dec // pg + 1
+        # the prefix's pages, then the decode steps' (a prefix shorter
+        # than a page shares its page with them)
+        per_row, prefix = -(-(s_dec + steps) // pg), -(-s_dec // pg)
         table = (1 + np.arange(b * per_row, dtype=np.int32)).reshape(
             b, per_row)
         pre = {'frames': (rng.normal(size=(b, s, cfg.d_model)) * 0.02)
                .astype(np.float32),
                'tokens': rng.integers(1, cfg.vocab_size, (b, s_dec))
                .astype(np.int32),
-               'page_table': table[:, :-1].copy()}
+               'page_table': table[:, :prefix].copy()}
         pos0 = s_dec
     else:
         table = np.broadcast_to(np.arange(1, s // pg + 2, dtype=np.int32),
@@ -6478,8 +6499,9 @@ def whole_digests(tree, plan) -> dict:
 
 def variant_train(cfg, dev: str, variants, faults) -> dict:
     """Phase 23 for one config, on one of two ranks sharing the card: f32
-    weights drawn on the card, the meshless step and its nulls
-    (``family_nulls``) on each rank in turn, then one step at
+    weights drawn on the card, the meshless step on each rank in turn and
+    its nulls (``family_nulls``; phase 19's spread where it ran the config,
+    :data:`NULL_SPREADS`), then one step at
     :data:`FM_SHAPE` under each of ``variants`` (``make_train_step(rules=
     )``) and under each of ``faults``' planted fault, each held leaf by
     leaf to the meshless step (:func:`leaf_errors`, :func:`update_shares`);
@@ -6497,6 +6519,8 @@ def variant_train(cfg, dev: str, variants, faults) -> dict:
     drawn = tr.tree_map(lambda x: x.detach().float(),
                         model.init_params(0, device=dev))
     host = masked_batch(cfg, FM_B, FM_S)
+    # phase 19's spread of this config's meshless step, where it ran one
+    kept = NULL_SPREADS.pop((cfg, FM_B, FM_S, FM_MICRO), None)
     for r in range(torch.distributed.get_world_size()):
         if r == torch.distributed.get_rank():
             batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
@@ -6507,8 +6531,9 @@ def variant_train(cfg, dev: str, variants, faults) -> dict:
             grads = dict(tr.leaves_with_paths(grads))
             after = {k: v.detach() for k, v in tr.leaves_with_paths(params)}
             del params, step
-            spread = null_spread(model, drawn, batch, FM_MICRO, dev, grads,
-                                 after, m0, family_nulls(cfg))
+            spread = kept or null_spread(model, drawn, batch, FM_MICRO,
+                                         dev, grads, after, m0,
+                                         family_nulls(cfg))
             del batch
             gc.collect()
             torch.cuda.empty_cache()
@@ -6592,6 +6617,7 @@ def variant_train_rank(rank: int, runs, dev: str) -> dict:
         out[arch]['seconds'] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
+    NULL_SPREADS.clear()
     return dict(out, launches=dict(LAUNCHES))
 
 
@@ -6715,7 +6741,7 @@ HD_SHAPE = (1, 16)                 # (data, model): 16 gloo ranks sharing the
                                    # nor the 8 kv-heads
 HD_B, HD_S, HD_DECODE = 4, 64, 4   # serve: rows, prompt, decode steps
 HD_TRAIN_B, HD_TRAIN_S = 2, 64     # train: one f32 step
-HD_DRAW = 4                        # ranks drawing the full weights at once
+HD_DRAW = 8                        # ranks drawing their blocks at once
 HD_TIMEOUT_S = 420                 # bounds the phase's spawned ranks
 HD_FAULT = 'model rank 1\'s partial scores not summed over model'
 
@@ -6738,6 +6764,81 @@ def plant_head_dim_fault(rank: int) -> callable:
     return restore
 
 
+def plant_norm_fault(rank: int) -> callable:
+    """Phase 25's rwkv6 fault: rank 1's group-norm squares not summed over
+    model (it takes part in the all-reduce and goes on with its own);
+    -> a function that takes it out."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    saved = TensorParallel.value_norm
+    if rank == 1:
+        def own_norm(self, y, width, eps):
+            yf = y.float()
+            part = (yf * yf).sum(-1, keepdim=True)
+            self.norm_sum(part.clone())
+            return (yf * torch.rsqrt(part / width + eps)).to(y.dtype)
+        TensorParallel.value_norm = own_norm
+
+    def restore():
+        TensorParallel.value_norm = saved
+    return restore
+
+
+def plant_head_fault(rank: int) -> callable:
+    """Phase 25's seamless fault: rank 1's partial scores of the head cut
+    on d_model not summed over model (it takes part in the all-reduce and
+    goes on with its own); -> a function that takes it out."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    saved = TensorParallel.head_sum
+    if rank == 1:
+        def own_part(self, part, dtype=torch.float32):
+            saved(self, part.clone(), dtype)
+            return part.to(dtype)
+        TensorParallel.head_sum = own_part
+
+    def restore():
+        TensorParallel.head_sum = saved
+    return restore
+
+
+def plant_gather_fault() -> callable:
+    """Phase 25's rwkv6 training fault: the gathers of ``r`` and ``k``
+    keep each rank's block of their gradient, unsummed over model (the
+    backward of ``TensorParallel.whole``); -> a function that takes it
+    out."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    saved = TensorParallel.gather_shares
+    TensorParallel.gather_shares = TensorParallel.whole
+
+    def restore():
+        TensorParallel.gather_shares = saved
+    return restore
+
+
+TRAIN_FAULT = ('r\'s and k\'s gathers with a backward that keeps the rank\'s '
+               'block unsummed')
+
+
+# a fault's name -> (what it plants, its planter)
+PLACEMENT_FAULTS = {
+    'score_sum': (HD_FAULT, plant_head_dim_fault),
+    'norm_sum': ('model rank 1\'s group-norm squares not summed over model',
+                 plant_norm_fault),
+    'head_sum': ('model rank 1\'s head partial not summed over model',
+                 plant_head_fault)}
+
+
+def every_rank(plan, x: torch.Tensor) -> torch.Tensor:
+    """Every ``model`` rank's ``x``, stacked in rank order, on every
+    rank."""
+    x = x.contiguous()
+    out = x.new_empty((plan.n * x.shape[0],) + tuple(x.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, x, group=plan.group)
+    return out.view((plan.n,) + tuple(x.shape))
+
+
 def scatter_from_lead(parts, like: torch.Tensor) -> torch.Tensor:
     """Rank 0's ``parts`` (host tensors, one a rank in rank order; None on
     the other ranks) -> this rank's, shaped and placed like ``like``."""
@@ -6748,18 +6849,23 @@ def scatter_from_lead(parts, like: torch.Tensor) -> torch.Tensor:
     return buf.to(like.device)
 
 
-def head_dim_rank(rank: int, cfg, dev: str) -> dict:
-    """Phase 24 on one of the HD_SHAPE ranks sharing the card: the full
-    weights drawn on the card HD_DRAW ranks at a time, each rank's blocks
-    cut (rank 0 draws them again for the meshless references); the serve
-    step (``make_serve_step``, the default rules) in f32, under the
-    planted fault (the prefill and one decode step) and in bf16, every
-    rank's scores gathered; one training step in f32, rank 0's meshless
+def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int
+                   ) -> dict:
+    """Phases 24 and 25 on one of the HD_SHAPE ranks sharing the card:
+    each rank's serve and training blocks drawn on the card a leaf at a
+    time (``Model.init_blocks``; rank 0 draws the whole weights for the
+    meshless references); the serve step (``make_serve_step``, the
+    default rules) in f32, under the planted ``fault``
+    (:data:`PLACEMENT_FAULTS`; the prefill and one decode step) and in
+    bf16, every rank's scores
+    gathered, the batches drawn from ``seed``; rwkv6's prefill through K6
+    on the rank's block (:func:`k6_block_check`); one training step in
+    f32 (rwkv6's also under :data:`TRAIN_FAULT`), rank 0's meshless
     blocks of each gradient and update leaf scattered to the ranks, each
-    comparing its own on the card.  Rank 0 returns the score gates'
-    numbers; every rank its errors, times, peak memory, cache bytes
-    (against the dry-run's count of the reference's block) and kernel
-    launches."""
+    comparing its own on the card.  Rank 0
+    returns the score gates' numbers; every rank its placement, errors,
+    times, peak memory, cache bytes (against the dry-run's count of the
+    reference's block) and kernel launches."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed.sharding import SERVE_RULES
     from repro_torch.kernels.common import LAUNCHES
@@ -6792,26 +6898,19 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
     steps = [make_serve_step(model, mesh, s)[0] for s in shapes]
     plan = steps[0].plan
     tplan = make_train_step(model, mesh).plan
-    out = {'pair_cut': (plan.pair_cut, tplan.tp.pair_cut)}
+    out = {'placement': [(p.pair_cut, p.wkv_mode, p.embed_cut)
+                         for p in (plan, tplan.tp)]}
     lap('plans')
     t0 = time.perf_counter()
-    shapes_of = model.param_shapes()
     for turn in range(-(-mesh.size // HD_DRAW)):
         if rank // HD_DRAW == turn:
-            # the blocks staged on the host until the whole weights are
-            # freed: blocks allocated beside the draw would pin its
-            # segments in this rank's allocator, 16 ranks over
-            drawn = dict(tr.leaves_with_paths(model.init_params(0,
-                                                                device=dev)))
-            cut = [(plan.shard(k, drawn[k].detach()).cpu(),
-                    tplan.param_blocks[k].take(drawn[k].detach()).cpu())
-                   for k, _ in tr.leaves_with_paths(shapes_of)]
-            del drawn
+            # in turns: a leaf's f32 draw is up to 3.1 GB (qwen3-14b's
+            # embed), too much for 16 ranks on one card at once
+            served = model.init_blocks(0, plan, device=dev)
+            blocks = model.init_blocks(0, tplan, device=dev)
+            trained = f32_params(blocks, dev)
+            del blocks
             torch.cuda.empty_cache()
-            served = tr.unflatten(shapes_of, [c[0].to(dev) for c in cut])
-            trained = f32_params(tr.unflatten(shapes_of,
-                                              [c[1] for c in cut]), dev)
-            del cut
         dist.barrier()
     out['draw_s'] = time.perf_counter() - t0
     # rank 0's whole weights for the meshless references
@@ -6819,7 +6918,7 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
     lap('draw')
 
     # -- the serve step ----------------------------------------------------
-    host_pre, host_steps = serve_batches(cfg, HD_B, HD_S, HD_DECODE, 24)
+    host_pre, host_steps = serve_batches(cfg, HD_B, HD_S, HD_DECODE, seed)
     dtypes = {'f32': torch.float32, 'bf16': torch.bfloat16}
 
     def batches(dtype):
@@ -6845,16 +6944,17 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
         model, shapes[0], describe(HD_SHAPE, MESH_AXES), SERVE_RULES,
         coords=mesh.coords())['cache']
     lap('count')
-    for name, fault in (('f32', False), ('fault', True), ('bf16', False)):
+    for name in ('f32', 'fault', 'bf16'):
         dtype = dtypes['bf16' if name == 'bf16' else 'f32']
         blocks = served if dtype == torch.bfloat16 else f32_params(served,
                                                                    dev)
         cache = plan.shard_cache(model.init_cache(shapes[0], device=dev,
                                                   dtype=dtype))
-        restore = plant_head_dim_fault(rank) if fault else (lambda: None)
+        restore = PLACEMENT_FAULTS[fault][1](rank) if name == 'fault' \
+            else (lambda: None)
         torch.cuda.reset_peak_memory_stats()
         # the fault shows from the first decode step: prefill + 1 step
-        calls = batches(dtype)[:2 if fault else None]
+        calls = batches(dtype)[:2 if name == 'fault' else None]
         try:
             got, secs = timed_calls(
                 [(steps[min(i, 1)], blocks, cache, plan.shard_batch(b))
@@ -6864,8 +6964,18 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
         res = {'mesh_s': secs, 'peak': torch.cuda.max_memory_allocated(),
                'cache_bytes': sum(t.numel() * t.element_size()
                                   for t in cache.values()),
-               'cache_shape': tuple(cache['k'].shape)}
+               'cache_shape': tuple(cache['wkv' if 'wkv' in cache
+                                          else 'k'].shape)}
         got = [full_scores(plan, g) for g in got]
+        if plan.embed_cut:
+            # every rank returns every column: the gates read the rank
+            # furthest from the meshless step, and the ranks must agree
+            every = [every_rank(plan, g) for g in got]
+            res['replicas'] = all(torch.equal(e[0], x) for e in every
+                                  for x in e[1:])
+            if lead:
+                got = [max(e, key=lambda x, w=w: (x - w).abs().max().item())
+                       for e, w in zip(every, meshless['f32'])]
         if lead:
             res.update(score_gaps(got, meshless['f32']))
             if name == 'bf16':
@@ -6881,7 +6991,11 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
         lap(f'{name} serve')
     out['reference_cache'] = reference_cache
     out['meshless_s'] = (meshless.get('f32_s'), meshless.get('bf16_s'))
-    del served, meshless
+    del meshless
+    if cfg.family == 'ssm':
+        out['k6'] = k6_block_check(model, plan, served, dev)
+        lap('k6')
+    del served
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6900,6 +7014,14 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
         torch.cuda.synchronize()
         want['s'] = time.perf_counter() - t0
         want['loss'], want['grad_norm'] = float(loss), float(m['grad_norm'])
+        if cfg.family in ('ssm', 'hybrid', 'encdec'):
+            # phase 19's nulls of these families' meshless step: a
+            # gradient leaf's gate widens to FM_NULL x its spread
+            want['nulls'] = null_spread(
+                model, drawn, batch, 1, dev, dict(tr.leaves_with_paths(
+                    grads)), {k: p.detach() for k, p in
+                              tr.leaves_with_paths(params)}, m,
+                family_nulls(cfg))['grads']
         want['grads'] = {k: g.cpu() for k, g in tr.leaves_with_paths(grads)}
         want['delta'] = {k: (p.detach() - drawn_leaf.float()).cpu()
                          for (k, p), (_, drawn_leaf) in zip(
@@ -6912,6 +7034,18 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
     dist.barrier()
     lap('wait')
     rows = shard_batch(host, tplan)
+    faulty = {}
+    if cfg.family == 'ssm':
+        # the planted training fault (:data:`TRAIN_FAULT`), which the
+        # gradient gate must catch at these ranks
+        restore = plant_gather_fault()
+        try:
+            _, bad = mesh_loss_and_grads(model, tplan, trained, rows)
+        finally:
+            restore()
+        faulty = {k: g.detach() for k, g in tr.leaves_with_paths(bad)}
+        del bad
+        lap('train fault')
     before = {k: v.detach().clone() for k, v in tr.leaves_with_paths(trained)}
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -6929,7 +7063,7 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
     t0 = time.perf_counter()
     plans = ([TrainPlan(model, mesh, coords=mesh.coords(r))
               for r in range(mesh.size)] if lead else None)
-    errors = {'grads': {}, 'update': {}}
+    errors, maxima = {'grads': {}, 'update': {}, 'fault': {}}, {}
     for k, p in tr.leaves_with_paths(trained):
         for what, local in (('grads', grad_blocks[k].detach()),
                             ('update', p.detach() - before[k])):
@@ -6944,6 +7078,11 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
                 dist.all_reduce(top, op=dist.ReduceOp.MAX)
                 err = float((local - mine).abs().max() / top)
                 errors[what][k] = math.inf if math.isnan(err) else err
+                if k in faulty:
+                    errors['fault'][k] = float((faulty[k] - mine).abs().max()
+                                               / top)
+                # (the meshless leaf's max |g|, this rank's block's)
+                maxima[k] = (float(top), float(local.abs().max()))
             else:
                 miss = torch.linalg.vector_norm(local - mine)
                 norm = torch.linalg.vector_norm(mine)
@@ -6951,53 +7090,37 @@ def head_dim_rank(rank: int, cfg, dev: str) -> dict:
                     0.0 if miss == 0 else math.inf)
     out['compare_s'] = time.perf_counter() - t0
     lap('compare')
-    out['train']['errors'] = errors
+    out['train'].update(errors=errors, maxima=maxima)
     if lead:
         out['train'].update(meshless_s=want['s'],
                             meshless_loss=want['loss'],
-                            meshless_grad_norm=want['grad_norm'])
+                            meshless_grad_norm=want['grad_norm'],
+                            nulls=want.get('nulls', {}))
     out['launches'] = dict(LAUNCHES)
     out['spent'], out['entered'], out['left'] = spent, entered, time.time()
     return out
 
 
-def head_dim_check(card: str) -> dict:
-    """Phase 24: qwen3-14b at published widths (d 5120, 40 q-heads, 8
-    kv-heads, head_dim 128), HD_LAYERS of 40 layers, on (data 1, model 16)
-    by 16 gloo ranks sharing the card: the reference's head_dim placement
-    (``tp.TensorParallel``, ``pair_cut``: every rank 4 of the 64 RoPE
-    pairs of every head in ``wq``/``wk``/``wv``/``wo`` and the pool).
-    (a) f32: the serve step's prefill of HD_B x HD_S and HD_DECODE decode
-    steps against the meshless step on the card, within FS_TOL of |max|
-    with argmax equal; :data:`HD_FAULT` past that gate; (b) bf16 under
-    phase 21's rule (the median row's error against the meshless f32 step
-    within FS_BF16_RATIO x the meshless bf16 step's, no argmax off but a
-    near tie), each rank's call times and peak memory recorded; (c) each
-    rank's cache bytes equal to the dry-run's count of its block under the
-    reference's specs (``dryrun.argument_bytes``); (d) one f32 training
-    step against the meshless step on the card: loss within MT_TOL
-    relative, every gradient leaf within MT_TOL of its max, every block's
-    update within FM_UPDATE_TOL of the meshless update's norm; 0 kernel
-    launches.  Returns the phase's launches (every rank's)."""
-    from repro_torch.kernels.common import LAUNCHES
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    cfg = family_cut(HD_ARCH, HD_LAYERS)
-    t0, started = time.perf_counter(), time.time()
-    ranks = on_ranks(head_dim_rank, int(np.prod(HD_SHAPE)), (cfg, DEV),
-                     HD_TIMEOUT_S)
+def placement_gates(card: str, arch: str, layers: int, ranks: list,
+                    fault: str, started: float, t0: float) -> list:
+    """Print and gate one architecture's results of :func:`placement_rank`
+    (phases 24 and 25): (a) f32 scores within FS_TOL of |max| of the
+    meshless step, argmax equal, the planted fault past that gate; (b) bf16
+    under phase 21's rule; (c) each rank's cache bytes equal to the
+    dry-run's count of its block under the reference's specs; (d) one f32
+    training step: loss within MT_TOL relative, every gradient leaf within
+    MT_TOL of its max, every block's update within FM_UPDATE_TOL of the
+    meshless update's norm, and where a training fault was planted (rwkv6,
+    :data:`TRAIN_FAULT`) its gradients past that gate.  Returns the gates
+    that failed."""
     r0, ended = ranks[0], time.time()
-    print(f'  {len(ranks)} ranks on the card: {time.perf_counter() - t0:.1f}'
-          f' s (weights drawn and cut {r0["draw_s"]:.1f} s, the meshless '
-          f'training blocks scattered and compared {r0["compare_s"]:.1f} s)'
-          f'  [{card}]')
-    print(f'  where the time went (host clock): the ranks (started during '
-          f'phase 23) entered the phase '
+    print(f'  {arch}: {len(ranks)} ranks on the card '
+          f'{time.perf_counter() - t0:.1f} s (weights drawn and cut '
+          f'{r0["draw_s"]:.1f} s, the meshless training blocks scattered and '
+          f'compared {r0["compare_s"]:.1f} s)  [{card}]')
+    print(f'  where the time went (host clock): the ranks entered '
           f'{min(r["entered"] for r in ranks) - started:.1f}-'
-          f'{max(r["entered"] for r in ranks) - started:.1f} s after its '
+          f'{max(r["entered"] for r in ranks) - started:.1f} s after the '
           f'call, their results were back '
           f'{ended - max(r["left"] for r in ranks):.1f} s after the last '
           f'left it; rank 0 '
@@ -7009,23 +7132,23 @@ def head_dim_check(card: str) -> dict:
 
     def gate(ok, what):
         if not ok:
-            failed.append(what)
+            failed.append((arch,) + tuple(what))
 
-    gate(all(r['pair_cut'] == (True, True) for r in ranks), 'pair_cut')
     ms = lambda xs: [round(x * 1e3, 2) for x in xs]  # noqa: E731
-    f32, fault, bf = r0['f32'], r0['fault'], r0['bf16']
+    f32, bad, bf = r0['f32'], r0['fault'], r0['bf16']
     f32_ok = max(f32['gaps']) <= FS_TOL and all(f32['equal'])
-    fault_ok = max(fault['gaps']) <= FS_TOL and all(fault['equal'])
+    fault_ok = max(bad['gaps']) <= FS_TOL and all(bad['equal'])
     med = {k: statistics.median(v) for k, v in bf['rows'].items()}
     bound = FS_BF16_RATIO * med['meshless']
     bf_ok = med['mesh'] <= bound and not bf['flips']['mesh']
-    print(f'  (a) {HD_ARCH} at {HD_LAYERS} of {get_config_layers(HD_ARCH)} '
-          f'layers, prefill B={HD_B} '
-          f'S={HD_S} + {HD_DECODE} decode steps, f32: |mesh - meshless| of '
-          f'|max| {[f"{g:.3e}" for g in f32["gaps"]]}, argmax equal '
-          f'{f32["equal"]} (gate {FS_TOL:g}: {"pass" if f32_ok else "FAIL"});'
-          f' planted fault ({HD_FAULT}): {[f"{g:.3e}" for g in fault["gaps"]]}'
-          f' (must fail: {"fails" if not fault_ok else "PASSES"})  [{card}]')
+    print(f'  (a) {arch} at {layers} of {get_config_layers(arch)} layers, '
+          f'prefill B={HD_B} S={HD_S} + {HD_DECODE} decode steps, f32: '
+          f'|mesh - meshless| of |max| {[f"{g:.3e}" for g in f32["gaps"]]}, '
+          f'argmax equal {f32["equal"]} (gate {FS_TOL:g}: '
+          f'{"pass" if f32_ok else "FAIL"}); planted fault '
+          f'({PLACEMENT_FAULTS[fault][0]}): '
+          f'{[f"{g:.3e}" for g in bad["gaps"]]} (must fail: '
+          f'{"fails" if not fault_ok else "PASSES"})  [{card}]')
     print(f'  (b) bf16 rows against the meshless f32 step, median '
           f'{med["mesh"]:.3e} against {FS_BF16_RATIO:g} x the meshless bf16 '
           f'step\'s {med["meshless"]:.3e} = {bound:.3e}, argmax off and not '
@@ -7044,45 +7167,270 @@ def head_dim_check(card: str) -> dict:
     caches = {(r['bf16']['cache_bytes'], r['reference_cache'],
                r['bf16']['cache_shape']) for r in ranks}
     cache_ok = all(c[0] == c[1] for c in caches)
-    print(f'  (c) cache bytes a rank (bf16, pool block shape) against the '
-          f'dry-run\'s reference count: {sorted(caches)} '
-          f'({"equal" if cache_ok else "DIFFER"})')
+    print(f'  (c) cache bytes a rank (bf16; the block shape of its wkv '
+          f'state or its K pool) against the dry-run\'s reference count: '
+          f'{sorted(caches)} ({"equal" if cache_ok else "DIFFER"})')
     t = r0['train']
     loss_rel = abs(t['loss'] - t['meshless_loss']) / abs(t['meshless_loss'])
     norm_rel = abs(t['grad_norm'] - t['meshless_grad_norm']) \
         / t['meshless_grad_norm']
-    (g_err, g_leaf, g_rank), (u_err, u_leaf, u_rank) = (
-        max((e, k, r) for r, x in enumerate(ranks)
-            for k, e in x['train']['errors'][what].items())
+    # a gradient leaf's gate: MT_TOL of its max, or FM_NULL x its null
+    # where the meshless step has one (phase 19's rule); seamless's
+    # exact-zero gradient is held to the decoder stack's max instead
+    nulls = t['nulls']
+    g_gate = lambda k: max(MT_TOL, FM_NULL * nulls.get(k, 0.0))  # noqa
+    (g_ratio, g_err, g_leaf, g_rank), (u_err, _, u_leaf, u_rank) = (
+        max((e / (g_gate(k) if what == 'grads' else 1.0), e, k, r)
+            for r, x in enumerate(ranks)
+            for k, e in x['train']['errors'][what].items()
+            if k != ZERO_GRAD)
         for what in ('grads', 'update'))
     same = all(r['train']['loss'] == t['loss'] for r in ranks)
     print(f'  (d) one f32 training step B={HD_TRAIN_B} S={HD_TRAIN_S}: loss '
           f'{t["loss"]:.7f} vs meshless {t["meshless_loss"]:.7f} (rel '
           f'{loss_rel:.3e}, gate {MT_TOL:g}), grad_norm rel {norm_rel:.3e}; '
           f'worst gradient leaf {g_err:.3e} of its max ({g_leaf}, rank '
-          f'{g_rank}; gate {MT_TOL:g}), worst block update {u_err:.3e} '
+          f'{g_rank}; gate {g_gate(g_leaf):.3e}: max({MT_TOL:g}, {FM_NULL:g} '
+          f'x the leaf\'s null {nulls.get(g_leaf, 0.0):.3e})), worst block '
+          f'update {u_err:.3e} '
           f'({u_leaf}, rank {u_rank}; gate {FM_UPDATE_TOL:g}) over '
           f'{len(t["errors"]["grads"])} leaves x {len(ranks)} ranks; loss '
           f'equal on every '
           f'rank {same}; step {t["s"] * 1e3:.1f} ms (meshless '
           f'{t["meshless_s"] * 1e3:.1f} ms), peak rank 0 {t["peak"] / 1e9:.3f}'
           f' GB  [{card}]')
+    faults = [(e / g_gate(k), e, k, r) for r, x in enumerate(ranks)
+              for k, e in x['train']['errors']['fault'].items()
+              if k != ZERO_GRAD]
+    if faults:
+        f_ratio, f_err, f_leaf, f_rank = max(faults)
+        print(f'  (d) planted training fault ({TRAIN_FAULT}): worst gradient '
+              f'leaf {f_err:.3e} of its max ({f_leaf}, rank {f_rank}; its '
+              f'gate {g_gate(f_leaf):.3e}; must fail: '
+              f'{"fails" if f_ratio > 1.0 else "PASSES"})  [{card}]')
+        gate(f_ratio > 1.0, ('train fault passes', f_leaf, f_err))
+    if 'replicas' in f32:
+        print(f'  (a) every rank\'s scores (the head cut on d_model, every '
+              f'column on every rank) bit-equal: f32 {f32["replicas"]}, bf16 '
+              f'{bf["replicas"]}; the fault\'s gaps are the worst rank\'s  '
+              f'[{card}]')
+        gate(f32['replicas'] and bf['replicas'], ('replicas',))
     gate(f32_ok, ('f32', f32['gaps'], f32['equal']))
-    gate(not fault_ok, ('fault passes f32', fault['gaps']))
+    gate(not fault_ok, ('fault passes f32', bad['gaps']))
     gate(bf_ok, ('bf16', med, bf['flips']))
     gate(cache_ok, ('cache bytes', sorted(caches)))
     gate(same and loss_rel <= MT_TOL and norm_rel <= MT_TOL,
          ('train loss', loss_rel, norm_rel))
-    gate(g_err <= MT_TOL, ('train grads', g_leaf, g_err))
+    gate(g_ratio <= 1.0, ('train grads', g_leaf, g_err))
     gate(u_err <= FM_UPDATE_TOL, ('train update', u_leaf, u_err))
+    if ZERO_GRAD in t['maxima']:
+        stack = max(v[0] for k, v in t['maxima'].items()
+                    if k.startswith('dec_layers/'))
+        zeros = [t['maxima'][ZERO_GRAD][0] / stack] + [
+            r['train']['maxima'][ZERO_GRAD][1] / stack for r in ranks]
+        print(f'  (d) {ZERO_GRAD} (softmax ignores it): meshless and mesh '
+              f'max |g| {zeros[0]:.3e} / {max(zeros[1:]):.3e} of the decoder '
+              f'stack\'s max |g| (gate {MT_TOL:g})  [{card}]')
+        gate(max(zeros) <= MT_TOL, (ZERO_GRAD, zeros))
+    return failed
+
+
+def rank_launches(ranks) -> dict:
+    """Every rank's hand-written kernel launches of a phase, summed, with
+    the main process's own (:data:`LAUNCHES`)."""
+    from repro_torch.kernels.common import LAUNCHES
+
     launches = dict(LAUNCHES)
     for r in ranks:
         for k, v in r['launches'].items():
             launches[k] += v
+    return launches
+
+
+def head_dim_check(card: str) -> dict:
+    """Phase 24: qwen3-14b at published widths (d 5120, 40 q-heads, 8
+    kv-heads, head_dim 128), HD_LAYERS of 40 layers, on (data 1, model 16)
+    by 16 gloo ranks sharing the card: the reference's head_dim placement
+    (``tp.TensorParallel``, ``pair_cut``: every rank 4 of the 64 RoPE
+    pairs of every head in ``wq``/``wk``/``wv``/``wo`` and the pool),
+    :func:`placement_gates`' (a)-(d) with :data:`HD_FAULT` planted; 0
+    kernel launches.  Returns the phase's launches (every rank's)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    cfg = family_cut(HD_ARCH, HD_LAYERS)
+    t0, started = time.perf_counter(), time.time()
+    ranks = on_ranks(placement_rank, int(np.prod(HD_SHAPE)),
+                     (cfg, DEV, 'score_sum', 24), HD_TIMEOUT_S)
+    failed = placement_gates(card, HD_ARCH, HD_LAYERS, ranks, 'score_sum',
+                             started, t0)
+    if not all(r['placement'] == [(True, None, False)] * 2 for r in ranks):
+        failed.append(('placement', ranks[0]['placement']))
+    launches = rank_launches(ranks)
     print(f'  hand-written kernel launches in the phase (every rank): '
           f'{launches}')
     assert not failed, failed
     assert not any(launches.values()), launches
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the reference's placement where model does not divide rwkv6's
+# wkv heads or seamless's vocabulary
+# ---------------------------------------------------------------------------
+
+# (arch, depth, the planted fault, the batches' seed, what the plans hold:
+# (pair_cut, wkv_mode, embed_cut) of the serve step's and the trainer's)
+WV_RUNS = (('rwkv6-3b', 2, 'norm_sum', 25, (False, 'values', False)),
+           ('seamless-m4t-medium', 2, 'head_sum', 26, (False, None, True)))
+WV_K6 = (4, 64, 40, 64, 4)         # K6 at a rank's value block, timed:
+                                   # (B, T, H, K, V), f32
+
+
+def k6_block_check(model, plan, served, dev: str) -> dict:
+    """Phase 25 (e), on one rank: rwkv6's ``prefill_fn(use_kernel=True,
+    tp=)`` -- K6 over every head's value block of this rank -- against the
+    plain chunked path on the same block and the plain path at chunk 64
+    (the null), f32, HD_B rows of HD_S tokens: each layer's state block
+    and the scores; the kernel's launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.common import LAUNCHES
+
+    shape = ShapeConfig('prefill', HD_S, HD_B, 'prefill')
+    batch = {'tokens': torch.tensor(np.random.default_rng(25).integers(
+        0, model.cfg.vocab_size, (HD_B, HD_S)), device=dev)}
+    params = f32_params(served, dev)
+
+    def run(use_kernel):
+        cache = plan.shard_cache(model.init_cache(shape, device=dev,
+                                                  dtype=torch.float32))
+        with torch.no_grad():
+            cache, scores = model.prefill_fn(params, cache, batch,
+                                             use_kernel=use_kernel, tp=plan)
+        return scores, cache['wkv']
+
+    before = LAUNCHES['wkv6']
+    kern = run(True)
+    launches = LAUNCHES['wkv6'] - before
+    plain = run(False)
+    with plain_wkv_chunk(64):
+        null = run(False)
+
+    def rel(a, b) -> float:
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    return {'launches': launches, 'block': tuple(kern[1].shape),
+            'state0': (max_err(kern[1][0], plain[1][0]),
+                       wkv_close(kern[1][0], plain[1][0], WKV_TOL)),
+            'states': [(rel(k, p), rel(n, p)) for k, p, n in
+                       zip(kern[1], plain[1], null[1])],
+            'scores': (rel(kern[0], plain[0]), rel(null[0], plain[0]))}
+
+
+def k6_block_time(timer) -> dict:
+    """K6 at :data:`WV_K6` (a rank's value block of rwkv6-3b's 40 heads on
+    16 ranks, the prompt of phase 25), f32: its time, its tiled plain
+    model's, and the bound of the bytes it must move."""
+    from repro_torch.kernels.rwkv6.ops import wkv6
+    from repro_torch.kernels.rwkv6.ref import wkv6_tiled_ref
+
+    b, t, h, k, v = WV_K6
+    gen = torch.Generator(device=DEV).manual_seed(25)
+
+    def randn(*shape, scale=0.5):
+        return torch.randn(shape, generator=gen, device=DEV) * scale
+    w = torch.exp(-2.5 + 2.495 * torch.rand((b, t, h, k), generator=gen,
+                                            device=DEV))
+    xs = [randn(b, t, h, k), randn(b, t, h, k), randn(b, t, h, v), w,
+          randn(h, k, scale=0.3), randn(b, h, k, v, scale=0.1)]
+    y, s = wkv6(*xs)
+    want = wkv6_tiled_ref(*xs)
+    n_bytes = 4 * (3 * b * t * h * k + 2 * b * t * h * v + h * k
+                   + 2 * b * h * k * v)
+    return {'ok': wkv_close(y, want[0], WKV_TOL)
+            and wkv_close(s, want[1], WKV_TOL),
+            'err': max(max_err(y, want[0]), max_err(s, want[1])),
+            'ms': timer(lambda: wkv6(*xs)),
+            'plain_ms': timer(lambda: wkv6_tiled_ref(*xs)),
+            'bound': bound(n_bytes, 4 * k * v * b * t * h, F32_FLOPS_PER_S)}
+
+
+def wkv_vocab_check(card: str) -> dict:
+    """Phase 25: on phase 24's 16 ranks, (data 1, model 16), at published
+    widths: rwkv6-3b (40 wkv heads of 64) at 2 of 32 layers, each rank
+    holding channels [4r, 4r + 4) of every head's values (``wkv_mode``
+    'values'), and seamless-m4t-medium at 2 + 2 of 12 + 12 layers, its
+    embedding and head cut on d_model (``embed_cut``): each under
+    :func:`placement_gates`' (a)-(d), rwkv6 with rank 1's group-norm
+    squares unsummed planted, seamless with rank 1's head partial; (e)
+    rwkv6's prefill through K6 on every rank's value block against the
+    plain chunked path on that block: layer 0's state within WKV_TOL (1 +
+    |x|), deeper states and the scores within max(1e-4, 2x the chunk-64
+    null); K6 timed at :data:`WV_K6` in this process.  Returns the
+    phase's launches (every rank's: K6's of (e) only)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    failed, ranks_all = [], []
+    for arch, layers, fault, seed, placed in WV_RUNS:
+        cfg = family_cut(arch, layers)
+        t0, started = time.perf_counter(), time.time()
+        ranks = on_ranks(placement_rank, int(np.prod(HD_SHAPE)),
+                         (cfg, DEV, fault, seed), HD_TIMEOUT_S)
+        failed += placement_gates(card, arch, layers, ranks, fault, started,
+                                  t0)
+        if not all(r['placement'] == [placed] * 2 for r in ranks):
+            failed.append((arch, 'placement', ranks[0]['placement']))
+        if 'k6' in ranks[0]:
+            k6 = [r['k6'] for r in ranks]
+            worst = lambda i, j: max(x['states'][i][j]  # noqa: E731
+                                     for x in k6)
+            deep = max(max(s[0] for s in x['states'][1:]) for x in k6)
+            deep_null = max(max(s[1] for s in x['states'][1:]) for x in k6)
+            scores = max(x['scores'][0] for x in k6)
+            scores_null = max(x['scores'][1] for x in k6)
+            ok = (all(x['state0'][1] for x in k6)
+                  and all(x['launches'] == layers for x in k6)
+                  and deep <= max(1e-4, 2 * deep_null)
+                  and scores <= max(1e-4, 2 * scores_null))
+            print(f'  (e) {arch} prefill B={HD_B} T={HD_S} through K6 on '
+                  f'every rank\'s value block {k6[0]["block"]} (L, B, H, '
+                  f'K, V/{HD_SHAPE[1]}), f32, against the plain chunked '
+                  f'path on the '
+                  f'same block: layer 0 state max abs err '
+                  f'{max(x["state0"][0] for x in k6):.3e} (tol {WKV_TOL:g}'
+                  f' (1 + |x|)), layer 0 of |max| {worst(0, 0):.3e}; deeper '
+                  f'states {deep:.3e} (chunk-64 null {deep_null:.3e}), '
+                  f'scores {scores:.3e} (null {scores_null:.3e}); launches '
+                  f'a rank {sorted({x["launches"] for x in k6})} '
+                  f'({"pass" if ok else "FAIL"})  [{card}]')
+            if not ok:
+                failed.append((arch, 'k6 block', k6[0]))
+        ranks_all += ranks
+    launches = rank_launches(ranks_all)
+    # the comparison's and the timer's launches are no main-path launches
+    timer = Timer()
+    k6 = k6_block_time(timer)
+    del timer
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    print(f'  (e) K6 alone at (B, T, H, K, V) = {WV_K6}, f32: '
+          f'{k6["ms"]:.4f} ms, its tiled plain model {k6["plain_ms"]:.4f} '
+          f'ms, bound {k6["bound"][0]:.4f} ms ({k6["bound"][1]}), max abs '
+          f'err {k6["err"]:.3e} ({"pass" if k6["ok"] else "FAIL"})  '
+          f'[{card}]')
+    if not k6['ok']:
+        failed.append(('k6 alone', k6['err']))
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}')
+    assert not failed, failed
+    assert launches['wkv6'] > 0 and not any(
+        v for k, v in launches.items() if k != 'wkv6'), launches
     return launches
 
 
@@ -7255,6 +7603,7 @@ def main() -> int:
     by_phase['family_mesh'] = family_mesh_check(card)
     done()
 
+
     print(f'[20] serve step: {SERVE_ARCH} at published widths, '
           f'make_serve_step over the region KV layout against the global '
           f'pool (f32, bf16), run_cell measured, two production records of '
@@ -7294,10 +7643,20 @@ def main() -> int:
           f'the card): serve step f32 and bf16, a planted fault, cache '
           f'bytes, one f32 training step')
     by_phase['head_dim'] = head_dim_check(card)
+    done()
+
+    print(f'[25] the reference\'s placement where model does not divide '
+          f'rwkv6\'s wkv heads or the vocabulary: '
+          f'{", ".join(f"{a} ({n} layers)" for a, n, *_ in WV_RUNS)} at '
+          f'published widths over {HD_SHAPE} on phase 24\'s ranks: serve '
+          f'step f32 and bf16, a planted fault each, cache bytes, one f32 '
+          f'training step (rwkv6\'s also under a planted fault), K6 on '
+          f'every rank\'s value block')
+    by_phase['wkv_vocab'] = wkv_vocab_check(card)
     close_pools()
     done()
 
-    print(f'[25] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[26] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

@@ -12,7 +12,14 @@ collectives itself, over the ``model`` axis's process group:
 - ``wg``/``wu`` column blocks and ``wd`` a row block: the MLP the same;
 - the embedding is vocab-parallel (a masked lookup of the rank's rows,
   then a reduction), and so is the head (qwen3 ties it to the
-  embedding): each rank's block of scores is gathered before sampling;
+  embedding): each rank's block of scores is gathered before sampling.
+  Where ``model`` does not divide the vocabulary (seamless's 256206 on 16
+  ranks), the reference's ``shaped_spec`` moves it onto d_model, and so
+  do the serve step's and the trainer's plans (:attr:`TensorParallel.
+  embed_cut`): a rank looks up its columns of every row, gathered whole
+  (:meth:`TensorParallel.embed_gather`), and its columns of the head give
+  f32 partial scores summed over ``model`` (:meth:`TensorParallel.
+  head_sum`), the loss's logits too;
 - the norms are replicated.
 
 **Heads, or RoPE pairs of every head.**  Where the mesh divides the
@@ -30,8 +37,9 @@ them: where the mesh
 divides the q-heads and each rank's q-heads read one kv-head (G % (H/n)
 == 0), each rank holds that one kv-head, its projection columns and its
 pool replicated over the G n / H ranks that read it; otherwise attention
-is replicated.  Where the mesh does not divide ``d_ff`` or the
-vocabulary, that part is replicated.  Every reduction is an all-reduce of f32 partial sums
+is replicated.  Where the mesh does not divide ``d_ff``, or in the
+engine's plan the vocabulary, that part is replicated.  Every reduction
+is an all-reduce of f32 partial sums
 (:func:`reduce_sum`), rounded once to the activations' dtype: every rank
 receives the one reduced buffer, so the replicated activations hold the
 same bits on every rank.
@@ -45,7 +53,9 @@ into collectives that never match.
 
 **Training** (``training/train_step.py``) runs the same forward under
 autograd (every family: the placement table is the family's,
-:meth:`TensorParallel.ranges`; rwkv6 splits its wkv heads and ``d_ff``,
+:meth:`TensorParallel.ranges`; rwkv6 splits its wkv heads -- or, where
+``model`` does not divide them, every head's value channels
+(:meth:`TensorParallel._wkv_placement`) -- and ``d_ff``,
 zamba2 its Mamba2 heads with a share of B and C and its shared block's
 heads, encdec its encoder's and decoder's heads and ``d_ff`` as dense), and
 the collectives carry their gradients as Megatron's pair:
@@ -143,7 +153,7 @@ from torch import nn
 from repro_torch.distributed.sharding import (BATCH_AXES, SERVE_RULES,
                                               TRAIN_RULES, Block,
                                               batch_coords, block, row_block)
-from repro_torch.kernels.sampling.ref import combine_bests
+from repro_torch.kernels.sampling.ref import combine_bests, unembed_scores
 from repro_torch.models import common as cm
 
 MODEL = 'model'
@@ -156,6 +166,9 @@ KV_LEAVES = ('wk', 'wv', 'bk', 'bv')
 # where a serve step's rules put attention's heads and pool
 # (:func:`attention_placement`, :class:`StepParallel`)
 HEADS, KV_DP, SEQ, DH = 'heads', 'kv_dp', 'seq', 'dh'
+# where rwkv6's time mix lies over model (:meth:`TensorParallel.
+# _wkv_placement`)
+WKV_HEADS, WKV_VALUES, WKV_EVERY = 'heads', 'values', 'every'
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -309,6 +322,15 @@ class TensorParallel:
         self.ffn = self._split(cfg.d_ff)
         self.vocab = self._split(cfg.vocab_size)
         self.vocab_split = self.vocab != (0, cfg.vocab_size)
+        # where model does not divide the vocabulary, the reference's
+        # shaped_spec moves it onto d_model: the embedding's and the head's
+        # columns [lo, hi) of d_model (the engine's plan keeps the table
+        # whole: no architecture it serves on a mesh has such a vocabulary)
+        self.embed_cut = (not whole_heads and self.n > 1
+                          and not self.vocab_split
+                          and cfg.d_model % self.n == 0)
+        self.embed_cols = (block(cfg.d_model, self.n, self.rank)
+                           if self.embed_cut else (0, cfg.d_model))
         # experts: whole ones where model divides them, else every expert
         # with its d_ff cut (module docstring)
         e = cfg.n_experts
@@ -317,11 +339,8 @@ class TensorParallel:
         self.expert_ffn = (0, cfg.d_ff) if self.expert_split else self.ffn
         self.experts_partial = self.expert_split or self.ffn != (0, cfg.d_ff)
         self.shared_ffn = self._split(cfg.d_ff * max(cfg.n_shared_experts, 1))
-        # rwkv6: whole wkv heads (channels [lo, hi) of d_model)
-        self.wkv = self._heads(cfg.d_model // cfg.ssm_head_dim,
-                               cfg.ssm_head_dim) \
-            if cfg.family == 'ssm' else (0, 0)
-        self.wkv_split = self.wkv != (0, cfg.d_model)
+        # rwkv6's time mix (:meth:`_wkv_placement`)
+        self.wkv_mode, self.wkv, self.values = self._wkv_placement()
         # zamba2: whole Mamba2 heads (channels [lo, hi) of d_in) and a
         # share of the state dimension N of B and C, both or neither; the
         # shared block's own heads (channels of its q/k/v width) and d_ff
@@ -346,8 +365,6 @@ class TensorParallel:
             # Mamba2 head) on every rank, the computation replicated
             self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
             self.attn_split, self.kv_holders = False, 1
-            if cfg.family == 'ssm':
-                self.wkv, self.wkv_split = (0, cfg.d_model), False
             if cfg.family == 'hybrid':
                 d_in = cfg.ssm_expand * cfg.d_model
                 self.mamba, self.mamba_state = (0, d_in), (0, cfg.ssm_state)
@@ -379,15 +396,14 @@ class TensorParallel:
         if self.pair_cut:
             self.q_heads, self.kv_heads = (0, cfg.n_heads), (0, cfg.n_kv_heads)
             self.attn_split, self.kv_holders = True, 1
-        # rwkv6's ``u`` (L, H, K): on K where every rank holds every wkv
-        # head and the rules place 'heads' or 'head_dim' on model (serve_dh;
-        # 'heads' where model does not divide them moves onto K), whole
-        # under serve_kv_dp
+        # rwkv6's ``u`` (L, H, K): on K where the rules place 'head_dim' on
+        # model (serve_dh) or 'heads' where model does not divide them (the
+        # reference moves it onto K), whole under serve_kv_dp
         k = cfg.ssm_head_dim
         self.u_dim = (block(k, self.n, self.rank)
-                      if cfg.family == 'ssm' and self.n > 1
-                      and not self.wkv_split and k % self.n == 0
-                      and self.placement != KV_DP else None)
+                      if self.wkv_mode == WKV_VALUES or cfg.family == 'ssm'
+                      and self.placement == DH and self.n > 1
+                      and k % self.n == 0 else None)
         # the serving batch's rows over the batch axes
         self.n_batch, self.batch_index = (
             batch_coords(mesh, coords) if max_batch else (1, 0))
@@ -406,6 +422,42 @@ class TensorParallel:
         them."""
         lo, hi = self._split(n_heads)
         return lo * width, hi * width
+
+    def _wkv_placement(self):
+        """(mode, channels [lo, hi) of d_model, value channels [lo, hi) of
+        a head) of rwkv6's time mix on this rank: ``WKV_HEADS``, whole wkv
+        heads where ``model`` divides them; ``WKV_VALUES``, where it does
+        not, the value channels [lo, hi) of every head (the reference's
+        specs move ``model`` onto the state's V), with a contiguous d/n
+        block of ``Wr``/``Wk``; ``WKV_EVERY`` (``serve_kv_dp``), a
+        contiguous d/n block of every projection, every head run on every
+        rank; None where the time mix is replicated (``serve_dh``, one
+        rank, another family).  Raises where ``model`` divides neither
+        the heads nor a head's channels."""
+        cfg, n = self.cfg, self.n
+        hd = cfg.ssm_head_dim
+        if cfg.family != 'ssm' or n == 1 or self.placement == DH:
+            return None, (0, cfg.d_model), (0, hd)
+        heads = cfg.d_model // hd
+        if self.placement == KV_DP or heads % n:
+            if cfg.d_model % n or hd % n:
+                raise NotImplementedError(
+                    f'rwkv6 over model = {n}: it divides neither its '
+                    f'{heads} wkv heads nor their {hd} channels')
+        if self.placement == KV_DP:
+            return WKV_EVERY, block(cfg.d_model, n, self.rank), (0, hd)
+        if heads % n == 0:
+            return WKV_HEADS, self._heads(heads, hd), (0, hd)
+        return WKV_VALUES, block(cfg.d_model, n, self.rank), \
+            block(hd, n, self.rank)
+
+    def value_columns(self) -> Tuple[Tuple[int, int], ...]:
+        """This rank's columns of rwkv6's (H x V) width under
+        ``WKV_VALUES``: its value channels of every head, in global
+        order."""
+        hd, (lo, hi) = self.cfg.ssm_head_dim, self.values
+        return tuple((h * hd + lo, h * hd + hi)
+                     for h in range(self.cfg.d_model // hd))
 
     @property
     def group(self):
@@ -489,7 +541,7 @@ class TensorParallel:
             attn.update(dict.fromkeys(('q_norm', 'k_norm'),
                                       {1: self.head_dim}))
         return {
-            'embed': {0: self.vocab}, 'unembed': {0: self.vocab}, **attn,
+            **self._head_ranges(), **attn,
             **({'x' + k: v for k, v in attn.items()}
                if self.cfg.family == 'encdec' else {}),
             'wg': {2: self.ffn}, 'wu': {2: self.ffn}, 'wd': {1: self.ffn},
@@ -511,20 +563,22 @@ class TensorParallel:
         return tuple((h * hd + lo, h * hd + hi) for h in range(heads)
                      for lo, hi in self.pair_channels())
 
+    def _head_ranges(self):
+        """The embedding and the head (V, D): by vocabulary, or by d_model
+        (:attr:`embed_cut`)."""
+        cut = {1: self.embed_cols} if self.embed_cut else {0: self.vocab}
+        return {'embed': cut, 'unembed': cut}
+
     def _ssm_ranges(self):
         """rwkv6: its table (``models.rwkv6.placement``), the embedding and
-        the head by vocabulary."""
+        the head."""
         from repro_torch.models import rwkv6
 
-        table = {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
-                 **rwkv6.placement(self.cfg, self.wkv, self.ffn)}
-        if self.u_dim is not None:
-            table['u'] = {2: self.u_dim}
-        return table
+        return {**self._head_ranges(), **rwkv6.placement(self)}
 
     def _hybrid_ranges(self, group: str):
         """zamba2: its table for ``group`` (``models.zamba2.placement``),
-        the embedding (the tied head) by vocabulary."""
+        the embedding (the tied head)."""
         from repro_torch.models import zamba2
 
         table = zamba2.placement(
@@ -532,8 +586,7 @@ class TensorParallel:
             self.mamba_state, self.shared_heads, self.hybrid_ffn)
         if group == 'shared':
             return table
-        return {'embed': {0: self.vocab}, 'unembed': {0: self.vocab},
-                **table}
+        return {**self._head_ranges(), **table}
 
     def block(self, path, shape) -> Block:
         """This rank's :class:`Block` of the global weight ``path`` of
@@ -568,6 +621,24 @@ class TensorParallel:
                 self.mesh.device, memory_format=torch.contiguous_format,
                 copy=part.shape != node.shape), requires_grad=False)
         return build(params, ())
+
+    def holds_blocks(self, params, shapes) -> bool:
+        """Whether ``params`` are this rank's blocks already (every leaf at
+        its block's shape, some leaf cut) rather than the global weights
+        (every leaf at its shape in ``shapes``, ``Model.param_shapes()``);
+        raises where they are neither."""
+        local = whole = True
+        for path, w in _leaves(params):
+            shape = shapes
+            for k in path:
+                shape = shape[k]
+            local &= tuple(w.shape) == tuple(self.block(path,
+                                                        shape).local_shape)
+            whole &= tuple(w.shape) == tuple(shape)
+        if not (local or whole):
+            raise ValueError('weights neither global nor this rank\'s '
+                             'blocks')
+        return not whole
 
     def init_cache(self, n_pages: int, device, dtype):
         """This rank's block of the global paged pool: its kv-heads."""
@@ -709,8 +780,12 @@ class TensorParallel:
 
     def embed(self, table, tokens):
         """Vocab-parallel lookup: each rank looks up the tokens in its rows
-        (zeros elsewhere), and the sum has one nonzero term a row: exact."""
+        (zeros elsewhere), and the sum has one nonzero term a row: exact.
+        Under :attr:`embed_cut` each rank looks up its columns of every
+        row, gathered whole (:meth:`embed_gather`)."""
         tokens = tokens.long()
+        if self.embed_cut:
+            return self.embed_gather(table[tokens])
         lo, hi = self.vocab
         if self.n == 1 or (lo, hi) == (0, self.cfg.vocab_size):
             return table[tokens]
@@ -719,6 +794,55 @@ class TensorParallel:
         h = table[local.clamp(0, hi - lo - 1)]
         return self.reduce_sum(torch.where(inside[..., None], h.float(), 0.0),
                                table.dtype)
+
+    def embed_gather(self, part: torch.Tensor) -> torch.Tensor:
+        """(..., d/n) this rank's columns of the embedded rows -> (..., d),
+        every rank's gathered in rank order: the residual after it is the
+        same on every rank, so under autograd the backward keeps this
+        rank's block of a gradient every rank holds whole (:meth:`whole`;
+        a sum would count it n times)."""
+        return self.whole(part)
+
+    def own_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., d) the same on every rank -> (..., d/n) this rank's columns
+        of d_model (:attr:`embed_cut`): under autograd the backward gathers
+        every rank's block of the gradient (:class:`_SplitToModel`)."""
+        if _traced(x):
+            return _SplitToModel.apply(x, self.group, self.rank, self.n)
+        return x[..., self.embed_cols[0]:self.embed_cols[1]]
+
+    def head_sum(self, part: torch.Tensor, dtype=torch.float32):
+        """Every rank's f32 partial product over its columns of d_model
+        (the head under :attr:`embed_cut`), summed over ``model`` and
+        rounded once to ``dtype`` (:meth:`reduce_sum`)."""
+        return self.reduce_sum(part, dtype)
+
+    def column_logits(self, x: torch.Tensor, head: torch.Tensor):
+        """x (..., d) the same on every rank, ``head`` (V, d/n) this rank's
+        columns of d_model (:attr:`embed_cut`) -> the logits (..., V) in
+        x's dtype: the f32 partial product over the rank's columns summed
+        over ``model`` (:meth:`head_sum`), rounded once, as the meshless
+        ``x @ head.T`` rounds its f32 accumulation once."""
+        return self.head_sum(f32_product(self.own_cols(x), head.T), x.dtype)
+
+    def scores(self, last: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        """The head's f32 scores of ``last`` (B, D): ``head`` (V, D) this
+        rank's vocabulary block, or whole, or under :attr:`embed_cut` its
+        columns of d_model, whose partial scores are summed over ``model``
+        (every rank then holds every column)."""
+        if not self.embed_cut:
+            return unembed_scores(last, head)
+        return self.head_sum(unembed_scores(self.own_cols(last), head))
+
+    def value_norm(self, y: torch.Tensor, width: int, eps: float):
+        """``models.common.rms_norm`` of each head over its ``width``
+        channels, y (..., w) this rank's block of them (rwkv6's group norm
+        under ``WKV_VALUES``) and no weight: the f32 sum of squares summed
+        over ``model`` (:meth:`norm_sum`), then this rank's channels
+        scaled."""
+        yf = y.float()
+        total = self.norm_sum((yf * yf).sum(-1, keepdim=True))
+        return (yf * torch.rsqrt(total / width + eps)).to(y.dtype)
 
     def gather_vocab(self, scores):
         """(B, V/n) blocks of scores -> (B, V), blocks in rank order."""
@@ -873,9 +997,10 @@ class StepParallel(TensorParallel):
         - dense, vlm, moe: the region pool (L, B, R, pg, Hkv, Dh), its
           rows and its kv-heads (``kv_dp``: every head; ``seq``: its block
           of R, every head; ``dh``: its block of Dh, every head);
-        - ssm: ``wkv`` (L, B, H, K, V) its rows and wkv heads (``kv_dp``,
-          ``dh``: every head), ``shift_tm`` / ``shift_cm`` (L, B, D) its
-          rows;
+        - ssm: ``wkv`` (L, B, H, K, V) its rows and wkv heads, or where
+          ``model`` does not divide them its value channels of every head
+          (``kv_dp``, ``dh``: the whole state), ``shift_tm`` / ``shift_cm``
+          (L, B, D) its rows;
         - hybrid: ``mamba/conv`` (L, B, K-1, C) its rows and its conv
           channels (its heads' x and its share of B's and C's), ``mamba/
           ssm`` (L, B, H, P, N) its rows and its heads, N whole; ``attn``
@@ -894,8 +1019,12 @@ class StepParallel(TensorParallel):
             return self._pool_block(b, 1, self.kv_heads)
         b = b.narrow(1, self.rows.start, self.rows.stop)
         if fam == 'ssm':
-            return (_select(b, 2, self.ranges('layers/u').get(1))
-                    if name == 'wkv' else b)
+            hd = self.cfg.ssm_head_dim
+            if name != 'wkv' or self.wkv_mode not in (WKV_HEADS, WKV_VALUES):
+                return b
+            return (b.narrow(2, self.wkv[0] // hd, self.wkv[1] // hd)
+                    if self.wkv_mode == WKV_HEADS
+                    else b.narrow(4, *self.values))
         if fam == 'encdec':
             return self._pool_block(b, None, self.kv_heads)
         if fam != 'hybrid':
@@ -1253,7 +1382,11 @@ def _leaves(params, prefix=()):
 class Leader:
     """Rank 0's side of one engine's plane: opens the engine on every rank
     (its config, cache geometry and weight blocks), then announces each
-    dispatch before rank 0 runs it.  With one rank, nothing is sent."""
+    dispatch before rank 0 runs it.  With one rank, nothing is sent.
+    ``params`` None: every rank makes its own blocks (:func:`serve_rank`'s
+    ``blocks``), none are shipped, and the engine opens once every rank
+    holds them (a barrier: a rank drawing its blocks may need the room on
+    a shared card that a first dispatch would take)."""
 
     _ids = itertools.count()
 
@@ -1263,9 +1396,12 @@ class Leader:
         self.workers = [int(r) for r in mesh.devices.flatten() if r != 0]
         if not self.workers:
             return
-        leaves = list(_leaves(params))
+        leaves = [] if params is None else list(_leaves(params))
         _send_op(('open', self.id, model.cfg, n_pages, max_batch,
-                  cache_dtype, [(path, t.dtype) for path, t in leaves]))
+                  cache_dtype, None if params is None
+                  else [(path, t.dtype) for path, t in leaves]))
+        if params is None:
+            torch.distributed.barrier()
         plans = {r: TensorParallel(model.cfg, mesh, mesh.coords(r),
                                    whole_heads=True)
                  for r in self.workers}
@@ -1338,11 +1474,13 @@ def stop_ranks(mesh) -> None:
 
 class _Follower:
     """A worker rank's copy of one engine: its weight blocks (received from
-    rank 0 in the order of ``leaves``), its cache block and its last fused
-    output (the device feed of the next fused batch)."""
+    rank 0 in the order of ``leaves``, or where ``leaves`` is None made
+    here by ``blocks(cfg, plan)``, an ``nn.ParameterDict``), its cache
+    block and its last fused output (the device feed of the next fused
+    batch)."""
 
     def __init__(self, cfg, mesh, n_pages: int, max_batch: int, cache_dtype,
-                 leaves):
+                 leaves, blocks=None):
         from repro_torch.models.api import build_model
 
         self.model = build_model(cfg)
@@ -1350,7 +1488,13 @@ class _Follower:
                                  whole_heads=True)
         shapes = self.model.param_shapes()
         params: Dict = {}
-        for path, dtype in leaves:
+        if leaves is None:
+            if blocks is None:
+                raise ValueError('an engine opened with every rank\'s own '
+                                 'blocks: serve_rank needs blocks=')
+            params = blocks(cfg, self.tp)
+            torch.distributed.barrier()          # the leader waits on it
+        for path, dtype in leaves or ():
             shape = shapes
             for k in path:
                 shape = shape[k]
@@ -1361,7 +1505,7 @@ class _Follower:
             for k in path[:-1]:
                 node = node.setdefault(k, {})
             node[path[-1]] = buf.to(mesh.device)
-        self.params = _parameter_dict(params)
+        self.params = params if leaves is None else _parameter_dict(params)
         self.cache = self.tp.init_cache(n_pages, mesh.device, cache_dtype)
         self.prev = torch.zeros((max_batch,), dtype=torch.int32,
                                 device=mesh.device)
@@ -1386,12 +1530,16 @@ def _parameter_dict(tree) -> nn.ParameterDict:
         else nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
 
 
-def serve_rank(mesh) -> Dict:
+def serve_rank(mesh, blocks=None) -> Dict:
     """A worker rank's loop: follow rank 0's engines on ``mesh`` until
-    :func:`stop_ranks`.  Returns, by engine id (``Leader.id``), each
-    engine's cache block shape and the kernel launches its own dispatches
-    made on this rank (the counters of ``kernels.common``, counted from 0
-    at its ``open``)."""
+    :func:`stop_ranks`.  ``blocks(cfg, plan)``: this rank's weight blocks
+    (an ``nn.ParameterDict`` on the mesh's device, e.g. ``Model.
+    init_blocks``) for an engine that rank 0 opened on its own blocks
+    (:meth:`TensorParallel.holds_blocks`); the others' are shipped by rank
+    0.
+    Returns, by engine id (``Leader.id``), each engine's cache block shape
+    and the kernel launches its own dispatches made on this rank (the
+    counters of ``kernels.common``, counted from 0 at its ``open``)."""
     from repro_torch.kernels.common import LAUNCHES
 
     engines: Dict[int, _Follower] = {}
@@ -1403,7 +1551,7 @@ def serve_rank(mesh) -> Dict:
             return {'launches': launches, 'cache_shapes': shapes}
         eid = rest[0]
         if op == 'open':
-            engines[eid] = _Follower(rest[1], mesh, *rest[2:])
+            engines[eid] = _Follower(rest[1], mesh, *rest[2:], blocks=blocks)
             shapes[eid] = tuple(engines[eid].cache['k'].shape)
             launches[eid] = dict.fromkeys(LAUNCHES, 0)
         elif op == 'close':

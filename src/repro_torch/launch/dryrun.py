@@ -13,10 +13,10 @@ whole program, so:
   ``arguments``.  ``reference_arguments`` are the same under the
   reference's specs, which is what the reference's compiled program holds
   (``argument_size_in_bytes``).  The two agree wherever the port's
-  placement is the reference's; where ``model`` does not divide a
-  dimension (rwkv6-3b's 40 wkv heads on 16 ranks) the port keeps it whole
-  and the reference moves ``model`` onto another, and the record names
-  each leaf whose bytes differ, by group, with both counts
+  placement is the reference's, and where they do not (long_500k's one
+  row under a rule variant, which the port replicates over the batch
+  axes; a train rank's rows, whose sequence the port keeps whole) the
+  record names each leaf whose bytes differ, by group, with both counts
   (``placement``).  ``output`` is what the step returns (the cache, or
   params and optimizer state, updated in place and counted as ``alias``,
   and the scores or the metrics);
@@ -211,7 +211,7 @@ def _rank_inputs(model, shape, step, device):
             local = plan.block(path, leaf.shape).local_shape
         leaf = dataclasses.replace(leaf, shape=tuple(local))
         t = (torch.empty(leaf.shape, dtype=leaf.dtype, device=device) if meta
-             else cm._init_leaf(leaf, gen, device))
+             else cm.init_leaf(leaf, gen, device))
         return t.requires_grad_() if train else t
 
     params = _build(param, model.template())

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, cell_supported
 from repro_torch.models import common as cm
@@ -97,6 +98,38 @@ class Model:
         gen = torch.Generator(device=device).manual_seed(seed)
         return cm.init_from_template(self.template(), gen, device,
                                      requires_grad=requires_grad)
+
+    def init_blocks(self, seed: int, plan, *, device):
+        """``plan``'s blocks (a ``distributed.tp.TensorParallel`` or a
+        ``training.train_step.TrainPlan``: ``plan.shard``) of
+        ``init_params(seed, device=device)``, the same
+        numbers, drawn a leaf at a time: the device holds one whole leaf at
+        once, never the whole set (an ``nn.ParameterDict`` as
+        :meth:`init_params`', each cut block a copy)."""
+        device = torch.device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def release():
+            # the card's free segments back to it (the leaf's f32 draw,
+            # then the whole leaf), before a block lands in one and pins it
+            # cached: the next leaf, or another process sharing the card,
+            # needs the room
+            if device.type == 'cuda':
+                torch.cuda.empty_cache()
+
+        def build(node, path):
+            if not isinstance(node, cm.PSpec):
+                return nn.ParameterDict({k: build(v, path + (k,))
+                                         for k, v in node.items()})
+            whole = cm.init_leaf(node, gen, device)
+            release()
+            part = plan.shard(path, whole)
+            if part.shape != whole.shape:
+                part = part.clone(memory_format=torch.contiguous_format)
+            del whole
+            release()
+            return nn.Parameter(part, requires_grad=False)
+        return build(self.template(), ())
 
     def _no_kernel(self, use_kernel: bool, families=NO_KERNEL):
         if use_kernel and self.cfg.family in families:

@@ -67,7 +67,10 @@ def axes_from_template(tmpl):
     return _map_template(lambda leaf: leaf.axes, tmpl)
 
 
-def _init_leaf(leaf: PSpec, gen: torch.Generator, device) -> torch.Tensor:
+def init_leaf(leaf: PSpec, gen: torch.Generator, device) -> torch.Tensor:
+    """One template leaf drawn from ``gen`` on ``device`` under its init
+    law (the generator advances as :func:`init_from_template` advances it
+    for this leaf)."""
     if leaf.init == 'zeros':
         return torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
     if leaf.init == 'ones':
@@ -85,7 +88,7 @@ def init_from_template(tmpl, gen: torch.Generator, device, *,
     """Draw a template's weights on ``device`` (the generator's device)."""
     def build(node):
         if isinstance(node, PSpec):
-            return nn.Parameter(_init_leaf(node, gen, device),
+            return nn.Parameter(init_leaf(node, gen, device),
                                 requires_grad=requires_grad)
         return nn.ParameterDict({k: build(v) for k, v in node.items()})
     return build(tmpl)
@@ -326,14 +329,18 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5,
     every chunk's (B, chunk, V) logits stay alive for the backward.
     Returns (sum of masked NLL, sum of mask), f32 scalars.
 
-    ``tp`` (a ``distributed.tp.TensorParallel`` whose vocabulary is split):
-    ``head`` is the rank's vocabulary block, and the log-sum-exp is
+    ``tp`` (a ``distributed.tp.TensorParallel``): where its vocabulary is
+    split, ``head`` is the rank's vocabulary block, and the log-sum-exp is
     assembled over the ranks -- the row max by an all-reduce MAX (detached:
     it only steadies the exponentials), the sum of exponentials by an f32
     all-reduce SUM, the gold logit by a masked pick on the rank that owns
-    the label and an all-reduce SUM (both with an identity backward).  A
-    checkpointed chunk re-issues these collectives when the backward
-    recomputes it, in the same order on every rank."""
+    the label and an all-reduce SUM (both with an identity backward).
+    Where ``model`` cuts the head on d_model instead (``tp.embed_cut``),
+    each chunk's logits are the rank's f32 partial product over its
+    columns summed over ``model`` (``tp.head_sum``), rounded once to the
+    model dtype, then the plain cross-entropy.  A checkpointed chunk
+    re-issues these collectives when the backward recomputes it, in the
+    same order on every rank."""
     b, s, _ = h.shape
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=h.device)
@@ -343,6 +350,11 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5,
 
     def chunk(hc, lc, mc):
         logits = (rms_norm(hc, norm_w, eps) @ head.T).float()
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
+        return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
+
+    def column_chunk(hc, lc, mc):
+        logits = tp.column_logits(rms_norm(hc, norm_w, eps), head).float()
         gold = logits.gather(-1, lc[..., None].long())[..., 0]
         return ((torch.logsumexp(logits, dim=-1) - gold) * mc).sum()
 
@@ -360,12 +372,13 @@ def chunked_ce_loss(h, norm_w, head, labels, *, mask=None, eps: float = 1e-5,
             torch.float32)
         return ((torch.log(total) + top - gold) * mc).sum()
 
+    fn = (chunk if tp is None or not (tp.vocab_split or tp.embed_cut) else
+          column_chunk if tp.embed_cut else vocab_parallel_chunk)
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, step):
         m = mask[:, i:i + step].float()
-        nll = nll + remat(chunk if tp is None else vocab_parallel_chunk,
-                          h[:, i:i + step], labels[:, i:i + step], m)
+        nll = nll + remat(fn, h[:, i:i + step], labels[:, i:i + step], m)
         cnt = cnt + m.sum()
     return nll, cnt
 

@@ -373,10 +373,18 @@ def _mlp(cfg, lp, h, tp=None):
                          functools.partial(tp.row_parallel, split=split))
 
 
+def head_scores(last, head, tp=None):
+    """The head's f32 scores (B, V) of ``last`` (B, D); under ``tp`` the
+    rank's vocabulary block, or every column where ``model`` cuts the head
+    on d_model (``tp.scores``)."""
+    return unembed_scores(last, head) if tp is None else tp.scores(last,
+                                                                   head)
+
+
 def _scores(cfg, params, last, tp):
     """The head's f32 scores (B, V); under ``tp`` the rank's vocab block
     of its rows, gathered over ``model`` and the batch axes."""
-    scores = unembed_scores(last, head_of(cfg, params))
+    scores = head_scores(last, head_of(cfg, params), tp)
     return scores if tp is None else tp.gather_rows(tp.gather_vocab(scores))
 
 
@@ -388,7 +396,8 @@ def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embeds=None,
                  tp=None):
     """Token embeddings (B, S, D); with ``prefix_embeds`` (B, p, D) the
     first p positions are those embeddings, cast to the embedding dtype.
-    Under ``tp`` a vocab-parallel lookup."""
+    Under ``tp`` a vocab-parallel lookup (``tp.embed``; where ``model``
+    does not divide the vocabulary, the rank's columns gathered)."""
     h = (params['embed'][tokens.long()] if tp is None
          else tp.embed(params['embed'], tokens))
     if prefix_embeds is not None:
@@ -425,7 +434,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], head_of(cfg, params), batch['labels'],
         mask=batch.get('loss_mask'), eps=cfg.norm_eps,
-        tp=tp if tp is not None and tp.vocab_split else None)
+        tp=tp)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 

@@ -20,8 +20,12 @@ paged read is the gather oracle.
 self-attention and MLPs are split as the dense family's (whole heads,
 their biases, ``d_ff``; ``models/dense.py``), the cross-attention's
 ``x*`` leaves by the same heads, and ``embed`` / ``unembed`` by
-vocabulary where ``model`` divides it; ``frontend_proj`` and the norms
-stay replicated.  The encoder's output enters every layer's cross K/V
+vocabulary where ``model`` divides it, else by d_model, as the
+reference's specs place them (seamless-m4t-medium's 256206 tokens on 16
+ranks: the lookup's columns gathered, the head's partial scores and the
+loss's logits summed over ``model``; ``distributed.tp.TensorParallel.
+embed_cut``); ``frontend_proj`` and the norms stay replicated.  The
+encoder's output enters every layer's cross K/V
 through one ``tp.copy``; where a rank's kv-head is replicated over several
 ranks, its cross ``wk``/``wv``/``bk``/``bv`` pass through ``_CopyToModel``
 over those ranks, as the self-attention's do.
@@ -43,7 +47,6 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.common import PSpec
@@ -200,7 +203,7 @@ def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], params['unembed'], batch['labels'],
         mask=batch.get('loss_mask'), eps=cfg.norm_eps,
-        tp=tp if tp is not None and tp.vocab_split else None)
+        tp=tp)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 
@@ -236,7 +239,7 @@ def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
         h = dec_layer(cfg, lp, h, positions, 'prefill', cache['k'][i],
                       cache['v'][i], page_table, xks[i], xvs[i], tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, params['unembed'])
+    return cache, dense.head_scores(last, params['unembed'], tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
@@ -251,7 +254,7 @@ def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
                       cache['v'][i], page_table, cache['cross_k'][i],
                       cache['cross_v'][i], tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, params['unembed'])
+    return cache, dense.head_scores(last, params['unembed'], tp)
 
 
 def cache_template(cfg: ModelConfig, n_pages: int, batch: int, enc_len: int):

@@ -264,7 +264,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], dense.head_of(cfg, params),
         batch['labels'], mask=batch.get('loss_mask'), eps=cfg.norm_eps,
-        tp=tp if tp is not None and tp.vocab_split else None)
+        tp=tp)
     total = cnt if data is None else data.sum(cnt.detach().clone())
     loss = nll / torch.clamp_min(total, 1.0) + AUX_WEIGHT * aux
     return loss, {'tokens': cnt, 'aux_loss': aux}

@@ -19,39 +19,46 @@ A Python loop over layers replaces ``lax.scan``.  The output head
 ``unembed`` is stored (V, D) row-major, like the dense family's, and
 scores are ``h @ unembed.T``.
 
-**Training over ``model``** (``forward_train(tp=)``, a
-``distributed.tp.TensorParallel``): a rank holds whole wkv heads -- the
-columns of ``Wr``/``Wk``/``Wv``/``Wg``, the rows of ``Wo``, ``u``, and
-the heads' channels of ``w_base``, ``w_B``'s output and ``ln_x`` -- and a
-``d_ff`` block of ``Wk_cm`` / ``Wv_cm``; the embedding and the head by
-vocabulary.  The WKV recurrence and the group norm are head-local, so
-``Wo`` and ``Wv_cm`` are the only row-parallel products (an f32 sum over
-the ranks, rounded once).  ``Wr_cm``'s sigmoid gates that *reduced*
-product, so ``Wr_cm`` stays replicated (the reference's ``'qkv'`` axis
-would split its columns; the function is the same), as do ``mu``,
-``mu_cm``, ``w_A`` and the norms.  The mixes ``r``, ``k``, ``v`` and
-``g`` read, and ``tanh(x_w A)``, enter the rank's columns through
-``tp.copy``, so every replicated leaf gets the whole gradient, bit-equal
-on every rank.
+**Over ``model``** (``forward_train(tp=)``, a ``distributed.tp.
+TensorParallel``; ``prefill`` / ``decode_step(tp=)``, a serve step's
+``distributed.tp.StepParallel``), each rank holds the reference's blocks
+(``shaped_spec``): ``Wr``, ``Wk`` and ``Wr_cm`` a contiguous block of
+d_model's columns (``'qkv'``), a ``d_ff`` block of ``Wk_cm`` / ``Wv_cm``,
+the embedding and the head by vocabulary, and ``mu``, ``mu_cm``, the
+decay's ``w_base`` / ``w_A`` / ``w_B``, ``ln_x`` and the norms
+replicated (``'embed'``).  Where the time mix lies is ``tp.wkv_mode``:
 
-**Serving over ``model``** (``prefill`` / ``decode_step(tp=)``, a serve
-step's ``distributed.tp.StepParallel``): the same blocks, the cache's
-``wkv`` state by the rank's heads and rows, the token shift states by
-its rows (every channel); the scores are the rank's vocabulary block.
-``prefill(use_kernel=True, tp=)`` runs the WKV6 kernel over the rank's
-heads.  Where ``model`` does not divide the wkv heads (rwkv6-3b's 40 on
-16 ranks) every rank keeps them all, and ``u`` is cut on K as the
-reference's specs move ``model`` there, gathered whole before use.  Under
-``serve_dh`` the time mix is replicated (every weight and head on every
-rank, ``u`` cut on K and gathered); under ``serve_kv_dp`` the rank's
-r/k/v/w columns are gathered over ``model`` and every rank runs every head
-(``u`` and the ``wkv`` state replicated), then takes its channels into
-the gate and the row-parallel ``Wo``.  The trainer places its weights by
-the same rules (``distributed.tp.TensorParallel(rules=)``): under
-``serve_dh`` every rank runs the whole time mix and ``u``'s gather keeps
-the rank's block of the gradient; under ``serve_kv_dp`` every rank runs
-every head from a zero state of every head, and ``u``, read for the
-rank's heads, has its gradient summed over ``model``.
+- ``'heads'`` (``model`` divides the wkv heads): whole heads, the columns
+  of ``Wr``/``Wk``/``Wv``/``Wg``, the rows of ``Wo``, ``u`` and the
+  ``wkv`` state's heads; the recurrence and the group norm are
+  head-local, and each rank reads its heads' channels of the replicated
+  decay and ``ln_x``;
+- ``'values'`` (rwkv6-3b's 40 heads on 16 ranks): value channels [v0, v1)
+  of every head -- ``Wv``/``Wg`` columns and ``Wo`` rows strided over the
+  heads, the ``wkv`` state (L, B, H, K, V/n), ``u`` cut on K.  The state
+  ``S[k, v]`` decays by ``w[k]`` and ``y[v]`` sums over k, so each value
+  channel is its own recurrence: ``r`` and ``k`` are gathered whole (a
+  reduce-scatter backward: each rank's use is a share), ``w`` is computed
+  whole from the replicated decay, and the per-head group norm sums its
+  f32 squares over ``model`` (``tp.value_norm``).  ``prefill(use_kernel=
+  True, tp=)`` runs the WKV6 kernel over every head's block (V = 4 at 16
+  ranks);
+- ``'every'`` (``serve_kv_dp``): contiguous d/n blocks of every
+  projection, ``r``/``k``/``v`` gathered, every head run on every rank
+  (``u`` and the state replicated), the rank's channels taken into the
+  gate and ``Wo``;
+- None (``serve_dh``, one rank): the time mix replicated, ``u`` cut on K
+  and gathered whole where ``model`` > 1.
+
+``Wo`` and ``Wv_cm`` are row-parallel products (an f32 sum over the
+ranks, rounded once); the channel mix's sigmoid gate is computed on the
+rank's ``Wr_cm`` columns and gathered whole, so it multiplies the reduced
+product.  Under autograd the mixes enter the rank's columns through
+``tp.copy``, and a replicated leaf a rank reads only in part (the decay,
+``ln_x``, ``u`` under ``'every'``) through ``tp.head_share``: every
+replicated leaf gets the whole gradient, bit-equal on every rank.  The
+cache's token shift states hold the rank's rows (every channel); the
+scores are its vocabulary block.
 """
 from __future__ import annotations
 
@@ -61,11 +68,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tp import WKV_EVERY, WKV_HEADS, WKV_VALUES
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.kernels.rwkv6.ref import wkv6_chunked, wkv6_step
-from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
-from repro_torch.models.dense import embed_inputs
+from repro_torch.models.dense import embed_inputs, head_scores
 from repro_torch.models.common import PSpec
 
 LORA_DIM = 32
@@ -107,19 +114,28 @@ def template(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def placement(cfg: ModelConfig, channels, ffn) -> Dict[str, Dict[int, Any]]:
+def placement(tp) -> Dict[str, Dict[int, Any]]:
     """A tensor-parallel rank's blocks of the layer stack's leaves, {name:
-    {dim: [lo, hi)}}, for a rank holding the whole wkv heads whose
-    channels of ``d_model`` are ``channels`` = [lo, hi) and the block
-    ``ffn`` = [lo, hi) of ``d_ff`` (the module docstring); a leaf it does
-    not name (``mu``, ``mu_cm``, ``w_A``, ``Wr_cm``, the norms) is
-    replicated."""
-    hd = cfg.ssm_head_dim
-    return {'Wr': {2: channels}, 'Wk': {2: channels}, 'Wv': {2: channels},
-            'Wg': {2: channels}, 'Wo': {1: channels},
-            'u': {1: (channels[0] // hd, channels[1] // hd)},
-            'w_base': {1: channels}, 'w_B': {2: channels},
-            'ln_x': {1: channels}, 'Wk_cm': {2: ffn}, 'Wv_cm': {1: ffn}}
+    {dim: [lo, hi) or several of them}}, under ``tp``'s ``wkv_mode`` (the
+    module docstring): ``Wr`` / ``Wk`` / ``Wr_cm`` the rank's contiguous
+    columns ``tp.wkv``; ``Wv`` / ``Wg`` columns and ``Wo`` rows its heads'
+    channels, its value channels of every head (``tp.value_columns()``),
+    or the contiguous block; ``u`` by heads or on K (``tp.u_dim``); the
+    ``d_ff`` block ``tp.ffn`` of ``Wk_cm`` / ``Wv_cm``.  A leaf it does
+    not name (``mu``, ``mu_cm``, ``w_base``, ``w_A``, ``w_B``, ``ln_x``,
+    the norms) is replicated, as the reference's ``'embed'`` axis is."""
+    table = {'Wk_cm': {2: tp.ffn}, 'Wv_cm': {1: tp.ffn}}
+    if tp.u_dim is not None:
+        table['u'] = {2: tp.u_dim}
+    if tp.wkv_mode is None:
+        return table
+    cols, hd = tp.wkv, tp.cfg.ssm_head_dim
+    own = tp.value_columns() if tp.wkv_mode == WKV_VALUES else cols
+    if tp.wkv_mode == WKV_HEADS:
+        table['u'] = {1: (cols[0] // hd, cols[1] // hd)}
+    table.update(Wr={2: cols}, Wk={2: cols}, Wv={2: own}, Wg={2: own},
+                 Wo={1: own}, Wr_cm={2: cols})
+    return table
 
 
 def cache_template(cfg: ModelConfig, batch_size: int) -> Dict[str, PSpec]:
@@ -153,30 +169,44 @@ def _identity(x):
 def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
              use_kernel: bool = False, tp=None):
     """-> (output (B, T, D), new shift state x[:, -1], new wkv state).
-    ``tp``: a tensor-parallel rank's wkv heads (module docstring)."""
+    ``tp``: a tensor-parallel rank's blocks (module docstring)."""
     b, t, d = x.shape
     hd = cfg.ssm_head_dim
-    split = tp is not None and tp.wkv_split
-    copy = tp.copy if split else _identity
-    # serve_kv_dp: the wkv state replicated, every head run on every rank
-    every = split and tp.placement == 'kv_dp'
-    whole = tp.gather_shares if every else _identity
+    mode = None if tp is None else tp.wkv_mode
+    copy = tp.copy if mode else _identity
+    share = tp.head_share if mode else _identity
+    # every head's r and k (and under WKV_EVERY v) from the ranks' blocks
+    whole = tp.gather_shares if mode in (WKV_VALUES, WKV_EVERY) \
+        else _identity
     xs = _shift(x, shift_state)
     mu = lp['mu']
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
-    # -1 heads: a tensor-parallel rank's weights hold its heads only
+    # -1 heads: a rank's weights may hold its heads only
     r = whole(copy(xr) @ lp['Wr']).reshape(b, t, -1, hd).float()
     k = whole(copy(xk) @ lp['Wk']).reshape(b, t, -1, hd).float()
-    v = whole(copy(xv) @ lp['Wv']).reshape(b, t, -1, hd).float()
+    v = copy(xv) @ lp['Wv']
+    if mode == WKV_EVERY:
+        v = whole(v)
+    # (B, T, heads, V): a rank's value channels under WKV_VALUES
+    v = v.reshape(b, t, r.shape[2], -1).float()
     g = copy(xg) @ lp['Wg']
-    w_raw = (lp['w_base'].float()
+    # the decay from the replicated w_base / w_A / w_B, for the rank's
+    # heads or every head; a rank's use of it is a share of the gradient
+    w_base, w_B = share(lp['w_base']), share(lp['w_B'])
+    ln_x = share(lp['ln_x'])
+    if mode == WKV_HEADS:
+        lo, hi = tp.wkv
+        w_base, w_B = w_base[..., lo:hi], w_B[..., lo:hi]
+    w_raw = (w_base.float()
              + copy(torch.tanh(xw.float() @ lp['w_A'].float()))
-             @ lp['w_B'].float())
-    w = torch.exp(-torch.exp(whole(w_raw))).reshape(b, t, -1, hd)  # (0, 1)
+             @ w_B.float())
+    w = torch.exp(-torch.exp(w_raw)).reshape(b, t, -1, hd)   # (0, 1)
     u = lp['u']
-    if every:                       # replicated, read for the rank's heads
+    if mode == WKV_EVERY:           # replicated, read for the rank's heads
         u = tp.head_share(u)
-    elif tp is not None and tp.u_dim is not None:    # cut on K
+    elif mode == WKV_VALUES:        # cut on K, read for the rank's values
+        u = tp.gather_shares(u)
+    elif tp is not None and tp.u_dim is not None:    # serve_dh: replicated
         u = tp.whole(u)
     u = u.float()
     if t == 1:
@@ -184,25 +214,36 @@ def time_mix(cfg: ModelConfig, lp, x, shift_state, wkv_state, *,
                                  wkv_state)
         y = y[:, None]
     elif use_kernel:
-        y, wkv_state = wkv6(r, k, v, w, u, wkv_state)
+        # the kernel reads dense rows (the ranks' gathers are strided)
+        y, wkv_state = wkv6(*(x.contiguous() for x in (r, k, v, w, u)),
+                            wkv_state)
     else:
         y, wkv_state = wkv6_chunked(r, k, v, w, u, wkv_state)
-    # per-head group norm, then the gate
-    y = cm.rms_norm(y, torch.ones(hd, dtype=y.dtype, device=y.device), 64e-5)
+    # per-head group norm (over every rank's values of a head), the gate
+    if mode == WKV_VALUES:
+        y = tp.value_norm(y, hd, 64e-5)
+    else:
+        y = cm.rms_norm(y, torch.ones(hd, dtype=y.dtype, device=y.device),
+                        64e-5)
     y = y.reshape(b, t, -1)
-    if every:
+    if mode == WKV_EVERY:
         y = y[..., tp.wkv[0]:tp.wkv[1]]
-    y = y.to(x.dtype) * lp['ln_x']
+    if mode in (WKV_HEADS, WKV_EVERY):
+        ln_x = ln_x[tp.wkv[0]:tp.wkv[1]]
+    elif mode == WKV_VALUES:
+        ln_x = ln_x.reshape(-1, hd)[:, tp.values[0]:tp.values[1]].flatten()
+    y = y.to(x.dtype) * ln_x
     y = y * F.silu(g.float()).to(x.dtype)
-    out = y @ lp['Wo'] if not split else tp.row_parallel(y, lp['Wo'], True)
+    out = tp.row_parallel(y, lp['Wo'], True) if mode else y @ lp['Wo']
     return out, x[:, -1], wkv_state
 
 
 def channel_mix(cfg: ModelConfig, lp, x, shift_state, tp=None):
     """-> (output (B, T, D), new shift state x[:, -1]).  ``tp``: a
-    tensor-parallel rank's ``d_ff`` block; the gate multiplies the reduced
-    product."""
+    tensor-parallel rank's ``d_ff`` block and ``Wr_cm`` columns: the gate
+    of its columns, gathered, multiplies the reduced product."""
     split = tp is not None and tp.ffn != (0, cfg.d_ff)
+    gate_cut = tp is not None and tp.wkv_mode is not None
     xs = _shift(x, shift_state)
     mu = lp['mu_cm']
     xk = x + (xs - x) * mu[0]
@@ -211,8 +252,13 @@ def channel_mix(cfg: ModelConfig, lp, x, shift_state, tp=None):
                                 @ lp['Wk_cm']))
     kv = tp.row_parallel(k, lp['Wv_cm'], True) if split \
         else k @ lp['Wv_cm']
-    out = torch.sigmoid((xr @ lp['Wr_cm']).float()).to(x.dtype) * kv
-    return out, x[:, -1]
+    gate = torch.sigmoid(((tp.copy(xr) if gate_cut else xr)
+                          @ lp['Wr_cm']).float()).to(x.dtype)
+    if gate_cut:
+        # every rank's columns; kv is whole on every rank, so the gate's
+        # gradient is too and the backward keeps the rank's block
+        gate = tp.whole(gate)
+    return gate * kv, x[:, -1]
 
 
 def layer_apply(cfg: ModelConfig, lp, h, state_l, *, use_kernel: bool = False,
@@ -242,9 +288,12 @@ def forward_train(cfg: ModelConfig, params, batch, *,
     h = embed_inputs(cfg, params, tokens, tp=tp)
     zero = {k: s[0] for k, s in init_state(cfg, tokens.shape[0],
                                            device=h.device).items()}
-    if tp is not None and tp.wkv_split and tp.placement != 'kv_dp':
+    mode = None if tp is None else tp.wkv_mode
+    if mode == WKV_HEADS:
         hd = cfg.ssm_head_dim
         zero['wkv'] = zero['wkv'][:, tp.wkv[0] // hd:tp.wkv[1] // hd]
+    elif mode == WKV_VALUES:
+        zero['wkv'] = zero['wkv'][..., tp.values[0]:tp.values[1]]
     for lp in cm.layer_views(params):
         h = cm.remat(lambda h, lp: layer_apply(cfg, lp, h, zero,
                                                use_kernel=use_kernel,
@@ -252,8 +301,7 @@ def forward_train(cfg: ModelConfig, params, batch, *,
                      h, lp)
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], params['unembed'], batch['labels'],
-        mask=batch.get('loss_mask'), eps=cfg.norm_eps,
-        tp=tp if tp is not None and tp.vocab_split else None)
+        mask=batch.get('loss_mask'), eps=cfg.norm_eps, tp=tp)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 
@@ -280,7 +328,7 @@ def prefill(cfg: ModelConfig, params, cache, batch, *,
     h = embed_inputs(cfg, params, batch['tokens'], tp=tp)
     h = _run_layers(cfg, params, h, cache, use_kernel, tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, params['unembed'])
+    return cache, head_scores(last, params['unembed'], tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
@@ -289,4 +337,4 @@ def decode_step(cfg: ModelConfig, params, cache, batch, *, tp=None):
     h = embed_inputs(cfg, params, batch['tokens'], tp=tp)[:, None, :]
     h = _run_layers(cfg, params, h, cache, False, tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, params['unembed'])
+    return cache, head_scores(last, params['unembed'], tp)

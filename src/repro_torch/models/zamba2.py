@@ -77,10 +77,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.sampling.ref import unembed_scores
 from repro_torch.models import common as cm
 from repro_torch.models.common import PSpec
-from repro_torch.models.dense import embed_inputs, head_of, placed
+from repro_torch.models.dense import embed_inputs, head_of, head_scores, placed
 
 SSD_CHUNK = 128
 
@@ -524,7 +523,7 @@ def forward_train(cfg: ModelConfig, params, batch, *, tp=None):
     nll, cnt = cm.chunked_ce_loss(
         h, params['final_norm'], head_of(cfg, params), batch['labels'],
         mask=batch.get('loss_mask'), eps=cfg.norm_eps,
-        tp=tp if tp is not None and tp.vocab_split else None)
+        tp=tp)
     return nll / torch.clamp_min(cnt, 1.0), {'tokens': cnt}
 
 
@@ -561,7 +560,7 @@ def prefill(cfg: ModelConfig, params, cache, batch, *, tp=None):
     h = _run_layers(cfg, params, h, _positions(*tokens.shape, tokens.device),
                     'prefill', cache, batch['page_table'], tp)
     last = cm.rms_norm(h[:, -1], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, head_of(cfg, params))
+    return cache, head_scores(last, head_of(cfg, params), tp)
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch, *,
@@ -577,4 +576,4 @@ def decode_step(cfg: ModelConfig, params, cache, batch, *,
                     'decode_dense' if long_context else 'decode', cache,
                     batch.get('page_table'), tp)
     last = cm.rms_norm(h[:, 0], params['final_norm'], cfg.norm_eps)
-    return cache, unembed_scores(last, head_of(cfg, params))
+    return cache, head_scores(last, head_of(cfg, params), tp)

@@ -227,7 +227,10 @@ class Engine:
         """Open this engine on every rank of the mesh and commit the
         weights and the pool to rank 0's blocks (weights on the host are
         shipped and committed a block at a time: the card never holds the
-        whole set)."""
+        whole set).  Weights that are rank 0's blocks already (every leaf
+        at its block's shape, e.g. ``Model.init_blocks``) stay where they
+        are, and every other rank makes its own (``serve_rank(mesh,
+        blocks=)``): no card ever holds the whole set."""
         from repro_torch.distributed.tp import (Leader, TensorParallel,
                                                 check_mesh)
 
@@ -239,10 +242,11 @@ class Engine:
             raise ValueError('a mesh engine runs on rank 0; the other ranks '
                              'run distributed.tp.serve_rank')
         dtype = params['embed'].dtype
-        self._leader = Leader(self.model, params, self.mesh,
-                              n_pages=self.pool.n_pages,
+        held = self._tp.holds_blocks(params, self.model.param_shapes())
+        self._leader = Leader(self.model, None if held else params,
+                              self.mesh, n_pages=self.pool.n_pages,
                               max_batch=self.cfg.max_batch, cache_dtype=dtype)
-        self.params = self._tp.shard_params(params)
+        self.params = params if held else self._tp.shard_params(params)
         self.cache = self._tp.init_cache(self.pool.n_pages, self.device,
                                          dtype)
 

@@ -15,8 +15,10 @@ mean of the microbatch losses.
 (:class:`TrainPlan`): the weights cut over ``model`` by the family's table
 (``distributed/tp.py``: whole heads -- or, where ``model`` does not
 divide the kv-heads, the reference's head_dim placement, a block of RoPE
-pairs of every head --, ``d_ff`` and vocabulary blocks,
-moe's experts and their router columns, rwkv6's wkv heads, zamba2's
+pairs of every head --, ``d_ff`` and vocabulary blocks (where ``model``
+does not divide the vocabulary, the embedding's and the head's columns of
+d_model), moe's experts and their router columns, rwkv6's wkv heads (or
+a block of every head's value channels), zamba2's
 Mamba2 heads with a share of B and C -- several intervals of its packed
 leaves, ``sharding.Block`` -- and its shared block's heads), and with
 ZeRO-1 each moment cut further over the data axes, along a dimension
@@ -56,8 +58,8 @@ the weights as ``TRAIN_RULES`` do.  ``param_specs`` and ``batch_specs``
 are the reference's specs under the rules; the port's placement follows
 its blocks instead where it departs (no sequence parallelism: the
 residuals stay replicated over ``model``, the reference's
-``TRAIN_NO_SP_RULES``, the same function; rwkv6's decay, group norm and
-``Wr_cm``, zamba2's packed leaves: ``distributed/tp.py``).
+``TRAIN_NO_SP_RULES``, the same function; zamba2's packed leaves:
+``distributed/tp.py``).
 """
 from __future__ import annotations
 
@@ -258,6 +260,13 @@ class TrainPlan:
         return {'params': params,
                 'opt': {'step': Block.whole(()), 'mu': moments,
                         'nu': moments}}
+
+    def shard(self, path, full):
+        """This rank's block of the global weight ``full`` at ``path`` (a
+        key tuple or ``'a/b'``; a view), as ``TensorParallel.shard``:
+        ``Model.init_blocks`` draws a plan's blocks with it."""
+        key = path if isinstance(path, str) else '/'.join(path)
+        return self.param_blocks[key].take(full)
 
     def shard_params(self, full, *, requires_grad: bool = True
                      ) -> nn.ParameterDict:

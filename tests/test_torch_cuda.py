@@ -92,6 +92,10 @@ WKV_CASES = [
     (2, 77, 3, 64, 64, torch.float32, 40),            # V off the value block
     (1, 45, 2, 32, 16, torch.bfloat16, 100),          # two value blocks, bf16
     (2, 200, 4, 64, 64, torch.float32, 64, -12.0),    # see _wkv_inputs
+    # a rank's value block of every head (rwkv6-3b's 40 heads on 16 ranks:
+    # V = 4; 3 heads of V = 8): mostly padding in each CTA, unaligned loads
+    (2, 200, 40, 64, 64, torch.float32, 4),
+    (1, 77, 3, 64, 64, torch.float32, 8),
 ]
 SAMPLE_CASES = [
     # (B, D, V): ragged vocab tiles, two launches' worth of rows, and the

@@ -35,13 +35,8 @@
     port counts (model - 1) / model of that product more
     (:func:`_replicated_cb_flops`, 2^20 FLOPs here, 0.58 % of the cell),
     which the test subtracts before the 0.4 % check.
-  * rwkv6 train on (2, 2): the port counts 1.073 of the reference.  Its
-    channel mix's ``Wr_cm`` (D x D) is replicated over ``model`` in the
-    port's placement, so each rank runs the whole product forward,
-    recomputed and backward, where GSPMD splits it; and the reference's
-    ``TRAIN_RULES`` split the residual stream's replicated products over
-    ``seq`` (sequence parallelism), which the port does not (its
-    ``TRAIN_NO_SP_RULES`` count: 1.058).
+  * rwkv6 train on (2, 2): the port counts 1.014 of the reference, under
+    ``TRAIN_RULES`` and ``TRAIN_NO_SP_RULES`` alike.
 
 - Production cells at full width, shape-only: every family's decode_32k
   and train_4k cell on the (16, 16) mesh and one (2, 16, 16) cell:
@@ -54,9 +49,12 @@
   (``reference_arguments``, which the per-cell parity compares) the record
   names the leaves that differ, with both byte counts (``placement``).
   Where ``model`` = 16 does not divide the attention heads (seven
-  architectures), a serve cell's rank holds the reference's blocks leaf
-  for leaf under the default rules, ``serve_seq`` and ``serve_kv_dp``,
-  and a train cell departs only in its rows' whole sequence (``batch``).
+  architectures), rwkv6-3b's 40 wkv heads or seamless-m4t-medium's
+  vocabulary, a serve cell's rank holds the reference's blocks leaf for
+  leaf under the default rules, ``serve_seq`` and ``serve_kv_dp`` (and
+  ``serve_dh`` for the last two), but for rwkv6-3b's long_500k under
+  ``serve_seq``, whose state the port keeps on the replicated rows; a
+  train cell departs only in its rows' whole sequence (``batch``).
 """
 import dataclasses
 import functools
@@ -350,8 +348,8 @@ def test_mesh_cell_matches_the_reference(family, kind):
     _check_arguments(rec)
     # the port's blocks are the reference's but for a train rank's batch
     # (TRAIN_RULES split its sequence over ``model``; the port's rank holds
-    # its rows whole) and rwkv6's ``Wr_cm`` (replicated in the port)
-    assert ('placement' in rec) == (kind == 'train' or family == 'ssm')
+    # its rows whole)
+    assert ('placement' in rec) == (kind == 'train')
     assert rec['chips'] == 4 and rec['collectives']['n_collectives'] > 0
     _check_flops(family, kind, True, rec)
 
@@ -361,10 +359,8 @@ def test_variant_train_cell_matches_the_reference(family, kind, variant):
     """A train cell under ``serve_dh`` or ``serve_kv_dp`` on (2, 2): its
     argument bytes under the reference's specs of those rules equal the
     reference's compiled ``make_train_step(rules=)``'s, and the rank's own
-    blocks hold those specs' bytes (the rules split no sequence) but for
-    rwkv6's default departures under serve_kv_dp (its decay and group norm
-    split by heads, ``Wr_cm`` replicated; zamba2's packed leaves hold as
-    many bytes as the specs' blocks; serve_dh has no departure)."""
+    blocks hold those specs' bytes (the rules split no sequence; zamba2's
+    packed leaves hold as many bytes as the specs' blocks)."""
     _, tcfg, _, shape = _cell(family, kind, True)
     rec = dryrun.cell_record(tcfg, shape, MESH, rules_variant=variant)
     assert rec['status'] == 'ok', rec
@@ -373,9 +369,7 @@ def test_variant_train_cell_matches_the_reference(family, kind, variant):
     assert sum(rec['reference_arguments'].values()) == \
         _references(True)[family, kind, variant].result()[0]
     _check_arguments(rec)
-    assert ('placement' in rec) == (variant == 'serve_kv_dp'
-                                    and family == 'ssm'), rec.get(
-                                        'placement')
+    assert 'placement' not in rec, rec['placement']
     assert rec['chips'] == 4 and rec['collectives']['n_collectives'] > 0
 
 
@@ -393,7 +387,9 @@ def _check_arguments(rec):
         (rec['arguments'] != rec['reference_arguments']), rec
 
 
-def _production_check(rec, family):
+def _production_check(rec, family, floor=None):
+    """The record's keys and sums; a train or prefill cell's FLOPs on
+    every chip at least 0.95 of ``floor`` (``model_flops`` by default)."""
     assert set(rec) >= {'arch', 'shape', 'mesh', 'status'}, rec
     assert rec['status'] == 'ok', rec
     assert set(rec) >= RECORD_KEYS and set(rec['hbm']) == HBM_KEYS, rec
@@ -404,7 +400,20 @@ def _production_check(rec, family):
     assert rec['roofline']['dominant'] in ('compute', 'memory', 'collective')
     if rec['kind'] != 'decode':
         assert rec['flops_per_device'] * rec['chips'] >= \
-            0.95 * rec['model_flops'], rec
+            0.95 * (rec['model_flops'] if floor is None else floor), rec
+
+
+def _layer_flops(arch, shape):
+    """2 x the layer stack's parameters (the model's template) x the
+    shape's tokens: rwkv6-3b's ``model_flops`` counts the config's
+    3.61e9 parameters where its template holds 3.07e9, so a prefill rank
+    that replicates no product counts 0.795 of it."""
+    from repro_torch.models.api import build_model
+
+    layers = build_model(get_config(arch)).param_shapes()['layers']
+    shp = SHAPES[shape]
+    return 2.0 * sum(int(np.prod(s)) for s in layers.values()) \
+        * shp.global_batch * shp.seq_len
 
 
 @pytest.mark.parametrize('shape', ['decode_32k', 'train_4k'])
@@ -417,24 +426,26 @@ def test_production_cell(family, shape):
 
 
 def test_argument_bytes_are_the_rank_s_own_blocks():
-    """rwkv6-3b x decode_32k on (16, 16): ``model`` does not divide the 40
-    wkv heads, so the port's rank keeps them whole where the reference's
-    specs split a state dimension.  ``hbm.argument`` (and so ``peak``,
-    which ``check_fits`` reads before a measured run) counts the rank's
-    own blocks -- the same sum built here from the plan's blocks -- and
-    the record says that its placement differs from the reference's."""
-    from repro_torch.distributed.sharding import SERVE_RULES
+    """zamba2-2.7b x long_500k under ``serve_dh`` on (16, 16): the port's
+    rank keeps the one row's caches whole over the batch axes, where the
+    reference's specs move those axes onto a state dimension.
+    ``hbm.argument`` (and so ``peak``, which ``check_fits`` reads before a
+    measured run) counts the rank's own blocks -- the same sum built here
+    from the plan's blocks -- and the record says that its placement
+    differs from the reference's."""
+    from repro_torch.distributed.sharding import RULE_VARIANTS
     from repro_torch.distributed.tp import StepParallel
     from repro_torch.launch.mesh import describe
     from repro_torch.models.api import build_model
 
-    cfg, shp = get_config('rwkv6-3b'), SHAPES['decode_32k']
-    rec = dryrun.run_cell('rwkv6-3b', 'decode_32k', 'single')
-    _production_check(rec, 'ssm')
+    cfg, shp = get_config('zamba2-2.7b'), SHAPES['long_500k']
+    rec = dryrun.run_cell('zamba2-2.7b', 'long_500k', 'single',
+                          rules_variant='serve_dh')
+    _production_check(rec, 'hybrid')
     desc = describe(*dryrun.layout_of('single'))
     plan = StepParallel(cfg, desc, desc.coords(rec['rank']),
                         batch=shp.global_batch, seq_len=shp.seq_len,
-                        rules=SERVE_RULES)
+                        rules=RULE_VARIANTS['serve_dh'])
     model = build_model(cfg)
 
     def nbytes(tmpl, block):
@@ -446,17 +457,16 @@ def test_argument_bytes_are_the_rank_s_own_blocks():
     assert rec['arguments']['cache'] == nbytes(model.cache_template(shp),
                                                plan.cache_block)
     reference = sum(rec['reference_arguments'].values())
-    assert rec['hbm']['argument'] > 6 * reference
+    assert rec['hbm']['argument'] > 2 * reference
     # the record names the leaves whose blocks differ, with both counts:
-    # the wkv state (40 heads whole against a 16th of a state dimension)
-    # and the weights cut by those heads; ``u`` is cut on K as the
-    # reference's specs cut it
+    # the shared block's contiguous KV and the Mamba states, 16 times the
+    # reference's block; the weights are the reference's
     diff = rec['placement']
-    wkv = diff['cache']['wkv']
-    assert wkv['port'] == 16 * wkv['reference']
-    assert set(diff) == {'params', 'cache'}
-    assert {'layers/Wr', 'layers/Wo'} <= set(diff['params'])
-    assert 'layers/u' not in diff['params']
+    attn = diff['cache']['attn/k']
+    assert attn['port'] == 16 * attn['reference']
+    assert set(diff) == {'cache'}
+    assert set(diff['cache']) == {'attn/k', 'attn/v', 'mamba/conv',
+                                  'mamba/ssm'}
     for group, leaves in diff.items():
         assert sum(d['port'] - d['reference'] for d in leaves.values()) == \
             rec['arguments'][group] - rec['reference_arguments'][group]
@@ -548,32 +558,60 @@ def test_rule_variant_cells(arch, variant, capsys):
 HEAD_DIM_ARCHS = ('qwen3-14b', 'llama4-scout-17b-a16e', 'command-r-35b',
                   'phi3.5-moe-42b-a6.6b', 'llava-next-mistral-7b',
                   'qwen3-0.6b', 'internlm2-1.8b')
+# ... rwkv6-3b's 40 wkv heads (a block of every head's value channels) and
+# seamless-m4t-medium's vocabulary of 256206 (the embedding and the head
+# on d_model)
+WKV_VOCAB_ARCHS = ('rwkv6-3b', 'seamless-m4t-medium')
 HEAD_DIM_GB = {    # a rank's arguments under the reference's specs
     ('qwen3-14b', 'decode_32k'): 4.552,
-    ('llama4-scout-17b-a16e', 'decode_32k'): 16.719}
+    ('llama4-scout-17b-a16e', 'decode_32k'): 16.719,
+    ('rwkv6-3b', 'decode_32k'): 0.408,
+    ('seamless-m4t-medium', 'decode_32k'): 0.296}
+# the cells whose serve placement still departs under a rule variant: the
+# leaves that differ (rwkv6-3b's long_500k under serve_seq: the rows are
+# replicated, where the reference's specs move the batch axes onto the
+# state)
+DEPARTING = {('rwkv6-3b', 'long_500k', 'serve_seq'):
+             {'cache': {'shift_cm', 'shift_tm', 'wkv'}}}
+PLACEMENT_CELLS = [(a, s) for a in HEAD_DIM_ARCHS + WKV_VOCAB_ARCHS
+                   for s in ('decode_32k', 'prefill_32k', 'train_4k')] + [
+    ('rwkv6-3b', 'long_500k')]
 
 
-@pytest.mark.parametrize('shape', ['decode_32k', 'prefill_32k', 'train_4k'])
-@pytest.mark.parametrize('arch', HEAD_DIM_ARCHS)
+@pytest.mark.parametrize('arch,shape', PLACEMENT_CELLS)
 def test_head_dim_placement_cells(arch, shape):
-    """On (16, 16), where ``model`` does not divide the attention heads:
-    a serve cell's rank holds the reference's blocks leaf for leaf (no
-    ``placement``), under the default rules and, for decode_32k, under
-    ``serve_seq`` and ``serve_kv_dp`` too; a train cell's ``placement``
-    names only ``batch`` (the trainer's rows hold their whole sequence,
-    where ``TRAIN_RULES`` split it over ``model``)."""
-    variants = ('default',) + (('serve_seq', 'serve_kv_dp')
-                               if shape == 'decode_32k' else ())
+    """On (16, 16), where ``model`` does not divide the attention heads,
+    rwkv6's wkv heads or the vocabulary: a serve cell's rank holds the
+    reference's blocks leaf for leaf (no ``placement``), under the default
+    rules and, for decode_32k, under ``serve_seq`` and ``serve_kv_dp`` too
+    (and ``serve_dh`` for rwkv6-3b and seamless-m4t-medium; long_500k
+    under ``serve_seq`` names the leaves it departs in, :data:`DEPARTING`);
+    a train cell's ``placement`` names only ``batch`` (the trainer's rows
+    hold their whole sequence, where ``TRAIN_RULES`` split it over
+    ``model``)."""
+    variants = ('default',)
+    if shape == 'decode_32k':
+        variants += ('serve_seq', 'serve_kv_dp') + (
+            ('serve_dh',) if arch in WKV_VOCAB_ARCHS else ())
+    elif shape == 'long_500k':
+        variants += ('serve_seq',)
+    floor = _layer_flops(arch, shape) if (arch, shape) == (
+        'rwkv6-3b', 'prefill_32k') else None
     for variant in variants:
         rec = dryrun.run_cell(arch, shape, 'single', rules_variant=variant)
-        _production_check(rec, get_config(arch).family)
+        _production_check(rec, get_config(arch).family, floor)
         if shape == 'train_4k':
             assert set(rec['placement']) == {'batch'}, rec['placement']
+            continue
+        departs = DEPARTING.get((arch, shape, variant))
+        if departs is not None:
+            assert {g: set(v) for g, v in rec['placement'].items()} == \
+                departs, rec['placement']
             continue
         assert 'placement' not in rec, rec['placement']
         assert rec['arguments'] == rec['reference_arguments']
         gb = HEAD_DIM_GB.get((arch, shape))
-        if gb is not None and variant != 'serve_kv_dp':
+        if gb is not None and variant in ('default', 'serve_seq'):
             assert round(rec['hbm']['argument'] / 1e9, 3) == gb
 
 

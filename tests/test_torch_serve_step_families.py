@@ -500,9 +500,10 @@ def test_partial_softmax_combine_equals_attention(splits):
 
 def test_production_plan_blocks():
     """The (16, 16) production layout's serve plans, described (no ranks):
-    rwkv6-3b's 40 wkv heads do not divide 16, so every rank keeps them
-    whole (the reference's ``shaped_spec`` moves ``model`` onto a state
-    dimension instead); zamba2-2.7b's 80 Mamba2 heads, N = 64 and 32
+    rwkv6-3b's 40 wkv heads do not divide 16, so every rank holds 4 of
+    the 64 value channels of every head's state (the reference's
+    ``shaped_spec`` moves ``model`` onto V); zamba2-2.7b's 80 Mamba2
+    heads, N = 64 and 32
     shared heads, and seamless's 16 kv-heads, split 16 ways; long_500k
     splits zamba2's 524288-slot KV 16 ways over ``data`` and replicates
     the row."""
@@ -512,7 +513,8 @@ def test_production_plan_blocks():
     dec = ShapeConfig('decode_32k', 32768, 128, 'decode')
     plan = StepParallel(rw.cfg, mesh, coords, batch=128, seq_len=32768)
     wkv = plan.cache_block(('wkv',), rw.cache_shapes(dec)['wkv'])
-    assert wkv.local_shape == (32, 8, 40, 64, 64)
+    assert wkv.local_shape == (32, 8, 40, 64, 4)
+    assert wkv.intervals(4) == ((20, 24),)
     zm = build_model(get_config('zamba2-2.7b'))
     long = ShapeConfig('long_500k', 524288, 1, 'decode')
     plan = StepParallel(zm.cfg, mesh, coords, batch=1, seq_len=524288,

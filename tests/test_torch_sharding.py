@@ -395,7 +395,8 @@ def test_block_of_several_intervals_round_trips_a_checkpoint(tmp_path):
 # -- the training families' placement ----------------------------------------
 FAMILY_REPLICATED = {
     'rwkv6-3b': {'final_norm', 'layers/ln1', 'layers/ln2', 'layers/mu',
-                 'layers/w_A', 'layers/mu_cm', 'layers/Wr_cm'},
+                 'layers/w_A', 'layers/mu_cm', 'layers/w_base',
+                 'layers/w_B', 'layers/ln_x'},
     'zamba2-2.7b': {'final_norm', 'layers/ln', 'shared/ln1', 'shared/ln2'},
     'seamless-m4t-medium': {
         'frontend_proj', 'enc_final_norm', 'final_norm', 'enc_layers/ln1',

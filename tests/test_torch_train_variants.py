@@ -7,9 +7,9 @@ reference's, on the CPU.
   description meshes under ``serve_dh``, ``serve_seq`` and ``serve_kv_dp``,
   every rank's ``TrainPlan`` blocks equal what ``local_bounds`` reads off
   ``param_specs(rules=)`` and ``zero1_moment_specs``, but for the port's
-  default departures (rwkv6's decay, group norm and ``Wr_cm``, zamba2's
-  packed leaves), which ``serve_dh`` has none of: there the q/k norms and
-  rwkv6's ``u`` are the reference's head_dim blocks.  The blocks equal the
+  default departures (zamba2's packed leaves), which ``serve_dh`` has
+  none of: there the q/k norms and rwkv6's ``u`` are the reference's
+  head_dim blocks.  The blocks equal the
   reference's own specs on virtual devices too (qwen3 and rwkv6 at
   (2, 2)).
 - (b) One step of every family under every variant on 2 gloo ranks at
@@ -83,9 +83,7 @@ SPEC_CONFIGS = {'internlm2': dict(arch='internlm2-1.8b', d_model=64,
 # the leaves whose blocks depart from the specs': the default placement's
 # (tests/test_torch_train_mesh.py); serve_dh runs rwkv6's time mix and
 # zamba2's Mamba2 layers whole, so it has none
-DEPARTURES = {'rwkv6': {'layers/w_base', 'layers/w_B', 'layers/ln_x',
-                        'layers/Wr_cm'},
-              'zamba2': {'layers/in_proj', 'layers/conv_w', 'layers/conv_b'}}
+DEPARTURES = {'zamba2': {'layers/in_proj', 'layers/conv_w', 'layers/conv_b'}}
 # the leaves serve_dh cuts on head_dim
 HEAD_DIM_LEAVES = {'qwen3': ('layers/q_norm', 'layers/k_norm'),
                    'rwkv6': ('layers/u',)}
