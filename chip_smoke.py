@@ -271,7 +271,22 @@ Phases, each fatal on failure:
     summed over ``model``); rwkv6's prefill through K6 on every rank's
     value block against the plain chunked path on that block; K6 timed
     alone at (4, 64, 40, 64, 4); K6 the only kernel launched;
-26. one JSON line of per-kernel results, then the result line.
+26. the reference's placement of long_500k's one row, which no batch
+    axis divides, under ``serve_kv_dp``, ``serve_seq`` and ``serve_dh``
+    (``tp.StepParallel.moved``), on 4 ranks sharing the card at (data 2,
+    model 2), f32, published widths: zamba2-2.7b (**12 of 54 layers**, a
+    seeded random cache of 16384 slots) and rwkv6-3b (**2 of 32
+    layers**), B = 1, 4 decode steps from position 8190: scores within
+    1e-4 of |max| of the meshless step on the card, argmax equal, every
+    rank's scores bit-equal, every rank's cache bytes the dry-run's count
+    of its block under the reference's specs; a planted fault of each new
+    collective past the gate; one f32 training step of qwen3-0.6b (**2 of
+    28 layers**) at (2, 2) under ``TRAIN_RULES``, its batch's sequence
+    split over ``model`` (each rank's batch bytes the reference's), its
+    gradients within 1e-5 of the meshless step's, bit-equal to the step
+    under ``TRAIN_NO_SP_RULES``, its sequence blocks swapped past the
+    gate; no kernel launched;
+27. one JSON line of per-kernel results, then the result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout.  ``--trace`` profiles the node run, one bf16 prefill, one bf16
@@ -7434,6 +7449,368 @@ def wkv_vocab_check(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the reference's placement of long_500k's one row under the
+# serving variants, and the trainer's sequence split under TRAIN_RULES
+# ---------------------------------------------------------------------------
+
+LR_SHAPE = (2, 2)                  # (data, model): 4 gloo ranks sharing the
+                                   # card; the one row divides over neither
+                                   # batch axis
+LR_RUNS = (('zamba2-2.7b', 12), ('rwkv6-3b', 2))   # published widths
+LR_VARIANTS = ('serve_kv_dp', 'serve_seq', 'serve_dh')
+LR_S, LR_POS0, LR_STEPS = FS_LONG_S, FS_LONG_POS0, 4   # phase 21's long KV:
+                                   # under serve_seq 2 blocks of 8192 slots,
+                                   # the steps across their boundary
+LR_FAULT_STEPS = 2                 # a fault's steps: a wrong state written
+                                   # at the first is read at the second
+# a planted fault of each new collective (``tp.StepParallel``'s methods),
+# where the run calls it (rwkv6-3b's 40 heads split over model 2 as its
+# held wkv block does, so only zamba2's conv state gathers its computed
+# blocks over model): name -> (arch, variant, what)
+LR_FAULTS = {
+    'unsummed_scores': ('zamba2-2.7b', 'serve_kv_dp',
+                        'the long KV\'s head_dim partial scores not summed '
+                        'over data'),
+    'dropped_block': ('zamba2-2.7b', 'serve_seq',
+                      'the first slot block\'s softmax state dropped'),
+    'ungathered_output': ('zamba2-2.7b', 'serve_dh',
+                          'the output\'s head and head_dim blocks not '
+                          'gathered'),
+    'ungathered_state': ('rwkv6-3b', 'serve_kv_dp',
+                         'the wkv and shift states\' blocks not gathered '
+                         'over data before the layer'),
+    'unshared_state': ('zamba2-2.7b', 'serve_kv_dp',
+                       'the computed conv blocks (a rank\'s heads\' channels '
+                       'and its share of B and C) not gathered over model '
+                       'after the layer'),
+    'wrong_block': ('rwkv6-3b', 'serve_dh',
+                    'the other data rank\'s state block written back')}
+LR_TRAIN = ('qwen3-0.6b', 2)       # one f32 step, published widths
+LR_TRAIN_B, LR_TRAIN_S = 4, 256    # 2 rows a data rank, 128 positions a
+                                   # model rank
+LR_TRAIN_TOL = 1e-5                # a gradient leaf, of its max (phase 19's)
+LR_TIMEOUT_S = 420                 # bounds the phase's pooled ranks
+
+
+def plant_long_row_fault(fault: str) -> callable:
+    """One of :data:`LR_FAULTS`, or ``'swapped'`` (the trainer's sequence
+    blocks gathered in the wrong order), in this rank's step; -> a
+    function that takes it out."""
+    from repro_torch.distributed import tp as tplib
+
+    sp = tplib.StepParallel
+    saved = [(sp, n, getattr(sp, n)) for n in (
+        'head_dim_sum', 'seq_combine', 'output_gather', 'state_gather',
+        'state_share', 'written_block')] + [(tplib, 'unshard',
+                                            tplib.unshard)]
+    unshard = tplib.unshard
+
+    def repeated(self, x, axes):
+        return x.expand(tuple(self.mesh.shape[a] for a in axes)
+                        + tuple(x.shape))
+
+    if fault == 'unsummed_scores':
+        sp.head_dim_sum = lambda self, scores, axes: scores
+    elif fault == 'dropped_block':
+        def dropped(self, states, axes, order):
+            parts = [tplib._in_block_order(self.axes_gather(t, axes), axes,
+                                           order) for t in states]
+            return tplib.cm.combine_partials(*(x[1:] for x in parts))
+        sp.seq_combine = dropped
+    elif fault == 'ungathered_output':
+        sp.output_gather = repeated
+    elif fault == 'ungathered_state':
+        sp.state_gather = repeated
+    elif fault == 'unshared_state':
+        sp.state_share = lambda self, new: repeated(self, new, ('model',))
+    elif fault == 'wrong_block':
+        sp.written_block = lambda self, keys: self.moved_block(keys, dict(
+            self.coords, data=1 - self.coords['data']))
+    elif fault == 'swapped':
+        tplib.unshard = lambda parts, sizes, entries: unshard(
+            parts.flip(0), sizes, entries)
+
+    def restore():
+        for o, n, f in saved:
+            setattr(o, n, f)
+    return restore
+
+
+def long_row_serve(arch: str, model, mesh, dev: str, lead: bool) -> dict:
+    """Phase 26's serve runs of ``arch`` on this rank: the meshless step on
+    rank 0, then each variant's step and its planted faults from a fresh
+    block of one seeded random cache; the rank's cache bytes beside the
+    dry-run's count of its blocks under the reference's specs (f32, as
+    the cache here)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import RULE_VARIANTS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import describe
+    from repro_torch.training.train_step import make_serve_step
+    from repro_torch.training.tree import leaves_with_paths, tree_map
+
+    cfg = model.cfg
+    shape = ShapeConfig('long_500k', LR_S, 1, 'decode')
+    params = f32_params(model.init_params(0, device=dev), dev)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    cache = model.init_cache(shape, device=dev, dtype=torch.float32)
+    for _, leaf in leaves_with_paths(cache):
+        leaf.normal_(generator=gen).mul_(0.5)
+    rng = np.random.default_rng(26)
+    batches = [on_device({'tokens': rng.integers(1, cfg.vocab_size, 1)
+                          .astype(np.int32),
+                          'positions': np.full((1,), LR_POS0 + i, np.int32)})
+               for i in range(LR_STEPS)]
+    out = {'variants': {}, 'faults': {}}
+    if lead:
+        whole = make_serve_step(model, None, shape)[0]
+        copy = tree_map(torch.clone, cache)
+        want, secs = timed_calls([(whole, params, copy, b) for b in batches])
+        out['meshless'] = [w.cpu().numpy() for w in want]
+        out['meshless_s'] = secs
+        del copy
+    for variant in LR_VARIANTS:
+        rules = RULE_VARIANTS[variant]
+        step = make_serve_step(model, mesh, shape, rules=rules)[0]
+        plan = step.plan
+        blocks = plan.shard_params(params)
+        runs = [(None, LR_STEPS)] + [
+            (f, LR_FAULT_STEPS) for f, (a, v, _) in LR_FAULTS.items()
+            if (a, v) == (arch, variant)]
+        for fault, n in runs:
+            mine = plan.shard_cache(cache)
+            restore = (plant_long_row_fault(fault) if fault
+                       else (lambda: None))
+            try:
+                got, secs = timed_calls([(step, blocks, mine,
+                                          plan.shard_batch(b))
+                                         for b in batches[:n]])
+            finally:
+                restore()
+            full = [full_scores(plan, g).cpu().numpy() for g in got]
+            if fault:
+                out['faults'][fault] = full
+                continue
+            counted = {}
+            dryrun.argument_bytes(model, shape, describe(LR_SHAPE, MESH_AXES),
+                                  rules, coords=mesh.coords(),
+                                  leaves=counted)
+            out['variants'][variant] = {
+                'scores': full, 's': secs, 'moved': plan.moved,
+                'cache_bytes': sum(t.numel() * t.element_size()
+                                   for _, t in leaves_with_paths(mine)),
+                'reference_cache': sum(
+                    counted[('cache', p)] // leaf.dtype.itemsize * 4
+                    for p, leaf in dryrun._template_leaves(
+                        model.cache_template(shape))),
+                'blocks': {k: tuple(t.shape)
+                           for k, t in leaves_with_paths(mine)}}
+            del mine
+        del blocks
+    return out
+
+
+def long_row_train(mesh, dev: str, lead: bool) -> dict:
+    """Phase 26's training step on this rank: qwen3-0.6b at
+    :data:`LR_TRAIN`'s depth under ``TRAIN_RULES`` (the sequence split),
+    under ``TRAIN_NO_SP_RULES`` and under the ``'swapped'`` fault; each
+    gradient block against rank 0's meshless one, scattered to the rank
+    and compared on the card; the rank's batch bytes beside the
+    reference's ``batch_specs`` blocks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import TRAIN_NO_SP_RULES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import describe
+    from repro_torch.models.api import build_model
+    from repro_torch.training import tree as tr
+    from repro_torch.training.train_step import (
+        TrainPlan, batch_specs, loss_and_grads, make_train_step,
+        mesh_loss_and_grads, shard_batch)
+
+    dist = torch.distributed
+    cfg = family_cut(*LR_TRAIN)
+    model = build_model(cfg)
+    host = masked_batch(cfg, LR_TRAIN_B, LR_TRAIN_S)
+    drawn = model.init_params(0, device=dev)
+    out, runs = {}, {}
+    t0 = time.perf_counter()
+    for name, rules, fault in (('split', None, None),
+                               ('no_sp', TRAIN_NO_SP_RULES, None),
+                               ('swapped', None, 'swapped')):
+        plan = make_train_step(model, mesh, rules=rules).plan
+        params = plan.shard_params(f32_params(drawn, dev))
+        rows = shard_batch(host, plan)
+        restore = plant_long_row_fault(fault) if fault else (lambda: None)
+        try:
+            loss, grads = mesh_loss_and_grads(model, plan, params, rows)
+        finally:
+            restore()
+        runs[name] = (float(loss), {k: g.detach() for k, g in
+                                    tr.leaves_with_paths(grads)})
+        if name == 'split':
+            out['batch'] = {k: v.numel() * v.element_size()
+                            for k, v in rows.items()}
+            out['batch_shapes'] = {k: tuple(v.shape)
+                                   for k, v in rows.items()}
+        del params, rows, grads
+    torch.cuda.synchronize()
+    out['mesh_s'] = time.perf_counter() - t0
+    tshape = ShapeConfig('train', LR_TRAIN_S, LR_TRAIN_B, 'train')
+    desc = describe(LR_SHAPE, MESH_AXES)
+    specs = batch_specs(model, tshape, desc)
+    out['reference_batch'] = {
+        k: dryrun._block_bytes(s.shape, s.dtype, specs[k].spec, desc,
+                               mesh.coords())
+        for k, s in model.input_specs(tshape).items()}
+    split, no_sp = runs['split'], runs['no_sp']
+    out['bit_equal'] = split[0] == no_sp[0] and all(
+        torch.equal(g, no_sp[1][k]) for k, g in split[1].items())
+    out['loss'], out['swapped_loss'] = split[0], runs['swapped'][0]
+    want = {}
+    if lead:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, grads = loss_and_grads(model, f32_params(drawn, dev), batch)
+        want = {'loss': float(loss),
+                'grads': {k: g.cpu() for k, g in
+                          tr.leaves_with_paths(grads)}}
+        out['meshless_loss'] = want['loss']
+        del batch, grads
+    plans = ([TrainPlan(model, mesh, coords=mesh.coords(r))
+              for r in range(mesh.size)] if lead else None)
+    errors = {}
+    for k, local in split[1].items():
+        mine = scatter_from_lead(
+            [p.param_blocks[k].take(want['grads'][k]) for p in plans]
+            if lead else None, local)
+        top = mine.abs().max()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        errors[k] = float((local - mine).abs().max() / top)
+    out['errors'] = errors
+    return out
+
+
+def long_row_rank(rank: int, dev: str) -> dict:
+    """Phase 26 on one of the LR_SHAPE ranks sharing the card: each of
+    :data:`LR_RUNS` under each variant (:func:`long_row_serve`), then the
+    training step (:func:`long_row_train`).  Returns every score, time,
+    cache and batch count, error and kernel launch of the rank."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    mesh = make_mesh(LR_SHAPE, MESH_AXES, device=dev)
+    out = {'serve': {}}
+    for arch, layers in LR_RUNS:
+        t0 = time.perf_counter()
+        out['serve'][arch] = long_row_serve(arch, build_model(family_cut(
+            arch, layers)), mesh, dev, rank == 0)
+        out['serve'][arch]['s'] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out['train'] = long_row_train(mesh, dev, rank == 0)
+    out['launches'] = dict(LAUNCHES)
+    return out
+
+
+def long_row_check(card: str) -> dict:
+    """Phase 26: :func:`long_row_rank` on 4 pooled ranks sharing the card,
+    and its gates: each variant's f32 scores within FS_TOL of |max| of the
+    meshless step with argmax equal, every rank's scores bit-equal, every
+    rank's cache the dry-run's count of its block under the reference's
+    specs; each planted fault past FS_TOL; the training step's batch bytes
+    the reference's, its loss within 1e-6 relative and every gradient leaf
+    within :data:`LR_TRAIN_TOL` of its max of the meshless step's,
+    bit-equal to the step under ``TRAIN_NO_SP_RULES``, the swapped
+    sequence past 100x the loss gate; no kernel launched.  Returns the
+    phase's launches (every rank's)."""
+    from repro_torch.kernels.common import LAUNCHES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+    t0 = time.perf_counter()
+    ranks = on_ranks(long_row_rank, int(np.prod(LR_SHAPE)), (DEV,),
+                     LR_TIMEOUT_S)
+    failed = []
+    for arch, layers in LR_RUNS:
+        runs = [r['serve'][arch] for r in ranks]
+        want = runs[0]['meshless']
+        print(f'  {arch} ({layers} layers) long_500k, {LR_S} slots, B=1, '
+              f'{LR_STEPS} decode steps from {LR_POS0}: the meshless step '
+              f'{sum(runs[0]["meshless_s"]):.2f} s; every rank '
+              f'{max(r["s"] for r in runs):.1f} s  [{card}]')
+        for variant in LR_VARIANTS:
+            res = [r['variants'][variant] for r in runs]
+            gaps = [float(np.abs(g - w).max() / np.abs(w).max())
+                    for g, w in zip(res[0]['scores'], want)]
+            equal = all(np.array_equal(g.argmax(-1), w.argmax(-1))
+                        for g, w in zip(res[0]['scores'], want))
+            same = all(np.array_equal(a, b) for r in res[1:]
+                       for a, b in zip(res[0]['scores'], r['scores']))
+            counted = [(r['cache_bytes'], r['reference_cache'])
+                       for r in res]
+            ok = (max(gaps) <= FS_TOL and equal and same
+                  and all(a == b for a, b in counted)
+                  and all(r['moved'] for r in res))
+            print(f'  {arch} {variant}: f32 scores of |max| '
+                  f'{max(gaps):.3e} (tol {FS_TOL:g}), argmax equal '
+                  f'{equal}, every rank bit-equal {same}; cache bytes a '
+                  f'rank {sorted({c[0] for c in counted})} (the reference\'s'
+                  f' {sorted({c[1] for c in counted})}), blocks '
+                  f'{res[0]["blocks"]}; steps {np.round(res[0]["s"], 3)} s '
+                  f'({"pass" if ok else "FAIL"})  [{card}]')
+            if not ok:
+                failed.append((arch, variant, gaps, equal, same, counted))
+        for fault, (a, variant, what) in LR_FAULTS.items():
+            if a != arch:
+                continue
+            err = max(float(np.abs(g - w).max() / np.abs(w).max())
+                      for r in runs for g, w in zip(r['faults'][fault], want))
+            caught = err > FS_TOL
+            print(f'  planted fault, {arch} {variant}: {what}: scores of '
+                  f'|max| {err:.3e} (gate {FS_TOL:g}: '
+                  f'{"fails the gate, as it must" if caught else "PASSES"})'
+                  f'  [{card}]')
+            if not caught:
+                failed.append((arch, fault, err))
+    train = [r['train'] for r in ranks]
+    lead = train[0]
+    loss_rel = abs(lead['loss'] / lead['meshless_loss'] - 1)
+    swapped = abs(lead['swapped_loss'] / lead['meshless_loss'] - 1)
+    worst = max(max(t['errors'].values()) for t in train)
+    bytes_ok = all(t['batch'][k] == t['reference_batch'][k]
+                   for t in train for k in t['reference_batch'])
+    ok = (loss_rel <= 1e-6 and worst <= LR_TRAIN_TOL and bytes_ok
+          and all(t['bit_equal'] for t in train)
+          and len({t['loss'] for t in train}) == 1)
+    print(f'  training: {LR_TRAIN[0]} ({LR_TRAIN[1]} layers) at {LR_SHAPE}, '
+          f'B={LR_TRAIN_B}, S={LR_TRAIN_S}, f32, TRAIN_RULES: batch a rank '
+          f'{lead["batch_shapes"]}, {sorted(lead["batch"].items())} bytes '
+          f'(the reference\'s {sorted(lead["reference_batch"].items())}); '
+          f'loss rel {loss_rel:.3e}, worst gradient leaf {worst:.3e} (tol '
+          f'{LR_TRAIN_TOL:g}), bit-equal to TRAIN_NO_SP_RULES\' step '
+          f'{all(t["bit_equal"] for t in train)}; the three steps '
+          f'{max(t["mesh_s"] for t in train):.1f} s '
+          f'({"pass" if ok else "FAIL"})  [{card}]')
+    print(f'  planted fault, training: the sequence blocks gathered in the '
+          f'wrong order: loss rel {swapped:.3e} (gate 1e-06: '
+          f'{"fails the gate, as it must" if swapped > 1e-4 else "PASSES"})'
+          f'  [{card}]')
+    if not ok:
+        failed.append(('train', loss_rel, worst, bytes_ok))
+    if swapped <= 1e-4:
+        failed.append(('train fault', swapped))
+    launches = rank_launches(ranks)
+    print(f'  hand-written kernel launches in the phase (every rank): '
+          f'{launches}; the phase {time.perf_counter() - t0:.1f} s')
+    assert not failed, failed
+    assert not any(launches.values()), launches
+    return launches
+
+
 SOURCES = {
     'paged_decode': ('src/repro_torch/kernels/paged_attention/csrc/'
                      'paged_attention.cu',
@@ -7645,6 +8022,7 @@ def main() -> int:
     by_phase['head_dim'] = head_dim_check(card)
     done()
 
+    start_ranks(int(np.prod(LR_SHAPE)), LR_TIMEOUT_S)     # phase 26's
     print(f'[25] the reference\'s placement where model does not divide '
           f'rwkv6\'s wkv heads or the vocabulary: '
           f'{", ".join(f"{a} ({n} layers)" for a, n, *_ in WV_RUNS)} at '
@@ -7653,10 +8031,22 @@ def main() -> int:
           f'training step (rwkv6\'s also under a planted fault), K6 on '
           f'every rank\'s value block')
     by_phase['wkv_vocab'] = wkv_vocab_check(card)
+    close_pools((int(np.prod(HD_SHAPE)),))
+    done()
+
+    print(f'[26] the reference\'s placement of long_500k\'s one row, which '
+          f'no batch axis divides: '
+          f'{", ".join(f"{a} ({n} layers)" for a, n in LR_RUNS)} at '
+          f'published widths over {LR_SHAPE} ({int(np.prod(LR_SHAPE))} '
+          f'ranks sharing the card) under {", ".join(LR_VARIANTS)}, f32, '
+          f'planted faults, cache bytes; one f32 training step of '
+          f'{LR_TRAIN[0]} ({LR_TRAIN[1]} layers) with its sequence split '
+          f'over model')
+    by_phase['long_row'] = long_row_check(card)
     close_pools()
     done()
 
-    print(f'[26] total {time.perf_counter() - t_start:.1f} s')
+    print(f'[27] total {time.perf_counter() - t_start:.1f} s')
     kernels = []
     for name, r in results.items():
         src, replaces = SOURCES[name]

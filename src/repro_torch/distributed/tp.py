@@ -132,6 +132,10 @@ over ``model`` (the new K/V heads gathered, every replica writing them),
 ``serve_seq`` splits its pages over ``model`` (the ranks' partial softmax
 states combined in rank order), ``serve_dh`` splits its head_dim (the
 f32 partial scores summed over ``model``, the projections replicated).
+Where no batch axis divides the rows (long_500k's one row under a
+variant), the recurrent states and the long KV are the blocks of the
+reference's specs, the freed batch axes on a state or KV dimension
+(:attr:`StepParallel.moved`).
 
 Transport: the dispatch messages over the default group's host side
 (``broadcast_object_list``), weight shards rank 0 -> worker and the cache
@@ -152,7 +156,9 @@ from torch import nn
 
 from repro_torch.distributed.sharding import (BATCH_AXES, SERVE_RULES,
                                               TRAIN_RULES, Block,
-                                              batch_coords, block, row_block)
+                                              batch_coords, block,
+                                              local_bounds, row_block,
+                                              shaped_spec)
 from repro_torch.kernels.sampling.ref import combine_bests, unembed_scores
 from repro_torch.models import common as cm
 
@@ -298,6 +304,9 @@ class TensorParallel:
     # the pool's pages (a serve step's plan under ``serve_seq`` holds a
     # block of them: :class:`StepParallel`)
     held = None
+    # whether the rows are placed by the reference's spec of each state
+    # (a serve step's plan: :attr:`StepParallel.moved`)
+    moved = False
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
                  *, max_batch: Optional[int] = None, rules=None,
@@ -306,6 +315,7 @@ class TensorParallel:
         self.rules = TRAIN_RULES if rules is None else rules
         self.placement = attention_placement(self.rules)
         coords = mesh.coords() if coords is None else coords
+        self.coords = dict(coords)
         self.n = mesh.shape.get(MODEL, 1)
         self.rank = coords.get(MODEL, 0)
         # the paged-attention heads (none in rwkv6 and zamba2's backbone;
@@ -949,6 +959,26 @@ class StepParallel(TensorParallel):
       head_dim blocks, gathered whole before use (RoPE pairs channel i
       with i + Dh/2, and the norms reduce over all of Dh).
 
+    A row that no batch axis divides (long_500k's one row under a
+    variant, whose rules put the rows on the batch axes: :attr:`moved`)
+    is computed on every rank, and each cache leaf of rwkv6 and zamba2
+    (the recurrent states, the long context's contiguous KV) is the block
+    of the reference's spec (``shaped_spec`` moves the freed batch axes --
+    and ``model`` where it divides nothing else -- onto the last dimension
+    each divides, the layers too; :meth:`moved_block`).  A layer gathers
+    its state's blocks over the axes that cut them, runs as it would on
+    the replicated row (:meth:`compute_block`), gathers the computed
+    blocks over ``model`` where they are not the held ones, and writes
+    back its own block (:meth:`layer_state`, :meth:`put_layer_state`);
+    the long KV never moves: a rank's partial scores over its head_dim
+    channels are summed over the axes that cut head_dim, its softmax
+    state over its slots is combined with the others' in block order, and
+    the output's head and channel blocks are gathered
+    (:meth:`long_attention`).  Each of those collectives is a method of
+    its own (:meth:`state_gather`, :meth:`state_share`,
+    :meth:`head_dim_sum`, :meth:`seq_combine`, :meth:`output_gather`).
+    The weights stay as the variant places them.
+
     The weights' placement is :class:`TensorParallel`'s under the same
     rules (the trainer's plan reads it too); this class adds the rows,
     the pool and the long context."""
@@ -978,6 +1008,18 @@ class StepParallel(TensorParallel):
                           and seq_len > 0 and seq_len % parts == 0)
         self.seq = (block(seq_len, parts, index) if self.seq_split
                     else (0, seq_len))
+        # rows that no batch axis divides (long_500k's one row under a
+        # serving variant): the reference's shaped_spec moves the freed
+        # axes onto the recurrent states and the long KV, and so does this
+        # plan (the class docstring)
+        self.batch, self.seq_len = batch, seq_len
+        self.moved = (cfg.family in ('ssm', 'hybrid')
+                      and rules.get('batch') == SERVE_RULES['batch']
+                      and self.n_batch > 1
+                      and not shaped_spec((batch,), ('batch',), rules, mesh))
+        self._specs = self._moved_specs() if self.moved else {}
+        self._peers: Dict[int, 'StepParallel'] = {}
+        self._state_plans: Dict[Tuple[str, ...], tuple] = {}
 
     def local(self, x):
         return super().local(x) if self.shared_pool else x
@@ -991,8 +1033,20 @@ class StepParallel(TensorParallel):
     # -- placement ---------------------------------------------------------
     def cache_block(self, path, shape) -> Block:
         """This rank's :class:`Block` of the cache leaf ``path`` (a tuple
-        of keys: ``('k',)``, ``('mamba', 'conv')``) of global ``shape``,
-        following its weight blocks (:meth:`ranges`) and the placement:
+        of keys: ``('k',)``, ``('mamba', 'conv')``) of global ``shape``:
+        where the rows are :attr:`moved`, a recurrent state's and the long
+        KV's block of the reference's spec (:meth:`moved_block`), else
+        :meth:`compute_block`."""
+        keys = _keys(path)
+        if keys in self._specs and tuple(shape) == self._specs[keys][0]:
+            return self.moved_block(keys)
+        return self.compute_block(keys, shape)
+
+    def compute_block(self, path, shape) -> Block:
+        """The :class:`Block` of the cache leaf ``path`` that the rank's
+        layers read and write (the one it holds, unless the rows are
+        :attr:`moved`), following its weight blocks (:meth:`ranges`) and
+        the placement:
 
         - dense, vlm, moe: the region pool (L, B, R, pg, Hkv, Dh), its
           rows and its kv-heads (``kv_dp``: every head; ``seq``: its block
@@ -1011,8 +1065,7 @@ class StepParallel(TensorParallel):
           rows, ``cross_k`` / ``cross_v`` (Ld, B, S_enc, Hkv, Dh) its rows
           and kv-heads (``kv_dp``: every head; ``dh``: its block of
           Dh)."""
-        keys = tuple(path.split('/')) if isinstance(path, str) else \
-            tuple(path)
+        keys = _keys(path)
         name, fam = keys[-1], self.cfg.family
         b = Block.whole(shape)
         if self.shared_pool and name in ('k', 'v'):
@@ -1072,6 +1125,232 @@ class StepParallel(TensorParallel):
         """This rank's rows of a serve step's batch (tensors, on the mesh's
         device)."""
         return {k: v[self.rows].to(self.mesh.device) for k, v in batch.items()}
+
+    # -- a row that no batch axis divides ----------------------------------
+    def _moved_specs(self) -> Dict[Tuple[str, ...], Tuple[Tuple[int, ...],
+                                                          tuple]]:
+        """{leaf keys: (global shape, the reference's spec)} of the cache
+        leaves that a :attr:`moved` plan holds by the spec: ssm's every
+        leaf, hybrid's Mamba states and its long context's contiguous KV
+        (``seq_len`` slots; a paged pool keeps :meth:`compute_block`)."""
+        from repro_torch.models import rwkv6, zamba2
+
+        cfg, b = self.cfg, self.batch
+        if cfg.family == 'ssm':
+            tmpl = rwkv6.cache_template(cfg, b)
+        else:
+            tmpl = {'mamba': zamba2.mamba_cache_template(cfg, b)}
+            if self.seq_len:
+                tmpl['attn'] = zamba2.attn_cache_template_dense(
+                    cfg, b, self.seq_len)
+        out = {}
+        for keys, leaf in _template_items(tmpl):
+            spec = shaped_spec(leaf.shape, leaf.axes, self.rules, self.mesh)
+            if keys[0] == 'attn' and (_entry(spec, 0) or _entry(spec, 1)):
+                raise NotImplementedError(
+                    f'the long KV\'s spec {spec} cuts its layers or rows')
+            out[keys] = (tuple(leaf.shape), spec)
+        return out
+
+    def moved_block(self, keys, coords: Optional[Dict[str, int]] = None
+                    ) -> Block:
+        """The block of the leaf ``keys`` under the reference's spec that
+        rank ``coords`` (this one's by default) holds."""
+        shape, spec = self._specs[keys]
+        return local_bounds(shape, spec, self.mesh,
+                            self.coords if coords is None else coords)
+
+    def written_block(self, keys) -> Block:
+        """The block of a state leaf that :meth:`put_layer_state` writes
+        into this rank's cache: its own."""
+        return self.moved_block(keys)
+
+    def peer(self, r: int) -> 'StepParallel':
+        """The plan of ``model`` rank ``r`` beside this one (no groups)."""
+        if r not in self._peers:
+            self._peers[r] = StepParallel(
+                self.cfg, self.mesh, dict(self.coords, **{MODEL: r}),
+                batch=self.batch, seq_len=self.seq_len, rules=self.rules)
+        return self._peers[r]
+
+    def _over(self, spec, dims) -> Tuple[str, ...]:
+        """The mesh axes of more than one rank that ``spec`` names on
+        ``dims``, in the mesh's order."""
+        named = {a for d in dims for a in _entry(spec, d)}
+        return tuple(a for a in self.mesh.axis_names
+                     if a in named and self.mesh.shape[a] > 1)
+
+    def _state_plan(self, keys):
+        """(the axes a layer's state is gathered over before the layer,
+        whether the layer's new block is gathered over ``model`` after it)
+        of the moved state leaf ``keys``.  Where ``model`` cuts the held
+        block as it cuts the computed one (zamba2's ``ssm`` heads under
+        ``serve_seq``), neither gathers over it."""
+        if keys not in self._state_plans:
+            shape, spec = self._specs[keys]
+            held = self.moved_block(keys)
+            comp = self.compute_block(keys, shape)
+            axes = self._over(spec, range(len(shape)))
+            cut = [d for d in range(1, len(shape))
+                   if comp.intervals(d) != ((0, shape[d]),)]
+            aligned = (MODEL in axes and len(cut) == 1
+                       and _entry(spec, cut[0]) == (MODEL,)
+                       and comp.intervals(cut[0]) == held.intervals(cut[0]))
+            if aligned:
+                axes = tuple(a for a in axes if a != MODEL)
+            self._state_plans[keys] = (axes, bool(cut) and not aligned)
+        return self._state_plans[keys]
+
+    def layer_state(self, path, leaf: torch.Tensor, i: int) -> torch.Tensor:
+        """Layer ``i``'s state of the :attr:`moved` cache leaf ``path`` as
+        the layer reads it (:meth:`compute_block`): the rank holds its
+        block of the reference's spec, so the layer's blocks are gathered
+        over the axes that cut them (the ranks that do not hold layer
+        ``i`` send zeros, which nothing reads) and its computed block
+        taken."""
+        keys = _keys(path)
+        shape, spec = self._specs[keys]
+        axes, _ = self._state_plan(keys)
+        (lo, hi), = self.moved_block(keys).intervals(0)
+        piece = leaf[i - lo] if lo <= i < hi else \
+            leaf.new_zeros(leaf.shape[1:])
+        if axes:
+            parts = self.state_gather(piece, axes)
+            size = self.mesh.shape
+            lay = [a for a in _entry(spec, 0) if a in axes]
+            if lay:
+                # the layer's holder among the ranks that cut the layers
+                idx = i // (shape[0] // int(np.prod([size[a] for a in lay])))
+                at = {}
+                for a in reversed(lay):
+                    idx, at[a] = divmod(idx, size[a])
+                parts = parts[tuple(at.get(a, slice(None)) for a in axes)]
+            rest = [a for a in axes if a not in lay]
+            piece = unshard(parts, [size[a] for a in rest], [
+                tuple(rest.index(a) for a in _entry(spec, d) if a in rest)
+                for d in range(1, len(shape))])
+        spec_left = tuple(tuple(a for a in _entry(spec, d) if a not in axes)
+                          or None for d in range(len(spec)))
+        outer = local_bounds(shape, spec_left, self.mesh, self.coords)
+        return _within(self.compute_block(keys, shape), outer).take(piece)
+
+    def put_layer_state(self, path, leaf: torch.Tensor, i: int,
+                        new: torch.Tensor) -> None:
+        """Write layer ``i``'s new state ``new`` (the layer's computed
+        block) into the :attr:`moved` cache leaf ``leaf``: only this
+        rank's block of the reference's spec, and only if it holds layer
+        ``i``, the computed blocks gathered over ``model`` first where they
+        are not the held ones."""
+        keys = _keys(path)
+        shape, _ = self._specs[keys]
+        _, gather = self._state_plan(keys)
+        outer = self.compute_block(keys, shape)
+        if gather:
+            parts = self.state_share(new)
+            whole = new.new_empty(shape[1:])
+            for r in range(self.n):
+                for b, at in self.peer(r).compute_block(keys, shape).pieces():
+                    whole[tuple(slice(*b.intervals(d)[0])
+                                for d in range(1, len(shape)))] = \
+                        parts[r][at[1:]]
+            new, outer = whole, Block.whole(shape)
+        held = self.written_block(keys)
+        (lo, hi), = held.intervals(0)
+        if lo <= i < hi:
+            leaf[i - lo].copy_(_within(held, outer).take(new))
+
+    def state_gather(self, piece: torch.Tensor, axes) -> torch.Tensor:
+        """A layer's state blocks of every rank of this rank's line along
+        ``axes`` (:meth:`axes_gather`), before the layer."""
+        return self.axes_gather(piece, axes)
+
+    def state_share(self, new: torch.Tensor) -> torch.Tensor:
+        """Every ``model`` rank's computed block of a layer's new state
+        (:meth:`axes_gather`), after the layer."""
+        return self.axes_gather(new, (MODEL,))
+
+    def head_dim_sum(self, scores: torch.Tensor, axes) -> torch.Tensor:
+        """The long KV's f32 partial scores of every rank's head_dim
+        channels, summed over the axes that cut head_dim (in place): the
+        same bits on every rank of them."""
+        torch.distributed.all_reduce(scores, group=self._line(axes))
+        return scores
+
+    def seq_combine(self, states, axes, order) -> torch.Tensor:
+        """Every rank's partial softmax state (m, l, acc) over its block
+        of the long KV's slots, cut over ``axes`` (in the spec's
+        ``order``), gathered and combined in block order -> the attention
+        output (B, Sq, H, d) f32."""
+        return cm.combine_partials(*(
+            _in_block_order(self.axes_gather(t, axes), axes, order)
+            for t in states))
+
+    def output_gather(self, out: torch.Tensor, axes) -> torch.Tensor:
+        """The attention output's blocks of heads and head_dim channels of
+        every rank along ``axes`` (:meth:`axes_gather`)."""
+        return self.axes_gather(out, axes)
+
+    def axes_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's ``x`` of this rank's line along ``axes`` (mesh
+        axes in the mesh's order) -> (*their sizes, *x.shape): the ranks'
+        tensors stacked, indexed by their coordinates."""
+        sizes = tuple(self.mesh.shape[a] for a in axes)
+        parts = _gather_stack(x, self._line(axes), int(np.prod(sizes)))
+        return parts.view(sizes + tuple(x.shape))
+
+    def _line(self, axes):
+        axes = tuple(axes)
+        return self.mesh.group(axes[0] if len(axes) == 1 else axes)
+
+    def long_attention(self, q, k, v, pos, pool_k, pool_v) -> torch.Tensor:
+        """One token a row over zamba2's contiguous long KV where the rows
+        are :attr:`moved`: the pools (B, s, h, d) hold this rank's block of
+        the reference's spec, slots [s0, s1) of heads [h0, h1) and
+        channels [d0, d1) of head_dim, each cut over the axes that the spec
+        names there.  q, k, v (B, 1, heads, AHD): the rank's heads of the
+        shared block (every head where ``model`` does not split them),
+        gathered into every head.  The rank writes its block of the new
+        K/V where it holds slot ``pos`` (B,); its f32 partial scores over
+        its channels are summed over the axes that cut head_dim, its
+        partial softmax state over its slots combined with the others' in
+        block order, and the output's blocks of heads and channels gathered
+        -- the KV itself never moves.  -> (B, 1, heads, AHD) in q's dtype,
+        the rank's heads, the same bits on every rank that holds them."""
+        shape, spec = self._specs[('attn', 'k')]
+        held = self.moved_block(('attn', 'k'))
+        (s0, s1), (h0, h1), (d0, d1) = (held.intervals(d)[0]
+                                        for d in (2, 3, 4))
+        seq, heads, dims = (self._over(spec, (d,)) for d in (2, 3, 4))
+        q, k, v = (self.gather_heads(t, 'shared') for t in (q, k, v))
+        rows = torch.arange(q.shape[0], device=q.device)
+        slot = pos - s0
+        inside = ((slot >= 0) & (slot < s1 - s0))[:, None, None]
+        slot = slot.clamp(0, s1 - s0 - 1)
+        for pool, new in ((pool_k, k), (pool_v, v)):
+            pool[rows, slot] = torch.where(
+                inside, new[:, 0, h0:h1, d0:d1].to(pool.dtype),
+                pool[rows, slot])
+        kv_pos = s0 + torch.arange(s1 - s0, device=q.device)
+        states = cm.attention_partial(
+            q[:, :, h0:h1, d0:d1], pool_k, pool_v,
+            kv_pos[None, :] <= pos[:, None],
+            score_sum=(lambda s: self.head_dim_sum(s, dims)) if dims
+            else None, head_dim=q.shape[-1])
+        out = (self.seq_combine(states, seq,
+                                [a for a in _entry(spec, 2) if a in seq])
+               if seq else cm.combine_partials(*(t[None] for t in states)))
+        axes = tuple(a for a in self.mesh.axis_names if a in heads + dims)
+        if axes:
+            out = unshard(self.output_gather(out, axes),
+                          [self.mesh.shape[a] for a in axes],
+                          [(), ()] + [tuple(axes.index(a)
+                                            for a in _entry(spec, d)
+                                            if a in axes) for d in (3, 4)])
+        out = out.to(q.dtype)
+        if self.shared_split:
+            lo, hi = self.own('shared')
+            out = out[:, :, lo:hi]
+        return out
 
     # -- the heads of attention --------------------------------------------
     def head_blocks_of(self, kind: str):
@@ -1255,6 +1534,62 @@ def _combine_over(states, group, n: int) -> torch.Tensor:
     gathered and combined in rank order (``models.common.
     combine_partials``)."""
     return cm.combine_partials(*(_gather_stack(t, group, n) for t in states))
+
+
+def _keys(path) -> Tuple[str, ...]:
+    return tuple(path.split('/')) if isinstance(path, str) else tuple(path)
+
+
+def _entry(spec, dim: int) -> Tuple[str, ...]:
+    """The mesh axes that ``spec`` names on ``dim``, in its order."""
+    e = spec[dim] if dim < len(spec) else None
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def _template_items(tmpl, prefix=()):
+    """[(keys, PSpec)] of a (nested) cache template."""
+    if isinstance(tmpl, cm.PSpec):
+        return [(prefix, tmpl)]
+    return [x for k, v in tmpl.items()
+            for x in _template_items(v, prefix + (k,))]
+
+
+def unshard(parts: torch.Tensor, sizes, entries) -> torch.Tensor:
+    """The whole of a tensor cut over mesh axes, from every rank's block:
+    ``parts`` (*sizes, *block) stacked by the ranks' coordinates on the
+    axes of ``sizes``; ``entries[d]``: the indices (into ``sizes``) of the
+    axes that cut block dimension ``d``, in the spec's order (the block
+    order of ``sharding.local_bounds``).  Every axis cuts one dimension."""
+    k = len(sizes)
+    perm, shape = [], []
+    for d, e in enumerate(entries):
+        perm += list(e) + [k + d]
+        shape.append(int(np.prod([sizes[j] for j in e], dtype=np.int64))
+                     * parts.shape[k + d])
+    return parts.permute(perm).reshape(shape)
+
+
+def _in_block_order(parts: torch.Tensor, axes, order) -> torch.Tensor:
+    """``parts`` (*sizes of ``axes``, ...) -> (n, ...), the blocks of a
+    dimension cut over ``order`` (the same axes, in the spec's order) in
+    block order."""
+    k = len(axes)
+    perm = [axes.index(a) for a in order] + list(range(k, parts.dim()))
+    return parts.permute(perm).reshape((-1,) + tuple(parts.shape[k:]))
+
+
+def _within(inner: Block, outer: Block, start: int = 1) -> Block:
+    """``inner``'s bounds on dimensions ``start``.. taken relative to
+    ``outer``'s (one interval a dimension, holding ``inner``'s): a Block of
+    ``outer``'s local tensor there."""
+    bounds = []
+    for d in range(start, len(outer.shape)):
+        (lo, hi), = outer.intervals(d)
+        iv = tuple((a - lo, b - lo) for a, b in inner.intervals(d))
+        if iv[0][0] < 0 or iv[-1][1] > hi - lo:
+            raise ValueError(f'{inner} is not inside {outer}')
+        bounds.append(iv[0] if len(iv) == 1 else iv)
+    return Block(tuple(outer.local_shape[start:]), tuple(bounds))
 
 
 def _select(b: Block, dim: int, intervals) -> Block:

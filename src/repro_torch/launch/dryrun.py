@@ -13,11 +13,9 @@ whole program, so:
   ``arguments``.  ``reference_arguments`` are the same under the
   reference's specs, which is what the reference's compiled program holds
   (``argument_size_in_bytes``).  The two agree wherever the port's
-  placement is the reference's, and where they do not (long_500k's one
-  row under a rule variant, which the port replicates over the batch
-  axes; a train rank's rows, whose sequence the port keeps whole) the
-  record names each leaf whose bytes differ, by group, with both counts
-  (``placement``).  ``output`` is what the step returns (the cache, or
+  placement is the reference's -- every cell of the sweep -- and where
+  they would not, the record names each leaf whose bytes differ, by
+  group, with both counts (``placement``).  ``output`` is what the step returns (the cache, or
   params and optimizer state, updated in place and counted as ``alias``,
   and the scores or the metrics);
 - FLOPs, traffic, collectives and ``temp`` come from running one rank's
@@ -222,14 +220,18 @@ def _rank_inputs(model, shape, step, device):
         rows = (ts.batch_rows(b, plan) if train
                 else rows[plan.rows])
     if meta:
-        batch = {k: torch.empty((len(rows),) + tuple(v.shape[1:]),
-                                dtype=v.dtype, device=device)
-                 for k, v in specs.items()}
+        batch = {k: torch.empty(
+            (len(rows),) + (plan.batch_block(k, v.shape).local_shape[1:]
+                            if train and plan is not None
+                            else tuple(v.shape[1:])),
+            dtype=v.dtype, device=device) for k, v in specs.items()}
     else:
         full = model.make_inputs(shape.kind, b, shape.seq_len,
                                  np.random.default_rng(0), device=device)
-        index = torch.as_tensor(rows, device=device)
-        batch = {k: full[k][index] for k in specs}
+        full = {k: full[k] for k in specs}
+        batch = (ts.shard_batch(full, plan) if train and plan is not None
+                 else {k: v[torch.as_tensor(rows, device=device)]
+                       for k, v in full.items()})
     if train:
         state = (plan.init_opt_state() if plan is not None
                  else opt.init_opt_state(params))

@@ -64,6 +64,22 @@ class InputSpec:
     dtype: torch.dtype
 
 
+# the logical axes of a step's batch tensors by name (``loss_mask`` as the
+# labels it masks); ``tokens`` are (B, S), or (B,) for a decode step
+INPUT_AXES = {'labels': ('batch', 'seq'), 'loss_mask': ('batch', 'seq'),
+              'frames': ('batch', 'seq', 'embed'),
+              'prefix_embeds': ('batch', None, 'embed'),
+              'page_table': ('batch', None), 'positions': ('batch',)}
+
+
+def input_axes_of(name: str, ndim: int) -> tuple:
+    """The logical axes of a batch tensor ``name`` of ``ndim`` dimensions
+    (:data:`INPUT_AXES`)."""
+    if name == 'tokens':
+        return ('batch', 'seq')[:ndim]
+    return INPUT_AXES[name]
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -319,12 +335,7 @@ class Model:
 
     def input_axes(self, shape: ShapeConfig) -> Dict[str, tuple]:
         """The logical axes of each of :meth:`input_specs`' inputs."""
-        known = {'labels': ('batch', 'seq'),
-                 'frames': ('batch', 'seq', 'embed'),
-                 'prefix_embeds': ('batch', None, 'embed'),
-                 'page_table': ('batch', None), 'positions': ('batch',)}
-        return {name: (('batch', 'seq')[:len(spec.shape)]
-                       if name == 'tokens' else known[name])
+        return {name: input_axes_of(name, len(spec.shape))
                 for name, spec in self.input_specs(shape).items()}
 
     def make_inputs(self, kind: str, b: int, s: int,

@@ -109,6 +109,26 @@ def zeros_from_template(tmpl, device, dtype=None):
     return build(tmpl)
 
 
+def layer_state(tp, path, leaf, i: int):
+    """Layer ``i``'s recurrent state of the cache leaf ``path`` (L, ...)
+    as the layer reads it: ``leaf[i]``, or where ``tp`` places the rows
+    by the reference's specs the plan's (``distributed.tp.StepParallel.
+    moved``, ``layer_state``)."""
+    if tp is None or not tp.moved:
+        return leaf[i]
+    return tp.layer_state(path, leaf, i)
+
+
+def put_layer_state(tp, path, leaf, i: int, new) -> None:
+    """Write layer ``i``'s new state into ``leaf`` in place (where ``tp``
+    places the rows by the reference's specs, the plan's block of it:
+    ``StepParallel.put_layer_state``)."""
+    if tp is None or not tp.moved:
+        leaf[i].copy_(new)
+    else:
+        tp.put_layer_state(path, leaf, i, new)
+
+
 def layer_views(params, key: str = 'layers'):
     """Each layer's weights as a dict of views into the (L, ...) stacks of
     ``params[key]``, taken with one ``unbind`` a stack: under autograd a
@@ -193,19 +213,25 @@ def attention(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
-def attention_partial(q, k, v, kv_valid):
+def attention_partial(q, k, v, kv_valid, *, score_sum=None,
+                      head_dim: Optional[int] = None):
     """:func:`attention` of one block of a split KV sequence, before the
     softmax is normalised: q (B, Sq, Hq, Dh); k/v (B, Skv, Hkv, Dh), the
     block's slots; ``kv_valid`` (B, Skv), or (B, Sq, Skv) a query's own.
     -> the online-softmax state (m, l, acc), f32, of the block's valid
     slots taken from the empty state (``kernels.common.
     online_softmax_update``): m and l (B, Hkv, G, Sq), acc (B, Hkv, G, Sq,
-    Dh).  :func:`combine_partials` joins the blocks."""
+    Dh).  :func:`combine_partials` joins the blocks.  Where q and k/v
+    hold a block of ``head_dim`` channels, the f32 partial scores go
+    through ``score_sum`` (their sum over the other blocks) before the
+    scale of the whole ``head_dim`` (as :func:`attention_dh_block`)."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
-    scores = torch.einsum('bqhgd,bkhd->bhgqk', qg.float(),
-                          k.float()) * dh ** -0.5
+    scores = torch.einsum('bqhgd,bkhd->bhgqk', qg.float(), k.float())
+    if score_sum is not None:
+        scores = score_sum(scores)
+    scores = scores * (head_dim or dh) ** -0.5
     valid = (kv_valid[:, None, None, None, :] if kv_valid.dim() == 2
              else kv_valid[:, None, None])
     scores = torch.where(valid, scores, NEG_INF)

@@ -53,7 +53,11 @@ replicated (``'embed'``).  Where the time mix lies is ``tp.wkv_mode``:
 ``Wo`` and ``Wv_cm`` are row-parallel products (an f32 sum over the
 ranks, rounded once); the channel mix's sigmoid gate is computed on the
 rank's ``Wr_cm`` columns and gathered whole, so it multiplies the reduced
-product.  Under autograd the mixes enter the rank's columns through
+product.  Where no batch axis divides a serve step's rows (long_500k's
+one row under a variant: ``tp.moved``), the cache holds each state's
+block of the reference's spec, and a layer reads and writes its state
+through ``tp.layer_state`` / ``tp.put_layer_state``.  Under autograd the
+mixes enter the rank's columns through
 ``tp.copy``, and a replicated leaf a rank reads only in part (the decay,
 ``ln_x``, ``u`` under ``'every'``) through ``tp.head_share``: every
 replicated leaf gets the whole gradient, bit-equal on every rank.  The
@@ -311,10 +315,10 @@ def _run_layers(cfg: ModelConfig, params, h, cache, use_kernel: bool,
     after, in place (under ``tp`` the rank's blocks of both).  -> the last
     layer's output (B, T, D)."""
     for i, lp in enumerate(cm.layer_views(params)):
-        h, new = layer_apply(cfg, lp, h, {k: s[i] for k, s in cache.items()},
-                             use_kernel=use_kernel, tp=tp)
+        state = {k: cm.layer_state(tp, (k,), s, i) for k, s in cache.items()}
+        h, new = layer_apply(cfg, lp, h, state, use_kernel=use_kernel, tp=tp)
         for k, s in new.items():
-            cache[k][i].copy_(s)
+            cm.put_layer_state(tp, (k,), cache[k], i, s)
     return h
 
 

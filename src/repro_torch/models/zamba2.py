@@ -61,6 +61,11 @@ over ``model`` and runs every head's SSD on every rank (the ``ssm`` state
 replicated), then the rank's d_in block into the gated norm and
 ``out_proj``, and replicates the shared block's pools; ``serve_seq``
 splits the pools' pages (the long context's sequence) over ``model``.
+Where no batch axis divides the rows (long_500k's one row under a
+variant: ``tp.moved``), the Mamba states and the long KV hold the blocks
+of the reference's specs: a layer reads its states through
+``tp.layer_state`` and writes them through ``tp.put_layer_state``, and
+the long KV is read in place by ``tp.long_attention``.
 The trainer places its weights by the same rules
 (``distributed.tp.TensorParallel(rules=)``): under ``serve_dh`` every
 rank runs the Mamba2 layers and the shared attention whole; under
@@ -398,6 +403,8 @@ def _decode_dense(q, k, v, pos, pool_k, pool_v, tp=None):
     output.  ``serve_kv_dp``: every head written, the rank's heads read;
     ``serve_dh``: the rank's head_dim block written and read
     (``tp.dh_attention``).  -> (B, 1, AH or the rank's heads, AHD)."""
+    if tp is not None and tp.moved:
+        return tp.long_attention(q, k, v, pos, pool_k, pool_v)
     b, slots = pool_k.shape[:2]
     rows = torch.arange(b, device=q.device)
     placement = 'heads' if tp is None else tp.placement
@@ -539,10 +546,11 @@ def _run_layers(cfg: ModelConfig, params, h, positions, mode, cache,
     sp = params['shared']
     every = cfg.hybrid_attn_every
     for idx, lp in enumerate(cm.layer_views(params)):
-        h, conv, ssm = mamba_block(cfg, lp, h, mamba['conv'][idx],
-                                   mamba['ssm'][idx], tp)
-        mamba['conv'][idx].copy_(conv)
-        mamba['ssm'][idx].copy_(ssm)
+        conv, ssm = (cm.layer_state(tp, ('mamba', k), mamba[k], idx)
+                     for k in ('conv', 'ssm'))
+        h, conv, ssm = mamba_block(cfg, lp, h, conv, ssm, tp)
+        cm.put_layer_state(tp, ('mamba', 'conv'), mamba['conv'], idx, conv)
+        cm.put_layer_state(tp, ('mamba', 'ssm'), mamba['ssm'], idx, ssm)
         if (idx + 1) % every == 0:
             app = idx // every
             h = shared_attn(cfg, sp, h, e0, positions, mode, attn['k'][app],

@@ -27,7 +27,10 @@ reference on the global batch:
 
 - microbatch i is rows [i B/M, (i+1) B/M) of the global batch, cut over
   the data ranks (:func:`batch_rows` says which rows a rank holds, in
-  microbatch order);
+  microbatch order); beyond its rows a rank holds its block of each
+  leaf under the reference's ``batch_specs`` (under ``TRAIN_RULES`` the
+  sequence over ``model``: :meth:`TrainPlan.batch_block`), gathered
+  whole before the model's loss reads it (:meth:`TrainPlan.whole_batch`);
 - each microbatch's loss is the masked NLL summed over every data rank
   divided by their summed token count: a rank's objective is its share of
   it (``Model.loss_fn(data=)``, a :class:`DataShare`: its NLL over the
@@ -56,10 +59,10 @@ before use; ``serve_kv_dp`` replicates rwkv6's ``u`` and zamba2's
 ``A_log`` / ``dt_bias`` / ``D``; ``serve_seq`` and ``train_no_sp`` place
 the weights as ``TRAIN_RULES`` do.  ``param_specs`` and ``batch_specs``
 are the reference's specs under the rules; the port's placement follows
-its blocks instead where it departs (no sequence parallelism: the
-residuals stay replicated over ``model``, the reference's
-``TRAIN_NO_SP_RULES``, the same function; zamba2's packed leaves:
-``distributed/tp.py``).
+its blocks instead where it departs (the residuals stay replicated over
+``model``, the reference's ``TRAIN_NO_SP_RULES``' function, though the
+batch's sequence lies as ``TRAIN_RULES`` place it; zamba2's packed
+leaves: ``distributed/tp.py``).
 """
 from __future__ import annotations
 
@@ -72,9 +75,9 @@ from torch import nn
 from repro_torch.distributed.sharding import (
     BATCH_AXES, LONG_SERVE_RULES, SERVE_DH_CONTRACT_RULES, SERVE_KV_DP_RULES,
     SERVE_RULES, SERVE_SEQ_RULES, TRAIN_RULES, Block, Sharding,
-    batch_coords, check_spec, shaped_spec, tree_spec_shaped)
+    batch_coords, check_spec, local_bounds, shaped_spec, tree_spec_shaped)
 from repro_torch.distributed.tp import DataShare
-from repro_torch.models.api import Model
+from repro_torch.models.api import Model, input_axes_of
 from repro_torch.training import optimizer as opt
 from repro_torch.training import tree as tr
 
@@ -187,10 +190,15 @@ class TrainPlan:
         check_train_mesh(mesh)
         check_train_rules(TRAIN_RULES if rules is None else rules)
         self.model, self.mesh = model, mesh
+        self.rules = TRAIN_RULES if rules is None else rules
         self.device = mesh.device
         self.data_axes = tuple(a for a in DATA_AXES if a in mesh.axis_names)
         described = coords is not None
         coords = mesh.coords() if coords is None else coords
+        self.coords = dict(coords)
+        # the reference's spec of each batch leaf a block was taken of
+        # (:meth:`batch_block`), by name
+        self.batch_leaf_specs: dict = {}
         self.n_data, self.data_index = batch_coords(mesh, coords)
         n_model = mesh.shape.get(MODEL, 1)
         self.tp = (TensorParallel(cfg, mesh, coords, rules=rules)
@@ -243,6 +251,50 @@ class TrainPlan:
         torch.distributed.all_gather_into_tensor(parts, mine.contiguous(),
                                                  group=self.data_group)
         p.copy_(parts.movedim(0, dim))
+
+    # -- the batch ----------------------------------------------------------
+    def batch_block(self, name: str, shape) -> Block:
+        """The block of a global batch leaf ``name`` of ``shape`` that this
+        rank holds beside its rows (:func:`batch_rows`, the first
+        dimension, whole here): the reference's ``batch_specs`` block on
+        every other dimension -- under ``TRAIN_RULES`` the sequence over
+        ``model``, or where ``model`` does not divide it the dimension
+        ``shaped_spec`` moves it to.  The spec is kept for
+        :meth:`whole_batch`."""
+        spec = check_spec(shaped_spec(tuple(shape),
+                                      input_axes_of(name, len(shape)),
+                                      self.rules, self.mesh),
+                          f'{name} spec')
+        self.batch_leaf_specs[name] = spec
+        b = local_bounds(tuple(shape), spec, self.mesh, self.coords)
+        return b.narrow(0, 0, shape[0])
+
+    def whole_batch(self, batch) -> dict:
+        """This rank's rows of a batch (:func:`shard_batch`) with every
+        leaf gathered whole beyond the rows, over the axes that cut it
+        there (:meth:`batch_block`): the tensors the model's loss reads.
+        The residuals stay replicated over ``model`` (``TRAIN_NO_SP_RULES``'
+        function); only the arguments lie as the reference's."""
+        from repro_torch.distributed.tp import _entry, _gather_stack, unshard
+
+        out = {}
+        for k, v in batch.items():
+            spec = self.batch_leaf_specs.get(k, ())
+            axes = tuple(a for a in self.mesh.axis_names
+                         if self.mesh.shape[a] > 1 and any(
+                             a in _entry(spec, d) for d in range(1, v.dim())))
+            if not axes:
+                out[k] = v
+                continue
+            sizes = [self.mesh.shape[a] for a in axes]
+            group = self.mesh.group(axes[0] if len(axes) == 1 else axes)
+            parts = _gather_stack(v, group, int(np.prod(sizes)))
+            out[k] = unshard(parts.view(tuple(sizes) + tuple(v.shape)), sizes,
+                             [()] + [tuple(axes.index(a)
+                                           for a in _entry(spec, d)
+                                           if a in axes)
+                                     for d in range(1, v.dim())])
+        return out
 
     # -- blocks -------------------------------------------------------------
     def moment_block(self, path: str) -> Block:
@@ -327,12 +379,20 @@ def batch_rows(global_batch: int, plan: TrainPlan,
 
 
 def shard_batch(batch, plan: TrainPlan, microbatches: int = 1):
-    """This rank's rows (:func:`batch_rows`) of a global batch (host numpy
-    arrays or tensors), as tensors on the mesh's device."""
+    """This rank's block of a global batch (host numpy arrays or tensors),
+    as tensors on the mesh's device: its rows (:func:`batch_rows`) and,
+    beyond them, its block of each leaf under the reference's
+    ``batch_specs`` (:meth:`TrainPlan.batch_block`: the sequence over
+    ``model`` under ``TRAIN_RULES``)."""
     rows = batch_rows(next(iter(batch.values())).shape[0], plan, microbatches)
-    return {k: torch.as_tensor(np.asarray(v)[rows] if isinstance(v, np.ndarray)
-                               else v[torch.as_tensor(rows)]).to(plan.device)
-            for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v)[rows] if isinstance(v, np.ndarray)
+                            else v[torch.as_tensor(rows)])
+        b = plan.batch_block(k, tuple(v.shape))
+        out[k] = _copy(Block(tuple(t.shape), ((0, t.shape[0]),)
+                             + b.bounds[1:]).take(t), plan.device)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +450,8 @@ def mesh_loss_and_grads(model: Model, plan: TrainPlan, params, batch,
             for p in leaves]
     lsum = torch.zeros((), dtype=torch.float32, device=plan.device)
     for i in range(microbatches):
-        mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+        mb = plan.whole_batch({k: v[i * n:(i + 1) * n]
+                               for k, v in batch.items()})
         part, _ = model.loss_fn(params, mb, tp=plan.tp, data=plan.data)
         gsum = [a + g.to(torch.float32) for a, g in
                 zip(gsum, torch.autograd.grad(part, leaves))]

@@ -47,14 +47,17 @@
   reference's keys.  ``hbm.argument`` counts the rank's own
   blocks (``arguments``); where they differ from the reference's specs
   (``reference_arguments``, which the per-cell parity compares) the record
-  names the leaves that differ, with both byte counts (``placement``).
-  Where ``model`` = 16 does not divide the attention heads (seven
-  architectures), rwkv6-3b's 40 wkv heads or seamless-m4t-medium's
-  vocabulary, a serve cell's rank holds the reference's blocks leaf for
-  leaf under the default rules, ``serve_seq`` and ``serve_kv_dp`` (and
-  ``serve_dh`` for the last two), but for rwkv6-3b's long_500k under
-  ``serve_seq``, whose state the port keeps on the replicated rows; a
-  train cell departs only in its rows' whole sequence (``batch``).
+  would name the leaves that differ, with both byte counts
+  (``placement``): no cell does.  Where ``model`` = 16 does not divide the
+  attention heads (seven architectures), rwkv6-3b's 40 wkv heads or
+  seamless-m4t-medium's vocabulary, a serve cell's rank holds the
+  reference's blocks leaf for leaf under the default rules, ``serve_seq``
+  and ``serve_kv_dp`` (and ``serve_dh`` for the last two); so do
+  rwkv6-3b's and zamba2-2.7b's long_500k cells under every variant (the
+  one row, which no batch axis divides, and the batch axes moved onto the
+  recurrent states and the long KV as the reference's ``shaped_spec``
+  moves them), and every train cell (the sequence over ``model`` under
+  ``TRAIN_RULES``).
 """
 import dataclasses
 import functools
@@ -346,10 +349,9 @@ def test_mesh_cell_matches_the_reference(family, kind):
     assert sum(rec['reference_arguments'].values()) == \
         _reference(family, kind, True)[0]
     _check_arguments(rec)
-    # the port's blocks are the reference's but for a train rank's batch
-    # (TRAIN_RULES split its sequence over ``model``; the port's rank holds
-    # its rows whole)
-    assert ('placement' in rec) == (kind == 'train')
+    # the port's blocks are the reference's, a train rank's batch too
+    # (TRAIN_RULES split its sequence over ``model``)
+    assert 'placement' not in rec, rec['placement']
     assert rec['chips'] == 4 and rec['collectives']['n_collectives'] > 0
     _check_flops(family, kind, True, rec)
 
@@ -426,13 +428,14 @@ def test_production_cell(family, shape):
 
 
 def test_argument_bytes_are_the_rank_s_own_blocks():
-    """zamba2-2.7b x long_500k under ``serve_dh`` on (16, 16): the port's
-    rank keeps the one row's caches whole over the batch axes, where the
-    reference's specs move those axes onto a state dimension.
-    ``hbm.argument`` (and so ``peak``, which ``check_fits`` reads before a
-    measured run) counts the rank's own blocks -- the same sum built here
-    from the plan's blocks -- and the record says that its placement
-    differs from the reference's."""
+    """zamba2-2.7b x long_500k under ``serve_dh`` on (16, 16): no batch
+    axis divides the one row, and the rank holds the reference's blocks
+    of its caches (the batch axes moved onto the long KV's heads and the
+    Mamba states).  ``hbm.argument`` (and so ``peak``, which ``check_fits``
+    reads before a measured run) counts the rank's own blocks -- the same
+    sum built here from the plan's blocks -- which are the reference's
+    specs' bytes: the record names no ``placement``, and a card smaller
+    than the count is refused."""
     from repro_torch.distributed.sharding import RULE_VARIANTS
     from repro_torch.distributed.tp import StepParallel
     from repro_torch.launch.mesh import describe
@@ -446,6 +449,7 @@ def test_argument_bytes_are_the_rank_s_own_blocks():
     plan = StepParallel(cfg, desc, desc.coords(rec['rank']),
                         batch=shp.global_batch, seq_len=shp.seq_len,
                         rules=RULE_VARIANTS['serve_dh'])
+    assert plan.moved
     model = build_model(cfg)
 
     def nbytes(tmpl, block):
@@ -456,22 +460,11 @@ def test_argument_bytes_are_the_rank_s_own_blocks():
     assert rec['arguments']['params'] == nbytes(model.template(), plan.block)
     assert rec['arguments']['cache'] == nbytes(model.cache_template(shp),
                                                plan.cache_block)
-    reference = sum(rec['reference_arguments'].values())
-    assert rec['hbm']['argument'] > 2 * reference
-    # the record names the leaves whose blocks differ, with both counts:
-    # the shared block's contiguous KV and the Mamba states, 16 times the
-    # reference's block; the weights are the reference's
-    diff = rec['placement']
-    attn = diff['cache']['attn/k']
-    assert attn['port'] == 16 * attn['reference']
-    assert set(diff) == {'cache'}
-    assert set(diff['cache']) == {'attn/k', 'attn/v', 'mamba/conv',
-                                  'mamba/ssm'}
-    for group, leaves in diff.items():
-        assert sum(d['port'] - d['reference'] for d in leaves.values()) == \
-            rec['arguments'][group] - rec['reference_arguments'][group]
+    assert rec['arguments'] == rec['reference_arguments']
+    assert 'placement' not in rec, rec['placement']
     with pytest.raises(MemoryError):
-        dryrun.check_fits(rec['hbm']['peak'], 2 * reference, 'a small card')
+        dryrun.check_fits(rec['hbm']['peak'], rec['hbm']['argument'] // 2,
+                          'a small card')
 
 
 def test_multi_pod_cell():
@@ -567,42 +560,45 @@ HEAD_DIM_GB = {    # a rank's arguments under the reference's specs
     ('llama4-scout-17b-a16e', 'decode_32k'): 16.719,
     ('rwkv6-3b', 'decode_32k'): 0.408,
     ('seamless-m4t-medium', 'decode_32k'): 0.296}
-# the cells whose serve placement still departs under a rule variant: the
-# leaves that differ (rwkv6-3b's long_500k under serve_seq: the rows are
-# replicated, where the reference's specs move the batch axes onto the
-# state)
-DEPARTING = {('rwkv6-3b', 'long_500k', 'serve_seq'):
-             {'cache': {'shift_cm', 'shift_tm', 'wkv'}}}
+# the cells whose serve placement still departs under a rule variant:
+# none (long_500k's one row is placed as the reference's specs place it)
+DEPARTING: dict = {}
 PLACEMENT_CELLS = [(a, s) for a in HEAD_DIM_ARCHS + WKV_VOCAB_ARCHS
                    for s in ('decode_32k', 'prefill_32k', 'train_4k')] + [
-    ('rwkv6-3b', 'long_500k')]
+    ('rwkv6-3b', 'long_500k'), ('zamba2-2.7b', 'long_500k')]
+# a rank's arguments at long_500k under each variant, on (16, 16), in
+# GB rounded to 3 places (zamba2: 4,900,097,640 / 685,493,340 /
+# 6,351,975,240 B; rwkv6: 2,755,660,804 / 395,136,004 / 396,518,404 B)
+LONG_GB = {'zamba2-2.7b': {'serve_dh': 4.900, 'serve_seq': 0.685,
+                           'serve_kv_dp': 6.352},
+           'rwkv6-3b': {'serve_dh': 2.756, 'serve_seq': 0.395,
+                        'serve_kv_dp': 0.397}}
 
 
 @pytest.mark.parametrize('arch,shape', PLACEMENT_CELLS)
 def test_head_dim_placement_cells(arch, shape):
     """On (16, 16), where ``model`` does not divide the attention heads,
-    rwkv6's wkv heads or the vocabulary: a serve cell's rank holds the
-    reference's blocks leaf for leaf (no ``placement``), under the default
-    rules and, for decode_32k, under ``serve_seq`` and ``serve_kv_dp`` too
-    (and ``serve_dh`` for rwkv6-3b and seamless-m4t-medium; long_500k
-    under ``serve_seq`` names the leaves it departs in, :data:`DEPARTING`);
-    a train cell's ``placement`` names only ``batch`` (the trainer's rows
-    hold their whole sequence, where ``TRAIN_RULES`` split it over
-    ``model``)."""
+    rwkv6's wkv heads or the vocabulary, and at long_500k, where no batch
+    axis divides the one row: a serve cell's rank holds the reference's
+    blocks leaf for leaf (no ``placement``), under the default rules and,
+    for decode_32k, under ``serve_seq`` and ``serve_kv_dp`` too (and
+    ``serve_dh`` for rwkv6-3b and seamless-m4t-medium), for long_500k
+    under every variant (:data:`LONG_GB`: zamba2-2.7b's serve_kv_dp rank
+    reads 6.352 GB, where it held the one row's long KV whole over the
+    batch axes at 97.015); a train cell's rank holds its rows' block of
+    the sequence (``TRAIN_RULES`` split it over ``model``): no
+    ``placement`` either."""
     variants = ('default',)
     if shape == 'decode_32k':
         variants += ('serve_seq', 'serve_kv_dp') + (
             ('serve_dh',) if arch in WKV_VOCAB_ARCHS else ())
     elif shape == 'long_500k':
-        variants += ('serve_seq',)
+        variants += tuple(LONG_GB[arch])
     floor = _layer_flops(arch, shape) if (arch, shape) == (
         'rwkv6-3b', 'prefill_32k') else None
     for variant in variants:
         rec = dryrun.run_cell(arch, shape, 'single', rules_variant=variant)
         _production_check(rec, get_config(arch).family, floor)
-        if shape == 'train_4k':
-            assert set(rec['placement']) == {'batch'}, rec['placement']
-            continue
         departs = DEPARTING.get((arch, shape, variant))
         if departs is not None:
             assert {g: set(v) for g, v in rec['placement'].items()} == \
@@ -610,9 +606,14 @@ def test_head_dim_placement_cells(arch, shape):
             continue
         assert 'placement' not in rec, rec['placement']
         assert rec['arguments'] == rec['reference_arguments']
-        gb = HEAD_DIM_GB.get((arch, shape))
-        if gb is not None and variant in ('default', 'serve_seq'):
+        gb = (LONG_GB[arch].get(variant) if shape == 'long_500k'
+              else HEAD_DIM_GB.get((arch, shape)))
+        if gb is not None and (shape == 'long_500k'
+                               or variant in ('default', 'serve_seq')):
             assert round(rec['hbm']['argument'] / 1e9, 3) == gb
+        if (arch, shape) == ('qwen3-0.6b', 'train_4k'):
+            # tokens and labels: 16 rows of 256 of the 4096 positions
+            assert rec['arguments']['batch'] == 32768
 
 
 def test_cli_prints_a_record(capsys):

@@ -8,7 +8,9 @@ against the JAX package's mesh step under the same rules.
   (dense), phi3.5-moe (moe), rwkv6 (ssm), zamba2 (hybrid) and seamless
   (encdec), and at (2, 2) long_500k (S = 256, 4 steps from position 126,
   across the boundary of two blocks of the KV sequence) for rwkv6 and
-  zamba2.  Each rank's blocks of the scores, gathered, are within atol
+  zamba2 at B = 2, whose rows ``data`` divides (the reference's B = 1,
+  which no batch axis divides, is ``tests/
+  test_torch_long_row_placement.py``'s).  Each rank's blocks of the scores, gathered, are within atol
   1e-4 of the reference's mesh step on an Auto-axis ``Mesh`` of the
   conftest's virtual devices and of the port's meshless step; greedy
   tokens are equal.  qwen3 then runs a ``prefill_chunk`` (the engine's
