@@ -260,7 +260,19 @@ Phases, each fatal on failure:
     planted fault (one rank's partial scores not summed) past that gate,
     bf16 under phase 21's rule; each rank's cache bytes the dry-run's
     count of the reference's block; one f32 training step (B=2, S=64)
-    under phase 19's gates; 0 launches;
+    under phase 19's gates; 0 launches; then, on the same ranks, the mesh
+    engine under the reference engine's placement (``tp.engine_plan``, the
+    same blocks of RoPE pairs in the global pool), rank 0 opened on its
+    own blocks: three requests of a 64-token prompt, 4 new tokens each,
+    through mixed and decode dispatches, the plain path; f32 greedy
+    tokens equal to the meshless engine's, every dispatch's scores within
+    1e-4 of |max|, the planted fault past that gate; bf16 fused sampling
+    (K4 on every rank's vocabulary block, the main path of this check)
+    against the argmax of the bf16 unfused drain's scores or a near tie;
+    each rank's weight and pool bytes the reference's; K1-K3 not launched;
+    K4 alone on a rank's block of qwen3-14b's head (9496 x 5120, a width
+    whose ``last`` takes most of the kernel's shared memory) against its
+    plain version, and timed;
 25. the reference's placement where ``model`` does not divide rwkv6's wkv
     heads or the vocabulary, on phase 24's 16 ranks at published widths:
     rwkv6-3b (**2 of 32 layers**; each rank 4 of the 64 value channels of
@@ -308,6 +320,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -3988,22 +4001,37 @@ def need_launches(counts: dict, what: str) -> None:
 # (launch.ranks.RankPool): ranks started for a phase of their own cost it
 # 10-30 s on the H100 machine (each process imports torch, opens a CUDA
 # context and makes its first calls), 27 s of phase 21's 38.8 s.  Phase
-# 24's sixteen ranks start while phase 23 runs; phase 18's four start for
-# it alone.
+# 18's four ranks start while phase 17 runs, phase 24's sixteen while
+# phase 23 runs, phase 26's four while phase 25 runs; each pool's ranks
+# are warmed as they start (warm_rank: the first checkpointed step's
+# import of torch._dynamo cost phase 24 ~21 s on 16 ranks).
 POOLED = (1, 2)
 _POOLS: dict = {}
 
 
+def warm_rank(rank: int, dev: str) -> float:
+    """A pooled rank's first call on ``dev`` and its import of
+    ``torch._dynamo``, which the first checkpointed training step makes
+    (~21 s on 16 ranks at once, PERF.md section 7), while the ranks wait
+    for their first phase; -> its seconds."""
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    import torch._dynamo as _dynamo  # noqa: F401
+    return time.perf_counter() - t0
+
+
 def start_ranks(n: int, timeout_s: float) -> None:
     """Start ``n`` pooled ranks sharing the card (gloo; one rank: NCCL) now,
-    unless they run: their start overlaps whatever runs before their first
-    use.  ``timeout_s`` bounds their group's collectives."""
+    unless they run, and warm them (:func:`warm_rank`): their start
+    overlaps whatever runs before their first use.  ``timeout_s`` bounds
+    their group's collectives."""
     from repro_torch.launch.ranks import RankPool
 
     if n not in _POOLS:
         _POOLS[n] = RankPool(n, store_dir=ROOT / 'build' / 'mesh_store',
                              device_type=torch.device(DEV).type,
                              timeout_s=timeout_s)
+        _POOLS[n].submit(warm_rank, (DEV,))
 
 
 def on_ranks(fn, n: int, args, timeout_s: float) -> list:
@@ -4019,7 +4047,14 @@ def on_ranks(fn, n: int, args, timeout_s: float) -> list:
         return run_ranks(fn, n, store_dir=ROOT / 'build' / 'mesh_store',
                          device_type=torch.device(DEV).type, args=args,
                          timeout_s=timeout_s)
-    return _POOLS[n].run(fn, args, timeout_s=timeout_s)
+    pool = _POOLS[n]
+    if pool.pending:
+        t0 = time.perf_counter()
+        warm = pool.collect(timeout_s)
+        print(f'  {n} pooled ranks warmed in {min(warm):.1f}-{max(warm):.1f}'
+              f' s each, {time.perf_counter() - t0:.1f} s of it waited for '
+              f'here')
+    return pool.run(fn, args, timeout_s=timeout_s)
 
 
 def close_pools(sizes=None) -> None:
@@ -4840,7 +4875,7 @@ def ep_rank(rank: int, cut, cfg, dev: str, card: str) -> dict:
     decode step under
     :class:`MeshMoEWitness`.  Rank 0 leads; rank 1 serves, running the
     witness's probes."""
-    from repro_torch.distributed.tp import (TensorParallel, serve_rank,
+    from repro_torch.distributed.tp import (engine_plan, serve_rank,
                                             stop_ranks)
     from repro_torch.kernels.common import LAUNCHES
     from repro_torch.launch.mesh import make_mesh
@@ -4881,8 +4916,7 @@ def ep_rank(rank: int, cut, cfg, dev: str, card: str) -> dict:
 
         model = build_model(cfg)
         t0 = time.perf_counter()
-        params = own_blocks(cfg, TensorParallel(cfg, mesh,
-                                                whole_heads=True))
+        params = own_blocks(cfg, engine_plan(cfg, mesh))
         whole = sum(int(np.prod(leaf.shape)) * leaf.dtype.itemsize
                     for _, leaf in tr.leaves_with_paths(model.template()))
         drawn_s = time.perf_counter() - t0
@@ -6761,21 +6795,25 @@ HD_TIMEOUT_S = 420                 # bounds the phase's spawned ranks
 HD_FAULT = 'model rank 1\'s partial scores not summed over model'
 
 
-def plant_head_dim_fault(rank: int) -> callable:
-    """:data:`HD_FAULT` in this rank's serve step: rank 1 takes part in
+def unsummed_scores(self, scores):
+    """:data:`HD_FAULT` as a plan's ``score_sum``: this rank takes part in
     the all-reduce of the partial scores (the ranks' collectives still
-    match) and goes on with its own; -> a function that takes it out."""
-    from repro_torch.distributed.tp import StepParallel
+    match) and goes on with its own."""
+    torch.distributed.all_reduce(scores.clone(), group=self.group)
+    return scores
 
-    saved = StepParallel.score_sum
+
+def plant_head_dim_fault(rank: int) -> callable:
+    """:data:`HD_FAULT` in this rank's serve step (on rank 1); -> a
+    function that takes it out."""
+    from repro_torch.distributed.tp import TensorParallel
+
+    saved = TensorParallel.score_sum
     if rank == 1:
-        def unsummed(self, scores):
-            saved(self, scores.clone())
-            return scores
-        StepParallel.score_sum = unsummed
+        TensorParallel.score_sum = unsummed_scores
 
     def restore():
-        StepParallel.score_sum = saved
+        TensorParallel.score_sum = saved
     return restore
 
 
@@ -6864,8 +6902,8 @@ def scatter_from_lead(parts, like: torch.Tensor) -> torch.Tensor:
     return buf.to(like.device)
 
 
-def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int
-                   ) -> dict:
+def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int,
+                   engine: bool = False) -> dict:
     """Phases 24 and 25 on one of the HD_SHAPE ranks sharing the card:
     each rank's serve and training blocks drawn on the card a leaf at a
     time (``Model.init_blocks``; rank 0 draws the whole weights for the
@@ -6877,7 +6915,9 @@ def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int
     on the rank's block (:func:`k6_block_check`); one training step in
     f32 (rwkv6's also under :data:`TRAIN_FAULT`), rank 0's meshless
     blocks of each gradient and update leaf scattered to the ranks, each
-    comparing its own on the card.  Rank 0
+    comparing its own on the card.  ``engine``: between the two, the
+    mesh engine on the serve step's blocks (:func:`engine_pair_rank`).
+    Rank 0
     returns the score gates' numbers; every rank its placement, errors,
     times, peak memory, cache bytes (against the dry-run's count of the
     reference's block) and kernel launches."""
@@ -6955,9 +6995,10 @@ def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int
     lap('meshless serve')
     dist.barrier()
     lap('wait')
-    reference_cache = dryrun.argument_bytes(
+    reference = dryrun.argument_bytes(
         model, shapes[0], describe(HD_SHAPE, MESH_AXES), SERVE_RULES,
-        coords=mesh.coords())['cache']
+        coords=mesh.coords())
+    reference_cache = reference['cache']
     lap('count')
     for name in ('f32', 'fault', 'bf16'):
         dtype = dtypes['bf16' if name == 'bf16' else 'f32']
@@ -7007,6 +7048,12 @@ def placement_rank(rank: int, cfg, dev: str, fault: str, seed: int
     out['reference_cache'] = reference_cache
     out['meshless_s'] = (meshless.get('f32_s'), meshless.get('bf16_s'))
     del meshless
+    if engine:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out['engine'] = engine_pair_rank(rank, model, mesh, plan, served,
+                                         drawn, reference['params'], dev)
+        lap('engine')
     if cfg.family == 'ssm':
         out['k6'] = k6_block_check(model, plan, served, dev)
         lap('k6')
@@ -7262,14 +7309,383 @@ def rank_launches(ranks) -> dict:
     return launches
 
 
-def head_dim_check(card: str) -> dict:
+# (e): the mesh engine under the reference engine's placement, on phase
+# 24's ranks and blocks
+HD_ENGINE_REQS, HD_ENGINE_NEW = 3, 4   # requests (a 64-token prompt each),
+                                       # new tokens a request
+HD_ENGINE_FAULT_STEPS = 2          # the fault's dispatches (the first shows it)
+HD_NEAR_TIE = 1e-3                 # bf16 fused: a near tie, of |max|
+HD_ENGINE_POOL = (8, 4)            # the engine's pool: handles, pages each
+
+
+class EngineLog(Recorder):
+    """:class:`Recorder` that also keeps the kind of every dispatch in
+    order and, for a fused decode dispatch, the sampled tokens of its
+    live rows."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.kinds, self.tokens = [], []
+
+    def prefill_chunk_fn(self, params, cache, batch, **kw):
+        self.kinds.append('mixed')
+        return super().prefill_chunk_fn(params, cache, batch, **kw)
+
+    def decode_fn(self, params, cache, batch, **kw):
+        self.kinds.append('decode')
+        return super().decode_fn(params, cache, batch, **kw)
+
+    def decode_sample_fn(self, params, cache, batch, **kw):
+        cache, toks = self.model.decode_sample_fn(params, cache, batch, **kw)
+        self.kinds.append('sample')
+        self.tokens.append(toks[live_rows(batch)].clone())
+        return cache, toks
+
+
+def pair_engine(model, params, mesh, dev: str, **ecfg):
+    """(e)'s engine: a pool of :data:`HD_ENGINE_POOL`, 4 rows, one chunk a
+    prompt; its pool in the weights' dtype."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.serving.kvpool import KVPool
+
+    pool = KVPool(*HD_ENGINE_POOL, page_size=model.cfg.page_size,
+                  reserved_handles=1)
+    eng = Engine(model, params, pool, EngineConfig(
+        max_batch=4, max_seq=HD_S + 2 * model.cfg.page_size,
+        prefill_chunk=HD_S, mesh=mesh, **ecfg), device=dev)
+    dtype = params['embed'].dtype
+    eng.cache = {k: v.to(dtype) for k, v in eng.cache.items()}
+    return eng
+
+
+def pair_drain(eng, steps: Optional[int] = None) -> list:
+    """(e)'s trace: :data:`HD_ENGINE_REQS` prompts of HD_S tokens; the
+    first is prefilled and decodes a token alone, then the others join its
+    decode row in a mixed dispatch; HD_ENGINE_NEW new tokens each.
+    ``steps``: only that many dispatches (the fault's)."""
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(1, eng.mcfg.vocab_size, HD_S).tolist()
+               for _ in range(HD_ENGINE_REQS)]
+    rids = [eng.submit(prompts[0], max_new_tokens=HD_ENGINE_NEW)]
+    for _ in range(steps or 4):
+        eng.step()
+        if steps is None and len(eng.requests[rids[0]].generated) >= 2:
+            break
+    if steps is not None:
+        return []
+    rids += [eng.submit(p, max_new_tokens=HD_ENGINE_NEW)
+             for p in prompts[1:]]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    return [eng.output_tokens(r) for r in rids]
+
+
+def whole_head_bytes(model, plan, dtype) -> tuple:
+    """(weight bytes, pool bytes a page) that ``plan``'s rank would hold
+    with whole heads (``tp.head_blocks``: here every head, replicated),
+    the rest of its blocks as they are: for the record."""
+    from repro_torch.distributed.tp import _leaves, head_blocks
+
+    cfg, size = model.cfg, torch.tensor([], dtype=dtype).element_size()
+    (q0, q1), (k0, k1) = head_blocks(cfg.n_heads, cfg.n_kv_heads, plan.n,
+                                     plan.rank)
+    heads = {'wq': (2, q1 - q0), 'bq': (1, q1 - q0), 'wo': (1, q1 - q0),
+             **dict.fromkeys(('wk', 'wv'), (2, k1 - k0)),
+             **dict.fromkeys(('bk', 'bv'), (1, k1 - k0))}
+    weights, shapes = 0, model.param_shapes()
+    for path, _ in _leaves(model.template()):
+        shape = shapes
+        for k in path:
+            shape = shape[k]
+        if path[-1] in heads:
+            dim, h = heads[path[-1]]
+            weights += int(np.prod(shape)) // shape[dim] * h * cfg.hd
+        else:
+            weights += int(np.prod(plan.block(path, shape).local_shape))
+    page = 2 * cfg.n_layers * cfg.page_size * (k1 - k0) * cfg.hd
+    return weights * size, page * size
+
+
+def engine_pair_rank(rank: int, model, mesh, plan, served, drawn,
+                     reference_params: int, dev: str) -> dict:
+    """Phase 24 (e) on one of the HD_SHAPE ranks: the mesh engine under
+    the engine's plan (``tp.engine_plan``, whose blocks are the serve
+    step's ``served`` ones), rank 0 opening each engine on its own blocks
+    and every other rank following with its own (``serve_rank(mesh,
+    blocks=)``): f32, f32 with :data:`HD_FAULT` planted on model rank 1's
+    plan, bf16 unfused, bf16 fused (K4 on every rank's vocabulary block:
+    the counts are set to 0 just before this drain and read just after).
+    Rank 0 also drains the meshless engine in f32 on its whole weights
+    ``drawn``.  Every rank returns its weight and pool bytes beside the
+    reference's count and its launches; rank 0 the drains."""
+    from repro_torch.distributed.sharding import (SERVE_RULES, local_bounds,
+                                                  shaped_spec)
+    from repro_torch.distributed.tp import (_leaves, engine_plan, serve_rank,
+                                            stop_ranks)
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.launch.mesh import describe
+
+    eplan = engine_plan(model.cfg, mesh, max_batch=4)
+    shapes = model.param_shapes()
+
+    def shape_of(path):
+        node = shapes
+        for k in path:
+            node = node[k]
+        return node
+
+    out = {'pair_cut': eplan.pair_cut, 'same_blocks': all(
+        eplan.block(p, shape_of(p)) == plan.block(p, shape_of(p))
+        for p, _ in _leaves(served))}
+    bf16 = served['embed'].dtype
+    size = torch.tensor([], dtype=bf16).element_size()
+    n_pages = 1 + HD_ENGINE_POOL[0] * HD_ENGINE_POOL[1]
+    pool = model.cache_template(engine_pages=n_pages)
+    ref_mesh = describe(HD_SHAPE, MESH_AXES)
+    out['reference'] = (reference_params, size * sum(
+        int(np.prod(local_bounds(leaf.shape, shaped_spec(
+            leaf.shape, leaf.axes, SERVE_RULES, ref_mesh), ref_mesh,
+            mesh.coords()).local_shape)) for leaf in pool.values())
+        // n_pages)
+    out['whole'] = whole_head_bytes(model, eplan, bf16)
+    out['weights'] = sum(w.numel() * w.element_size()
+                         for _, w in _leaves(served))
+    # the serve step's and the trainer's counts stay theirs
+    saved = dict(LAUNCHES)
+    if rank != 0:
+        opened = []
+
+        def blocks(cfg, p):
+            # the engines open in rank 0's order: f32, the fault, bf16
+            # unfused, bf16 fused
+            i = len(opened)
+            opened.append(i)
+            if i == 1 and p.rank == 1:
+                p.score_sum = types.MethodType(unsummed_scores, p)
+            return f32_copy(served) if i < 2 else served
+        res = serve_rank(mesh, blocks=blocks)
+        ids = sorted(res['launches'])
+        out['launches'] = res['launches'][ids[-1]]
+        out['unfused'] = {k: sum(res['launches'][i][k] for i in ids[:-1])
+                          for k in LAUNCHES}
+        shape = res['cache_shapes'][ids[-1]]
+        out['page'] = 2 * size * int(np.prod(shape)) // shape[1]
+        LAUNCHES.update(saved)
+        return out
+    try:
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+        t0 = time.perf_counter()
+        whole = f32_copy(drawn)
+        ref = EngineLog(model)
+        toks = pair_drain(pair_engine(ref, whole, None, dev,
+                                      decode_kernel=False))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        out['meshless'] = {'tokens': toks, 's': time.perf_counter() - t0,
+                           'scores': [x.float().cpu().numpy()
+                                      for x in ref.scores]}
+        runs = {}
+        for name, params, steps in (
+                ('f32', lambda: f32_copy(served), None),
+                ('fault', lambda: f32_copy(served), HD_ENGINE_FAULT_STEPS),
+                ('bf16', lambda: served, None),
+                ('fused', lambda: served, None)):
+            if name == 'fused':
+                out['unfused'] = dict(LAUNCHES)
+                LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+            t0 = time.perf_counter()
+            log = EngineLog(model)
+            eng = pair_engine(log, params(), mesh, dev,
+                              fused_sampling=name == 'fused')
+            toks = pair_drain(eng, steps)
+            eng.close()
+            # numpy: a rank's tensors would not outlive it in the queue
+            runs[name] = {'tokens': toks, 'kinds': log.kinds,
+                          'scores': [x.float().cpu().numpy()
+                                     for x in log.scores],
+                          'sampled': [x.cpu().numpy() for x in log.tokens],
+                          's': time.perf_counter() - t0,
+                          'use_kernel': eng._use_kernel}
+            if name == 'fused':
+                out['launches'] = dict(LAUNCHES)
+                out['page'] = size * sum(t.numel() for t in eng.cache.values()
+                                         ) // eng.pool.n_pages
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        out['runs'] = runs
+        return out
+    finally:
+        LAUNCHES.update(saved)
+        stop_ranks(mesh)
+
+
+def fused_against_unfused(fused, unfused) -> dict:
+    """(e) bf16: each fused decode dispatch's tokens against the argmax of
+    the unfused drain's scores at the same dispatch (the two drains run
+    one schedule), up to and including the first dispatch where a token
+    differs (the drains' inputs part there): each differing token a near
+    tie (within :data:`HD_NEAR_TIE` of the row's |max|)."""
+    rows = differ = 0
+    ties = True
+    scores = iter(unfused['scores'])
+    tokens = iter(fused['sampled'])
+    for kind, other in zip(fused['kinds'], unfused['kinds']):
+        s = next(scores)
+        if kind != 'sample':
+            assert kind == other == 'mixed', (kind, other)
+            continue
+        assert other == 'decode', other
+        got, want = next(tokens), s.argmax(-1)
+        rows += len(got)
+        bad = np.nonzero(got != want)[0].tolist()
+        for i in bad:
+            ties &= bool(s[i].max() - s[i][got[i]]
+                         <= HD_NEAR_TIE * np.abs(s[i]).max())
+        if bad:
+            differ = len(bad)
+            break
+    return {'rows': rows, 'differ': differ, 'ties': ties}
+
+
+def engine_pair_gates(card: str, ranks: list) -> tuple:
+    """Print and gate phase 24 (e): (a) f32 tokens equal to the meshless
+    engine's and every dispatch's scores within FS_TOL of |max|, the
+    fault's past it; (b) bf16 fused tokens against the unfused drain's
+    argmax (:func:`fused_against_unfused`), K4 launched on every rank in
+    the fused drain, K1-K3 in none of the drains; (c) every rank's weight
+    and pool-page bytes the reference's.  -> (the gates that failed, the
+    fused drain's launches over every rank)."""
+    e = ranks[0]['engine']
+    m, runs = e['meshless'], e['runs']
+    f32, fault, bf, fused = (runs[k] for k in ('f32', 'fault', 'bf16',
+                                               'fused'))
+    gap = lambda x, y: float(np.abs(x - y).max() / np.abs(y).max())  # noqa
+    gaps = [gap(x, y) for x, y in zip(f32['scores'], m['scores'])]
+    fault_gap = gap(fault['scores'][0], m['scores'][0])
+    f32_ok = (f32['tokens'] == m['tokens'] and
+              len(f32['scores']) == len(m['scores']) and
+              max(gaps) <= FS_TOL)
+    cmp = fused_against_unfused(fused, bf)
+    fused_ok = cmp['ties'] and cmp['rows'] > 0
+    launches = {k: sum(r['engine']['launches'][k] for r in ranks)
+                for k in ranks[0]['engine']['launches']}
+    unfused = {k: sum(r['engine']['unfused'][k] for r in ranks)
+               for k in launches}
+    k4_ok = all(r['engine']['launches']['unembed_sample'] > 0 for r in ranks)
+    k13 = {k: launches[k] + unfused[k] for k in DECODE_KERNELS[:3]}
+    sizes = {(r['engine']['weights'], r['engine']['page'])
+             for r in ranks}
+    refs = {r['engine']['reference'] for r in ranks}
+    bytes_ok = all((r['engine']['weights'], r['engine']['page'])
+                   == r['engine']['reference'] for r in ranks)
+    plan_ok = all(r['engine']['pair_cut'] and r['engine']['same_blocks']
+                  for r in ranks)
+    secs = {k: round(v['s'], 1) for k, v in runs.items()}
+    print(f'  (e) the mesh engine on the pair blocks ({len(ranks)} ranks, '
+          f'{HD_ENGINE_REQS} requests of {HD_S} tokens, {HD_ENGINE_NEW} new '
+          f'tokens each, {len(m["scores"])} dispatches; decode_kernel=None '
+          f'resolved to the plain path: {not f32["use_kernel"]}): f32 tokens '
+          f'{f32["tokens"]} equal to the meshless engine\'s '
+          f'{f32["tokens"] == m["tokens"]}, |mesh - meshless| of |max| '
+          f'{[f"{g:.3e}" for g in gaps]} (gate {FS_TOL:g}: '
+          f'{"pass" if f32_ok else "FAIL"}); planted fault ({HD_FAULT}) '
+          f'{fault_gap:.3e} on the first dispatch (must fail: '
+          f'{"fails" if fault_gap > FS_TOL else "PASSES"})  [{card}]')
+    print(f'  (e) bf16 fused against the bf16 unfused drain\'s argmax: '
+          f'{cmp["rows"]} decode rows compared, {cmp["differ"]} differing, '
+          f'near ties {cmp["ties"]} (gate {HD_NEAR_TIE:g} of |max|: '
+          f'{"pass" if fused_ok else "FAIL"}); fused tokens '
+          f'{fused["tokens"]}; launches in the fused drain (every rank) '
+          f'{launches}, K4 on every rank {k4_ok}; K1-K3 in every drain '
+          f'{k13}  [{card}]')
+    print(f'  (e) bytes a rank (bf16): weights and a pool page {sorted(sizes)}'
+          f' against the reference\'s tree_spec_shaped count '
+          f'{sorted(refs)} ({"equal" if bytes_ok else "DIFFER"}); with '
+          f'whole heads rank 0 would hold {e["whole"][0]:,} B of weights '
+          f'and {e["whole"][1]:,} B a page; the engine\'s plan is the serve '
+          f'step\'s blocks {plan_ok}; seconds (host clock) meshless '
+          f'{m["s"]:.1f}, mesh {secs}  [{card}]')
+    failed = []
+    for ok, what in ((f32_ok, ('engine f32', gaps)),
+                     (fault_gap > FS_TOL, ('engine fault passes', fault_gap)),
+                     (fused_ok, ('engine fused', cmp)),
+                     (k4_ok, ('engine K4', launches)),
+                     (not any(k13.values()), ('engine K1-K3', k13)),
+                     (bytes_ok, ('engine bytes', sorted(sizes),
+                                 sorted(refs))),
+                     (plan_ok, ('engine plan',))):
+        if not ok:
+            failed.append(what)
+    return failed, launches
+
+
+def k4_pair_check(card: str) -> dict:
+    """Phase 24 (e)'s K4 at the engine's shape: a rank's block of
+    qwen3-14b's head (151936 / 16 = 9496 rows of D = 5120, col0 the 16th
+    rank's) for HD_B rows (8-row launches: N = 8) and for 16 (N = 16, a
+    shorter ring beside ``last``), T = 0 and 0.8, against the plain block
+    version: every index equal or a near tie of the f32 scores.  Timed
+    at HD_B rows beside the plain version, its bound and ``argmax(last @
+    block.T)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import gumbel_hash_noise
+    from repro_torch.kernels.sampling.ops import unembed_argmax_block
+    from repro_torch.kernels.sampling.ref import (unembed_argmax_block_ref,
+                                                  unembed_scores)
+
+    cfg = get_config(HD_ARCH)
+    n = HD_SHAPE[1]
+    v, d = cfg.vocab_size // n, cfg.d_model
+    col0 = (n - 1) * v
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    head = (torch.randn((v, d), generator=gen, device=DEV)
+            * d ** -0.5).to(torch.bfloat16)
+    out = {}
+    for rows in (HD_B, 16):
+        last = torch.randn((rows, d), generator=gen,
+                           device=DEV).to(torch.bfloat16)
+        for t in (0.0, K4_T):
+            got = unembed_argmax_block(last, head, 5, temperature=t, row0=0,
+                                       col0=col0)[1]
+            want = unembed_argmax_block_ref(last, head, 5, temperature=t,
+                                            row0=0, col0=col0)[1]
+            scores = unembed_scores(last, head)
+            if t > 0:
+                scores = scores / t + gumbel_hash_noise(
+                    5, torch.arange(rows, device=DEV)[:, None],
+                    torch.arange(col0, col0 + v, device=DEV)[None, :])
+            for r, (a, b) in enumerate(zip(got.tolist(), want.tolist())):
+                assert a == b or near_tie(scores[r], a - col0, b - col0), \
+                    ('K4 at the engine\'s shape', rows, t, r, a, b)
+            out[rows, t] = int((got == want).sum())
+    last = torch.randn((HD_B, d), generator=gen, device=DEV).to(torch.bfloat16)
+    timer = Timer()
+    ms = timer(lambda: unembed_argmax_block(last, head, 5, col0=col0))
+    plain = timer(lambda: unembed_argmax_block_ref(last, head, 5, col0=col0))
+    lib = timer(lambda: torch.argmax(last @ head.T, dim=-1))
+    t_bound, by = bound(v * d * 2 + HD_B * d * 2 + HD_B * 8, 2 * HD_B * v * d)
+    print(f'  (e) K4 on a rank\'s block of {HD_ARCH}\'s head ({v} x {d}, '
+          f'col0 {col0}) at {HD_B} and 16 rows, T = 0 and {K4_T}: indices '
+          f'equal to the plain block version on {out} rows (the rest near '
+          f'ties); at {HD_B} rows kernel_ms {ms:.4f}  plain_ms {plain:.4f}  '
+          f'library_ms {lib:.4f} (argmax(last @ block.T))  bound_ms '
+          f'{t_bound:.4f} ({by})  [{card}]')
+    return {'ms': ms, 'plain_ms': plain, 'library_ms': lib,
+            'bound': (t_bound, by)}
+
+
+def head_dim_check(card: str) -> tuple:
     """Phase 24: qwen3-14b at published widths (d 5120, 40 q-heads, 8
     kv-heads, head_dim 128), HD_LAYERS of 40 layers, on (data 1, model 16)
     by 16 gloo ranks sharing the card: the reference's head_dim placement
     (``tp.TensorParallel``, ``pair_cut``: every rank 4 of the 64 RoPE
     pairs of every head in ``wq``/``wk``/``wv``/``wo`` and the pool),
-    :func:`placement_gates`' (a)-(d) with :data:`HD_FAULT` planted; 0
-    kernel launches.  Returns the phase's launches (every rank's)."""
+    :func:`placement_gates`' (a)-(d) with :data:`HD_FAULT` planted, 0
+    kernel launches; (e) the mesh engine on the same blocks
+    (:func:`engine_pair_gates`).  Returns (the serve step's and the
+    trainer's launches, the engine's fused drain's: every rank's)."""
     from repro_torch.kernels.common import LAUNCHES
 
     gc.collect()
@@ -7279,17 +7695,19 @@ def head_dim_check(card: str) -> dict:
     cfg = family_cut(HD_ARCH, HD_LAYERS)
     t0, started = time.perf_counter(), time.time()
     ranks = on_ranks(placement_rank, int(np.prod(HD_SHAPE)),
-                     (cfg, DEV, 'score_sum', 24), HD_TIMEOUT_S)
+                     (cfg, DEV, 'score_sum', 24, True), HD_TIMEOUT_S)
     failed = placement_gates(card, HD_ARCH, HD_LAYERS, ranks, 'score_sum',
                              started, t0)
     if not all(r['placement'] == [(True, None, False)] * 2 for r in ranks):
         failed.append(('placement', ranks[0]['placement']))
+    engine_failed, engine = engine_pair_gates(card, ranks)
     launches = rank_launches(ranks)
-    print(f'  hand-written kernel launches in the phase (every rank): '
-          f'{launches}')
-    assert not failed, failed
+    k4_pair_check(card)               # its launches count for no path
+    print(f'  hand-written kernel launches in the serve step and training '
+          f'(every rank): {launches}')
+    assert not failed + engine_failed, failed + engine_failed
     assert not any(launches.values()), launches
-    return launches
+    return launches, engine
 
 
 # ---------------------------------------------------------------------------
@@ -7958,6 +8376,7 @@ def main() -> int:
     witnessed += failed
     done()
 
+    start_ranks(int(np.prod(DP_SHAPES[1])), MESH_TIMEOUT_S)   # phase 18's
     print(f'[17] training over a mesh: {TRAIN_ARCH}, f32 parity at '
           f'{MT_LAYERS} layers over (2, 1) and (1, 2), bf16 data-parallel at '
           f'{DP_LAYERS} layers with a shrink to one rank, the compressed '
@@ -7970,6 +8389,7 @@ def main() -> int:
           f'rank\'s rows and blocks), {MOE_ARCH} over {EP_SHAPE}, K4 on '
           f'{K4_BLOCKS} vocabulary blocks, MoE training over {EP_SHAPE}')
     by_phase['mesh_dp_ep'], failed = dp_ep_check(card)
+    close_pools((int(np.prod(DP_SHAPES[1])),))
     witnessed += failed
     done()
 
@@ -8019,7 +8439,7 @@ def main() -> int:
           f'widths over {HD_SHAPE} ({int(np.prod(HD_SHAPE))} ranks sharing '
           f'the card): serve step f32 and bf16, a planted fault, cache '
           f'bytes, one f32 training step')
-    by_phase['head_dim'] = head_dim_check(card)
+    by_phase['head_dim'], by_phase['engine_pair_cut'] = head_dim_check(card)
     done()
 
     start_ranks(int(np.prod(LR_SHAPE)), LR_TIMEOUT_S)     # phase 26's

@@ -15,8 +15,9 @@ collectives itself, over the ``model`` axis's process group:
   embedding): each rank's block of scores is gathered before sampling.
   Where ``model`` does not divide the vocabulary (seamless's 256206 on 16
   ranks), the reference's ``shaped_spec`` moves it onto d_model, and so
-  do the serve step's and the trainer's plans (:attr:`TensorParallel.
-  embed_cut`): a rank looks up its columns of every row, gathered whole
+  does every plan (:attr:`TensorParallel.embed_cut`; no architecture the
+  engine serves meets it at ``model`` <= 16, and its fused sampling
+  refuses it): a rank looks up its columns of every row, gathered whole
   (:meth:`TensorParallel.embed_gather`), and its columns of the head give
   f32 partial scores summed over ``model`` (:meth:`TensorParallel.
   head_sum`), the loss's logits too;
@@ -31,15 +32,18 @@ onto head_dim; RoPE pairs channels d and d + Dh/2 and qwen3's q/k norms
 reduce over Dh, so a plan holds a block of RoPE pairs of every head
 instead, as many bytes as the reference's block (:attr:`TensorParallel.pair_cut`: the
 norms sum their squares over ``model``, decode sums the f32 partial
-scores, prefill and training gather q/k/v into whole heads).  The
-engine's plan (``whole_heads=True``) keeps whole heads, because K1 reads
-them: where the mesh
-divides the q-heads and each rank's q-heads read one kv-head (G % (H/n)
-== 0), each rank holds that one kv-head, its projection columns and its
-pool replicated over the G n / H ranks that read it; otherwise attention
-is replicated.  Where the mesh does not divide ``d_ff``, or in the
-engine's plan the vocabulary, that part is replicated.  Every reduction
-is an all-reduce of f32 partial sums
+scores, prefill and training gather q/k/v into whole heads).  Every plan
+does, the engine's too (:func:`engine_plan`, the reference engine's
+``tree_spec_shaped(..., SERVE_RULES, mesh)``): its paged reads of the
+global pool sum the partial scores as the serve step's do
+(:meth:`TensorParallel.paged_read`), so its decode runs the plain path
+(K1 reads whole heads).  Where the mesh divides neither the kv-heads
+nor Dh/2, a plan keeps whole heads: where the mesh divides the
+q-heads and each rank's q-heads read one kv-head (G % (H/n) == 0), each
+rank holds that one kv-head, its projection columns and its pool
+replicated over the G n / H ranks that read it; otherwise attention is
+replicated.  Where the mesh does not divide ``d_ff``, that part is
+replicated.  Every reduction is an all-reduce of f32 partial sums
 (:func:`reduce_sum`), rounded once to the activations' dtype: every rank
 receives the one reduced buffer, so the replicated activations hold the
 same bits on every rank.
@@ -296,10 +300,11 @@ class TensorParallel:
     (:attr:`rows`); a plan without it (the trainer's) computes every row
     of what it is given.  ``rules`` (``TRAIN_RULES`` by default): where
     the weights lie (:attr:`placement`; the module docstring's rule
-    variants).  Where ``model`` does not divide the kv-heads, attention
-    is placed as the reference's ``shaped_spec`` places it (a block of
-    RoPE pairs of every head, :attr:`pair_cut`), unless ``whole_heads``
-    (the engine's plan: K1 reads whole heads)."""
+    variants; the engine's plan is :func:`engine_plan`'s, under
+    ``SERVE_RULES``).  Where ``model`` does not divide the kv-heads,
+    attention is placed as the reference's ``shaped_spec`` places it (a
+    block of RoPE pairs of every head, :attr:`pair_cut`), in every plan:
+    the serve step's, the trainer's and the engine's."""
 
     # the pool's pages (a serve step's plan under ``serve_seq`` holds a
     # block of them: :class:`StepParallel`)
@@ -309,8 +314,7 @@ class TensorParallel:
     moved = False
 
     def __init__(self, cfg, mesh, coords: Optional[Dict[str, int]] = None,
-                 *, max_batch: Optional[int] = None, rules=None,
-                 whole_heads: bool = False):
+                 *, max_batch: Optional[int] = None, rules=None):
         self.cfg, self.mesh = cfg, mesh
         self.rules = TRAIN_RULES if rules is None else rules
         self.placement = attention_placement(self.rules)
@@ -334,10 +338,8 @@ class TensorParallel:
         self.vocab_split = self.vocab != (0, cfg.vocab_size)
         # where model does not divide the vocabulary, the reference's
         # shaped_spec moves it onto d_model: the embedding's and the head's
-        # columns [lo, hi) of d_model (the engine's plan keeps the table
-        # whole: no architecture it serves on a mesh has such a vocabulary)
-        self.embed_cut = (not whole_heads and self.n > 1
-                          and not self.vocab_split
+        # columns [lo, hi) of d_model
+        self.embed_cut = (self.n > 1 and not self.vocab_split
                           and cfg.d_model % self.n == 0)
         self.embed_cols = (block(cfg.d_model, self.n, self.rank)
                            if self.embed_cut else (0, cfg.d_model))
@@ -397,7 +399,7 @@ class TensorParallel:
         # Dh/2 + hi) -- in the projections, ``wo`` and the pool, so RoPE
         # stays on the rank; the q/k norms sum their squares over model
         half = cfg.hd // 2
-        self.pair_cut = (not whole_heads and cfg.family in ('dense', 'vlm', 'moe')
+        self.pair_cut = (cfg.family in ('dense', 'vlm', 'moe')
                          and self.placement != DH and self.n > 1
                          and cfg.n_kv_heads % self.n != 0
                          and half % self.n == 0)
@@ -650,11 +652,22 @@ class TensorParallel:
                              'blocks')
         return not whole
 
+    def pool_block(self, shape) -> Block:
+        """This rank's :class:`Block` of a leaf of the engine's global
+        paged pool (L, P, pg, Hkv, Dh) (the reference engine's
+        ``tree_spec_shaped`` block): its kv-heads, or under
+        :attr:`pair_cut` its RoPE pairs of every kv-head."""
+        b = Block.whole(shape)
+        if self.pair_cut:
+            return b.select(4, self.pair_channels())
+        return b.narrow(3, *self.kv_heads)
+
     def init_cache(self, n_pages: int, device, dtype):
-        """This rank's block of the global paged pool: its kv-heads."""
+        """This rank's block of the global paged pool
+        (:meth:`pool_block`)."""
         c = self.cfg
-        shape = (c.n_layers, n_pages, c.page_size,
-                 self.kv_heads[1] - self.kv_heads[0], c.hd)
+        shape = self.pool_block((c.n_layers, n_pages, c.page_size,
+                                 c.n_kv_heads, c.hd)).local_shape
         return {k: torch.zeros(shape, dtype=dtype, device=device)
                 for k in ('k', 'v')}
 
@@ -907,6 +920,55 @@ class TensorParallel:
         """The part of new K/V that this rank's pool block takes: here all
         of ``k``, its own kv-heads (:meth:`StepParallel.pool_kv`)."""
         return k
+
+    # -- attention over a block of head_dim ---------------------------------
+    def paged_read(self, q, pool_k, pool_v, page_table, q_positions, kv_len,
+                   kinds: Tuple[str, str] = ('q', 'kv')) -> torch.Tensor:
+        """Attention of q (B, Sq, h, Dh), this rank's q heads (under
+        :attr:`pair_cut` its RoPE pairs of every head; ``dh``: every
+        head), over the K/V its pool block holds through the page table
+        (the engine's global pool and physical ids, or a serve step's
+        region pool and region-local ids), causal to ``q_positions`` (B,
+        Sq) and below ``kv_len`` (B,) -> (B, Sq, h, Dh) in q's dtype, the
+        same heads (under the pair cut the rank's pairs, P V over them:
+        :meth:`dh_attention`).  ``kinds``: the q and kv heads' kinds, which
+        :class:`StepParallel`'s variants read."""
+        k = cm.kv_gather(pool_k, page_table)
+        v = cm.kv_gather(pool_v, page_table)
+        if self.placement == DH or self.pair_cut:
+            return self.dh_attention(q, k, v, cm.kv_mask(k.shape[1],
+                                                         q_positions, kv_len))
+        kv_pos = torch.arange(k.shape[1], device=q.device).expand(
+            k.shape[0], -1)
+        return cm.attention(q, k, v, q_positions=q_positions,
+                            kv_positions=kv_pos,
+                            kv_valid=kv_pos < kv_len.long()[:, None])
+
+    def score_sum(self, scores: torch.Tensor) -> torch.Tensor:
+        """The f32 partial scores of every rank's head_dim block, summed
+        over ``model`` (in place): the same bits on every rank."""
+        torch.distributed.all_reduce(scores, group=self.group)
+        return scores
+
+    def dh_attention(self, q, k, v, mask) -> torch.Tensor:
+        """q (B, Sq, H, Dh), every head; k/v (B, S, Hkv, Dh/n) this rank's
+        head_dim block; ``mask`` (B, Sq, S) -> (B, Sq, H, Dh) in q's dtype,
+        the same on every rank: the f32 partial scores summed over
+        ``model`` (:meth:`score_sum`), the softmax, P V over the block
+        gathered in rank order (``models.common.attention_dh_block``).
+        Under :attr:`pair_cut` q and k/v are this rank's RoPE pairs of
+        every head, and so is the output (B, Sq, H, Dh/n), P V over them,
+        which enters ``wo`` as the rank's rows: nothing is gathered."""
+        if self.pair_cut:
+            return cm.attention_dh_block(q, k, v, mask, self.cfg.hd,
+                                         self.score_sum).to(q.dtype)
+        lo, hi = self.head_dim
+        if not self.dh_split:
+            return cm.attention_dh_block(q, k, v, mask, q.shape[-1],
+                                         lambda s: s).to(q.dtype)
+        out = cm.attention_dh_block(q[..., lo:hi], k, v, mask, q.shape[-1],
+                                    self.score_sum)
+        return _gather_last(out, self.group).to(q.dtype)
 
 
 class StepParallel(TensorParallel):
@@ -1417,12 +1479,11 @@ class StepParallel(TensorParallel):
     # -- the variants' attention -------------------------------------------
     def paged_read(self, q, pool_k, pool_v, page_table, q_positions, kv_len,
                    kinds: Tuple[str, str] = ('q', 'kv')) -> torch.Tensor:
-        """Attention of q (B, Sq, h, Dh), this rank's q heads (``dh``:
-        every head), over the K/V its pool block holds through the page
-        table (region-local ids, or physical ids of encdec's global
-        pool), causal to ``q_positions`` (B, Sq) and below ``kv_len`` (B,)
-        -> (B, Sq, h, Dh) in q's dtype, the same heads.  ``kinds``: the q
-        and kv heads' kinds (:meth:`head_blocks_of`)."""
+        """:meth:`TensorParallel.paged_read` over the variants' pool
+        blocks: ``seq`` attends every head over the rank's pages and
+        combines the ranks' f32 states; ``kv_dp`` reads the rank's q heads'
+        kv-heads (under :attr:`pair_cut` its RoPE pairs of every head) of
+        a pool that holds every head whole."""
         if self.placement == SEQ:
             states = cm.paged_partial(self.gather_heads(q, kinds[0]), pool_k,
                                       pool_v, page_table, q_positions, kv_len,
@@ -1438,42 +1499,8 @@ class StepParallel(TensorParallel):
         elif self.placement == KV_DP:
             lo, hi = self.own(kinds[1])
             pool_k, pool_v = pool_k[..., lo:hi, :], pool_v[..., lo:hi, :]
-        k = cm.kv_gather(pool_k, page_table)
-        v = cm.kv_gather(pool_v, page_table)
-        if self.placement == DH or self.pair_cut:
-            return self.dh_attention(q, k, v, cm.kv_mask(k.shape[1],
-                                                         q_positions, kv_len))
-        kv_pos = torch.arange(k.shape[1], device=q.device).expand(
-            k.shape[0], -1)
-        return cm.attention(q, k, v, q_positions=q_positions,
-                            kv_positions=kv_pos,
-                            kv_valid=kv_pos < kv_len.long()[:, None])
-
-    def score_sum(self, scores: torch.Tensor) -> torch.Tensor:
-        """The f32 partial scores of every rank's head_dim block, summed
-        over ``model`` (in place): the same bits on every rank."""
-        torch.distributed.all_reduce(scores, group=self.group)
-        return scores
-
-    def dh_attention(self, q, k, v, mask) -> torch.Tensor:
-        """q (B, Sq, H, Dh), every head; k/v (B, S, Hkv, Dh/n) this rank's
-        head_dim block; ``mask`` (B, Sq, S) -> (B, Sq, H, Dh) in q's dtype,
-        the same on every rank: the f32 partial scores summed over
-        ``model`` (:meth:`score_sum`), the softmax, P V over the block
-        gathered in rank order (``models.common.attention_dh_block``).
-        Under :attr:`pair_cut` q and k/v are this rank's RoPE pairs of
-        every head, and so is the output (B, Sq, H, Dh/n), P V over them,
-        which enters ``wo`` as the rank's rows: nothing is gathered."""
-        if self.pair_cut:
-            return cm.attention_dh_block(q, k, v, mask, self.cfg.hd,
-                                         self.score_sum).to(q.dtype)
-        lo, hi = self.head_dim
-        if not self.dh_split:
-            return cm.attention_dh_block(q, k, v, mask, q.shape[-1],
-                                         lambda s: s).to(q.dtype)
-        out = cm.attention_dh_block(q[..., lo:hi], k, v, mask, q.shape[-1],
-                                    self.score_sum)
-        return _gather_last(out, self.group).to(q.dtype)
+        return super().paged_read(q, pool_k, pool_v, page_table, q_positions,
+                                  kv_len, kinds)
 
     def model_combine(self, states) -> torch.Tensor:
         """Every ``model`` rank's partial softmax state (m, l, acc) (over
@@ -1657,6 +1684,19 @@ class _F32Product(torch.autograd.Function):
         return gx, gw
 
 
+def engine_plan(cfg, mesh, coords: Optional[Dict[str, int]] = None, *,
+                max_batch: Optional[int] = None) -> TensorParallel:
+    """The mesh engine's plan on rank ``coords`` (the calling rank's by
+    default): the reference engine's placement of its params and pool,
+    ``tree_spec_shaped(..., SERVE_RULES, mesh)`` -- where ``model`` does
+    not divide the kv-heads, a block of RoPE pairs of every kv-head
+    (:attr:`TensorParallel.pair_cut`).  Every side of one engine (rank 0's
+    engine, :class:`Leader`'s shipped blocks, :class:`_Follower`,
+    :func:`_gather_cache`) places its blocks through this one plan."""
+    return TensorParallel(cfg, mesh, coords, max_batch=max_batch,
+                          rules=SERVE_RULES)
+
+
 def check_mesh(cfg, mesh) -> None:
     """What an engine serves under a mesh, and what it refuses (the
     trainer's check is ``training.train_step.check_train_mesh``): the
@@ -1737,8 +1777,7 @@ class Leader:
                   else [(path, t.dtype) for path, t in leaves]))
         if params is None:
             torch.distributed.barrier()
-        plans = {r: TensorParallel(model.cfg, mesh, mesh.coords(r),
-                                   whole_heads=True)
+        plans = {r: engine_plan(model.cfg, mesh, mesh.coords(r))
                  for r in self.workers}
         for path, full in leaves:
             for r in self.workers:
@@ -1753,8 +1792,9 @@ class Leader:
             _send_op((op, self.id, host, kw))
 
     def gather_cache(self, cache) -> Dict[str, torch.Tensor]:
-        """The global pool (every kv-head), assembled on rank 0 from every
-        rank's block: a copy, on the cache's device (a check's view)."""
+        """The global pool (every kv-head, every channel), assembled on
+        rank 0 from every rank's block: a copy, on the cache's device (a
+        check's view)."""
         if not self.workers:
             return {k: v.clone() for k, v in cache.items()}
         _send_op(('gather_cache', self.id))
@@ -1767,10 +1807,12 @@ class Leader:
 
 def _gather_cache(cache, cfg, mesh):
     """Every rank's pool block to rank 0 (host copies: gloo gathers host
-    tensors), placed at its kv-heads; None on the other ranks.  A block
-    held by several ranks (the batch axes' replicas, a kv-head replicated
-    over ``model``) is read from the first and must be bit-equal on the
-    others."""
+    tensors), placed at its block of the global pool
+    (:meth:`TensorParallel.pool_block`: its kv-heads, or its RoPE pairs
+    of every kv-head, channels [lo, hi) and [Dh/2 + lo, Dh/2 + hi) of
+    head_dim); None on the other ranks.  A block held by several ranks
+    (the batch axes' replicas, a kv-head replicated over ``model``) is
+    read from the first and must be bit-equal on the others."""
     dist = torch.distributed
     ranks = [int(r) for r in mesh.devices.flatten()]
     out = {}
@@ -1781,21 +1823,21 @@ def _gather_cache(cache, cfg, mesh):
         dist.gather(local, parts, dst=0)
         if parts is None:
             continue
-        shape = list(local.shape)
-        shape[3] = cfg.n_kv_heads
+        shape = tuple(local.shape[:3]) + (cfg.n_kv_heads, cfg.hd)
         full = torch.empty(shape, dtype=local.dtype)
-        first: Dict[Tuple[int, int], int] = {}
+        first: Dict[Block, int] = {}
         for r, part in zip(ranks, parts):
-            lo, hi = TensorParallel(cfg, mesh, mesh.coords(r),
-                                    whole_heads=True).kv_heads
-            if (lo, hi) in first:
-                if not torch.equal(full[:, :, :, lo:hi], part):
+            b = engine_plan(cfg, mesh, mesh.coords(r)).pool_block(shape)
+            if b in first:
+                if not torch.equal(b.take(full), part):
                     raise AssertionError(
                         f'pool replicas differ: rank {r} against rank '
-                        f'{first[lo, hi]}, kv-heads [{lo}, {hi})')
+                        f'{first[b]}, block {b.bounds}')
                 continue
-            first[lo, hi] = r
-            full[:, :, :, lo:hi] = part
+            first[b] = r
+            for piece, at in b.pieces():
+                full[tuple(slice(lo, hi) for lo, hi in piece.bounds)] = \
+                    part[at]
         out[key] = full.to(cache[key].device)
     return out if out else None
 
@@ -1819,8 +1861,7 @@ class _Follower:
         from repro_torch.models.api import build_model
 
         self.model = build_model(cfg)
-        self.tp = TensorParallel(cfg, mesh, max_batch=max_batch,
-                                 whole_heads=True)
+        self.tp = engine_plan(cfg, mesh, max_batch=max_batch)
         shapes = self.model.param_shapes()
         params: Dict = {}
         if leaves is None:

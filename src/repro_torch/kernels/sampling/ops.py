@@ -20,9 +20,28 @@ from repro_torch.kernels.sampling.ref import (unembed_argmax_block_ref,
 
 TILE_ROWS = 64          # vocab rows of one tensor-core tile (sampling.cu)
 MAX_BATCH = 16          # rows one launch takes (wgmma N <= 16)
-MAX_HEAD_DIM = 4096     # `last` stays in shared memory beside the head ring
+# sampling.cu's shared memory: its dynamic budget (kSmemBudget), a swizzled
+# 128-byte row of 64 bf16 (kRowBytes), a head box of 64 such rows with its
+# two barriers
+SMEM_BUDGET, ROW_BYTES, BOX_BYTES = 227 * 1024 - 1024, 128, 64 * 128 + 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P)
+
+
+def max_head_dim(rows: int) -> int:
+    """The widest D one launch of ``rows`` batch rows takes: the kernel
+    keeps ``last`` whole in shared memory, ceil(D / 64) slices of N
+    swizzled rows (N = 8 for up to 8 rows, else 16), beside a ring of at
+    least two head boxes (sampling.cu's ``launch``)."""
+    n = 8 if rows <= 8 else MAX_BATCH
+    room = SMEM_BUDGET - 1024 - 8 - 2 * BOX_BYTES
+    return 64 * (room // (n * ROW_BYTES))
+
+
+def launch_rows(d: int) -> int:
+    """Batch rows a launch takes at width ``d``: :data:`MAX_BATCH`, or 8
+    where 16 rows of ``last`` leave no room for the head ring."""
+    return MAX_BATCH if d <= max_head_dim(MAX_BATCH) else 8
 
 
 def plan_vocab_ranges(vocab: int, sms: int) -> int:
@@ -84,16 +103,18 @@ def _launch(last, head, seed: int, temperature: float, row0: int,
     """The kernel over ``head``: ((B,) f32 best values, (B,) int32 best
     global columns)."""
     (b, d), v = last.shape, head.shape[0]
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f'kernel takes D % 8 == 0 and D <= {MAX_HEAD_DIM} '
-                         f'(TMA rows of 16-byte multiples), got D={d}')
+    step = launch_rows(d)
+    if d % 8 or d > max_head_dim(min(b, step)):
+        raise ValueError(f'kernel takes D % 8 == 0 (TMA rows of 16-byte '
+                         f'multiples) and D <= {max_head_dim(8)} (`last` in '
+                         f'shared memory), got D={d}')
     kc.require(last, 'last', torch.bfloat16, (b, d), last.device)
     kc.require(head, 'head', torch.bfloat16, (v, d), last.device)
     if last.data_ptr() % 16 or head.data_ptr() % 16:
         raise ValueError('last and head must be 16-byte aligned (TMA)')
     rows_per_cta = plan_vocab_ranges(v, kc.sm_count(last.device))
     n_ctas = kc.ceil_div(v, rows_per_cta)
-    rows = min(b, MAX_BATCH)
+    rows = min(b, step)
     part_val = torch.empty((n_ctas, rows), dtype=torch.float32,
                            device=last.device)
     part_idx = torch.empty((n_ctas, rows), dtype=torch.int32,
@@ -101,10 +122,10 @@ def _launch(last, head, seed: int, temperature: float, row0: int,
     value = torch.empty((b,), dtype=torch.float32, device=last.device)
     index = torch.empty((b,), dtype=torch.int32, device=last.device)
     fn = kc.kernel_fn('valve_unembed_sample', _ARGS)
-    # one launch takes MAX_BATCH rows: one launch per block of rows, each
+    # one launch takes `step` rows: one launch per block of rows, each
     # reading the whole head
-    for r0 in range(0, b, MAX_BATCH):
-        n = min(MAX_BATCH, b - r0)
+    for r0 in range(0, b, step):
+        n = min(step, b - r0)
         with torch.cuda.device(last.device):
             err = fn(last[r0].data_ptr(), head.data_ptr(), n, d, v,
                      rows_per_cta, float(temperature), seed, row0 + r0,

@@ -7,7 +7,9 @@ directory the caller gives (so concurrent runs never race for a port), runs
 ``fn(rank, *args)`` in each and returns the results in rank order.
 :class:`RankPool` keeps its ``n`` ranks and their process group across
 several such functions, run one after another: a program that runs many
-functions on the same ranks starts them once.
+functions on the same ranks starts them once, and may start one
+(:meth:`RankPool.submit`) and go on with other work before it collects
+its results (:meth:`RankPool.collect`).
 
 Backends (:func:`pick_backend`):
 
@@ -118,7 +120,7 @@ class RankPool:
                        for r in range(n)]
         for p in self._procs:
             p.start()
-        self.closed = False
+        self.closed = self.pending = False
 
     def run(self, fn: Callable, args: Sequence[Any] = (),
             timeout_s: Optional[float] = None) -> List[Any]:
@@ -127,11 +129,29 @@ class RankPool:
         with the failing rank's traceback, or on the time limit
         (``timeout_s``, the pool's by default), after terminating every
         rank."""
+        self.submit(fn, args)
+        return self.collect(timeout_s)
+
+    def submit(self, fn: Callable, args: Sequence[Any] = ()) -> None:
+        """Start ``fn(rank, *args)`` on every rank and return at once
+        (:meth:`run`'s first half): the caller goes on while the ranks
+        work, and :meth:`collect` waits for their results."""
         if self.closed:
             raise RuntimeError('the rank pool is closed')
-        limit = self.timeout_s if timeout_s is None else timeout_s
+        if self.pending:
+            raise RuntimeError('collect the ranks\' last results first')
         for q in self._tasks:
             q.put((fn, tuple(args)))
+        self.pending = True
+
+    def collect(self, timeout_s: Optional[float] = None) -> List[Any]:
+        """The results of the function :meth:`submit` started, in rank
+        order, within ``timeout_s`` (the pool's by default) of this call
+        (:meth:`run`'s second half, its failures)."""
+        if not self.pending:
+            raise RuntimeError('no function submitted to collect')
+        self.pending = False
+        limit = self.timeout_s if timeout_s is None else timeout_s
         out: List[Any] = [None] * self.n
         reported: set = set()
         deadline = time.monotonic() + limit + 30

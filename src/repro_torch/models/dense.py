@@ -44,12 +44,14 @@ the new K/V go through ``tp.pool_kv`` (every head, or a head_dim block)
 into the pages ``tp.held`` names, and the paged read through
 ``tp.paged_read``; ``prefill`` attends the call's own K/V as ever.
 
-Where ``model`` does not divide the kv-heads, the serve step's and the
-trainer's plans (``tp.pair_cut``) hold a block of RoPE pairs of every
-head: ``qkv_proj`` norms and rotates the rank's channels, decode reads
-them through ``tp.paged_read`` (the partial scores summed), and prefill
-and training gather q/k/v into whole heads (``tp.whole_pairs``) and take
-the rank's pairs of the output into ``wo`` (``tp.own_pairs``).
+Where ``model`` does not divide the kv-heads, every plan -- the serve
+step's, the trainer's and the engine's (``tp.pair_cut``) -- holds a block
+of RoPE pairs of every head: ``qkv_proj`` norms and rotates the rank's
+channels, decode and the engine's chunk read them from the pool through
+``tp.paged_read`` (the partial scores summed; the engine's global pool
+too), and prefill and training gather q/k/v into whole heads
+(``tp.whole_pairs``) and take the rank's pairs of the output into ``wo``
+(``tp.own_pairs``).
 
 The training forward (``forward_train``) takes ``tp`` too: the rank's
 q/kv heads, its ``d_ff`` block and a vocab-parallel embedding and head,
@@ -229,8 +231,8 @@ def _weights(lp, tp):
 def placed(tp) -> bool:
     """Whether ``tp`` is a serve step's plan under a rule variant
     (``serve_kv_dp``, ``serve_seq``, ``serve_dh``: ``distributed.tp.
-    StepParallel``) or under the pair cut, whose paged reads go through
-    ``tp.paged_read``."""
+    StepParallel``) or any plan under the pair cut (the engine's too),
+    whose paged reads go through ``tp.paged_read``."""
     return tp is not None and (tp.placement != 'heads' or tp.pair_cut)
 
 

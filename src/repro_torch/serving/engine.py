@@ -115,11 +115,20 @@ class EngineConfig:
     # (``distributed/tp.py``); this engine is rank 0's, the mesh's other
     # ranks run ``distributed.tp.serve_rank``.  Weights (global, on the
     # engine's device or on the host) and KV pool are committed to rank 0's
-    # blocks at construction (the pool in the weights' dtype).  None -- the
-    # default -- is the single-device path.  With a mesh, decode_kernel=None
-    # still means the kernels on CUDA: K1 (or K2 + K3 with prefix sharing)
-    # on each rank's kv-heads and rows, and with fused sampling K4 on each
-    # rank's vocabulary block, its bests combined over ``model``.
+    # blocks at construction (the pool in the weights' dtype), placed as the
+    # reference engine's tree_spec_shaped(..., SERVE_RULES, mesh) places them
+    # (``distributed.tp.engine_plan``).  None -- the default -- is the
+    # single-device path.  Where the plan holds whole heads, decode_kernel=
+    # None still means the kernels on CUDA: K1 (or K2 + K3 with prefix
+    # sharing) on each rank's kv-heads and rows.  Where ``model`` does not
+    # divide the kv-heads (every served architecture's 8 at model 16), each
+    # rank holds a block of RoPE pairs of every kv-head (the plan's
+    # ``pair_cut``): decode_kernel=None means the plain path there (the
+    # reference's mesh default), and decode_kernel=True and
+    # prefix_shared_attention=True raise, since K1, K2 and K3 read whole
+    # heads.  With fused sampling K4 runs on each rank's vocabulary block,
+    # its bests combined over ``model`` (refused where the plan cuts the
+    # head on d_model instead, ``embed_cut``).
     mesh: Optional[object] = None
 
     def scheduler_config(self) -> SchedulerConfig:
@@ -207,7 +216,9 @@ class Engine:
             self.cfg.seed)
         decode_kernel = self.cfg.decode_kernel
         if decode_kernel is None:
-            decode_kernel = self.device.type == 'cuda'
+            decode_kernel = (self.device.type == 'cuda'
+                             and not (self._tp is not None
+                                      and self._tp.pair_cut))
         self._use_kernel = decode_kernel
         self._init_buffers()
         # lazy-token bookkeeping (fused path): device tensors whose values
@@ -225,19 +236,26 @@ class Engine:
 
     def _open_on_mesh(self, params) -> None:
         """Open this engine on every rank of the mesh and commit the
-        weights and the pool to rank 0's blocks (weights on the host are
-        shipped and committed a block at a time: the card never holds the
-        whole set).  Weights that are rank 0's blocks already (every leaf
-        at its block's shape, e.g. ``Model.init_blocks``) stay where they
-        are, and every other rank makes its own (``serve_rank(mesh,
-        blocks=)``): no card ever holds the whole set."""
-        from repro_torch.distributed.tp import (Leader, TensorParallel,
-                                                check_mesh)
+        weights and the pool to rank 0's blocks of the engine's plan
+        (``distributed.tp.engine_plan``: the reference engine's
+        ``tree_spec_shaped(..., SERVE_RULES, mesh)``; weights on the host
+        are shipped and committed a block at a time: the card never holds
+        the whole set).  Weights that are rank 0's blocks already (every
+        leaf at its block's shape, e.g. ``Model.init_blocks``) stay where
+        they are, and every other rank makes its own (``serve_rank(mesh,
+        blocks=)``): no card ever holds the whole set.  On a plan that
+        holds a block of RoPE pairs of every kv-head (``pair_cut``),
+        ``decode_kernel=True`` and ``prefix_shared_attention=True`` raise
+        (K1, K2 and K3 read whole heads: the paged reads go through the
+        plain path, the partial scores summed over ``model``), and so does
+        ``fused_sampling`` on a plan that cuts the head on d_model
+        (``embed_cut``); nothing falls back."""
+        from repro_torch.distributed.tp import Leader, check_mesh, engine_plan
 
         check_mesh(self.mcfg, self.mesh)
-        self._tp = TensorParallel(self.mcfg, self.mesh,
-                                  max_batch=self.cfg.max_batch,
-                                  whole_heads=True)
+        self._tp = engine_plan(self.mcfg, self.mesh,
+                               max_batch=self.cfg.max_batch)
+        self._check_plan()
         if self.mesh.rank != 0:
             raise ValueError('a mesh engine runs on rank 0; the other ranks '
                              'run distributed.tp.serve_rank')
@@ -249,6 +267,29 @@ class Engine:
         self.params = params if held else self._tp.shard_params(params)
         self.cache = self._tp.init_cache(self.pool.n_pages, self.device,
                                          dtype)
+
+    def _check_plan(self) -> None:
+        """What a mesh engine refuses on its plan (no silent fallback)."""
+        tp, c = self._tp, self.cfg
+        if tp.pair_cut:
+            why = (f'model = {tp.n} does not divide the '
+                   f'{self.mcfg.n_kv_heads} kv-heads, so each rank holds a '
+                   'block of RoPE pairs of every kv-head (the reference\'s '
+                   'placement), and the paged-decode kernels (K1, K2, K3) '
+                   'read whole heads (a K1 over a head_dim block is '
+                   'ROADMAP S11)')
+            if c.decode_kernel:
+                raise ValueError(f'decode_kernel=True on this mesh: {why}; '
+                                 'use decode_kernel=None or False')
+            if c.prefix_shared_attention:
+                raise ValueError('prefix_shared_attention=True on this '
+                                 f'mesh: {why}')
+        if tp.embed_cut and c.fused_sampling:
+            raise ValueError(
+                f'fused_sampling on this mesh: model = {tp.n} does not '
+                f'divide the vocabulary of {self.mcfg.vocab_size}, so each '
+                'rank holds the head\'s columns of d_model and K4 reads '
+                'whole rows')
 
     def close(self) -> None:
         """Release this engine's blocks on the mesh's other ranks (nothing

@@ -529,17 +529,32 @@ def test_blocks_own_their_storage():
 
 
 def test_the_engine_keeps_whole_heads():
-    """The engine's plan (``whole_heads=True``) keeps whole heads: at (1, 2)
-    with one kv-head, each rank holds its q-heads and the one kv-head
-    (replicated over both), which K1 reads whole."""
-    cfg = _cfg('kv1')
+    """The engine's plan (``tp.engine_plan``) holds the reference engine's
+    blocks (``tree_spec_shaped(..., SERVE_RULES, mesh)``): at (1, 2) with
+    one kv-head, each rank holds a block of RoPE pairs of every head in
+    ``wq``/``wk``/``wv``/``wo`` and in the global pool, not whole heads
+    (which K1 would read), and the ranks cover each leaf once."""
+    model = build_model(_cfg('kv1'))
     mesh = describe(SHAPE, AXES)
-    for r in range(2):
-        plan = tplib.TensorParallel(cfg, mesh, mesh.coords(r), max_batch=B,
-                                    whole_heads=True)
-        assert not plan.pair_cut
-        assert plan.q_heads == (2 * r, 2 * r + 2) and plan.kv_heads == (0, 1)
-        assert plan.kv_holders == 2
+    coords = [mesh.coords(r) for r in range(mesh.size)]
+    plans = [tplib.engine_plan(model.cfg, mesh, c, max_batch=B)
+             for c in coords]
+    assert all(p.pair_cut and p.kv_heads == (0, 1) for p in plans)
+    axes, shapes = model.param_axes(), model.param_shapes()
+    for leaf in ATTN_LEAVES:
+        if leaf in shapes['layers']:
+            _check_leaf([p.block(f'layers/{leaf}', shapes['layers'][leaf])
+                         for p in plans],
+                        [_reference_block(shapes['layers'][leaf],
+                                          axes['layers'][leaf],
+                                          shd.SERVE_RULES, mesh, c)
+                         for c in coords])
+    pool = model.cache_template(engine_pages=8)['k']
+    blocks = [p.pool_block(pool.shape) for p in plans]
+    _check_leaf(blocks, [_reference_block(pool.shape, pool.axes,
+                                          shd.SERVE_RULES, mesh, c)
+                         for c in coords])
+    assert blocks[0].local_shape[-1] == model.cfg.hd // 2
 
 
 # ---------------------------------------------------------------------------

@@ -138,6 +138,29 @@ def test_plan_vocab_ranges_covers_every_row_once(vocab, sms):
     assert [v for r in ranges for v in r] == list(range(vocab))
 
 
+@pytest.mark.parametrize('arch', ['qwen3-0.6b', 'internlm2-1.8b',
+                                  'qwen3-14b', 'llama4-scout-17b-a16e',
+                                  'command-r-35b'])
+def test_every_served_head_fits_the_kernel_s_shared_memory(arch):
+    """The kernel keeps ``last`` whole in shared memory beside at least two
+    head boxes: 16 rows a launch up to D = 6656 (qwen3-14b's and
+    llama4-scout's 5120), 8 rows a launch past it (command-r's 8192), so
+    every served head is taken at any batch; the rows a launch and the
+    largest width are sampling.cu's arithmetic."""
+    from repro_torch.configs import get_config
+
+    d = get_config(arch).d_model
+    step = sops.launch_rows(d)
+    assert d <= sops.max_head_dim(step) and d % 8 == 0
+    assert step == (16 if d <= 6656 else 8)
+    for rows, widest in ((16, 6656), (8, 13312)):
+        assert sops.max_head_dim(rows) == widest
+        n = 8 if rows <= 8 else 16
+        slices = widest // 64
+        smem = 1024 + slices * n * 128 + 8 + 2 * (64 * 128 + 16)
+        assert smem <= sops.SMEM_BUDGET < smem + n * 128
+
+
 def _blocks(v, n):
     """n column blocks of a vocabulary of v: equal where n divides v, else
     the last one shorter."""

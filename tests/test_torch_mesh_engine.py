@@ -12,6 +12,7 @@ an ``.npz`` (f32: bf16 widened, exact), and every drain runs in f32, so
 greedy tokens must be exactly equal.  The ranks import no jax: this module
 imports the reference only inside the tests that run in this process.
 """
+import dataclasses
 import sys
 
 import numpy as np
@@ -22,7 +23,8 @@ from repro_torch.bridge import params_from_jax, shard_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.clock import VirtualClock
 from repro_torch.core.memory import MemoryPlane
-from repro_torch.distributed.tp import TensorParallel, serve_rank, stop_ranks
+from repro_torch.distributed.tp import (TensorParallel, engine_plan,
+                                        head_blocks, serve_rank, stop_ranks)
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.launch.ranks import run_ranks
 from repro_torch.models.api import build_model
@@ -106,12 +108,14 @@ def drain(model, params, mesh=None, *, shared=False, **ecfg):
 
 def _mesh_rank(rank, shape, axes, npz, cfg_kw):
     """One rank of a mesh run: rank 0 drains the reference trace (stock
-    and with every kernel path on the prefix trace) and returns its tokens,
-    its pool block's shape, the gathered pool (every replica bit-equal:
-    ``gather_cache`` checks) and whether its weight blocks are the
-    reference's weights cut by ``bridge.shard_params`` under the engine's
-    plan (whole heads); the others serve
-    and return their pool blocks' shapes."""
+    and with every kernel path on the prefix trace; where the engine's
+    plan holds RoPE pairs of every kv-head, that drain is refused and a
+    plain fused drain of the prefix trace runs in its place) and returns
+    its tokens, its pool block's shape, the gathered pool (every replica
+    bit-equal: ``gather_cache`` checks) and whether its weight blocks are
+    the reference's weights cut by ``bridge.shard_params`` under the
+    engine's plan (``tp.engine_plan``); the others serve and return their
+    pool blocks' shapes."""
     mesh = make_mesh(shape, axes, device='cpu')
     if rank != 0:
         return dict(serve_rank(mesh), jax=('jax' in sys.modules))
@@ -119,15 +123,25 @@ def _mesh_rank(rank, shape, axes, npz, cfg_kw):
         model = build_model(_cfg(**cfg_kw))
         tree = _unflat(dict(np.load(npz)))
         toks, eng = drain(model, params_from_jax(tree), mesh)
-        cut = shard_params(tree, model, mesh, plan=TensorParallel(
-            model.cfg, mesh, whole_heads=True))
+        cut = shard_params(tree, model, mesh,
+                           plan=engine_plan(model.cfg, mesh))
         committed = all(torch.equal(eng.params['layers'][k], w)
                         for k, w in cut['layers'].items()) and \
             torch.equal(eng.params['embed'], cut['embed'])
         gathered = {k: v.numpy() for k, v in eng.gather_cache().items()}
         shape = tuple(eng.cache['k'].shape)
-        ktoks, keng = drain(model, params_from_jax(tree), mesh, shared=True,
-                            **KERNELS)
+        refused = None
+        if eng._tp.pair_cut:
+            try:
+                drain(model, params_from_jax(tree), mesh, shared=True,
+                      **KERNELS)
+            except ValueError as e:
+                refused = str(e)
+            ktoks, keng = drain(model, params_from_jax(tree), mesh,
+                                shared=True, fused_sampling=True)
+        else:
+            ktoks, keng = drain(model, params_from_jax(tree), mesh,
+                                shared=True, **KERNELS)
         # a KV handoff between two mesh engines copies every rank's block
         keng.copy_kv_from(eng, [1, 2, 3], [5, 6, 7])
         moved = keng.gather_cache()
@@ -140,6 +154,7 @@ def _mesh_rank(rank, shape, axes, npz, cfg_kw):
                 'gathered': gathered, 'committed': committed,
                 'copied': copied,
                 'saved': keng.stats.shared_page_reads_saved,
+                'refused': refused, 'pair_cut': eng._tp.pair_cut,
                 'split': (eng._tp.split_rows, keng._tp.split_rows),
                 'jax': 'jax' in sys.modules}
     finally:
@@ -183,7 +198,7 @@ PDM = ('pod', 'data', 'model')
 
 @pytest.mark.parametrize('shape,axes,cfg_kw', [
     ((2,), MODEL, {}),                      # kv 2 / 2: GQA group 2
-    ((4,), MODEL, {}),                      # kv 2 at 4: each kv-head on 2
+    ((4,), MODEL, {}),                      # kv 2 at 4: RoPE pairs (hd 16)
     ((2,), MODEL, dict(n_heads=8, n_kv_heads=2)),   # GQA group 4
     ((2, 1), DM, {}),                       # rows over data
     ((2, 2), DM, {}),                       # the production mesh's shape
@@ -195,8 +210,10 @@ def test_mesh_drain_matches_reference_and_single_device(
     """Greedy f32 tokens equal to the reference's mesh drain and the
     meshless drain; the fused + shared path's equal to the meshless fused
     drain's (the prefix trace runs 3 rows, which 2 batch ranks do not
-    divide: rows replicated); every pool replica bit-equal, the gathered
-    pool within 1e-4 of the meshless pool."""
+    divide: rows replicated; where ``model`` does not divide the kv-heads
+    the kernel paths are refused and the plain fused path's tokens are
+    held to it); every pool replica bit-equal, the gathered pool within
+    1e-4 of the meshless pool."""
     n = int(np.prod(shape))
     tree, want = _reference(cfg_kw, shape, axes, make_virtual_mesh)
     npz = tmp_path / 'params.npz'
@@ -213,18 +230,25 @@ def test_mesh_drain_matches_reference_and_single_device(
     assert all(len(t) == 8 for t in want)
     assert lead['tokens'] == want == single
     assert lead['kernel_tokens'] == shared_single
-    assert lead['saved'] > 0
+    cfg, m = model.cfg, dict(zip(axes, shape))['model']
+    pair_cut = cfg.n_kv_heads % m != 0
+    assert lead['pair_cut'] == pair_cut
+    if pair_cut:
+        assert 'K1, K2, K3' in lead['refused'] and lead['saved'] == 0
+    else:
+        assert lead['refused'] is None and lead['saved'] > 0
     assert lead['committed'] and lead['copied']
     assert not any(o['jax'] for o in out)
     # 4 rows split over 2 batch ranks; the prefix trace's 3 replicated
     assert lead['split'] == (n > dict(zip(axes, shape))['model'], False)
     # every rank's pool block: 1/m of the kv-heads where the model axis m
-    # divides them; the batch axes replicate it
-    cfg, m = model.cfg, dict(zip(axes, shape))['model']
-    local = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
+    # divides them, else 1/m of every kv-head's RoPE pairs; the batch axes
+    # replicate it
+    local = ((cfg.n_kv_heads, cfg.hd // m) if pair_cut
+             else (cfg.n_kv_heads // m, cfg.hd))
     shapes = [lead['shape']] + [s for o in out[1:]
                                 for s in o['cache_shapes'].values()]
-    assert shapes and all(s[3] == local for s in shapes)
+    assert shapes and all(s[3:] == local for s in shapes)
     assert len(shapes) == 1 + 2 * (n - 1)   # each rank: both engines
     # each worker counts its launches by engine, from 0 at the engine's open
     assert all(set(o['launches']) == set(o['cache_shapes']) for o in out[1:])
@@ -236,16 +260,26 @@ def test_mesh_drain_matches_reference_and_single_device(
 
 
 def test_head_blocks_keep_gqa_groups_on_one_rank():
-    """q-heads 8r..8r+7 read kv-heads 4r..4r+3 on their own rank (G = 2),
-    and at G = 4 each rank's q-heads map to its own kv-heads."""
+    """The engine's plan by whole heads: q-heads 8r..8r+7 read kv-heads
+    4r..4r+3 on their own rank (G = 2), and at G = 4 each rank's q-heads
+    map to its own kv-heads.  Where the mesh does not divide the kv-heads
+    that is the plan's fallback where it does not divide Dh/2 either
+    (head_dim 6); at head_dim 16 the plan holds RoPE pairs instead."""
     for heads, kv, n in ((16, 8, 2), (32, 8, 2), (32, 8, 4), (4, 2, 4),
                          (8, 2, 4), (16, 8, 8)):
-        cfg = reduced(get_config(ARCH), n_heads=heads, n_kv_heads=kv)
+        cfg = reduced(get_config(ARCH), n_heads=heads, n_kv_heads=kv,
+                      head_dim=16 if kv % n == 0 else 6)
         mesh = Mesh(np.arange(n), ('model',))
         group = heads // kv
         held = set()
+        if kv % n:
+            pairs = engine_plan(dataclasses.replace(cfg, head_dim=16),
+                                mesh, {'model': 0})
+            assert pairs.pair_cut and pairs.kv_heads == (0, kv)
         for r in range(n):
-            tp = TensorParallel(cfg, mesh, {'model': r}, whole_heads=True)
+            tp = engine_plan(cfg, mesh, {'model': r})
+            assert not tp.pair_cut
+            assert (tp.q_heads, tp.kv_heads) == head_blocks(heads, kv, n, r)
             (qlo, qhi), (klo, khi) = tp.q_heads, tp.kv_heads
             assert (qhi - qlo) * n == heads
             needed = {h // group for h in range(qlo, qhi)}

@@ -54,3 +54,19 @@ def test_run_ranks_starts_ranks_for_one_function(tmp_path):
     assert [(r[0], r[2]) for r in out] == [(0, 6.0), (1, 6.0)]
     with pytest.raises(RuntimeError, match='rank 1 failed'):
         run_ranks(_fail_on, 2, store_dir=tmp_path, args=(1,), timeout_s=60)
+
+
+def test_submit_returns_at_once_and_collect_waits(tmp_path):
+    """``submit`` starts a function and returns while the ranks work;
+    ``collect`` gives its results in rank order; a second ``submit``
+    before that ``collect``, and a ``collect`` with nothing submitted,
+    raise."""
+    with RankPool(2, store_dir=tmp_path, timeout_s=60) as pool:
+        pool.submit(_sum_of_ranks, (4,))
+        with pytest.raises(RuntimeError, match='collect'):
+            pool.submit(_sum_of_ranks, (1,))
+        assert [(r[0], r[2]) for r in pool.collect()] == [(0, 12.0),
+                                                          (1, 12.0)]
+        with pytest.raises(RuntimeError, match='no function submitted'):
+            pool.collect()
+        assert [r[2] for r in pool.run(_sum_of_ranks, (1,))] == [3.0, 3.0]

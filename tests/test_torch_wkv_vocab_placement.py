@@ -334,8 +334,8 @@ def _engines(rank, mesh):
         return None
     try:
         shipped = _drain(model, model.init_params(0, device='cpu'), mesh)
-        held = _drain(model, model.init_blocks(0, tplib.TensorParallel(
-            model.cfg, mesh, whole_heads=True), device='cpu'), mesh)
+        held = _drain(model, model.init_blocks(0, tplib.engine_plan(
+            model.cfg, mesh), device='cpu'), mesh)
         return shipped, held
     finally:
         stop_ranks(mesh)
@@ -678,8 +678,7 @@ def test_init_blocks_are_the_whole_draw_cut(name):
     for r in range(mesh.size):
         for plan in (tplib.StepParallel(model.cfg, mesh, mesh.coords(r),
                                         batch=B, seq_len=S),
-                     tplib.TensorParallel(model.cfg, mesh, mesh.coords(r),
-                                          whole_heads=True)):
+                     tplib.engine_plan(model.cfg, mesh, mesh.coords(r))):
             got = model.init_blocks(0, plan, device='cpu')
             for k, w in tr.leaves_with_paths(got):
                 assert torch.equal(w, plan.shard(k, full[k])), (r, k)
@@ -699,8 +698,7 @@ def test_holds_blocks_tells_a_rank_s_blocks_from_the_whole_weights():
     neither (a leaf of each), which raises."""
     model = build_model(ENGINE_CFG)
     mesh = describe((1, 2), AXES)
-    plan = tplib.TensorParallel(model.cfg, mesh, mesh.coords(0),
-                                whole_heads=True)
+    plan = tplib.engine_plan(model.cfg, mesh, mesh.coords(0))
     shapes = model.param_shapes()
     whole = model.init_params(0, device='cpu')
     blocks = model.init_blocks(0, plan, device='cpu')
